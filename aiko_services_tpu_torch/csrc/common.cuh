@@ -1,0 +1,73 @@
+// Shared device helpers of the port's kernels: dtype conversion and
+// vectorised bf16 loads.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace aiko {
+
+constexpr float kNegInf = -1e30f;   // the JAX package's _NEG_INF sentinel
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T's precision and widened back to float.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// N consecutive elements at src (aligned to N elements) -> float dst.
+template <int N>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ src,
+                                         float* dst) {
+  static_assert(N % 2 == 0, "bf16 loads come in pairs");
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const uint4 raw = reinterpret_cast<const uint4*>(src)[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        dst[i * 8 + 2 * j] = f.x;
+        dst[i * 8 + 2 * j + 1] = f.y;
+      }
+    }
+  } else if constexpr (N == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      dst[2 * j] = f.x;
+      dst[2 * j + 1] = f.y;
+    }
+  } else {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(src));
+    dst[0] = f.x;
+    dst[1] = f.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(const float* __restrict__ src,
+                                         float* dst) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) dst[i] = src[i];
+}
+
+}  // namespace aiko

@@ -1,0 +1,597 @@
+"""Continuous batching for LLM serving (BASELINE config 3) on PyTorch.
+
+Counterpart of ``ContinuousBatcher`` in
+``aiko_services_tpu/models/batching.py``; the host scheduling is the
+same code:
+
+- ``max_slots`` sequences decode together as one [B] ``decode_step``;
+- admission is chunked and interleaved: prompt tokens are written one
+  ``prefill_chunk`` at a time straight into the admitted slot's row of
+  the batched cache (``llama.prefill_into_slot``).  With
+  ``decode_block == 1`` each ``step()`` prefills at most one chunk;
+  with ``decode_block > 1`` every admitting slot advances one chunk per
+  step (dense attention batches the burst through
+  ``llama.prefill_into_slots``);
+- finished sequences (EOS, token budget or cache boundary) free their
+  slot immediately;
+- with ``decode_block > 1`` decode is pipelined: ``inflight`` fused
+  blocks are enqueued back to back on the device's current CUDA stream,
+  each chained off the previous block's device-side tokens and lengths,
+  and the emitted tokens come back by an asynchronous copy into pinned
+  host memory that the retire waits on through a CUDA event.  Tokens a
+  request emits past its EOS or budget inside an in-flight block are
+  discarded host-side.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): the paged cache and prefix cache, the device-resident loop
+(``decode_block_tokens``) and speculation, ``recover()`` and
+``export_state()``/``import_state()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Callable
+
+import numpy as np
+import torch
+
+from . import llama
+from ..device import resolve_device
+from ..utils.misc import next_power_of_two, not_ported
+
+__all__ = ["Request", "ContinuousBatcher", "pad_to_bucket"]
+
+# Batched admission advances at most this many slots per tick (buckets
+# stay {1, 2, 4, 8} whatever max_slots is).
+_ADMISSION_BURST_MAX = 8
+
+
+def _knob_on(value, default: bool) -> bool:
+    """on/off|true/false|bool -> bool."""
+    if isinstance(value, bool):
+        return value
+    text = str(value).strip().lower()
+    if not text:
+        return default
+    return text in ("on", "true", "1", "yes")
+
+
+def pad_to_bucket(rows: list) -> list:
+    """Pad a ragged admission burst to its power-of-two bucket by
+    repeating the first row (idempotent device work)."""
+    bucket = next_power_of_two(len(rows))
+    return list(rows) + [rows[0]] * (bucket - len(rows))
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: str
+    prompt_tokens: list[int]
+    max_new_tokens: int = 128
+    temperature: float = 0.0
+    eos_tokens: tuple = ()
+    emit: Callable | None = None     # fn(request_id, token_id, finished)
+    # runtime state
+    slot: int = -1
+    prefill_pos: int = 0             # prompt tokens already written
+    generated: int = 0
+    done: bool = False
+    # resume state (see ContinuousBatcher.resume_request)
+    base_prompt: list = dataclasses.field(default_factory=list)
+    committed: list = dataclasses.field(default_factory=list)
+    rebased: int = 0
+    admit_seq: int = -1
+    submit_time: float = 0.0         # ttft / tpot stamps
+    first_time: float = 0.0
+    # QoS admission: lower rank admits first, ties keep submission order.
+    tenant: str | None = None
+    qos_class: str | None = None
+    qos_rank: int = 0
+
+
+class _HostCopy:
+    """A device tensor on its way to the host: on CUDA an asynchronous
+    copy into pinned memory, completed by an event; on the CPU the
+    tensor itself."""
+    __slots__ = ("host", "event")
+
+    def __init__(self, tensor: torch.Tensor):
+        if tensor.device.type == "cuda":
+            self.host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                    pin_memory=True)
+            self.host.copy_(tensor, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(tensor.device))
+        else:
+            self.host = tensor
+            self.event = None
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class _InflightBlock:
+    """One dispatched-but-unretired fused decode block."""
+    __slots__ = ("emitted", "snapshot", "firsts", "steps")
+
+    def __init__(self, emitted, snapshot, firsts, steps):
+        self.emitted = emitted        # _HostCopy of [steps, B]
+        self.snapshot = snapshot      # [(slot, request)] active at dispatch
+        self.firsts = firsts          # ([(slot, request)], _HostCopy) | None
+        self.steps = steps
+
+
+class ContinuousBatcher:
+    def __init__(self, params, config: llama.LlamaConfig,
+                 max_slots: int = 8, max_seq: int | None = None,
+                 prefill_chunk: int = 512, rng_seed: int = 0,
+                 decode_block: int = 1, inflight: int = 2,
+                 decode_block_tokens: int = 0, speculative: str = "off",
+                 kv_page_tokens: int = 0, sample_top_k: int = 0,
+                 prefix_cache: bool | str = False,
+                 on_block: Callable | None = None,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"ContinuousBatcher: params live on "
+                f"{params['embed'].device}, the batcher on {self.device}")
+        if int(decode_block_tokens) > 0:
+            raise not_ported("the device-resident decode loop "
+                             "(decode_block_tokens > 0)",
+                             "ROADMAP Queue 1: the device loop with "
+                             "speculation and flash_verify_append")
+        if str(speculative or "off").strip().lower() != "off":
+            raise not_ported("speculative decoding", "ROADMAP Queue 1: "
+                             "the device loop with speculation and "
+                             "flash_verify_append")
+        if int(kv_page_tokens) > 0:
+            raise not_ported("the paged KV cache (kv_page_tokens > 0)",
+                             "ROADMAP Queue 1: paged KV with kernel #3")
+        if _knob_on(prefix_cache, default=False):
+            raise not_ported("the shared-prefix cache", "ROADMAP Queue 1:"
+                             " paged KV with kernel #3")
+        self.params = params
+        self.config = config
+        self.max_slots = max_slots
+        self.max_seq = max_seq or config.max_seq
+        self.prefill_chunk = min(prefill_chunk, self.max_seq)
+        self.decode_block = max(1, int(decode_block))
+        self.inflight = max(1, int(inflight))
+        self.sample_top_k = max(0, int(sample_top_k))
+        if self.sample_top_k > 128:
+            raise ValueError(
+                f"sample_top_k={self.sample_top_k}: the top-k kernel "
+                f"holds at most 128 candidates; use k <= 128 (0 = "
+                f"full-vocab categorical)")
+        self.cache = llama.init_cache(config, max_slots, self.max_seq,
+                                      device=self.device)
+        self.on_block = on_block
+        self.lengths = np.zeros(max_slots, dtype=np.int32)
+        self.current = np.zeros(max_slots, dtype=np.int32)
+        self.temperatures = np.zeros(max_slots, dtype=np.float32)
+        self.decoding = np.zeros(max_slots, dtype=bool)
+        self.slots: list[Request | None] = [None] * max_slots
+        self.pending: list[Request] = []
+        self._prefilling: list[int] = []      # slot FIFO, round-robin
+        self._generator = torch.Generator(device=self.device) \
+            .manual_seed(int(rng_seed))
+        # Pipelining state (decode_block > 1): device-side carries of the
+        # latest dispatched block, device mirrors of the active and
+        # temperature rows (re-uploaded only when they change),
+        # first-token samples not yet folded into a dispatch, and the
+        # in-flight block queue.
+        self._chain: tuple | None = None      # (tokens_dev, lengths_dev)
+        self._active_dev = None
+        self._temps_dev = None
+        self._pending_first: dict[int, tuple] = {}   # slot -> (req, dev)
+        self._inflight: deque[_InflightBlock] = deque()
+        self._admit_seq = 0
+        # perf counters
+        self.tokens_emitted = 0
+        self.steps = 0
+        self.prefill_tokens = 0
+        self._request_stats: list[dict] = []
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without waiting for the stream
+        (pinned staging, asynchronous copy)."""
+        tensor = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return tensor.pin_memory().to(self.device, non_blocking=True)
+        return tensor.clone()
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(self, request: Request):
+        if len(request.prompt_tokens) >= self.max_seq:
+            request.prompt_tokens = \
+                request.prompt_tokens[-(self.max_seq // 2):]
+        # An empty prompt still needs one position of context.
+        if not request.prompt_tokens:
+            request.prompt_tokens = [0]
+        request.base_prompt = list(request.prompt_tokens)
+        request.submit_time = time.perf_counter()
+        self.pending.append(request)
+
+    def _next_pending(self) -> Request:
+        """Pop the best ``qos_rank``; queue position breaks ties, so the
+        all-default case is FIFO."""
+        best = min(range(len(self.pending)),
+                   key=lambda index: (self.pending[index].qos_rank,
+                                      index))
+        return self.pending.pop(best)
+
+    def _admit(self):
+        """Assign free slots to pending requests (no device work: the
+        prompt is written chunk by chunk by ``_prefill_tick``)."""
+        for slot, occupant in enumerate(self.slots):
+            if occupant is not None or not self.pending:
+                continue
+            request = self._next_pending()
+            request.slot = slot
+            request.prefill_pos = 0
+            request.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            self.slots[slot] = request
+            self.lengths[slot] = 0
+            self.current[slot] = 0
+            self.temperatures[slot] = request.temperature
+            self._temps_dev = None
+            self.decoding[slot] = False
+            self._prefilling.append(slot)
+
+    def _prefill_tick(self):
+        """Advance admissions by one chunk each.  Pipelined path: every
+        admitting slot advances (one batched pass for dense attention,
+        per-slot passes for flash).  Synchronous path: at most ONE
+        chunk in total, which bounds the decode stall to one chunk."""
+        pipelined = self.decode_block > 1
+        if (pipelined and len(self._prefilling) > 1
+                and self.config.attention != "flash"):
+            self._prefill_tick_batched()
+            return
+        budget = len(self._prefilling) if pipelined \
+            else min(1, len(self._prefilling))
+        for _ in range(budget):
+            if not self._prefilling:
+                break
+            slot = self._prefilling.pop(0)
+            request = self.slots[slot]
+            if request is None:     # cancelled while waiting
+                continue
+            start, chunk_tokens = self._admission_chunk(request)
+            padded = np.zeros((1, self.prefill_chunk), dtype=np.int64)
+            padded[0, :len(chunk_tokens)] = chunk_tokens
+            logits, self.cache = llama.prefill_into_slot(
+                self.params, self.config, self._upload(padded),
+                self.cache, slot, start)
+            self._admission_advance(slot, request, start,
+                                    len(chunk_tokens), logits)
+
+    def _prefill_tick_batched(self):
+        """One chunk for every admitting slot in one batched pass, N
+        padded to a power of two by repeating the first row."""
+        admitting = [slot for slot in self._prefilling
+                     if self.slots[slot] is not None]
+        self._prefilling = admitting[_ADMISSION_BURST_MAX:]
+        admitting = admitting[:_ADMISSION_BURST_MAX]
+        if not admitting:
+            return
+        n = len(admitting)
+        rows = pad_to_bucket(admitting)
+        tokens = np.zeros((len(rows), self.prefill_chunk), dtype=np.int64)
+        starts = []
+        metas = []
+        for i, slot in enumerate(rows):
+            request = self.slots[slot]
+            start, chunk_tokens = self._admission_chunk(request)
+            tokens[i, :len(chunk_tokens)] = chunk_tokens
+            starts.append(start)
+            metas.append((slot, request, start, len(chunk_tokens)))
+        logits, self.cache = llama.prefill_into_slots(
+            self.params, self.config, self._upload(tokens), self.cache,
+            rows, starts)
+        for i, (slot, request, start, chunk_len) in enumerate(metas[:n]):
+            self._admission_advance(slot, request, start, chunk_len,
+                                    logits[i:i + 1])
+
+    def _admission_chunk(self, request: Request):
+        """(start, chunk tokens) of the request's next prefill chunk.
+        The start clamps so a full chunk always fits inside the cache; a
+        clamped start rewrites the overlap with identical k/v.  Pad
+        positions hold garbage k/v that decode overwrites before any
+        length mask admits them."""
+        start = min(request.prefill_pos,
+                    self.max_seq - self.prefill_chunk)
+        return start, request.prompt_tokens[
+            start:start + self.prefill_chunk]
+
+    def _admission_advance(self, slot: int, request: Request,
+                           start: int, chunk_len: int, logits):
+        """Account one written chunk; on the final chunk, sample the
+        first generated token from the last prompt position's logits and
+        hand the slot to decode (pipelined: without a host copy -- the
+        sample folds into the next block dispatch)."""
+        prompt = request.prompt_tokens
+        self.prefill_tokens += start + chunk_len - request.prefill_pos
+        request.prefill_pos = start + chunk_len
+        if request.prefill_pos < len(prompt):
+            self._prefilling.append(slot)       # more chunks to go
+            return
+        last = len(prompt) - start - 1
+        first = self._sample(logits[:, last, :], request.temperature)
+        self.lengths[slot] = len(prompt)
+        self.decoding[slot] = True
+        self._active_dev = None
+        if self.decode_block > 1:
+            self._pending_first[slot] = (request, first)
+        else:
+            first_token = int(first.cpu()[0])
+            self.current[slot] = first_token
+            self._emit(request, first_token)
+
+    # -- decode ------------------------------------------------------------
+
+    def _sample(self, logits, temperature: float):
+        """The first token after admission, drawn under the same
+        ``sample_top_k`` restriction as every later token.  (The JAX
+        package draws it from the full vocabulary, which breaks its own
+        top-1 == greedy contract; ROADMAP Queue 3.)"""
+        if temperature and temperature > 0:
+            temps = torch.full((logits.shape[0],), float(temperature),
+                               device=logits.device)
+            return llama.select_tokens(self._generator, logits, temps,
+                                       top_k=self.sample_top_k)
+        return llama.greedy_sample(logits)
+
+    def step(self) -> int:
+        """Admit pending requests, advance prefill, dispatch/retire
+        decode work, emit tokens.  Returns the number of occupied
+        slots."""
+        self._admit()
+        self._prefill_tick()
+        decoding = [i for i in range(self.max_slots) if self.decoding[i]]
+        if self.decode_block > 1:
+            if decoding:
+                # Top the pipeline up to `inflight` blocks, then retire
+                # the oldest; stop early once the outstanding blocks
+                # cover every active request's remaining budget.
+                remaining = max(
+                    self.slots[i].max_new_tokens - self.slots[i].generated
+                    for i in decoding if self.slots[i] is not None)
+                while (len(self._inflight) < self.inflight
+                       and len(self._inflight) * self.decode_block
+                       < remaining):
+                    self._dispatch_block(decoding)
+            if self._inflight:
+                self._retire_block()
+        elif decoding:
+            self._decode_tick(decoding)
+        return sum(1 for r in self.slots if r is not None)
+
+    def _decode_tick(self, decoding: list[int]):
+        # Rows not decoding (empty or mid-prefill) still flow through the
+        # batched step; their k/v write goes to the trash position
+        # max_seq-1, which real content never occupies.
+        write_positions = np.where(self.decoding, self.lengths,
+                                   self.max_seq - 1).astype(np.int32)
+        logits, self.cache = llama.decode_step(
+            self.params, self.config, self._upload(self.current),
+            self.cache, self._upload(write_positions))
+        next_tokens = llama.select_tokens(
+            self._generator, logits, self._upload(self.temperatures),
+            top_k=self.sample_top_k).cpu().numpy()
+        self.steps += 1
+        for i in decoding:
+            request = self.slots[i]
+            if request is None:
+                continue
+            self.lengths[i] += 1
+            token = int(next_tokens[i])
+            self.current[i] = token
+            self._emit(request, token)
+
+    def _dispatch_block(self, decoding: list[int]):
+        """Enqueue one fused decode block chained off the previous
+        block's device carries, with no host synchronisation: completed
+        admissions fold their first token and length in on the device,
+        and the emitted tokens start their copy to the host."""
+        if self._chain is None:
+            tokens = self._upload(self.current)
+            lengths = self._upload(self.lengths)
+        else:
+            tokens, lengths = self._chain
+        first_meta, first_vals = [], []
+        for slot in sorted(self._pending_first):
+            request, first = self._pending_first[slot]
+            tokens[slot] = first[0]
+            lengths[slot] = len(request.prompt_tokens)
+            first_meta.append((slot, request))
+            first_vals.append(first)
+        self._pending_first.clear()
+        firsts = (first_meta, _HostCopy(torch.cat(first_vals))) \
+            if first_vals else None
+        if self._active_dev is None:
+            self._active_dev = self._upload(self.decoding)
+        if self._temps_dev is None:
+            self._temps_dev = self._upload(self.temperatures)
+        emitted, tokens_n, lengths_n, self.cache = llama.decode_block(
+            self.params, self.config, tokens, self.cache, lengths,
+            self._active_dev, self._temps_dev, self._generator,
+            num_steps=self.decode_block, top_k=self.sample_top_k)
+        self._chain = (tokens_n, lengths_n)
+        for i in decoding:                      # host mirror (clamped)
+            self.lengths[i] = min(self.lengths[i] + self.decode_block,
+                                  self.max_seq - 1)
+        self._inflight.append(_InflightBlock(
+            _HostCopy(emitted), [(i, self.slots[i]) for i in decoding],
+            firsts, self.decode_block))
+        if self.on_block is not None:
+            self.on_block("dispatch", len(decoding))
+
+    def _retire_block(self):
+        """Wait for the OLDEST in-flight block's tokens and de-multiplex
+        host-side, truncating each request at its EOS or budget.  A slot
+        freed and re-admitted while the block was in flight is skipped
+        through the request snapshot."""
+        blk = self._inflight.popleft()
+        emitted = blk.emitted.numpy()           # [steps, B]
+        self.steps += 1
+        if self.on_block is not None:
+            self.on_block("retire", len(blk.snapshot))
+        if blk.firsts is not None:
+            first_meta, firsts = blk.firsts
+            for (slot, request), token in zip(first_meta, firsts.numpy()):
+                if self.slots[slot] is request and not request.done:
+                    token = int(token)
+                    self.current[slot] = token
+                    self._emit(request, token)
+        for slot, request in blk.snapshot:
+            if request is None or self.slots[slot] is not request:
+                continue
+            for block_step in range(blk.steps):
+                if self.slots[slot] is not request:     # finished
+                    break
+                token = int(emitted[block_step, slot])
+                self.current[slot] = token
+                self._emit(request, token)
+
+    # -- resume and failover -----------------------------------------------
+
+    def _rebase(self, request: Request) -> None:
+        """Fold the request's committed tokens into its prompt so a
+        fresh admission resumes generation where it left off."""
+        request.prompt_tokens = list(request.base_prompt) \
+            + [int(token) for token in request.committed]
+        request.rebased = len(request.committed)
+
+    def resume_request(self, request: Request, committed) -> bool:
+        """Fold an externally journaled committed prefix into a
+        just-submitted request.  Returns False (and withdraws the
+        request) when that prefix already finished it."""
+        request.committed = [int(token) for token in committed]
+        request.generated = len(request.committed)
+        if request.generated:
+            request.submit_time = 0.0
+        self._rebase(request)
+        finished = bool(request.committed) and (
+            request.committed[-1] in request.eos_tokens
+            or request.generated >= request.max_new_tokens
+            or len(request.prompt_tokens) >= self.max_seq)
+        if finished:
+            request.done = True
+            if request in self.pending:
+                self.pending.remove(request)
+        return not finished
+
+    def recover(self) -> int:
+        raise not_ported("ContinuousBatcher.recover()", "ROADMAP Queue 1:"
+                         " the device loop, with the batcher's failover "
+                         "contracts")
+
+    def export_state(self) -> list[dict]:
+        raise not_ported("ContinuousBatcher.export_state()", "ROADMAP "
+                         "Queue 1: the batcher's failover contracts")
+
+    def import_state(self, entries, emit_factory=None) -> int:
+        raise not_ported("ContinuousBatcher.import_state()", "ROADMAP "
+                         "Queue 1: the batcher's failover contracts")
+
+    # -- emission and bookkeeping ------------------------------------------
+
+    def take_request_stats(self) -> list[dict]:
+        """Drain per-request latency stamps ({"ttft_ms", "tpot_ms",
+        "tokens", ...}) recorded at finish."""
+        stats, self._request_stats = self._request_stats, []
+        return stats
+
+    def _emit(self, request: Request, token: int):
+        request.generated += 1
+        self.tokens_emitted += 1
+        now = time.perf_counter()
+        if request.generated == 1:
+            request.first_time = now
+        request.committed.append(token)
+        # The last usable write position is max_seq - 2 (max_seq - 1 is
+        # the trash row), so finish once the sequence would need to
+        # write past it.
+        total_len = len(request.prompt_tokens) + request.generated \
+            - request.rebased
+        finished = (token in request.eos_tokens
+                    or request.generated >= request.max_new_tokens
+                    or total_len >= self.max_seq)
+        if request.emit is not None:
+            request.emit(request.request_id, token, finished)
+        if finished:
+            request.done = True
+            if request.submit_time:
+                ttft_ms = (request.first_time - request.submit_time) \
+                    * 1000.0
+                tpot_ms = (now - request.first_time) * 1000.0 \
+                    / (request.generated - 1) \
+                    if request.generated > 1 else 0.0
+                self._request_stats.append(
+                    {"ttft_ms": round(ttft_ms, 3),
+                     "tpot_ms": round(tpot_ms, 3),
+                     "tokens": request.generated,
+                     "tenant": request.tenant,
+                     "cls": request.qos_class})
+            self._free_slot(request.slot)
+
+    def _free_slot(self, slot: int):
+        """Release a slot's host-side state (finish and cancel)."""
+        self.slots[slot] = None
+        self.lengths[slot] = 0
+        self.current[slot] = 0
+        self.temperatures[slot] = 0.0
+        self._temps_dev = None
+        self.decoding[slot] = False
+        self._active_dev = None
+
+    def cancel(self, request_id: str) -> bool:
+        """Abandon a request by id: pending requests leave the queue; an
+        admitted request frees its slot at once.  Its tokens inside
+        in-flight blocks are discarded at retire.  Returns True when a
+        request was found."""
+        found = False
+        for request in list(self.pending):
+            if request.request_id == request_id:
+                self.pending.remove(request)
+                request.done = True
+                found = True
+        for slot, request in enumerate(self.slots):
+            if request is None or request.request_id != request_id:
+                continue
+            request.done = True
+            self._free_slot(slot)
+            self._pending_first.pop(slot, None)
+            found = True
+        return found
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def active_count(self) -> int:
+        return sum(1 for r in self.slots if r is not None)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.pending)
+
+    @property
+    def blocks_in_flight(self) -> int:
+        return len(self._inflight)
+
+    def run_until_drained(self, max_steps: int = 100_000) -> int:
+        steps = 0
+        while (self.pending or self.active_count or self._inflight) \
+                and steps < max_steps:
+            self.step()
+            steps += 1
+        return steps

@@ -1,0 +1,525 @@
+"""Llama-3-family transformer on PyTorch (the serving model of BASELINE
+config 3).
+
+Counterpart of ``aiko_services_tpu/models/llama.py``: the same config,
+the same layer-stacked parameter dict ([L, ...] leaves) and the same
+flat ``[L, B, T, K*hd]`` KV cache, written as plain functions on
+tensors.  PyTorch runs eagerly, so the layer ``scan`` is a Python loop
+over layer views and there is no jit.
+
+One deliberate difference: JAX's functions are pure and return a new
+cache; here every cache write lands IN PLACE, layer by layer, and the
+functions return the same cache dict.  That keeps one copy of the cache
+in device memory.  Decode writes each layer's new k/v after that
+layer's attention; the attention masks ``t < length`` exclude the write
+position either way, and the current token enters through the self
+term, so the result is the JAX package's.
+
+Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): int8 weights and KV, mixture-of-experts, the paged cache and the
+device-resident decode loop with speculation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops import decode_backend, topk as ops_topk
+from ..ops.flash_attention import flash_attention
+from ..ops.flash_decode import _split_stacked, flash_decode_append_stacked
+from ..ops.layers import (apply_rope, attention_decode_append,
+                          attention_prefill, rms_norm, rope_frequencies)
+from ..utils.misc import not_ported
+from .paged import is_paged, paged_extent
+from .quant import is_quantized
+
+__all__ = ["LlamaConfig", "init_params", "param_shapes", "init_cache",
+           "cache_array", "cache_extent", "prefill", "prefill_into_slot",
+           "prefill_into_slots", "decode_step", "decode_block",
+           "greedy_sample", "temperature_sample", "select_tokens"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128_256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    hidden_dim: int = 14_336
+    rope_theta: float = 500_000.0
+    max_seq: int = 8192
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    # Prefill attention: "dense" (ops/layers.py attention_prefill) or
+    # "flash" (the blockwise kernel, ops/flash_attention.py) on the
+    # single-slot admission path.
+    attention: str = "dense"
+    # Decode attention: "dense", "flash" (the split-K kernel,
+    # ops/flash_decode.py) or "auto" (flash once the cache extent
+    # reaches flash_decode_threshold; see ops.decode_backend).
+    decode_attention: str = "auto"
+    flash_decode_threshold: int = 1024
+    matmul_kernel: str = "auto"
+    kv_dtype: str = "bfloat16"
+    n_experts: int = 0
+    n_experts_per_token: int = 2
+    capacity_factor: float = 2.0
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.attention not in ("dense", "flash"):
+            raise ValueError(
+                f"attention must be 'dense' or 'flash', "
+                f"got {self.attention!r}")
+        if self.decode_attention not in ("dense", "flash", "auto"):
+            raise ValueError(
+                f"decode_attention must be 'dense', 'flash' or 'auto', "
+                f"got {self.decode_attention!r}")
+        if self.kv_dtype not in ("bfloat16", "int8"):
+            raise ValueError(
+                f"kv_dtype must be 'bfloat16' or 'int8', "
+                f"got {self.kv_dtype!r}")
+        if self.matmul_kernel not in ("auto", "pallas", "off"):
+            raise ValueError(
+                f"matmul_kernel must be 'auto', 'pallas' or 'off', "
+                f"got {self.matmul_kernel!r}")
+        if self.n_experts and self.n_experts_per_token > self.n_experts:
+            raise ValueError(
+                f"n_experts_per_token ({self.n_experts_per_token}) "
+                f"exceeds n_experts ({self.n_experts})")
+
+    def moe_capacity(self, n_tokens: int) -> int:
+        """Static per-expert buffer size for ``n_tokens`` routed tokens."""
+        exact = math.ceil(self.capacity_factor * n_tokens
+                          * self.n_experts_per_token / self.n_experts)
+        return max(1, min(-(-exact // 8) * 8, n_tokens))
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def gqa_groups(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls()
+
+    @classmethod
+    def llama3_1b(cls) -> "LlamaConfig":
+        return cls(dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+                   hidden_dim=8192)
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 512, max_seq: int = 256) \
+            -> "LlamaConfig":
+        """Test-size config: runs on the CPU in milliseconds."""
+        return cls(vocab_size=vocab_size, dim=64, n_layers=2, n_heads=4,
+                   n_kv_heads=2, hidden_dim=128, max_seq=max_seq,
+                   rope_theta=10_000.0)
+
+
+def _dtype(config: LlamaConfig) -> torch.dtype:
+    if config.dtype not in _DTYPES:
+        raise ValueError(f"dtype {config.dtype!r}: one of {sorted(_DTYPES)}")
+    return _DTYPES[config.dtype]
+
+
+def param_shapes(config: LlamaConfig) -> dict:
+    """The parameter dict's layout: leaf -> (shape, fan_in or None for
+    the norm weights, which start at one)."""
+    c = config
+    if c.n_experts:
+        raise not_ported("mixture-of-experts (n_experts > 0)",
+                         "ROADMAP Queue 1 item 7")
+    hd = c.head_dim
+    return {
+        "embed": ((c.vocab_size, c.dim), c.dim),
+        "layers": {
+            "wq": ((c.n_layers, c.dim, c.n_heads * hd), c.dim),
+            "wk": ((c.n_layers, c.dim, c.n_kv_heads * hd), c.dim),
+            "wv": ((c.n_layers, c.dim, c.n_kv_heads * hd), c.dim),
+            "wo": ((c.n_layers, c.n_heads * hd, c.dim), c.n_heads * hd),
+            "w_gate": ((c.n_layers, c.dim, c.hidden_dim), c.dim),
+            "w_up": ((c.n_layers, c.dim, c.hidden_dim), c.dim),
+            "w_down": ((c.n_layers, c.hidden_dim, c.dim), c.hidden_dim),
+            "attn_norm": ((c.n_layers, c.dim), None),
+            "mlp_norm": ((c.n_layers, c.dim), None),
+        },
+        "final_norm": ((c.dim,), None),
+        "unembed": ((c.dim, c.vocab_size), c.dim),
+    }
+
+
+def init_params(seed: int, config: LlamaConfig,
+                device: str | torch.device | None = None) -> dict:
+    """Random weights at the JAX package's init scaling (standard normal
+    x fan_in^-0.5, norms at one), drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the card unless "cpu" is asked
+    for).  Stacked leaves are drawn one layer at a time, so the f32
+    draw never holds more than one layer's slice."""
+    device = resolve_device(device)
+    dtype = _dtype(config)
+    generator = torch.Generator(device=device).manual_seed(int(seed))
+
+    def leaf(shape, fan_in):
+        if fan_in is None:
+            return torch.ones(shape, dtype=dtype, device=device)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for part in (out if len(shape) == 3 else [out]):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=device, dtype=torch.float32)
+                       .mul_(fan_in ** -0.5))
+        return out
+
+    return _map_layout(param_shapes(config), lambda spec: leaf(*spec))
+
+
+def _map_layout(layout: dict, fn) -> dict:
+    return {name: _map_layout(value, fn) if isinstance(value, dict)
+            else fn(value) for name, value in layout.items()}
+
+
+def init_cache(config: LlamaConfig, batch: int, max_seq: int | None = None,
+               device: str | torch.device | None = None) -> dict:
+    """Zeroed KV cache stored FLAT: [L, B, T, K*hd] per side -- the
+    contiguous view the decode kernel reads (``cache[layer]`` is a view,
+    never a copy)."""
+    c = config
+    if c.kv_dtype == "int8":
+        raise not_ported("kv_dtype='int8'", "ROADMAP Queue 1: int8 "
+                         "weights and KV, with the int8 branch of "
+                         "kernel #2")
+    device = resolve_device(device)
+    t = max_seq or c.max_seq
+    shape = (c.n_layers, batch, t, c.n_kv_heads * c.head_dim)
+    return {"k": torch.zeros(shape, dtype=_dtype(c), device=device),
+            "v": torch.zeros(shape, dtype=_dtype(c), device=device)}
+
+
+def _require_dense(cache) -> None:
+    if is_paged(cache):
+        raise not_ported("the paged KV cache", "ROADMAP Queue 1: paged "
+                         "KV with kernel #3")
+
+
+def cache_array(cache: dict) -> torch.Tensor:
+    """The cache's key payload tensor."""
+    k = cache["k"]
+    return k["int8"] if is_quantized(k) else k
+
+
+def cache_extent(cache: dict) -> int:
+    """Logical per-slot token extent T; position T-1 is the trash
+    position inactive rows write to."""
+    if is_paged(cache):
+        return paged_extent(cache)
+    return cache_array(cache).shape[2]
+
+
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for raw weights (a plain product, left to PyTorch as
+    the JAX package left it to XLA)."""
+    if is_quantized(w):
+        raise not_ported("int8 weights (quantize)", "ROADMAP Queue 1: "
+                         "int8 weights with kernel #5")
+    return x @ w
+
+
+def _grouped(layer: torch.Tensor, kv: int) -> torch.Tensor:
+    """Flat [.., T, K*hd] -> grouped [.., T, K, hd] view."""
+    return layer.reshape(*layer.shape[:-1], kv, layer.shape[-1] // kv)
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_table(head_dim: int, max_seq: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """The cos/sin table, uploaded once per device: the decode path
+    makes no host-to-device copy (a pageable upload would wait for the
+    stream and stall the pipelined batcher)."""
+    return rope_frequencies(head_dim, max_seq, theta, device=device)
+
+
+def _rope(config: LlamaConfig, device: torch.device) -> torch.Tensor:
+    return _rope_table(config.head_dim, config.max_seq, config.rope_theta,
+                       device)
+
+
+def _layer(params: dict, index: int) -> dict:
+    return {name: leaf[index] for name, leaf in params["layers"].items()}
+
+
+def _block(config: LlamaConfig, hidden, layer: dict, attend):
+    """One transformer block.  ``attend(q, k, v) -> attn_out`` does RoPE,
+    the cache write and attention (prefill and decode differ there)."""
+    c = config
+    b, s, _ = hidden.shape
+    hd = c.head_dim
+    x = rms_norm(hidden, layer["attn_norm"], c.norm_eps)
+    q = matmul(x, layer["wq"]).reshape(b, s, c.n_heads, hd)
+    k = matmul(x, layer["wk"]).reshape(b, s, c.n_kv_heads, hd)
+    v = matmul(x, layer["wv"]).reshape(b, s, c.n_kv_heads, hd)
+    attn_out = attend(q, k, v)
+    hidden = hidden + matmul(attn_out.reshape(b, s, c.n_heads * hd),
+                             layer["wo"])
+    x = rms_norm(hidden, layer["mlp_norm"], c.norm_eps)
+    gate = F.silu(matmul(x, layer["w_gate"]))
+    return hidden + matmul(gate * matmul(x, layer["w_up"]),
+                           layer["w_down"])
+
+
+def _forward(params: dict, config: LlamaConfig, tokens: torch.Tensor,
+             attend_factory) -> torch.Tensor:
+    """Embed, run every layer with ``attend_factory(layer_index)``,
+    final-norm and unembed -> logits [B, S, vocab]."""
+    hidden = params["embed"][tokens]
+    for index in range(config.n_layers):
+        hidden = _block(config, hidden, _layer(params, index),
+                        attend_factory(index))
+    return _finish(params, config, hidden)
+
+
+def _finish(params: dict, config: LlamaConfig, hidden) -> torch.Tensor:
+    hidden = rms_norm(hidden, params["final_norm"], config.norm_eps)
+    return matmul(hidden, params["unembed"])
+
+
+def prefill(params: dict, config: LlamaConfig, tokens: torch.Tensor,
+            cache: dict, start_positions: torch.Tensor) \
+        -> tuple[torch.Tensor, dict]:
+    """Whole-batch prompt prefill.  tokens: [B, S] (right padding
+    allowed); start_positions: [B] cache offset each row begins at.
+    Writes each row's k/v at [b, start + i] and returns (logits
+    [B, S, vocab], cache)."""
+    _require_dense(cache)
+    c = config
+    b, s = tokens.shape
+    rope = _rope(c, tokens.device)
+    positions = start_positions.to(tokens.device).long()[:, None] \
+        + torch.arange(s, device=tokens.device)[None, :]
+    rows = torch.arange(b, device=tokens.device)[:, None]
+
+    def factory(index):
+        def attend(q, k, v):
+            q = apply_rope(q, rope, positions)
+            k = apply_rope(k, rope, positions)
+            cache["k"][index][rows, positions] = k.reshape(b, s, -1)
+            cache["v"][index][rows, positions] = v.reshape(b, s, -1)
+            return attention_prefill(
+                q, _grouped(cache["k"][index], c.n_kv_heads),
+                _grouped(cache["v"][index], c.n_kv_heads), positions)
+        return attend
+
+    return _forward(params, c, tokens, factory), cache
+
+
+def prefill_into_slot(params: dict, config: LlamaConfig,
+                      tokens: torch.Tensor, cache: dict, slot: int,
+                      start: int) -> tuple[torch.Tensor, dict]:
+    """Process one prompt chunk for ONE sequence, writing its k/v into
+    batch row ``slot`` of the batched cache at ``start`` (the continuous
+    batcher's admission path).  tokens: [1, S] (right padding allowed).
+    Queries attend the slot's whole cache row, so chunk N sees chunks
+    0..N-1; with ``attention="flash"`` the kernel's causal offset hides
+    the unwritten tail.  Returns (logits [1, S, vocab], cache)."""
+    _require_dense(cache)
+    c = config
+    slot, start = int(slot), int(start)
+    s = tokens.shape[1]
+    extent = cache_extent(cache)
+    if start < 0 or start + s > extent:
+        raise ValueError(f"prefill_into_slot: chunk [{start}, {start + s})"
+                         f" does not fit the cache extent {extent}")
+    rope = _rope(c, tokens.device)
+    positions = (start + torch.arange(s, device=tokens.device))[None, :]
+
+    def factory(index):
+        def attend(q, k, v):
+            q = apply_rope(q, rope, positions)
+            k = apply_rope(k, rope, positions)
+            cache["k"][index, slot, start:start + s] = k.reshape(s, -1)
+            cache["v"][index, slot, start:start + s] = v.reshape(s, -1)
+            k_row = _grouped(cache["k"][index, slot:slot + 1], c.n_kv_heads)
+            v_row = _grouped(cache["v"][index, slot:slot + 1], c.n_kv_heads)
+            if c.attention == "flash":
+                return flash_attention(q, k_row, v_row, q_offset=start)
+            return attention_prefill(q, k_row, v_row, positions)
+        return attend
+
+    return _forward(params, c, tokens, factory), cache
+
+
+def prefill_into_slots(params: dict, config: LlamaConfig,
+                       tokens: torch.Tensor, cache: dict, slots,
+                       starts) -> tuple[torch.Tensor, dict]:
+    """Batched multi-slot admission: one prompt chunk for N sequences in
+    one pass, each row writing its k/v into its own cache row.  tokens:
+    [N, S]; slots/starts: N host integers.  Rows may duplicate another
+    row (same slot, start and tokens): the writes are idempotent, which
+    is how the batcher pads N to a power of two.  Dense attention only
+    (flash admission keeps per-slot calls: its q_offset is per call).
+    Returns (logits [N, S, vocab], cache)."""
+    c = config
+    if c.attention == "flash":
+        raise ValueError("prefill_into_slots is dense-only; "
+                         "flash admission uses prefill_into_slot")
+    _require_dense(cache)
+    slots = [int(slot) for slot in slots]
+    starts = [int(start) for start in starts]
+    n, s = tokens.shape
+    extent = cache_extent(cache)
+    if any(start < 0 or start + s > extent for start in starts):
+        raise ValueError(f"prefill_into_slots: a chunk of {s} tokens at "
+                         f"{starts} does not fit the cache extent {extent}")
+    rope = _rope(c, tokens.device)
+    positions = torch.tensor(starts, device=tokens.device)[:, None] \
+        + torch.arange(s, device=tokens.device)[None, :]
+    slot_index = torch.tensor(slots, device=tokens.device)
+
+    def factory(index):
+        def attend(q, k, v):
+            q = apply_rope(q, rope, positions)
+            k = apply_rope(k, rope, positions)
+            for row, (slot, start) in enumerate(zip(slots, starts)):
+                cache["k"][index, slot, start:start + s] = \
+                    k[row].reshape(s, -1)
+                cache["v"][index, slot, start:start + s] = \
+                    v[row].reshape(s, -1)
+            k_rows = _grouped(cache["k"][index][slot_index], c.n_kv_heads)
+            v_rows = _grouped(cache["v"][index][slot_index], c.n_kv_heads)
+            return attention_prefill(q, k_rows, v_rows, positions)
+        return attend
+
+    return _forward(params, c, tokens, factory), cache
+
+
+def _resolve_decode_flash(c: LlamaConfig, cache: dict) -> bool:
+    """Pick the decode attention backend eagerly through the ops
+    capability probe: dense flash-eligible caches go to the stacked
+    split-K kernel, everything else to the reference path.  One device
+    holds the whole cache, so nothing here is distributed."""
+    backend = decode_backend(
+        c.decode_attention, paged=is_paged(cache),
+        extent=cache_extent(cache), threshold=c.flash_decode_threshold)
+    return backend != "reference"
+
+
+def _decode_step_impl(params: dict, config: LlamaConfig,
+                      tokens: torch.Tensor, cache: dict,
+                      lengths: torch.Tensor, use_flash: bool) \
+        -> tuple[torch.Tensor, dict]:
+    """One token per row.  tokens: [B]; lengths: [B] write positions
+    (= current sequence lengths).  No host synchronisation: every index
+    stays on the device."""
+    _require_dense(cache)
+    c = config
+    b = tokens.shape[0]
+    rope = _rope(c, tokens.device)
+    lengths = lengths.to(torch.int32)
+    positions = lengths.long()[:, None]                       # [B, 1]
+    rows = torch.arange(b, device=tokens.device)
+    if use_flash:
+        k_view = _split_stacked(cache["k"])
+        v_view = _split_stacked(cache["v"])
+
+    def factory(index):
+        def attend(q, k, v):
+            q = apply_rope(q, rope, positions)
+            k = apply_rope(k, rope, positions)
+            if use_flash:
+                out = flash_decode_append_stacked(q, k_view, v_view, index,
+                                                  k, v, lengths)
+            else:
+                out = attention_decode_append(
+                    q, _grouped(cache["k"][index], c.n_kv_heads),
+                    _grouped(cache["v"][index], c.n_kv_heads), k, v,
+                    lengths)
+            cache["k"][index][rows, positions[:, 0]] = k.reshape(b, -1)
+            cache["v"][index][rows, positions[:, 0]] = v.reshape(b, -1)
+            return out
+        return attend
+
+    logits = _forward(params, c, tokens[:, None], factory)
+    return logits[:, 0, :], cache
+
+
+def decode_step(params: dict, config: LlamaConfig, tokens: torch.Tensor,
+                cache: dict, lengths: torch.Tensor) \
+        -> tuple[torch.Tensor, dict]:
+    """One decode token per row (see _decode_step_impl); the flash
+    versus dense choice resolves here, on the cache's structure."""
+    return _decode_step_impl(params, config, tokens, cache, lengths,
+                             use_flash=_resolve_decode_flash(config, cache))
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    return logits.argmax(-1)
+
+
+def _categorical(generator: torch.Generator,
+                 logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row from softmax(logits), by the Gumbel-max rule
+    (no host synchronisation; -inf logits are never drawn)."""
+    uniform = torch.rand(logits.shape, generator=generator,
+                         device=logits.device, dtype=torch.float32)
+    return (logits - torch.log(-torch.log(uniform))).argmax(-1)
+
+
+def temperature_sample(generator: torch.Generator, logits: torch.Tensor,
+                       temperature: float = 0.7) -> torch.Tensor:
+    return _categorical(generator, logits.float() / temperature)
+
+
+def select_tokens(generator: torch.Generator, logits: torch.Tensor,
+                  temperatures: torch.Tensor,
+                  top_k: int = 0) -> torch.Tensor:
+    """Per-row sampling: rows at temperature 0 take the argmax, the
+    others a categorical draw at their own temperature.  ``top_k`` > 0
+    restricts the draw to the k highest logits through the ops top-k
+    (the CUDA kernel on the card); greedy rows are unaffected (argmax ==
+    top-1).  Draws come from ``generator``, not from jax.random, so
+    sampled rows match the JAX package only in distribution."""
+    greedy = logits.argmax(-1)
+    safe = torch.clamp(temperatures, min=0.05)[:, None]
+    if top_k:
+        values, indices = ops_topk(logits.float().contiguous(), int(top_k))
+        choice = _categorical(generator, values / safe)
+        sampled = indices.gather(1, choice[:, None])[:, 0].long()
+    else:
+        sampled = _categorical(generator, logits.float() / safe)
+    return torch.where(temperatures > 0, sampled, greedy)
+
+
+def decode_block(params: dict, config: LlamaConfig, tokens: torch.Tensor,
+                 cache: dict, lengths: torch.Tensor, active: torch.Tensor,
+                 temperatures: torch.Tensor, generator: torch.Generator, *,
+                 num_steps: int, top_k: int = 0):
+    """``num_steps`` decode iterations with sampling, enqueued back to
+    back with no host synchronisation.  tokens/lengths: [B] device
+    tensors; active: [B] bool (inactive rows write to the trash position
+    T-1, as in the single-step batcher tick).  Returns (emitted
+    [num_steps, B] int32, tokens' [B], lengths' [B], cache)."""
+    trash = cache_extent(cache) - 1
+    use_flash = _resolve_decode_flash(config, cache)
+    emitted = []
+    for _ in range(num_steps):
+        positions = torch.where(active, torch.clamp(lengths, max=trash),
+                                torch.full_like(lengths, trash))
+        logits, cache = _decode_step_impl(params, config, tokens, cache,
+                                          positions, use_flash)
+        tokens = select_tokens(generator, logits, temperatures,
+                               top_k=top_k).to(torch.int32)
+        lengths = lengths + active.to(lengths.dtype)
+        emitted.append(tokens)
+    return torch.stack(emitted), tokens, lengths, cache

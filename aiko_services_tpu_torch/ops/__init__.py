@@ -1,0 +1,62 @@
+"""Op-level interfaces: the transformer building blocks (ops.layers) plus
+the kernel plane behind capability probes.
+
+Counterpart of ``aiko_services_tpu/ops/__init__.py``.  Where the JAX
+package asks whether it runs on a TPU, the port asks whether the tensor
+lies on a CUDA device.  The kernel modules build their CUDA library at
+first launch, never at import.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .layers import (rms_norm, rope_frequencies, apply_rope, swiglu,
+                     repeat_kv, attention_prefill, attention_decode,
+                     attention_decode_append)
+from .topk import topk
+from ..utils.misc import not_ported
+
+__all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu",
+           "repeat_kv", "attention_prefill", "attention_decode",
+           "attention_decode_append", "decode_backend",
+           "matmul_backend", "topk", "DECODE_BACKENDS"]
+
+#: every value :func:`decode_backend` can return, in preference order.
+DECODE_BACKENDS = ("paged-kernel", "dense-flash", "reference")
+
+
+def decode_backend(requested: str = "auto", *, paged: bool = False,
+                   extent: int | None = None, threshold: int = 1024,
+                   distributed: bool = False,
+                   page_tokens: int | None = None) -> str:
+    """Capability probe for decode attention (the same pure function as
+    the JAX package's): ``paged-kernel``, ``dense-flash`` (the stacked
+    split-K kernel, ops/flash_decode.py) or ``reference`` (the dense
+    path, ops/layers.py).  Under ``auto`` the kernels engage once
+    ``extent`` reaches ``threshold`` and the structure fits."""
+    if requested in ("dense", "reference") or distributed:
+        return "reference"
+    if paged:
+        if requested == "flash":
+            return "paged-kernel"
+        if (extent or 0) >= threshold and page_tokens \
+                and page_tokens % 8 == 0:
+            return "paged-kernel"
+        return "reference"
+    if requested == "flash":
+        return "dense-flash"
+    if (extent or 0) >= threshold and (extent or 0) % 128 == 0:
+        return "dense-flash"
+    return "reference"
+
+
+def matmul_backend(requested: str = "auto",
+                   device: torch.device | str | None = None) -> str:
+    """Capability probe for the fused int8 dequant-matmul.  The kernel is
+    not ported yet, so every device resolves to ``reference`` and asking
+    for the kernel (``pallas``) raises."""
+    if requested == "pallas":
+        raise not_ported("the fused int8 dequant-matmul kernel",
+                         "ROADMAP Queue 1 item 3: int8 weights and KV")
+    return "reference"

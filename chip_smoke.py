@@ -1,0 +1,471 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and hold its kernels against
+their plain PyTorch versions.
+
+    python3 chip_smoke.py
+
+It takes no options: every run drives the full depth and every phase.
+
+Phases (any failure exits non-zero; no phase catches its own failure):
+
+1. build: compile ``aiko_services_tpu_torch/csrc/*.cu`` for sm_90a (one
+   nvcc per source, in parallel) and print the build time and the card;
+2. kernels: each kernel against its plain version at the serving path's
+   shapes, with its error against a stated tolerance, its CUDA-event
+   time, its plain version's time, its bound and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``; timed
+   here only, never used by the port);
+3. serving: ``ContinuousBatcher`` on Llama-3-8B widths (random weights
+   from a seed) with flash prefill, flash decode and top-k sampling, at
+   decode_block 1 and 4; every request must finish, every kernel must
+   have launched, the greedy streams of the two runs must be equal, and
+   kernel-path logits must agree with the dense reference settings on
+   the same prefill and decode step.
+
+The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
+line, then ``{"ok": true, "device": {...}}``.  It imports nothing of
+JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+DECODE_TOL = 1e-4       # f32 queries: the two differ in summation order only
+ATTENTION_TOL = 2e-2    # bf16 out: exp in bf16 against a running max per tile
+BF16_TOL = 2e-2         # bf16 softmax weights: one-ulp flips (0.4%) of a weight
+LOGITS_TOL = 0.05       # kernel path vs dense path, relative to max |logit|
+
+
+def fail(message: str, code: int = 1):
+    print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
+    sys.exit(code)
+
+
+def card_line() -> str:
+    result = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return result.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean CUDA-event time of ``fn`` over ``iters`` launches."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, flops: float, flop_type: str):
+    """(least time in ms, what bounds it) at the card's peaks."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[flop_type]
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+# -- phase 2: kernels -------------------------------------------------------
+
+def check_decode(device) -> dict:
+    """flash_decode_attention_stacked at llama3-8b decode shapes: f32
+    scaled queries [8, 32, 128] against a [32, 8, 2048, 1024] bf16
+    cache, ragged lengths including 0 and T-1."""
+    import torch
+    from aiko_services_tpu_torch.ops import flash_decode as fd
+    gen = torch.Generator(device=device).manual_seed(1)
+    n_layers, b, t, kv, hd, h = 32, 8, 2048, 8, 128, 32
+    k = torch.randn((n_layers, b, t, kv * hd), generator=gen, device=device,
+                    dtype=torch.float32).to(torch.bfloat16)
+    v = torch.randn_like(k, dtype=torch.float32).to(torch.bfloat16)
+    q = torch.randn((b, h, hd), generator=gen, device=device).to(
+        torch.bfloat16)
+    q_scaled, _ = fd._prep_query(q, hd)
+    lengths = torch.tensor([0, 2047, 1, 1500, 513, 64, 2046, 1024],
+                           device=device, dtype=torch.int32)
+    layer = 17
+    errors = {}
+    # The f32 queries are the serving path's (head_dim 128).  The bf16 branch
+    # (power-of-two scales) rounds each softmax weight to bf16, and a
+    # weight whose f32 value differs in summation order can round to the
+    # neighbouring bf16 value: the bf16 tolerance.
+    for q_in, tol in ((q_scaled, DECODE_TOL),
+                      (q_scaled.to(torch.bfloat16), BF16_TOL)):
+        acc, m, l = fd.flash_decode_attention_stacked(
+            q_in, k, v, layer, lengths)
+        acc_r, m_r, l_r = fd.flash_decode_attention_stacked_reference(
+            q_in, k, v, layer, lengths)
+        torch.cuda.synchronize()
+        live = (l_r > 0)[..., None]
+        out = torch.where(live, acc / l[..., None], acc)
+        out_r = torch.where(live, acc_r / l_r[..., None], acc_r)
+        err = max((out - out_r).abs().max().item(),
+                  (m - m_r).abs().max().item(),
+                  ((l - l_r).abs() / l_r.clamp(min=1.0)).max().item())
+        if acc[0].abs().max() != 0 or l[0].abs().max() != 0 \
+                or (m[0] != -1e30).any():
+            raise AssertionError("decode: a length-0 row must give acc=0, "
+                                 "l=0, m=-1e30")
+        print(f"decode q={q_in.dtype}: max_abs_err {err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"decode kernel disagrees: {err} > {tol}")
+        errors[q_in.dtype] = err
+    worst = errors[torch.float32]
+    ms = time_ms(lambda: fd.flash_decode_attention_stacked(
+        q_scaled, k, v, layer, lengths))
+    plain = time_ms(lambda: fd.flash_decode_attention_stacked_reference(
+        q_scaled, k, v, layer, lengths), iters=5)
+    # Yardstick: SDPA over the same cache view (normalised output, no
+    # m/l), lengths as a boolean mask.
+    kg = k[layer].reshape(b, t, kv, hd).transpose(1, 2) \
+        .repeat_interleave(h // kv, dim=1)
+    vg = v[layer].reshape(b, t, kv, hd).transpose(1, 2) \
+        .repeat_interleave(h // kv, dim=1)
+    mask = (torch.arange(t, device=device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qs = q.float().to(torch.bfloat16)[:, :, None, :]
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask))
+    # Bytes: the live k/v rows (bf16), the f32 queries in, acc/m/l out.
+    live_tokens = int(lengths.sum().item())
+    n_bytes = 2 * live_tokens * kv * hd * 2 \
+        + q_scaled.numel() * q_scaled.element_size() + b * h * (hd + 2) * 4
+    flops = 4 * live_tokens * h * hd
+    bound, by = bound_ms(n_bytes, flops, "f32")
+    return {"name": "flash_decode_attention_stacked", "route": "cuda",
+            "source": "aiko_services_tpu_torch/csrc/flash_decode.cu",
+            "replaces": "aiko_services_tpu/ops/pallas_decode.py:387",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": library}
+
+
+def check_attention(device) -> dict:
+    """flash_attention at the last admission chunks of a 2048-token
+    prompt: q [1, 512, 32, 128] against k/v [1, 2048, 8, 128] bf16 at
+    q_offset 0 and 1536."""
+    import torch
+    from aiko_services_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(2)
+    b, s, h, t, kv, d = 1, 512, 32, 2048, 8, 128
+    q = torch.randn((b, s, h, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    k = torch.randn((b, t, kv, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    v = torch.randn((b, t, kv, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    worst = 0.0
+    timed = {}
+    for offset in (0, 1536):
+        out = fa.flash_attention(q, k, v, q_offset=offset)
+        ref = fa.flash_attention_reference(q, k, v, offset)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        print(f"attention q_offset={offset}: max_abs_err {err:.3e} "
+              f"(tol {ATTENTION_TOL})")
+        if not err <= ATTENTION_TOL:
+            raise AssertionError(f"attention kernel disagrees: {err}")
+        worst = max(worst, err)
+    offset = 1536
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, q_offset=offset))
+    plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, offset),
+                    iters=5)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+    mask = torch.arange(t, device=device)[None, :] \
+        <= offset + torch.arange(s, device=device)[:, None]
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    pairs = sum(min(t, offset + i + 1) for i in range(s))
+    flops = 4 * b * h * d * pairs
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * 2
+    bound, by = bound_ms(n_bytes, flops, "bf16")
+    timed.update({"name": "flash_attention", "route": "cuda",
+                  "source": "aiko_services_tpu_torch/csrc/flash_attention.cu",
+                  "replaces": "aiko_services_tpu/ops/pallas_attention.py:138",
+                  "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bound, "bound_by": by, "library_ms": library})
+    return timed
+
+
+def check_topk(device) -> dict:
+    """topk on [8, 128256] f32 logits with planted ties and one mostly
+    -inf row, at k 1 and 50; exact agreement with the plain version."""
+    import torch
+    from aiko_services_tpu_torch.ops.topk import topk, topk_reference
+    gen = torch.Generator(device=device).manual_seed(3)
+    b, vocab = 8, 128_256
+    x = torch.randn((b, vocab), generator=gen, device=device)
+    x[0, [7, 70_000, 128_255, 3]] = 9.0               # tied maxima
+    x[1, 1000:1100] = 5.0                             # a 100-way tie
+    x[2] = float("-inf")                              # mostly -inf
+    x[2, [5, 90_000]] = 1.0
+    x[3, ::2] = 0.25                                  # ties everywhere
+    for k in (1, 50):
+        values, indices = topk(x, k)
+        ref_v, ref_i = topk_reference(x, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(values, ref_v) and torch.equal(indices, ref_i)):
+            raise AssertionError(f"topk kernel disagrees at k={k}")
+        for row in indices.tolist():
+            if len(set(row)) != k:
+                raise AssertionError(f"topk: duplicate index at k={k}")
+        print(f"topk k={k}: exact (values and indices)")
+    ms = time_ms(lambda: topk(x, 50))
+    plain = time_ms(lambda: topk_reference(x, 50), iters=5)
+    library = time_ms(lambda: torch.topk(x, 50))
+    n_bytes = x.numel() * 4 + b * 50 * 8
+    bound, by = bound_ms(n_bytes, x.numel(), "f32")
+    return {"name": "topk", "route": "cuda",
+            "source": "aiko_services_tpu_torch/csrc/topk.cu",
+            "replaces": "aiko_services_tpu/ops/pallas_topk.py:146",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": library}
+
+
+# -- phase 3: serving -------------------------------------------------------
+
+PROMPT_LENGTHS = (100, 1500, 700, 300, 1200, 900, 513, 1024)
+NEW_TOKENS = 32
+
+
+def serving_config():
+    from aiko_services_tpu_torch.models import llama
+    return dataclasses.replace(
+        llama.LlamaConfig.llama3_8b(), max_seq=2048, attention="flash",
+        decode_attention="auto")
+
+
+def serve(params, config, decode_block: int, device, card: str) -> dict:
+    """One ContinuousBatcher run over the eight prompts; returns the
+    per-request token streams and the run's metrics."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
+                                                         Request)
+    rng = np.random.default_rng(7)
+    batcher = ContinuousBatcher(params, config, max_slots=8,
+                                prefill_chunk=512, sample_top_k=50,
+                                decode_block=decode_block, device=device)
+    streams = {}
+    for index, length in enumerate(PROMPT_LENGTHS):
+        rid = f"r{index}"
+        streams[rid] = []
+        batcher.submit(Request(
+            rid, rng.integers(0, config.vocab_size, length).tolist(),
+            max_new_tokens=NEW_TOKENS,
+            temperature=0.0 if index % 2 == 0 else 0.8,
+            emit=lambda r, token, done: streams[r].append(token)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    begin = time.perf_counter()
+    batcher.run_until_drained(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - begin
+    stats = batcher.take_request_stats()
+    for rid, tokens in streams.items():
+        if len(tokens) != NEW_TOKENS:
+            raise AssertionError(f"decode_block={decode_block}: {rid} got "
+                                 f"{len(tokens)} of {NEW_TOKENS} tokens")
+    ttft = sorted(s["ttft_ms"] for s in stats)
+    metrics = {
+        "decode_block": decode_block, "requests": len(streams),
+        "tokens": batcher.tokens_emitted,
+        "prefill_tokens": batcher.prefill_tokens,
+        "wall_s": wall, "tokens_per_s": batcher.tokens_emitted / wall,
+        "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "card": card}
+    del batcher
+    torch.cuda.empty_cache()
+    return {"streams": streams, "metrics": metrics}
+
+
+def check_dense_agreement(params, config, device) -> dict:
+    """The same chunked prefill (a 1500-token prompt, 3 chunks into slot
+    3) and one decode step through three settings: the kernel path, the
+    dense reference path in bf16, and the dense path in float32 on the
+    same weights (the precision yardstick).  The kernel path's logits
+    must agree with the bf16 dense path to LOGITS_TOL of max |logit|,
+    and may lose at most twice the dense bf16 path's error against f32
+    (plus 1e-3), so a kernel computing in lower precision than the
+    dense path fails."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    gen = torch.Generator(device=device).manual_seed(11)
+    prompt = torch.randint(0, config.vocab_size, (1, 1500), generator=gen,
+                           device=device)
+    dense = dataclasses.replace(config, attention="dense",
+                                decode_attention="dense")
+    exact = dataclasses.replace(dense, dtype="float32")
+    params32 = _map(params, lambda leaf: leaf.float())
+    results = {}
+    for label, cfg, weights in (("kernel", config, params),
+                                ("dense", dense, params),
+                                ("f32", exact, params32)):
+        cache = llama.init_cache(cfg, 8, device=device)
+        for start in (0, 512, 1024):
+            chunk = torch.zeros((1, 512), dtype=torch.long, device=device)
+            part = prompt[:, start:start + 512]
+            chunk[:, :part.shape[1]] = part
+            logits, cache = llama.prefill_into_slot(weights, cfg, chunk,
+                                                    cache, 3, start)
+        prefill_logits = logits[0, 1500 - 1024 - 1].float()
+        tokens = torch.full((8,), 17, dtype=torch.long, device=device)
+        tokens[3] = prompt[0, 0]
+        lengths = torch.full((8,), 2047, dtype=torch.int32, device=device)
+        lengths[3] = 1500
+        step_logits, cache = llama.decode_step(weights, cfg, tokens, cache,
+                                               lengths)
+        results[label] = (prefill_logits, step_logits[3].float())
+        del cache
+    del params32
+    out = {}
+    for index, name in enumerate(("prefill", "decode")):
+        kernel, ref, exact_ref = (results[label][index]
+                                  for label in ("kernel", "dense", "f32"))
+
+        def rel(a, b):
+            return ((a - b).abs().max() / b.abs().max()).item()
+        err, err_kernel, err_dense = (rel(kernel, ref), rel(kernel, exact_ref),
+                                      rel(ref, exact_ref))
+        same = int(kernel.argmax()) == int(ref.argmax())
+        print(f"{name} logits: kernel vs dense bf16 max rel err {err:.3e} "
+              f"(tol {LOGITS_TOL}), argmax agree {same}; against f32: "
+              f"kernel {err_kernel:.3e}, dense bf16 {err_dense:.3e}")
+        if not err <= LOGITS_TOL:
+            raise AssertionError(f"{name} logits disagree: {err}")
+        if not err_kernel <= 2 * err_dense + 1e-3:
+            raise AssertionError(f"{name}: the kernel path loses more "
+                                 f"precision than the dense bf16 path")
+        out[name] = err
+    return out
+
+
+def _map(tree: dict, fn) -> dict:
+    return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
+            for name, value in tree.items()}
+
+
+def main() -> int:
+    if len(sys.argv) > 1:
+        fail(f"takes no arguments, got {sys.argv[1:]}", 2)
+    if not (ROOT / "aiko_services_tpu_torch" / "csrc").is_dir():
+        fail(f"{ROOT} holds no aiko_services_tpu_torch package", 2)
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a "
+             "CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from aiko_services_tpu_torch.ops import _build
+    from aiko_services_tpu_torch.ops.flash_attention import flash_attention
+    from aiko_services_tpu_torch.ops.flash_decode import (
+        flash_decode_attention_stacked)
+    from aiko_services_tpu_torch.ops.topk import topk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    print(f"card: {card}", flush=True)
+
+    begin = time.perf_counter()
+    _build.load_library()
+    print(f"build: {time.perf_counter() - begin:.1f} s")
+    for source, log in sorted(_build.build_log.items()):
+        for line in log.splitlines():
+            if "registers" in line:
+                print(f"  {source}: {line.strip()}")
+
+    kernels = [check_decode(device), check_attention(device),
+               check_topk(device)]
+    for entry in kernels:
+        print(f"{entry['name']}: {entry['ms']:.4f} ms (plain "
+              f"{entry['plain_ms']:.4f}, library {entry['library_ms']:.4f}, "
+              f"bound {entry['bound_ms']:.4f} by {entry['bound_by']}) "
+              f"on {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    wrappers = {"flash_decode_attention_stacked":
+                flash_decode_attention_stacked,
+                "flash_attention": flash_attention, "topk": topk}
+    from aiko_services_tpu_torch.models import llama
+    config = serving_config()
+    begin = time.perf_counter()
+    params = llama.init_params(0, config, device=device)
+    torch.cuda.synchronize()
+    print(f"llama3-8b widths, {config.n_layers} layers: random init "
+          f"{time.perf_counter() - begin:.1f} s, "
+          f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
+          f"params")
+    runs = {}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for decode_block in (1, 4):
+        before = {name: fn.launches for name, fn in wrappers.items()}
+        runs[decode_block] = serve(params, config, decode_block,
+                                   device, card)
+        counts = {name: fn.launches - before[name]
+                  for name, fn in wrappers.items()}
+        print(f"serving {json.dumps(runs[decode_block]['metrics'])} "
+              f"launches {json.dumps(counts)}", flush=True)
+        for name, count in counts.items():
+            if count <= 0:
+                raise AssertionError(
+                    f"decode_block={decode_block}: {name} never "
+                    f"launched on the serving path")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    greedy = [rid for index, rid in enumerate(runs[1]["streams"])
+              if index % 2 == 0]
+    agree = sum(runs[1]["streams"][rid] == runs[4]["streams"][rid]
+                for rid in greedy)
+    print(f"greedy streams equal across decode_block 1 and 4: "
+          f"{agree}/{len(greedy)}")
+    if agree != len(greedy):
+        raise AssertionError("decode_block 4 emitted other greedy tokens "
+                             "than decode_block 1")
+    check_dense_agreement(params, config, device)
+    del params
+    torch.cuda.empty_cache()
+
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _leaves(tree):
+    for value in tree.values():
+        if isinstance(value, dict):
+            yield from _leaves(value)
+        else:
+            yield value
+
+
+if __name__ == "__main__":
+    sys.exit(main())

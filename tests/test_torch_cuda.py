@@ -1,0 +1,56 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at small shapes (``chip_smoke.py`` repeats this at the serving
+path's shapes).  Imports no JAX, so it runs on the card machine:
+
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Without a card every test here skips."""
+
+import pytest
+import torch
+
+from aiko_services_tpu_torch.ops import flash_attention as tatt
+from aiko_services_tpu_torch.ops import flash_decode as tdec
+from aiko_services_tpu_torch.ops.topk import topk, topk_reference
+
+F32 = dict(atol=1e-4, rtol=1e-4)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions(cuda_device):
+    """Each CUDA kernel against its plain version on the card, at small
+    shapes (chip_smoke.py repeats this at the serving shapes)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    k = torch.randn((2, 3, 256, 2 * 128), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    v = torch.randn_like(k, dtype=torch.float32).to(torch.bfloat16)
+    q = torch.randn((3, 8, 128), generator=gen, device=cuda_device)
+    q_scaled, _ = tdec._prep_query(q.to(torch.bfloat16), 128)
+    lengths = torch.tensor([0, 1, 255], dtype=torch.int32,
+                           device=cuda_device)
+    got = tdec.flash_decode_attention_stacked(q_scaled, k, v, 1, lengths)
+    want = tdec.flash_decode_attention_stacked_reference(q_scaled, k, v, 1,
+                                                         lengths)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **F32)
+    qa = torch.randn((1, 40, 8, 128), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    ka = k[1, :1].reshape(1, 256, 2, 128)
+    va = v[1, :1].reshape(1, 256, 2, 128)
+    torch.testing.assert_close(
+        tatt.flash_attention(qa, ka, va, q_offset=100).float(),
+        tatt.flash_attention_reference(qa, ka, va, 100).float(), **BF16)
+    x = torch.randn((3, 5000), generator=gen, device=cuda_device)
+    x[0, ::7] = 3.0
+    for kk in (1, 50):
+        got_v, got_i = topk(x, kk)
+        ref_v, ref_i = topk_reference(x, kk)
+        assert torch.equal(got_v, ref_v) and torch.equal(got_i, ref_i)

@@ -1,0 +1,161 @@
+"""Port parity for the three kernels of the serving path: each plain
+PyTorch version (what the wrapper runs on a CPU tensor) against the JAX
+Pallas kernel in interpret mode on the same seeded inputs.  Tolerances:
+float32 1e-4 (summation order), bf16 2e-2 (bf16 rounding of softmax
+weights), top-k exact.  The CUDA kernels themselves are held against
+these plain versions on the card by ``chip_smoke.py`` and by
+``tests/test_torch_cuda.py``, which skips without a card."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aiko_services_tpu.ops import pallas_attention as jatt
+from aiko_services_tpu.ops import pallas_decode as jdec
+from aiko_services_tpu.ops import pallas_topk as jtopk
+from aiko_services_tpu_torch.ops import flash_attention as tatt
+from aiko_services_tpu_torch.ops import flash_decode as tdec
+from aiko_services_tpu_torch.ops.topk import topk
+
+F32 = dict(atol=1e-4, rtol=1e-4)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x).copy())
+
+
+def _close(actual, expected, tol):
+    np.testing.assert_allclose(np.asarray(actual, dtype=np.float64),
+                               np.asarray(expected, dtype=np.float64),
+                               **tol)
+
+
+def _decode_inputs(seed, d, dtype):
+    """[L=2, B=3, T=64, K=2 * d] cache, 4 query heads on 2 kv heads
+    (GQA 4:2), lengths {0, 1, T-1}."""
+    rng = np.random.default_rng(seed)
+    n_layers, b, t, kv, h = 2, 3, 64, 2, 4
+    k = rng.normal(size=(n_layers, b, t, kv * d)).astype(np.float32)
+    v = rng.normal(size=(n_layers, b, t, kv * d)).astype(np.float32)
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    k_new = rng.normal(size=(b, 1, kv, d)).astype(np.float32)
+    v_new = rng.normal(size=(b, 1, kv, d)).astype(np.float32)
+    lengths = np.array([0, 1, t - 1], dtype=np.int32)
+    jdtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    jx = [jnp.asarray(a, jdtype) for a in (k, v, q, k_new, v_new)]
+    tx = [_t(a).to(tdtype) for a in (k, v, q, k_new, v_new)]
+    return jx, tx, lengths, h, kv
+
+
+# d = 32: scale 2^-2.5 is no power of two -> f32 queries (the llama3-8b
+# branch); d = 16: scale 1/4 folds into bf16 queries (the bf16 branch).
+DECODE_CASES = [(32, "float32", F32), (32, "bfloat16", F32),
+                (16, "bfloat16", BF16), (16, "float32", F32)]
+
+
+@pytest.mark.parametrize("d,dtype,tol", DECODE_CASES)
+def test_decode_kernel_plain_matches_pallas(d, dtype, tol):
+    jx, tx, lengths, h, kv = _decode_inputs(1, d, dtype)
+    (kj, vj, qj, _, _), (kt, vt, qt, _, _) = jx, tx
+    q_pad_j, _, _, _ = jdec._prep_query(qj[:, 0], h, kv, d)
+    q_t, _ = tdec._prep_query(qt[:, 0], d)
+    # The port's queries and accumulator are compact: each head's own kv
+    # block of the TPU kernel's block-diagonal [B, H, K*hd] layout.
+    blocks = np.arange(h) // (h // kv)
+
+    def own(x):
+        return _np(x).reshape(3, h, kv, d)[:, np.arange(h), blocks]
+    assert str(q_t.dtype) == f"torch.{q_pad_j.dtype}"
+    _close(q_t.float(), own(q_pad_j), F32)
+    layer = 1
+    acc_j, m_j, l_j = jdec.flash_decode_attention_stacked(
+        q_pad_j, kj, vj, None, None, layer, jnp.asarray(lengths))
+    acc_t, m_t, l_t = tdec.flash_decode_attention_stacked(
+        q_t, kt, vt, layer, _t(lengths))
+    _close(acc_t, own(acc_j), tol)
+    _close(m_t, _np(m_j), tol)
+    _close(l_t, _np(l_j), tol)
+    assert bool((m_t[0] == -1e30).all()) and float(l_t[0].abs().max()) == 0
+    assert float(acc_t[0].abs().max()) == 0
+
+
+@pytest.mark.parametrize("d,dtype,tol", DECODE_CASES)
+def test_decode_append_matches_pallas(d, dtype, tol):
+    jx, tx, lengths, h, kv = _decode_inputs(2, d, dtype)
+    kj, vj, qj, knj, vnj = jx
+    kt, vt, qt, knt, vnt = tx
+    out_j = jdec.flash_decode_append_stacked(
+        qj, jdec._split_stacked(kj), jdec._split_stacked(vj), 1, knj, vnj,
+        jnp.asarray(lengths))
+    out_t = tdec.flash_decode_append_stacked(
+        qt, tdec._split_stacked(kt), tdec._split_stacked(vt), 1, knt, vnt,
+        _t(lengths))
+    assert out_t.dtype == tx[2].dtype
+    assert torch.isfinite(out_t.float()).all()
+    _close(out_t.float(), _np(out_j), tol)
+
+
+ATTENTION_CASES = [(32, "float32", 0, 20, F32), (32, "float32", 9, 20, F32),
+                   (16, "bfloat16", 9, 20, BF16),
+                   (16, "float32", 30, 13, F32)]
+
+
+@pytest.mark.parametrize("d,dtype,offset,s,tol", ATTENTION_CASES)
+def test_attention_plain_matches_pallas(d, dtype, offset, s, tol):
+    """q_offset > 0 and S not a multiple of the block; k/v span the
+    whole slot row (T = 48), the tail hidden by causality."""
+    rng = np.random.default_rng(3)
+    b, h, kv, t = 2, 4, 2, 48
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, t, kv, d)).astype(np.float32)
+    v = rng.normal(size=(b, t, kv, d)).astype(np.float32)
+    jdtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    out_j = jatt.flash_attention(*(jnp.asarray(a, jdtype) for a in (q, k, v)),
+                                 q_offset=offset, block_q=8, block_k=16)
+    out_t = tatt.flash_attention(*(_t(a).to(tdtype) for a in (q, k, v)),
+                                 q_offset=offset)
+    assert out_t.dtype == tdtype
+    _close(out_t.float(), _np(out_j), tol)
+
+
+def _topk_rows(v):
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(5, v)).astype(np.float32)
+    x[0, [3, 11, v - 1]] = 7.0                     # tied maxima
+    x[1, :] = 0.5                                  # everything tied
+    x[2, :] = -np.inf                              # mostly -inf
+    x[2, [4, v - 2]] = 1.0
+    x[3, :] = -np.inf                              # all -inf
+    x[4, ::3] = x[4, 0]                            # ties at a random value
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("v", [300, 128])
+def test_topk_plain_matches_pallas_and_lax(k, v):
+    x = _topk_rows(v)
+    values, indices = topk(_t(x), k)
+    pv, pi = jtopk.topk(jnp.asarray(x), k, block_v=128)
+    lv, li = jax.lax.top_k(jnp.asarray(x), k)
+    assert indices.dtype == torch.int32
+    np.testing.assert_array_equal(values.numpy(), np.asarray(lv))
+    np.testing.assert_array_equal(indices.numpy(), np.asarray(li))
+    np.testing.assert_array_equal(values.numpy(), np.asarray(pv))
+    np.testing.assert_array_equal(indices.numpy(), np.asarray(pi))
+    for row in indices.numpy():
+        assert len(set(row.tolist())) == k
+
+
+@pytest.mark.parametrize("k", [0, 129, 301])
+def test_topk_rejects_k_out_of_range(k):
+    with pytest.raises(ValueError, match="must be in"):
+        topk(torch.zeros(2, 300), k)
