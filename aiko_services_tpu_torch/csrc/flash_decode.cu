@@ -1,20 +1,43 @@
-// Split-K decode attention over one layer of the layer-stacked KV cache.
+// Split-K decode attention: one query token per batch row against the
+// first lengths[b] positions of that row's cache, over three layouts that
+// share ONE kernel body (a template parameter supplies the address of
+// cache row t):
 //
-// Replaces the TPU kernel flash_decode_attention_stacked
-// (aiko_services_tpu/ops/pallas_decode.py).  One query token per batch
-// row attends the first lengths[b] positions of its row of cache[layer];
-// the result is the unnormalised online-softmax state (acc, m, l) that
+//  - flat [B, T, K*hd] views with per-row strides.  Replaces the TPU
+//    kernels flash_decode_attention (aiko_services_tpu/ops/
+//    pallas_decode.py:285, kernel #1) and, through the cache[layer] view
+//    of the layer-stacked cache, flash_decode_attention_stacked (:387,
+//    kernel #2);
+//  - paged pools [P, pt, K*hd] (one layer of [L, P, pt, K*hd]) walked
+//    through a [B, pps] int32 page table.  Replaces
+//    flash_decode_attention_paged (:487, kernel #3).
+//
+// The result is the unnormalised online-softmax state (acc, m, l) that
 // the caller merges with the current token's own k/v.
 //
 // What bounds it on an H100: bytes.  Each launch streams the live part of
 // one layer's K and V (at B=8, T=2048, K*hd=1024, bf16: 64 MiB) and does
 // ~4 FLOP per cached element, far below the card's ~295 FLOP/byte ridge.
+// The paged form adds only the live table entries (4 bytes a page).
 //
 // Design:
 //  - The TPU kernel carries (m, l, acc) across a sequential grid axis in
 //    VMEM.  Hopper blocks run in no order, so one block owns one
 //    (batch row, kv head) pair and loops over T itself, 64 positions per
 //    tile, keeping m and l in shared memory and acc in registers.
+//  - The three layouts differ ONLY in where row t lives, so the tile loop,
+//    the products and the softmax run the same instructions in the same
+//    order: the paged kernel is bitwise equal to the flat kernel on the
+//    gathered view (the twin of the JAX package's acceptance gate
+//    test_paged_kernel_bitwise_matches_dense_kernel).  The TPU kernel's
+//    pages ARE its time blocks; here the 64-position tile is independent
+//    of the page size, so any pt that is a multiple of 8 works, pt < 64
+//    included (a tile then spans several pages).
+//  - Paged: the block copies its row's LIVE table entries into shared
+//    memory once, at block start (ceil(length / pt) ints; the TPU kernel
+//    scalar-prefetched the whole table), and resolves row t as
+//    pool[table[t / pt], t % pt].  Entries are clamped into [0, P) so a
+//    corrupt table cannot read outside the pool.
 //  - GQA on the TPU was a block-diagonal product of zero-padded queries
 //    [B, H, K*hd] over the fused K*hd axis (a lane-alignment trick for
 //    the MXU).  Here the queries come compact as [B, H, hd] and a block
@@ -36,7 +59,7 @@
 //
 // Known limit: B * K blocks (64 at llama3-8b with 8 slots) leave about
 // half of the 132 SMs idle.  Splitting T across blocks with a second
-// combine pass is the next step (a later change).
+// combine pass is the next step for all three forms (a later change).
 #include "common.cuh"
 
 namespace {
@@ -46,23 +69,58 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
 
-template <int HD, int G, typename QT>
+// Row addressing of a flat [B, T, C] view: row t of batch row b at
+// base + b * stride_b + t * stride_t.
+struct FlatRows {
+  long long stride_b, stride_t;
+  const int32_t* table;   // unused
+  int pps, page_tokens, n_pages;
+  long long page_stride;
+
+  __device__ __forceinline__ void load(int, int, int*) const {}
+  __device__ __forceinline__ long long row(int b, int t, const int*) const {
+    return b * stride_b + t * stride_t;
+  }
+};
+
+// Row addressing of a paged pool [P, pt, C]: row t of batch row b at
+// base + table[b, t / pt] * page_stride + (t % pt) * stride_t.
+struct PagedRows {
+  long long stride_b, stride_t;   // stride_b unused
+  const int32_t* table;           // [B, pps]
+  int pps, page_tokens, n_pages;
+  long long page_stride;
+
+  __device__ __forceinline__ void load(int b, int length, int* tbl) const {
+    const int live = (length + page_tokens - 1) / page_tokens;
+    for (int i = threadIdx.x; i < live; i += kThreads) {
+      const int page = table[(long long)b * pps + i];
+      tbl[i] = min(max(page, 0), n_pages - 1);
+    }
+  }
+  __device__ __forceinline__ long long row(int, int t, const int* tbl) const {
+    return tbl[t / page_tokens] * page_stride
+           + (long long)(t % page_tokens) * stride_t;
+  }
+};
+
+template <int HD, int G, typename QT, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
-                    const __nv_bfloat16* __restrict__ k,   // cache[layer]
+                    const __nv_bfloat16* __restrict__ k,   // one layer
                     const __nv_bfloat16* __restrict__ v,
                     const int32_t* __restrict__ lengths,   // [B]
                     float* __restrict__ acc_out,           // [B, H, HD]
                     float* __restrict__ m_out,             // [B, H]
                     float* __restrict__ l_out,             // [B, H]
-                    int n_kv, int t_len, long long stride_b,
-                    long long stride_t) {
+                    int n_kv, int t_len, Rows rows) {
   constexpr int LPR = HD / 16;     // lanes sharing one row (score phase)
   constexpr int RPW = 32 / LPR;    // rows a warp scores per pass
   constexpr int DPL = HD / 32;     // dims a lane owns (PV phase)
   __shared__ float p_s[G][kTile];
   __shared__ float m_s[G], l_s[G], corr_s[G];
   __shared__ float red_s[kWarps][G][HD];
+  extern __shared__ int tbl_s[];   // paged: the row's live table entries
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -90,10 +148,11 @@ flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
     m_s[threadIdx.x] = kNegInf;
     l_s[threadIdx.x] = 0.f;
   }
+  rows.load(b, length, tbl_s);
   __syncthreads();
 
-  const __nv_bfloat16* kb = k + b * stride_b + kvh * HD;
-  const __nv_bfloat16* vb = v + b * stride_b + kvh * HD;
+  const __nv_bfloat16* kb = k + kvh * HD;
+  const __nv_bfloat16* vb = v + kvh * HD;
   const int n_tiles = (length + kTile - 1) / kTile;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int t0 = tile * kTile;
@@ -104,7 +163,7 @@ flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
       for (int g = 0; g < G; ++g) part[g] = 0.f;
       if (t < length) {
         float kf[16];
-        aiko::load_vec<16>(kb + t * stride_t + sub * 16, kf);
+        aiko::load_vec<16>(kb + rows.row(b, t, tbl_s) + sub * 16, kf);
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -161,7 +220,7 @@ flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
       const int t = t0 + r;
       if (t >= length) break;
       float vf[DPL];
-      aiko::load_vec<DPL>(vb + t * stride_t + lane * DPL, vf);
+      aiko::load_vec<DPL>(vb + rows.row(b, t, tbl_s) + lane * DPL, vf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = p_s[g][r];
@@ -192,65 +251,111 @@ flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
   }
 }
 
-template <int HD, int G>
-int launch(const void* q, int q_bf16, const void* k, const void* v,
-           const void* lengths, void* acc, void* m, void* l, int batch,
-           int n_kv, int t_len, long long stride_b, long long stride_t,
-           cudaStream_t stream) {
-  const dim3 grid(n_kv, batch);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* lp = static_cast<const int32_t*>(lengths);
-  if (q_bf16) {
-    flash_decode_kernel<HD, G, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), kp, vp, lp,
-        static_cast<float*>(acc), static_cast<float*>(m),
-        static_cast<float*>(l), n_kv, t_len, stride_b, stride_t);
-  } else {
-    flash_decode_kernel<HD, G, float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(q), kp, vp, lp,
-        static_cast<float*>(acc), static_cast<float*>(m),
-        static_cast<float*>(l), n_kv, t_len, stride_b, stride_t);
+// Everything a launch needs besides the two template choices.
+struct Args {
+  const void* q;
+  int q_bf16;
+  const void* k;
+  const void* v;
+  const void* lengths;
+  void* acc;
+  void* m;
+  void* l;
+  int batch, n_kv, t_len;
+};
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per
+// kernel; asked for only when a launch needs it.
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, int dynamic_bytes) {
+  cudaFuncAttributes attributes;
+  cudaError_t status = cudaFuncGetAttributes(&attributes, kernel);
+  if (status != cudaSuccess) return status;
+  if (attributes.sharedSizeBytes + dynamic_bytes <= 48 * 1024)
+    return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic_bytes);
+}
+
+template <int HD, int G, typename QT, typename Rows>
+int launch_typed(const Args& a, Rows rows, int dynamic_bytes,
+                 cudaStream_t stream) {
+  auto kernel = flash_decode_kernel<HD, G, QT, Rows>;
+  if (dynamic_bytes > 0) {
+    const cudaError_t status = allow_shared(kernel, dynamic_bytes);
+    if (status != cudaSuccess) return static_cast<int>(status);
   }
+  const dim3 grid(a.n_kv, a.batch);
+  kernel<<<grid, kThreads, dynamic_bytes, stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const int32_t*>(a.lengths), static_cast<float*>(a.acc),
+      static_cast<float*>(a.m), static_cast<float*>(a.l), a.n_kv, a.t_len,
+      rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
-int launch_groups(int groups, const void* q, int q_bf16, const void* k,
-                  const void* v, const void* lengths, void* acc, void* m,
-                  void* l, int batch, int n_kv, int t_len, long long stride_b,
-                  long long stride_t, cudaStream_t stream) {
+template <int HD, int G, typename Rows>
+int launch(const Args& a, Rows rows, int dynamic_bytes, cudaStream_t s) {
+  if (a.q_bf16)
+    return launch_typed<HD, G, __nv_bfloat16>(a, rows, dynamic_bytes, s);
+  return launch_typed<HD, G, float>(a, rows, dynamic_bytes, s);
+}
+
+template <int HD, typename Rows>
+int launch_groups(int groups, const Args& a, Rows rows, int dynamic_bytes,
+                  cudaStream_t s) {
   switch (groups) {
-    case 1: return launch<HD, 1>(q, q_bf16, k, v, lengths, acc, m, l,
-                                 batch, n_kv, t_len, stride_b, stride_t, stream);
-    case 2: return launch<HD, 2>(q, q_bf16, k, v, lengths, acc, m, l,
-                                 batch, n_kv, t_len, stride_b, stride_t, stream);
-    case 4: return launch<HD, 4>(q, q_bf16, k, v, lengths, acc, m, l,
-                                 batch, n_kv, t_len, stride_b, stride_t, stream);
-    case 8: return launch<HD, 8>(q, q_bf16, k, v, lengths, acc, m, l,
-                                 batch, n_kv, t_len, stride_b, stride_t, stream);
+    case 1: return launch<HD, 1>(a, rows, dynamic_bytes, s);
+    case 2: return launch<HD, 2>(a, rows, dynamic_bytes, s);
+    case 4: return launch<HD, 4>(a, rows, dynamic_bytes, s);
+    case 8: return launch<HD, 8>(a, rows, dynamic_bytes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename Rows>
+int launch_dims(int head_dim, int groups, const Args& a, Rows rows,
+                int dynamic_bytes, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return launch_groups<64>(groups, a, rows, dynamic_bytes, s);
+    case 128: return launch_groups<128>(groups, a, rows, dynamic_bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// Flat form (kernels #1 and #2): k/v point at a [B, T, C] view whose rows
+// sit at b * stride_b + t * stride_t elements.
 extern "C" int aiko_flash_decode(const void* q, int q_bf16, const void* k,
                                  const void* v, const void* lengths, void* acc,
                                  void* m, void* l, int batch, int n_kv,
                                  int groups, int head_dim, int t_len,
                                  long long stride_b, long long stride_t,
                                  void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64: return launch_groups<64>(groups, q, q_bf16, k, v, lengths,
-                                      acc, m, l, batch, n_kv, t_len, stride_b,
-                                      stride_t, s);
-    case 128: return launch_groups<128>(groups, q, q_bf16, k, v, lengths,
-                                        acc, m, l, batch, n_kv, t_len,
-                                        stride_b, stride_t, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Args a{q, q_bf16, k, v, lengths, acc, m, l, batch, n_kv, t_len};
+  const FlatRows rows{stride_b, stride_t, nullptr, 0, 1, 1, 0};
+  return launch_dims(head_dim, groups, a, rows, 0, stream);
+}
+
+// Paged form (kernel #3): k/v point at one layer of the pools, [P, pt, C]
+// with rows page_stride and stride_t elements apart; table is [B, pps].
+extern "C" int aiko_flash_decode_paged(const void* q, int q_bf16,
+                                       const void* k, const void* v,
+                                       const void* table, const void* lengths,
+                                       void* acc, void* m, void* l, int batch,
+                                       int n_kv, int groups, int head_dim,
+                                       int pps, int page_tokens, int n_pages,
+                                       long long page_stride,
+                                       long long stride_t, void* stream) {
+  const Args a{q, q_bf16, k, v, lengths, acc, m, l, batch, n_kv,
+               pps * page_tokens};
+  const PagedRows rows{0, stride_t, static_cast<const int32_t*>(table), pps,
+                       page_tokens, n_pages, page_stride};
+  return launch_dims(head_dim, groups, a, rows,
+                     pps * static_cast<int>(sizeof(int)), stream);
 }
 
 extern "C" const char* aiko_error_string(int status) {

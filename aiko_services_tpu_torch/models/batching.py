@@ -20,12 +20,21 @@ same code:
   and the emitted tokens come back by an asynchronous copy into pinned
   host memory that the retire waits on through a CUDA event.  Tokens a
   request emits past its EOS or budget inside an in-flight block are
-  discarded host-side.
+  discarded host-side;
+- with ``kv_page_tokens > 0`` the KV cache is PAGED (models/paged.py):
+  slots borrow fixed-size pages from a shared pool as their sequences
+  grow, a finished or evicted slot returns them, and a pool smaller
+  than full provisioning (``kv_pages``) preempts the youngest occupant
+  under pressure (it resumes later from its committed tokens).  Dirty
+  page-table rows reach the device as one copy enqueued on the current
+  stream, after the blocks already in flight; with blocks in flight an
+  allocation that needs an eviction waits for them to retire;
+- ``prefix_cache`` (paged only) lets a request whose prompt starts with
+  indexed whole pages adopt them read-only and skip their prefill.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the paged cache and prefix cache, the device-resident loop
-(``decode_block_tokens``) and speculation, ``recover()`` and
-``export_state()``/``import_state()``.
+item): the device-resident loop (``decode_block_tokens``) and
+speculation, ``recover()`` and ``export_state()``/``import_state()``.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 from . import llama
+from .paged import PageAllocator, init_paged_cache, pages_per_slot
 from ..device import resolve_device
 from ..utils.misc import next_power_of_two, not_ported
 
@@ -132,8 +142,10 @@ class ContinuousBatcher:
                  prefill_chunk: int = 512, rng_seed: int = 0,
                  decode_block: int = 1, inflight: int = 2,
                  decode_block_tokens: int = 0, speculative: str = "off",
-                 kv_page_tokens: int = 0, sample_top_k: int = 0,
+                 kv_page_tokens: int = 0, kv_pages: int | None = None,
+                 sample_top_k: int = 0,
                  prefix_cache: bool | str = False,
+                 prefix_min_tokens: int = 64,
                  on_block: Callable | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
@@ -150,12 +162,6 @@ class ContinuousBatcher:
             raise not_ported("speculative decoding", "ROADMAP Queue 1: "
                              "the device loop with speculation and "
                              "flash_verify_append")
-        if int(kv_page_tokens) > 0:
-            raise not_ported("the paged KV cache (kv_page_tokens > 0)",
-                             "ROADMAP Queue 1: paged KV with kernel #3")
-        if _knob_on(prefix_cache, default=False):
-            raise not_ported("the shared-prefix cache", "ROADMAP Queue 1:"
-                             " paged KV with kernel #3")
         self.params = params
         self.config = config
         self.max_slots = max_slots
@@ -169,8 +175,38 @@ class ContinuousBatcher:
                 f"sample_top_k={self.sample_top_k}: the top-k kernel "
                 f"holds at most 128 candidates; use k <= 128 (0 = "
                 f"full-vocab categorical)")
-        self.cache = llama.init_cache(config, max_slots, self.max_seq,
-                                      device=self.device)
+        # Paged KV cache: fixed-size pages + per-slot page table; 0 keeps
+        # the monolithic [slots, max_seq] cache.
+        self.kv_page_tokens = max(0, int(kv_page_tokens))
+        # Shared-prefix page cache: requests whose prompts share leading
+        # pages map ONE physical copy, refcounted, and skip prefill over
+        # the shared span.  Rides the page table, so it needs paging.
+        self.prefix_cache = _knob_on(prefix_cache, default=False)
+        self.prefix_min_tokens = max(1, int(prefix_min_tokens))
+        if self.prefix_cache and not self.kv_page_tokens:
+            raise ValueError(
+                "prefix_cache: on shares KV at page granularity: set "
+                "kv_page_tokens > 0")
+        self._pages: PageAllocator | None = None
+        if self.kv_page_tokens:
+            pps = pages_per_slot(self.max_seq, self.kv_page_tokens)
+            if self.prefill_chunk % self.kv_page_tokens:
+                raise ValueError(
+                    f"kv_page_tokens={self.kv_page_tokens} must divide "
+                    f"prefill_chunk ({self.prefill_chunk}) so admission "
+                    f"chunks stay page-aligned")
+            self.cache = init_paged_cache(
+                config, max_slots, self.max_seq, self.kv_page_tokens,
+                kv_pages, device=self.device)
+            self._pages = PageAllocator(
+                llama.cache_array(self.cache).shape[1], pps, max_slots,
+                prefix_cache=self.prefix_cache,
+                prefix_min_tokens=self.prefix_min_tokens)
+            # Host mirror of the device page table (dirty rows fold in).
+            self._table_host = np.zeros((max_slots, pps), dtype=np.int32)
+        else:
+            self.cache = llama.init_cache(config, max_slots, self.max_seq,
+                                          device=self.device)
         self.on_block = on_block
         self.lengths = np.zeros(max_slots, dtype=np.int32)
         self.current = np.zeros(max_slots, dtype=np.int32)
@@ -191,11 +227,18 @@ class ContinuousBatcher:
         self._temps_dev = None
         self._pending_first: dict[int, tuple] = {}   # slot -> (req, dev)
         self._inflight: deque[_InflightBlock] = deque()
+        # Conservative per-slot length bound for page allocation while
+        # blocks are in flight.
+        self._lengths_upper = np.zeros(max_slots, dtype=np.int32)
         self._admit_seq = 0
         # perf counters
         self.tokens_emitted = 0
         self.steps = 0
         self.prefill_tokens = 0
+        self.evictions = 0
+        # Prompt tokens admission skipped because their pages were
+        # adopted from the prefix index.
+        self.prefix_shared_tokens = 0
         self._request_stats: list[dict] = []
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
@@ -236,10 +279,19 @@ class ContinuousBatcher:
             request = self._next_pending()
             request.slot = slot
             request.prefill_pos = 0
+            if self._pages is not None and self.prefix_cache:
+                # Map the longest indexed page chain matching this prompt
+                # read-only and start prefill past it.
+                shared = self._pages.adopt_prefix(
+                    slot, request.prompt_tokens, self.kv_page_tokens)
+                if shared:
+                    request.prefill_pos = shared
+                    self.prefix_shared_tokens += shared
             request.admit_seq = self._admit_seq
             self._admit_seq += 1
             self.slots[slot] = request
             self.lengths[slot] = 0
+            self._lengths_upper[slot] = 0
             self.current[slot] = 0
             self.temperatures[slot] = request.temperature
             self._temps_dev = None
@@ -260,12 +312,16 @@ class ContinuousBatcher:
             else min(1, len(self._prefilling))
         for _ in range(budget):
             if not self._prefilling:
-                break
+                break           # shrunk by a pressure eviction below
             slot = self._prefilling.pop(0)
             request = self.slots[slot]
-            if request is None:     # cancelled while waiting
+            if request is None:     # cancelled or evicted while waiting
                 continue
             start, chunk_tokens = self._admission_chunk(request)
+            if not self._ensure_pages(slot, start + self.prefill_chunk):
+                self._prefilling.append(slot)   # pool pressure: wait
+                continue
+            self._sync_page_table()
             padded = np.zeros((1, self.prefill_chunk), dtype=np.int64)
             padded[0, :len(chunk_tokens)] = chunk_tokens
             logits, self.cache = llama.prefill_into_slot(
@@ -277,12 +333,27 @@ class ContinuousBatcher:
     def _prefill_tick_batched(self):
         """One chunk for every admitting slot in one batched pass, N
         padded to a power of two by repeating the first row."""
-        admitting = [slot for slot in self._prefilling
+        admitting = []
+        for _ in range(len(self._prefilling)):
+            if not self._prefilling:
+                break           # shrunk by a pressure eviction below
+            slot = self._prefilling.pop(0)
+            if self.slots[slot] is None:    # cancelled or evicted
+                continue
+            start, _ = self._admission_chunk(self.slots[slot])
+            if not self._ensure_pages(slot, start + self.prefill_chunk):
+                self._prefilling.append(slot)   # pool pressure: wait
+                continue
+            admitting.append(slot)
+        # A LATER slot's ensure may have preempted an EARLIER admitted
+        # one for its pages: drop evicted slots before dispatching.
+        admitting = [slot for slot in admitting
                      if self.slots[slot] is not None]
-        self._prefilling = admitting[_ADMISSION_BURST_MAX:]
+        self._prefilling.extend(admitting[_ADMISSION_BURST_MAX:])
         admitting = admitting[:_ADMISSION_BURST_MAX]
         if not admitting:
             return
+        self._sync_page_table()
         n = len(admitting)
         rows = pad_to_bucket(admitting)
         tokens = np.zeros((len(rows), self.prefill_chunk), dtype=np.int64)
@@ -321,12 +392,18 @@ class ContinuousBatcher:
         prompt = request.prompt_tokens
         self.prefill_tokens += start + chunk_len - request.prefill_pos
         request.prefill_pos = start + chunk_len
+        if self._pages is not None and self.prefix_cache:
+            # Index every whole prompt page now written, as admission
+            # goes: even a mid-admission chain is adoptable.
+            self._pages.register_prefix(slot, prompt, request.prefill_pos,
+                                        self.kv_page_tokens)
         if request.prefill_pos < len(prompt):
             self._prefilling.append(slot)       # more chunks to go
             return
         last = len(prompt) - start - 1
         first = self._sample(logits[:, last, :], request.temperature)
         self.lengths[slot] = len(prompt)
+        self._lengths_upper[slot] = len(prompt)
         self.decoding[slot] = True
         self._active_dev = None
         if self.decode_block > 1:
@@ -368,7 +445,8 @@ class ContinuousBatcher:
                 while (len(self._inflight) < self.inflight
                        and len(self._inflight) * self.decode_block
                        < remaining):
-                    self._dispatch_block(decoding)
+                    if not self._dispatch_block(decoding):
+                        break           # retire in-flight blocks first
             if self._inflight:
                 self._retire_block()
         elif decoding:
@@ -376,6 +454,19 @@ class ContinuousBatcher:
         return sum(1 for r in self.slots if r is not None)
 
     def _decode_tick(self, decoding: list[int]):
+        if self._pages is not None:
+            for slot in decoding:
+                if self.decoding[slot] and not self._ensure_pages(
+                        slot, int(self.lengths[slot]) + 2):
+                    # Unreachable while the pool holds one full slot
+                    # (enforced at init): preempt the slot itself rather
+                    # than let its write land on the trash page.
+                    self._evict_slot(slot)
+            self._sync_page_table()
+            # An ensure may have preempted another decoding slot.
+            decoding = [i for i in decoding if self.decoding[i]]
+            if not decoding:
+                return
         # Rows not decoding (empty or mid-prefill) still flow through the
         # batched step; their k/v write goes to the trash position
         # max_seq-1, which real content never occupies.
@@ -397,11 +488,24 @@ class ContinuousBatcher:
             self.current[i] = token
             self._emit(request, token)
 
-    def _dispatch_block(self, decoding: list[int]):
+    def _dispatch_block(self, decoding: list[int]) -> bool:
         """Enqueue one fused decode block chained off the previous
         block's device carries, with no host synchronisation: completed
         admissions fold their first token and length in on the device,
-        and the emitted tokens start their copy to the host."""
+        and the emitted tokens start their copy to the host.  Returns
+        False (nothing dispatched) when the page pool cannot cover the
+        block until the in-flight blocks retire."""
+        if self._pages is not None:
+            for slot in decoding:
+                if self.decoding[slot] and not self._ensure_pages(
+                        slot, int(self._lengths_upper[slot])
+                        + self.decode_block + 1):
+                    return False
+            self._sync_page_table()
+            # An ensure may have preempted another decoding slot.
+            decoding = [i for i in decoding if self.decoding[i]]
+            if not decoding:
+                return False
         if self._chain is None:
             tokens = self._upload(self.current)
             lengths = self._upload(self.lengths)
@@ -429,11 +533,15 @@ class ContinuousBatcher:
         for i in decoding:                      # host mirror (clamped)
             self.lengths[i] = min(self.lengths[i] + self.decode_block,
                                   self.max_seq - 1)
+            self._lengths_upper[i] = min(
+                int(self._lengths_upper[i]) + self.decode_block,
+                self.max_seq)
         self._inflight.append(_InflightBlock(
             _HostCopy(emitted), [(i, self.slots[i]) for i in decoding],
             firsts, self.decode_block))
         if self.on_block is not None:
             self.on_block("dispatch", len(decoding))
+        return True
 
     def _retire_block(self):
         """Wait for the OLDEST in-flight block's tokens and de-multiplex
@@ -461,6 +569,64 @@ class ContinuousBatcher:
                 token = int(emitted[block_step, slot])
                 self.current[slot] = token
                 self._emit(request, token)
+
+    # -- paged-cache bookkeeping -------------------------------------------
+
+    def _ensure_pages(self, slot: int, upto_tokens: int) -> bool:
+        """Cover the slot's logical positions [0, upto_tokens) with
+        physical pages.  Under pool pressure: with blocks in flight the
+        caller must retire them first (their writes still route through
+        the table as it was when they were enqueued), otherwise the
+        YOUNGEST other occupant is preempted -- its generation resumes
+        later from its committed tokens."""
+        if self._pages is None:
+            return True
+        pages = self._pages.pages_for(
+            min(int(upto_tokens), self.max_seq), self.kv_page_tokens)
+        if self._pages.ensure(slot, pages):
+            return True
+        if self._inflight:
+            return False
+        while True:
+            victims = [(occupant.admit_seq, index)
+                       for index, occupant in enumerate(self.slots)
+                       if occupant is not None and index != slot]
+            if not victims:
+                return False
+            self._evict_slot(max(victims)[1])
+            if self._pages.ensure(slot, pages):
+                return True
+
+    def _sync_page_table(self) -> None:
+        """Fold the allocator's dirty rows into the device page table: the
+        host mirror takes the rows, and one copy of it is enqueued on the
+        current stream, so the blocks already in flight read the table
+        as it was when they were enqueued.  ``_upload`` pins a fresh
+        staging tensor for every call: no staging buffer is rewritten
+        before its copy has run."""
+        if self._pages is None or not self._pages.dirty:
+            return
+        for slot, row in self._pages.dirty.items():
+            self._table_host[slot] = row
+        self._pages.dirty.clear()
+        self.cache["page_table"].copy_(self._upload(self._table_host))
+
+    def _evict_slot(self, slot: int) -> None:
+        """Preempt one slot for its pages: rebase the request onto its
+        committed tokens and put it at the FRONT of the queue, so it
+        re-admits (re-prefilling prompt + committed, emitting nothing
+        twice) as soon as the pool breathes."""
+        request = self.slots[slot]
+        if request is None:
+            return
+        self._rebase(request)
+        request.slot = -1
+        request.prefill_pos = 0
+        self._pending_first.pop(slot, None)
+        self._prefilling = [s for s in self._prefilling if s != slot]
+        self._free_slot(slot)
+        self.pending.insert(0, request)
+        self.evictions += 1
 
     # -- resume and failover -----------------------------------------------
 
@@ -548,11 +714,14 @@ class ContinuousBatcher:
         """Release a slot's host-side state (finish and cancel)."""
         self.slots[slot] = None
         self.lengths[slot] = 0
+        self._lengths_upper[slot] = 0
         self.current[slot] = 0
         self.temperatures[slot] = 0.0
         self._temps_dev = None
         self.decoding[slot] = False
         self._active_dev = None
+        if self._pages is not None:
+            self._pages.release(slot)
 
     def cancel(self, request_id: str) -> bool:
         """Abandon a request by id: pending requests leave the queue; an
@@ -587,6 +756,29 @@ class ContinuousBatcher:
     @property
     def blocks_in_flight(self) -> int:
         return len(self._inflight)
+
+    @property
+    def prefix_hits(self) -> int:
+        """Prompt pages adopted from the shared-prefix index."""
+        return self._pages.prefix_hits if self._pages is not None else 0
+
+    @property
+    def prefix_lookups(self) -> int:
+        """Whole prompt pages the index was consulted for."""
+        return self._pages.prefix_lookups \
+            if self._pages is not None else 0
+
+    def prefix_hit_rate(self) -> float:
+        """Adopted fraction of looked-up prompt pages (0.0 when the
+        cache is off or nothing was looked up)."""
+        lookups = self.prefix_lookups
+        return self.prefix_hits / lookups if lookups else 0.0
+
+    def reset_prefix_stats(self) -> None:
+        """Zero the hit/lookup counters."""
+        if self._pages is not None:
+            self._pages.prefix_hits = 0
+            self._pages.prefix_lookups = 0
 
     def run_until_drained(self, max_steps: int = 100_000) -> int:
         steps = 0

@@ -15,9 +15,18 @@ layer's attention; the attention masks ``t < length`` exclude the write
 position either way, and the current token enters through the self
 term, so the result is the JAX package's.
 
+The PAGED cache (``models/paged.py``) runs through the same entry
+points: prefill writes whole pages through the page table
+(``scatter_pages``) and attends the slot's gathered page view; decode
+writes each row's k/v at ``table[row, pos // pt], pos % pt`` with the
+index math on the device, and attends through the page-table-walking
+kernel #3 (``flash_decode_append_paged``) or, on the reference path,
+the gathered layer.  ``prefill`` stays dense-only, as in the JAX
+package.
+
 Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): int8 weights and KV, mixture-of-experts, the paged cache and the
-device-resident decode loop with speculation.
+item): int8 weights and KV, mixture-of-experts and the device-resident
+decode loop with speculation.
 """
 
 from __future__ import annotations
@@ -32,11 +41,14 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops import decode_backend, topk as ops_topk
 from ..ops.flash_attention import flash_attention
-from ..ops.flash_decode import _split_stacked, flash_decode_append_stacked
+from ..ops.flash_decode import (_split_paged, _split_stacked,
+                                flash_decode_append_paged,
+                                flash_decode_append_stacked)
 from ..ops.layers import (apply_rope, attention_decode_append,
                           attention_prefill, rms_norm, rope_frequencies)
 from ..utils.misc import not_ported
-from .paged import is_paged, paged_extent
+from .paged import (gather_layer, gather_slot, is_paged, paged_extent,
+                    pool_page_tokens, scatter_pages)
 from .quant import is_quantized
 
 __all__ = ["LlamaConfig", "init_params", "param_shapes", "init_cache",
@@ -208,10 +220,15 @@ def init_cache(config: LlamaConfig, batch: int, max_seq: int | None = None,
             "v": torch.zeros(shape, dtype=_dtype(c), device=device)}
 
 
-def _require_dense(cache) -> None:
-    if is_paged(cache):
-        raise not_ported("the paged KV cache", "ROADMAP Queue 1: paged "
-                         "KV with kernel #3")
+def _require_whole_pages(cache: dict, starts, s: int) -> None:
+    """Paged prefill writes whole pages: every chunk start page-aligned
+    and the chunk a whole number of pages."""
+    page_tokens = pool_page_tokens(cache)
+    if s % page_tokens or any(int(start) % page_tokens
+                              for start in starts):
+        raise ValueError(
+            f"paged prefill chunk of {s} tokens at {list(starts)} is not "
+            f"a whole number of page-aligned {page_tokens}-token pages")
 
 
 def cache_array(cache: dict) -> torch.Tensor:
@@ -301,8 +318,13 @@ def prefill(params: dict, config: LlamaConfig, tokens: torch.Tensor,
     """Whole-batch prompt prefill.  tokens: [B, S] (right padding
     allowed); start_positions: [B] cache offset each row begins at.
     Writes each row's k/v at [b, start + i] and returns (logits
-    [B, S, vocab], cache)."""
-    _require_dense(cache)
+    [B, S, vocab], cache).  Dense caches only: paged serving admission
+    goes through ``prefill_into_slot(s)``."""
+    if is_paged(cache):
+        raise ValueError(
+            "prefill works on dense caches (training / whole-batch "
+            "path); paged serving admission goes through "
+            "prefill_into_slot(s)")
     c = config
     b, s = tokens.shape
     rope = _rope(c, tokens.device)
@@ -332,8 +354,12 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
     batcher's admission path).  tokens: [1, S] (right padding allowed).
     Queries attend the slot's whole cache row, so chunk N sees chunks
     0..N-1; with ``attention="flash"`` the kernel's causal offset hides
-    the unwritten tail.  Returns (logits [1, S, vocab], cache)."""
-    _require_dense(cache)
+    the unwritten tail.  Returns (logits [1, S, vocab], cache).
+
+    A PAGED cache is written through its page table: the chunk start
+    must be page-aligned and S a whole number of pages (the batcher's
+    chunk discipline guarantees both), and the attention row is the
+    slot's gathered page view."""
     c = config
     slot, start = int(slot), int(start)
     s = tokens.shape[1]
@@ -341,6 +367,9 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
     if start < 0 or start + s > extent:
         raise ValueError(f"prefill_into_slot: chunk [{start}, {start + s})"
                          f" does not fit the cache extent {extent}")
+    paged = is_paged(cache)
+    if paged:
+        _require_whole_pages(cache, [start], s)
     rope = _rope(c, tokens.device)
     positions = (start + torch.arange(s, device=tokens.device))[None, :]
 
@@ -348,10 +377,20 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
             k = apply_rope(k, rope, positions)
-            cache["k"][index, slot, start:start + s] = k.reshape(s, -1)
-            cache["v"][index, slot, start:start + s] = v.reshape(s, -1)
-            k_row = _grouped(cache["k"][index, slot:slot + 1], c.n_kv_heads)
-            v_row = _grouped(cache["v"][index, slot:slot + 1], c.n_kv_heads)
+            if paged:
+                table, pt = cache["page_table"], pool_page_tokens(cache)
+                for side, new in (("k", k), ("v", v)):
+                    scatter_pages(cache[side][index], new.reshape(1, s, -1),
+                                  table, [slot], [start], pt)
+                k_row = gather_slot(cache["k"][index], table[slot])
+                v_row = gather_slot(cache["v"][index], table[slot])
+            else:
+                cache["k"][index, slot, start:start + s] = k.reshape(s, -1)
+                cache["v"][index, slot, start:start + s] = v.reshape(s, -1)
+                k_row = cache["k"][index, slot:slot + 1]
+                v_row = cache["v"][index, slot:slot + 1]
+            k_row = _grouped(k_row, c.n_kv_heads)
+            v_row = _grouped(v_row, c.n_kv_heads)
             if c.attention == "flash":
                 return flash_attention(q, k_row, v_row, q_offset=start)
             return attention_prefill(q, k_row, v_row, positions)
@@ -374,7 +413,6 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
     if c.attention == "flash":
         raise ValueError("prefill_into_slots is dense-only; "
                          "flash admission uses prefill_into_slot")
-    _require_dense(cache)
     slots = [int(slot) for slot in slots]
     starts = [int(start) for start in starts]
     n, s = tokens.shape
@@ -382,6 +420,9 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
     if any(start < 0 or start + s > extent for start in starts):
         raise ValueError(f"prefill_into_slots: a chunk of {s} tokens at "
                          f"{starts} does not fit the cache extent {extent}")
+    paged = is_paged(cache)
+    if paged:
+        _require_whole_pages(cache, starts, s)
     rope = _rope(c, tokens.device)
     positions = torch.tensor(starts, device=tokens.device)[:, None] \
         + torch.arange(s, device=tokens.device)[None, :]
@@ -391,14 +432,25 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
             k = apply_rope(k, rope, positions)
-            for row, (slot, start) in enumerate(zip(slots, starts)):
-                cache["k"][index, slot, start:start + s] = \
-                    k[row].reshape(s, -1)
-                cache["v"][index, slot, start:start + s] = \
-                    v[row].reshape(s, -1)
-            k_rows = _grouped(cache["k"][index][slot_index], c.n_kv_heads)
-            v_rows = _grouped(cache["v"][index][slot_index], c.n_kv_heads)
-            return attention_prefill(q, k_rows, v_rows, positions)
+            if paged:
+                table, pt = cache["page_table"], pool_page_tokens(cache)
+                for side, new in (("k", k), ("v", v)):
+                    scatter_pages(cache[side][index], new.reshape(n, s, -1),
+                                  table, slots, starts, pt)
+                rows_table = table[slot_index]
+                k_rows = gather_layer(cache["k"][index], rows_table)
+                v_rows = gather_layer(cache["v"][index], rows_table)
+            else:
+                for row, (slot, start) in enumerate(zip(slots, starts)):
+                    cache["k"][index, slot, start:start + s] = \
+                        k[row].reshape(s, -1)
+                    cache["v"][index, slot, start:start + s] = \
+                        v[row].reshape(s, -1)
+                k_rows = cache["k"][index][slot_index]
+                v_rows = cache["v"][index][slot_index]
+            return attention_prefill(q, _grouped(k_rows, c.n_kv_heads),
+                                     _grouped(v_rows, c.n_kv_heads),
+                                     positions)
         return attend
 
     return _forward(params, c, tokens, factory), cache
@@ -406,12 +458,15 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
 
 def _resolve_decode_flash(c: LlamaConfig, cache: dict) -> bool:
     """Pick the decode attention backend eagerly through the ops
-    capability probe: dense flash-eligible caches go to the stacked
-    split-K kernel, everything else to the reference path.  One device
-    holds the whole cache, so nothing here is distributed."""
+    capability probe: paged caches go to the page-table-walking kernel
+    #3, dense flash-eligible caches to the stacked split-K kernel #2,
+    everything else to the reference path.  One device holds the whole
+    cache, so nothing here is distributed."""
+    paged = is_paged(cache)
     backend = decode_backend(
-        c.decode_attention, paged=is_paged(cache),
-        extent=cache_extent(cache), threshold=c.flash_decode_threshold)
+        c.decode_attention, paged=paged, extent=cache_extent(cache),
+        threshold=c.flash_decode_threshold,
+        page_tokens=pool_page_tokens(cache) if paged else None)
     return backend != "reference"
 
 
@@ -421,32 +476,49 @@ def _decode_step_impl(params: dict, config: LlamaConfig,
         -> tuple[torch.Tensor, dict]:
     """One token per row.  tokens: [B]; lengths: [B] write positions
     (= current sequence lengths).  No host synchronisation: every index
-    stays on the device."""
-    _require_dense(cache)
+    stays on the device.  A paged cache writes row b's k/v at
+    ``table[b, pos // pt], pos % pt`` (the trash page for a row whose
+    table entry is 0)."""
     c = config
     b = tokens.shape[0]
     rope = _rope(c, tokens.device)
     lengths = lengths.to(torch.int32)
     positions = lengths.long()[:, None]                       # [B, 1]
-    rows = torch.arange(b, device=tokens.device)
+    paged = is_paged(cache)
+    if paged:
+        table = cache["page_table"]
+        page_tokens = pool_page_tokens(cache)
+        rows = table.gather(1, positions // page_tokens)[:, 0].long()
+        cols = positions[:, 0] % page_tokens
+        split = _split_paged
+    else:
+        rows = torch.arange(b, device=tokens.device)
+        cols = positions[:, 0]
+        split = _split_stacked
     if use_flash:
-        k_view = _split_stacked(cache["k"])
-        v_view = _split_stacked(cache["v"])
+        k_view = split(cache["k"])
+        v_view = split(cache["v"])
 
     def factory(index):
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
             k = apply_rope(k, rope, positions)
-            if use_flash:
+            if use_flash and paged:
+                out = flash_decode_append_paged(q, k_view, v_view, index,
+                                                k, v, table, lengths)
+            elif use_flash:
                 out = flash_decode_append_stacked(q, k_view, v_view, index,
                                                   k, v, lengths)
             else:
+                k_layer, v_layer = cache["k"][index], cache["v"][index]
+                if paged:
+                    k_layer = gather_layer(k_layer, table)
+                    v_layer = gather_layer(v_layer, table)
                 out = attention_decode_append(
-                    q, _grouped(cache["k"][index], c.n_kv_heads),
-                    _grouped(cache["v"][index], c.n_kv_heads), k, v,
-                    lengths)
-            cache["k"][index][rows, positions[:, 0]] = k.reshape(b, -1)
-            cache["v"][index][rows, positions[:, 0]] = v.reshape(b, -1)
+                    q, _grouped(k_layer, c.n_kv_heads),
+                    _grouped(v_layer, c.n_kv_heads), k, v, lengths)
+            cache["k"][index][rows, cols] = k.reshape(b, -1)
+            cache["v"][index][rows, cols] = v.reshape(b, -1)
             return out
         return attend
 

@@ -1,15 +1,84 @@
-"""Paged KV cache predicates.
+"""Paged KV cache for continuous-batching LLM serving.
 
-Counterpart of the predicates in ``aiko_services_tpu/models/paged.py``.
-The page pool, ``PageAllocator`` and the gather/scatter helpers wait for
-the paged cache (ROADMAP Queue 1).
+Counterpart of ``aiko_services_tpu/models/paged.py``, ported whole:
+
+- one physical **pool** per cache side, ``[L, P, page_tokens, K*hd]``
+  bf16 (or the model dtype) on an explicit device;
+- a device **page table** ``[B, pages_per_slot] int32`` mapping each
+  slot's logical pages to physical pages.  Entry 0 is the reserved
+  TRASH page: unallocated logical pages point at it, and inactive batch
+  rows route their decode writes there (the paged twin of the dense
+  cache's ``max_seq - 1`` trash position);
+- the host-side :class:`PageAllocator` (free list, per-slot assignments,
+  the shared-prefix index with its refcounts and leaf-first reclaim).
+
+One deliberate difference: the JAX package's writes are pure
+``dynamic_update_slice`` chains that return a new pool; here
+:func:`scatter_pages` (and the decode write in ``models/llama.py``)
+land IN PLACE through ``index_copy_``/indexed assignment on the pool,
+with every index computed on the device from the table, so no write
+waits for the host.  The page table itself is updated in place by the
+batcher (a copy enqueued on the same stream as the decode work, after
+the blocks already in flight).
+
+int8 pools (``kv_dtype="int8"``) wait for int8 KV (ROADMAP Queue 1
+item 3).
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..device import resolve_device
+from ..utils.misc import not_ported
 from .quant import is_quantized
 
-__all__ = ["is_paged", "pool_page_tokens", "paged_extent"]
+__all__ = ["PageAllocator", "init_paged_cache", "is_paged",
+           "pages_per_slot", "pool_page_tokens", "paged_extent",
+           "gather_layer", "gather_slot", "scatter_pages",
+           "prefix_page_keys"]
+
+
+def pages_per_slot(max_seq: int, page_tokens: int) -> int:
+    if page_tokens <= 0 or max_seq % page_tokens:
+        raise ValueError(
+            f"kv_page_tokens={page_tokens}: must divide max_seq "
+            f"({max_seq})")
+    return max_seq // page_tokens
+
+
+def init_paged_cache(config, batch: int, max_seq: int | None = None,
+                     page_tokens: int = 64,
+                     total_pages: int | None = None,
+                     device: str | torch.device | None = None) -> dict:
+    """Paged serving cache: ``{"k": pool, "v": pool, "page_table"}``,
+    zeroed, on ``device`` (the card unless "cpu" is asked for).
+
+    ``total_pages`` counts PHYSICAL pages including the reserved trash
+    page 0 (default: full provisioning, ``batch * pages_per_slot + 1``
+    -- memory parity with the dense cache; size it down to serve more
+    slots than worst-case memory allows, with the ContinuousBatcher
+    preempting under pool pressure)."""
+    c = config
+    if c.kv_dtype == "int8":
+        raise not_ported("int8 page pools (kv_dtype='int8')",
+                         "ROADMAP Queue 1 item 3: int8 weights and KV")
+    device = resolve_device(device)
+    t = max_seq or c.max_seq
+    pps = pages_per_slot(t, page_tokens)
+    pool_pages = batch * pps + 1 if total_pages is None \
+        else int(total_pages)
+    if pool_pages < pps + 1:
+        raise ValueError(
+            f"kv_pages={pool_pages}: the pool must hold at least one "
+            f"full slot plus the trash page ({pps + 1})")
+    shape = (c.n_layers, pool_pages, page_tokens,
+             c.n_kv_heads * c.head_dim)
+    dtype = getattr(torch, c.dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "page_table": torch.zeros((batch, pps), dtype=torch.int32,
+                                      device=device)}
 
 
 def is_paged(cache) -> bool:
@@ -28,3 +97,355 @@ def pool_page_tokens(cache: dict) -> int:
 def paged_extent(cache: dict) -> int:
     """Logical per-slot extent (== max_seq) of a paged cache."""
     return cache["page_table"].shape[1] * pool_page_tokens(cache)
+
+
+def _gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``[P, pt, C]`` pool -> logical rows by an index gather on the
+    device: table [B, pps] -> [B, pps*pt, C]; table [pps] -> [pps*pt, C].
+    The result is a new contiguous tensor in the dense cache's flat row
+    layout."""
+    rows = pool[table.long()]
+    return rows.reshape(*table.shape[:-1], -1, *pool.shape[2:])
+
+
+def _require_raw(layer) -> None:
+    if is_quantized(layer):
+        raise not_ported("int8 page pools", "ROADMAP Queue 1 item 3: "
+                         "int8 weights and KV")
+
+
+def gather_layer(layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """One pool layer ``[P, pt, C]`` -> the dense flat layer view
+    ``[B, T, C]`` the attention consumers expect."""
+    _require_raw(layer)
+    return _gather(layer, table)
+
+
+def gather_slot(layer: torch.Tensor, table_row: torch.Tensor) \
+        -> torch.Tensor:
+    """One slot's pages -> its contiguous ``[1, T, C]`` row view."""
+    _require_raw(layer)
+    return _gather(layer, table_row)[None]
+
+
+def scatter_pages(pool: torch.Tensor, new: torch.Tensor,
+                  table: torch.Tensor, slots, starts,
+                  page_tokens: int) -> torch.Tensor:
+    """Write whole-page prefill rows through the page table, in place.
+    ``pool`` is one pool side ``[P, pt, C]``, ``new`` the page-aligned
+    chunk ``[N, S, C]`` (S a whole number of pages); ``slots``/``starts``
+    are N host integers indexing ``new``'s rows into the table.  The
+    physical pages are read from the table ON THE DEVICE (no host
+    sync), and one ``index_copy_`` writes every covered page.  A start
+    past the table's end raises (the chunk must fit the extent).
+    Duplicated bucket-pad rows write the same physical pages with the
+    same values.  The single shared authority for both prefill paths
+    (models/llama.py).  Returns ``pool``."""
+    _require_raw(pool)
+    n, s = new.shape[0], new.shape[1]
+    if s % page_tokens:
+        raise ValueError(f"scatter_pages: {s} tokens is not a whole "
+                         f"number of {page_tokens}-token pages")
+    per_row = s // page_tokens
+    # Slices of the device table by host integers: no host data is
+    # uploaded, so the write never waits for the stream.
+    pages = torch.cat([
+        table[int(slot), int(start) // page_tokens:
+              int(start) // page_tokens + per_row]
+        for slot, start in zip(slots, starts)]).long()
+    pool.index_copy_(0, pages, new.reshape(n * per_row, page_tokens,
+                                           *new.shape[2:]).to(pool.dtype))
+    return pool
+
+
+_PREFIX_SEED = 0x9E3779B97F4A7C15
+
+
+def prefix_page_keys(tokens, page_tokens: int, limit: int | None = None):
+    """Rolling prefix-hash chain for ``tokens``: one key per WHOLE page
+    the sequence covers, each key a function of every token up to and
+    including that page (so two chains agree exactly on their common
+    prefix of identical pages).  ``limit`` caps the number of keys."""
+    pt = int(page_tokens)
+    pages = len(tokens) // pt
+    if limit is not None:
+        pages = min(pages, int(limit))
+    keys, h = [], _PREFIX_SEED
+    for p in range(pages):
+        h = hash((h, tuple(tokens[p * pt:(p + 1) * pt])))
+        keys.append(h)
+    return keys
+
+
+class PageAllocator:
+    """Host-side free list + per-slot page assignments, owned by the
+    ContinuousBatcher (single-threaded with its step loop).  The device
+    page table is updated from :attr:`dirty` rows folded into the next
+    dispatch.
+
+    Prefix cache (``prefix_cache=True``): prompt-covering pages are
+    additionally keyed by a rolling prefix hash of the tokens they hold
+    (:func:`prefix_page_keys`).  A later request whose prompt starts
+    with the same page chain ADOPTS those physical pages read-only --
+    its table row points at the donor's pages and its prefill starts
+    past the shared span.  Correctness rests on KV position-determinism:
+    K/V at position ``i`` are a function of the tokens up to ``i``, so
+    identical prefixes prefilled in identical chunks yield identical
+    pages.  Sharing is refcounted per physical page (mapping slots + 1
+    while indexed); "copy-on-write at the first divergent page" means
+    the divergent page is never mapped -- the adopter allocates a fresh
+    page there and prefills it, leaving the donor untouched.  The index
+    holds a reference, so warm pages survive their slot and serve the
+    next request; under pool pressure :meth:`ensure` reclaims
+    index-only (refcount-1) entries leaf-first."""
+
+    def __init__(self, total_pages: int, pages_per_slot: int,
+                 max_slots: int, prefix_cache: bool = False,
+                 prefix_min_tokens: int = 64):
+        self.total = int(total_pages)
+        self.pps = int(pages_per_slot)
+        self.max_slots = int(max_slots)
+        # Page 0 is the reserved trash page; ascending hand-out order
+        # keeps tests deterministic.
+        self._free = list(range(self.total - 1, 0, -1))
+        self._slots: dict[int, dict[int, int]] = {}
+        # slot -> host table row pending upload.
+        self.dirty: dict[int, list[int]] = {}
+        # -- prefix cache ------------------------------------------------
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_min_tokens = int(prefix_min_tokens)
+        # phys page -> holders (mapping slots, +1 while in the index).
+        self._refs: dict[int, int] = {}
+        # prefix key -> phys page, insertion order == LRU order (hits
+        # and registrations re-insert).  _key_of inverts it for
+        # release-time decref; _children drives leaf-first reclaim.
+        self._prefix: dict[int, int] = {}
+        self._key_of: dict[int, int] = {}
+        self._parent: dict[int, int | None] = {}
+        self._children: dict[int, int] = {}
+        self.prefix_hits = 0            # pages adopted from the index
+        self.prefix_lookups = 0         # whole prompt pages looked up
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def pages_for(self, tokens: int, page_tokens: int) -> int:
+        return min(self.pps,
+                   -(-max(0, int(tokens)) // int(page_tokens)))
+
+    def holds(self, slot: int) -> int:
+        return len(self._slots.get(slot, ()))
+
+    def missing(self, slot: int, pages: int) -> int:
+        """How many NEW pages covering logical pages [0, pages) would
+        need allocating for ``slot``."""
+        owned = self._slots.get(slot, {})
+        return sum(1 for logical in range(min(pages, self.pps))
+                   if logical not in owned)
+
+    def ensure(self, slot: int, pages: int) -> bool:
+        """Allocate (atomically) whatever logical pages [0, pages) the
+        slot is missing.  False (and no change) when the free list
+        cannot cover them -- after reclaiming unreferenced prefix-index
+        entries leaf-first when the cache is on."""
+        pages = min(int(pages), self.pps)
+        owned = self._slots.setdefault(slot, {})
+        wanted = [logical for logical in range(pages)
+                  if logical not in owned]
+        if len(wanted) > len(self._free):
+            self._reclaim(len(wanted) - len(self._free))
+        if len(wanted) > len(self._free):
+            return False
+        if wanted:
+            row = self.dirty.setdefault(slot, self._row(slot))
+            for logical in wanted:
+                phys = self._free.pop()
+                owned[logical] = phys
+                row[logical] = phys
+        return True
+
+    def release(self, slot: int) -> int:
+        """Drop the slot's claim on every page it holds (finish, cancel,
+        eviction) and mark its table row for reset.  Pages the prefix
+        index (or another adopter) still references stay allocated; the
+        rest return to the free list."""
+        owned = self._slots.pop(slot, {})
+        if not owned:
+            return 0
+        freed = []
+        for phys in owned.values():
+            refs = self._refs.get(phys, 1) - 1
+            if refs <= 0:
+                self._refs.pop(phys, None)
+                self._unindex(phys)
+                freed.append(phys)
+            else:
+                self._refs[phys] = refs
+        self._free.extend(sorted(freed, reverse=True))
+        self.dirty[slot] = [0] * self.pps
+        return len(owned)
+
+    def reset(self) -> None:
+        """Forget everything (device state was rebuilt); the prefix index
+        goes too, since the cached page content no longer exists."""
+        self._free = list(range(self.total - 1, 0, -1))
+        self._slots.clear()
+        self.dirty.clear()
+        self._refs.clear()
+        self._prefix.clear()
+        self._key_of.clear()
+        self._parent.clear()
+        self._children.clear()
+
+    # -- prefix cache ------------------------------------------------------
+
+    def match_prefix(self, tokens, page_tokens: int) -> int:
+        """How many leading WHOLE pages of ``tokens`` the index can
+        supply.  Capped one page short of covering the full prompt: at
+        least one token must prefill so the first generated token has
+        last-position logits to sample from."""
+        if not self.prefix_cache \
+                or len(tokens) < self.prefix_min_tokens:
+            return 0
+        limit = min(self.pps, (len(tokens) - 1) // int(page_tokens))
+        matched = 0
+        for key in prefix_page_keys(tokens, page_tokens, limit):
+            if key not in self._prefix:
+                break
+            matched += 1
+        return matched
+
+    def adopt_prefix(self, slot: int, tokens, page_tokens: int) -> int:
+        """Map the longest indexed page chain matching ``tokens`` into
+        ``slot`` read-only (refcount +1 per page) and return the token
+        count covered -- the span admission skips.  The slot must hold
+        no pages yet (fresh admission).  Counts lookups/hits whenever
+        the cache is consulted."""
+        if not self.prefix_cache \
+                or len(tokens) < self.prefix_min_tokens:
+            return 0
+        pt = int(page_tokens)
+        limit = min(self.pps, (len(tokens) - 1) // pt)
+        self.prefix_lookups += max(0, limit)
+        owned = self._slots.setdefault(slot, {})
+        if owned:
+            return 0
+        row = None
+        for logical, key in enumerate(
+                prefix_page_keys(tokens, pt, limit)):
+            phys = self._prefix.get(key)
+            if phys is None:
+                break
+            if row is None:
+                row = self.dirty.setdefault(slot, self._row(slot))
+            self._refs[phys] = self._refs.get(phys, 1) + 1
+            owned[logical] = phys
+            row[logical] = phys
+            # LRU bump: re-insert at the MRU end.
+            self._prefix.pop(key)
+            self._prefix[key] = phys
+            self.prefix_hits += 1
+        return len(owned) * pt
+
+    def register_prefix(self, slot: int, tokens, upto: int,
+                        page_tokens: int) -> None:
+        """Index every whole page of ``tokens[:upto]`` the slot holds
+        (admission progressed to ``upto``).  Indexing a page takes a
+        reference, so the content outlives the slot; already-indexed
+        pages (including ones this slot adopted) are left alone -- the
+        index keeps ONE canonical physical page per prefix key."""
+        if not self.prefix_cache \
+                or len(tokens) < self.prefix_min_tokens:
+            return
+        pt = int(page_tokens)
+        owned = self._slots.get(slot, {})
+        limit = min(self.pps, max(0, int(upto)) // pt,
+                    len(tokens) // pt)
+        parent = None
+        for logical, key in enumerate(
+                prefix_page_keys(tokens, pt, limit)):
+            phys = owned.get(logical)
+            if phys is None:
+                break
+            held = self._prefix.get(key)
+            if held is None and self._key_of.get(phys) is None:
+                self._prefix[key] = phys
+                self._key_of[phys] = key
+                self._refs[phys] = self._refs.get(phys, 1) + 1
+                self._parent[phys] = parent
+                if parent is not None:
+                    self._children[parent] = \
+                        self._children.get(parent, 0) + 1
+            elif held is not None:
+                # LRU bump for the canonical page of this prefix.
+                self._prefix.pop(key)
+                self._prefix[key] = held
+            canonical = held if held is not None else phys
+            parent = canonical
+
+    def _unindex(self, phys: int) -> None:
+        """Drop ``phys`` from the prefix index (its content is gone or
+        its refcount hit zero)."""
+        key = self._key_of.pop(phys, None)
+        if key is not None:
+            self._prefix.pop(key, None)
+        parent = self._parent.pop(phys, None)
+        if parent is not None and parent in self._children:
+            remaining = self._children[parent] - 1
+            if remaining <= 0:
+                self._children.pop(parent, None)
+            else:
+                self._children[parent] = remaining
+        self._children.pop(phys, None)
+
+    def _reclaim(self, need: int) -> int:
+        """Free up to ``need`` pages held ONLY by the prefix index
+        (refcount 1), leaf-first in LRU order, so pool pressure evicts
+        the cache before it preempts a live slot."""
+        if need <= 0 or not self._prefix:
+            return 0
+        reclaimed = 0
+        progress = True
+        while reclaimed < need and progress:
+            progress = False
+            for key, phys in list(self._prefix.items()):
+                if self._refs.get(phys, 0) != 1 \
+                        or self._children.get(phys, 0):
+                    continue            # mapped by a slot, or a parent
+                self._refs.pop(phys, None)
+                self._unindex(phys)
+                self._free.append(phys)
+                reclaimed += 1
+                progress = True
+                if reclaimed >= need:
+                    break
+        if reclaimed:
+            self._free.sort(reverse=True)
+        return reclaimed
+
+    def leaked_pages(self) -> int:
+        """Allocated pages no slot maps and the index does not hold --
+        0 in a healthy allocator."""
+        live = set()
+        for owned in self._slots.values():
+            live.update(owned.values())
+        live.update(self._key_of)
+        return self.total - 1 - len(self._free) - len(live)
+
+    def _row(self, slot: int) -> list[int]:
+        row = [0] * self.pps
+        for logical, phys in self._slots.get(slot, {}).items():
+            row[logical] = phys
+        return row
+
+    @property
+    def stats(self) -> dict:
+        out = {"total": self.total, "free": self.free_pages,
+               "held": {slot: len(pages)
+                        for slot, pages in self._slots.items()}}
+        if self.prefix_cache:
+            out["prefix_pages"] = len(self._prefix)
+            out["prefix_hits"] = self.prefix_hits
+            out["prefix_lookups"] = self.prefix_lookups
+        return out

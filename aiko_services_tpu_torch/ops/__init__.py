@@ -31,9 +31,11 @@ def decode_backend(requested: str = "auto", *, paged: bool = False,
                    distributed: bool = False,
                    page_tokens: int | None = None) -> str:
     """Capability probe for decode attention (the same pure function as
-    the JAX package's): ``paged-kernel``, ``dense-flash`` (the stacked
-    split-K kernel, ops/flash_decode.py) or ``reference`` (the dense
-    path, ops/layers.py).  Under ``auto`` the kernels engage once
+    the JAX package's): ``paged-kernel`` (the page-table-walking kernel,
+    ``flash_decode_attention_paged``), ``dense-flash`` (the stacked
+    split-K kernel; both in ops/flash_decode.py) or ``reference`` (the
+    dense path, ops/layers.py, over the gathered pages for a paged
+    cache).  Under ``auto`` the kernels engage once
     ``extent`` reaches ``threshold`` and the structure fits."""
     if requested in ("dense", "reference") or distributed:
         return "reference"

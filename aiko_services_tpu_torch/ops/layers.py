@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..utils.misc import not_ported
 
 __all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu",
@@ -36,9 +37,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 def rope_frequencies(head_dim: int, max_positions: int,
                      theta: float = 500_000.0,
-                     device: str | torch.device = "cpu") -> torch.Tensor:
+                     device: str | torch.device | None = None) \
+        -> torch.Tensor:
     """[2, max_positions, head_dim//2] cos/sin table (float32), computed
-    in numpy exactly as the JAX package computes it."""
+    in numpy exactly as the JAX package computes it, on ``device`` (the
+    card unless "cpu" is asked for, as every entry point of the port)."""
+    device = resolve_device(device)
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2,
                                           dtype=np.float32) / head_dim))
     positions = np.arange(max_positions, dtype=np.float32)

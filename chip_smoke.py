@@ -14,11 +14,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    shapes, with its error against a stated tolerance, its CUDA-event
    time, its plain version's time, its bound and, where one PyTorch call
    computes the same function, that call's time (``library_ms``; timed
-   here only, never used by the port);
+   here only, never used by the port).  The paged decode kernel (#3) is
+   also held BITWISE against the flat kernel (#1) on the gathered view,
+   at 64- and 16-token pages;
 3. serving: ``ContinuousBatcher`` on Llama-3-8B widths (random weights
-   from a seed) with flash prefill, flash decode and top-k sampling, at
-   decode_block 1 and 4; every request must finish, every kernel must
-   have launched, the greedy streams of the two runs must be equal, and
+   from a seed) with flash prefill, flash decode and top-k sampling:
+   dense at decode_block 1 and 4, then paged (64-token pages) at full
+   provisioning, under pool pressure (97 pages, decode_block 4, one
+   block in flight) and with
+   the shared-prefix cache.  Every launch counter is zeroed just before
+   each run and read just after; every request must finish, every
+   kernel of the run's path must have launched (the stacked decode
+   kernel on the dense runs, the paged one on the paged runs, never the
+   other), the greedy streams must agree as each run states, and
    kernel-path logits must agree with the dense reference settings on
    the same prefill and decode step.
 
@@ -87,6 +95,24 @@ def bound_ms(n_bytes: float, flops: float, flop_type: str):
 
 # -- phase 2: kernels -------------------------------------------------------
 
+def _decode_error(got, want) -> float:
+    """Largest of the normalised-output, running-max and relative
+    denominator differences of two (acc, m, l) triples."""
+    import torch
+    (acc, m, l), (acc_r, m_r, l_r) = got, want
+    live = (l_r > 0)[..., None]
+    out = torch.where(live, acc / l[..., None], acc)
+    out_r = torch.where(live, acc_r / l_r[..., None], acc_r)
+    return max((out - out_r).abs().max().item(),
+               (m - m_r).abs().max().item(),
+               ((l - l_r).abs() / l_r.clamp(min=1.0)).max().item())
+
+
+def _bitwise(got, want) -> bool:
+    import torch
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def check_decode(device) -> dict:
     """flash_decode_attention_stacked at llama3-8b decode shapes: f32
     scaled queries [8, 32, 128] against a [32, 8, 2048, 1024] bf16
@@ -116,12 +142,7 @@ def check_decode(device) -> dict:
         acc_r, m_r, l_r = fd.flash_decode_attention_stacked_reference(
             q_in, k, v, layer, lengths)
         torch.cuda.synchronize()
-        live = (l_r > 0)[..., None]
-        out = torch.where(live, acc / l[..., None], acc)
-        out_r = torch.where(live, acc_r / l_r[..., None], acc_r)
-        err = max((out - out_r).abs().max().item(),
-                  (m - m_r).abs().max().item(),
-                  ((l - l_r).abs() / l_r.clamp(min=1.0)).max().item())
+        err = _decode_error((acc, m, l), (acc_r, m_r, l_r))
         if acc[0].abs().max() != 0 or l[0].abs().max() != 0 \
                 or (m[0] != -1e30).any():
             raise AssertionError("decode: a length-0 row must give acc=0, "
@@ -243,6 +264,137 @@ def check_topk(device) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": library}
 
 
+def check_paged(device) -> list[dict]:
+    """flash_decode_attention_paged (#3) at llama3-8b decode shapes: f32
+    and bf16 scaled queries [8, 32, 128] against [32, 257, 64, 1024] bf16
+    pools (full provisioning for 8 slots x 2048 tokens plus the trash
+    page) through a [8, 32] table holding a random permutation of the
+    physical pages, the #2 check's ragged lengths.  #3 is held against
+    its plain version and BITWISE against flash_decode_attention (#1) on
+    the gathered contiguous view, at 64- and at 16-token pages (the same
+    pools seen as [32, 1028, 16, 1024]); #1 against its plain version."""
+    import torch
+    from aiko_services_tpu_torch.ops import flash_decode as fd
+    gen = torch.Generator(device=device).manual_seed(4)
+    n_layers, b, t, kv, hd, h, pt = 32, 8, 2048, 8, 128, 32, 64
+    pps = t // pt
+    pages = b * pps + 1
+    pool_k = torch.randn((n_layers, pages, pt, kv * hd), generator=gen,
+                         device=device, dtype=torch.float32).to(torch.bfloat16)
+    pool_v = torch.randn_like(pool_k, dtype=torch.float32).to(torch.bfloat16)
+    table = (torch.randperm(pages - 1, generator=gen, device=device) + 1) \
+        .reshape(b, pps).to(torch.int32)
+    q = torch.randn((b, h, hd), generator=gen, device=device).to(
+        torch.bfloat16)
+    q_scaled, _ = fd._prep_query(q, hd)
+    lengths = torch.tensor([0, 2047, 1, 1500, 513, 64, 2046, 1024],
+                           device=device, dtype=torch.int32)
+    layer = 17
+    fd.flash_decode_attention.launches = 0
+
+    def gathered(pool, tbl):
+        return pool[layer][tbl.long()].reshape(b, t, kv * hd)
+    errors = {"paged": {}, "flat": {}}
+    for q_in, tol in ((q_scaled, DECODE_TOL),
+                      (q_scaled.to(torch.bfloat16), BF16_TOL)):
+        got = fd.flash_decode_attention_paged(q_in, pool_k, pool_v, layer,
+                                              table, lengths)
+        want = fd.flash_decode_attention_paged_reference(
+            q_in, pool_k, pool_v, layer, table, lengths)
+        kg, vg = gathered(pool_k, table), gathered(pool_v, table)
+        flat = fd.flash_decode_attention(q_in, kg, vg, lengths)
+        flat_want = fd.flash_decode_attention_reference(q_in, kg, vg,
+                                                        lengths)
+        torch.cuda.synchronize()
+        err = _decode_error(got, want)
+        err_flat = _decode_error(flat, flat_want)
+        same = _bitwise(got, flat)
+        print(f"paged decode q={q_in.dtype} pt={pt}: max_abs_err {err:.3e}"
+              f" (tol {tol}); flat {err_flat:.3e}; bitwise equal to the "
+              f"flat kernel on the gathered view: {same}")
+        if got[0][0].abs().max() != 0 or got[2][0].abs().max() != 0 \
+                or (got[1][0] != -1e30).any():
+            raise AssertionError("paged decode: a length-0 row must give "
+                                 "acc=0, l=0, m=-1e30")
+        if not (err <= tol and err_flat <= tol):
+            raise AssertionError(f"paged/flat decode kernel disagrees: "
+                                 f"{err} / {err_flat} > {tol}")
+        if not same:
+            raise AssertionError("the paged kernel is not bitwise equal to "
+                                 "the flat kernel on the gathered view")
+        errors["paged"][q_in.dtype] = err
+        errors["flat"][q_in.dtype] = err_flat
+    # 16-token pages: the same pools seen as [L, 1028, 16, C], a table of
+    # 1024 of their pages in random order; each 64-row tile spans 4 pages.
+    small_k = pool_k.view(n_layers, pages * 4, 16, kv * hd)
+    small_v = pool_v.view(n_layers, pages * 4, 16, kv * hd)
+    small_table = (torch.randperm(pages * 4 - 1, generator=gen,
+                                  device=device)[:b * t // 16] + 1) \
+        .reshape(b, t // 16).to(torch.int32)
+    for q_in in (q_scaled, q_scaled.to(torch.bfloat16)):
+        got = fd.flash_decode_attention_paged(q_in, small_k, small_v, layer,
+                                              small_table, lengths)
+        flat = fd.flash_decode_attention(
+            q_in, gathered(small_k, small_table),
+            gathered(small_v, small_table), lengths)
+        torch.cuda.synchronize()
+        same = _bitwise(got, flat)
+        print(f"paged decode q={q_in.dtype} pt=16: bitwise equal to the "
+              f"flat kernel on the gathered view: {same}")
+        if not same:
+            raise AssertionError("the paged kernel at 16-token pages is not "
+                                 "bitwise equal to the flat kernel")
+    kg, vg = gathered(pool_k, table), gathered(pool_v, table)
+    ms = time_ms(lambda: fd.flash_decode_attention_paged(
+        q_scaled, pool_k, pool_v, layer, table, lengths))
+    plain = time_ms(lambda: fd.flash_decode_attention_paged_reference(
+        q_scaled, pool_k, pool_v, layer, table, lengths), iters=5)
+    flat_ms = time_ms(lambda: fd.flash_decode_attention(q_scaled, kg, vg,
+                                                        lengths))
+    flat_plain = time_ms(lambda: fd.flash_decode_attention_reference(
+        q_scaled, kg, vg, lengths), iters=5)
+    # Yardstick for both: SDPA over the PRE-GATHERED contiguous view
+    # (normalised output, no m/l; no single PyTorch call walks a page
+    # table), lengths as a boolean mask.
+    kt = kg.reshape(b, t, kv, hd).transpose(1, 2) \
+        .repeat_interleave(h // kv, dim=1)
+    vt = vg.reshape(b, t, kv, hd).transpose(1, 2) \
+        .repeat_interleave(h // kv, dim=1)
+    mask = (torch.arange(t, device=device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kt, vt, attn_mask=mask))
+    flat_launches = fd.flash_decode_attention.launches
+    live_tokens = int(lengths.sum().item())
+    live_pages = int(((lengths + pt - 1) // pt).sum().item())
+    io_bytes = q_scaled.numel() * q_scaled.element_size() \
+        + lengths.numel() * 4 + b * h * (hd + 2) * 4
+    flops = 4 * live_tokens * h * hd
+    paged_bound, paged_by = bound_ms(
+        2 * live_tokens * kv * hd * 2 + live_pages * 4 + io_bytes, flops,
+        "f32")
+    flat_bound, flat_by = bound_ms(2 * live_tokens * kv * hd * 2 + io_bytes,
+                                   flops, "f32")
+    source = "aiko_services_tpu_torch/csrc/flash_decode.cu"
+    library_note = "SDPA on the pre-gathered view"
+    return [{"name": "flash_decode_attention_paged", "route": "cuda",
+             "source": source,
+             "replaces": "aiko_services_tpu/ops/pallas_decode.py:487",
+             "max_abs_err": errors["paged"][torch.float32], "ms": ms,
+             "plain_ms": plain, "bound_ms": paged_bound,
+             "bound_by": paged_by, "library_ms": library,
+             "library": library_note},
+            {"name": "flash_decode_attention", "route": "cuda",
+             "source": source,
+             "replaces": "aiko_services_tpu/ops/pallas_decode.py:285",
+             "max_abs_err": errors["flat"][torch.float32], "ms": flat_ms,
+             "plain_ms": flat_plain, "bound_ms": flat_bound,
+             "bound_by": flat_by, "library_ms": library,
+             "library": library_note, "path": "kernel phase",
+             "launches": flat_launches}]
+
+
 # -- phase 3: serving -------------------------------------------------------
 
 PROMPT_LENGTHS = (100, 1500, 700, 300, 1200, 900, 513, 1024)
@@ -256,49 +408,87 @@ def serving_config():
         decode_attention="auto")
 
 
-def serve(params, config, decode_block: int, device, card: str) -> dict:
-    """One ContinuousBatcher run over the eight prompts; returns the
-    per-request token streams and the run's metrics."""
+def mixed_requests(config) -> list[tuple]:
+    """The eight (prompt, temperature) requests of the serving runs:
+    prompts of PROMPT_LENGTHS tokens, even ones greedy, odd ones at 0.8."""
     import numpy as np
+    rng = np.random.default_rng(7)
+    return [(rng.integers(0, config.vocab_size, length).tolist(),
+             0.0 if index % 2 == 0 else 0.8)
+            for index, length in enumerate(PROMPT_LENGTHS)]
+
+
+def prefix_requests(config) -> list[tuple]:
+    """Four greedy requests sharing a 1024-token prefix (two whole
+    prefill chunks, 16 pages of 64) with distinct 256-token tails."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, config.vocab_size, 1024).tolist()
+    return [(prefix + rng.integers(0, config.vocab_size, 256).tolist(), 0.0)
+            for _ in range(4)]
+
+
+def serve(params, config, requests, label: str, device, card: str, *,
+          decode_block: int, serial_first: bool = False, **options) -> dict:
+    """One ContinuousBatcher run (8 slots, prefill chunk 512, top-k 50)
+    over ``requests``; ``serial_first`` drains the first request alone
+    before submitting the rest.  Returns the per-request token streams,
+    the ids of requests preempted under pool pressure, the batcher's
+    page and prefix counters and the run's metrics."""
     import torch
     from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
                                                          Request)
-    rng = np.random.default_rng(7)
     batcher = ContinuousBatcher(params, config, max_slots=8,
                                 prefill_chunk=512, sample_top_k=50,
-                                decode_block=decode_block, device=device)
+                                decode_block=decode_block, device=device,
+                                **options)
+    evicted = set()
+    evict = batcher._evict_slot
+
+    def record_eviction(slot):
+        if batcher.slots[slot] is not None:
+            evicted.add(batcher.slots[slot].request_id)
+        evict(slot)
+    batcher._evict_slot = record_eviction
     streams = {}
-    for index, length in enumerate(PROMPT_LENGTHS):
-        rid = f"r{index}"
-        streams[rid] = []
-        batcher.submit(Request(
-            rid, rng.integers(0, config.vocab_size, length).tolist(),
-            max_new_tokens=NEW_TOKENS,
-            temperature=0.0 if index % 2 == 0 else 0.8,
-            emit=lambda r, token, done: streams[r].append(token)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     begin = time.perf_counter()
+    for index, (prompt, temperature) in enumerate(requests):
+        rid = f"r{index}"
+        streams[rid] = []
+        batcher.submit(Request(
+            rid, list(prompt), max_new_tokens=NEW_TOKENS,
+            temperature=temperature,
+            emit=lambda r, token, done: streams[r].append(token)))
+        if serial_first and index == 0:
+            batcher.run_until_drained(max_steps=10_000)
     batcher.run_until_drained(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - begin
     stats = batcher.take_request_stats()
     for rid, tokens in streams.items():
         if len(tokens) != NEW_TOKENS:
-            raise AssertionError(f"decode_block={decode_block}: {rid} got "
-                                 f"{len(tokens)} of {NEW_TOKENS} tokens")
+            raise AssertionError(f"{label}: {rid} got {len(tokens)} of "
+                                 f"{NEW_TOKENS} tokens")
     ttft = sorted(s["ttft_ms"] for s in stats)
     metrics = {
-        "decode_block": decode_block, "requests": len(streams),
-        "tokens": batcher.tokens_emitted,
+        "run": label, "decode_block": decode_block,
+        "requests": len(streams), "tokens": batcher.tokens_emitted,
         "prefill_tokens": batcher.prefill_tokens,
         "wall_s": wall, "tokens_per_s": batcher.tokens_emitted / wall,
         "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "evictions": batcher.evictions,
+        "prefix_hits": batcher.prefix_hits,
+        "prefix_shared_tokens": batcher.prefix_shared_tokens,
         "card": card}
+    leaked = batcher._pages.leaked_pages() if batcher._pages else 0
+    del batcher._evict_slot         # the hook's cycle would keep the cache
     del batcher
     torch.cuda.empty_cache()
-    return {"streams": streams, "metrics": metrics}
+    return {"streams": streams, "evicted": evicted, "leaked": leaked,
+            "metrics": metrics}
 
 
 def check_dense_agreement(params, config, device) -> dict:
@@ -380,7 +570,7 @@ def main() -> int:
     from aiko_services_tpu_torch.ops import _build
     from aiko_services_tpu_torch.ops.flash_attention import flash_attention
     from aiko_services_tpu_torch.ops.flash_decode import (
-        flash_decode_attention_stacked)
+        flash_decode_attention_paged, flash_decode_attention_stacked)
     from aiko_services_tpu_torch.ops.topk import topk
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -398,8 +588,8 @@ def main() -> int:
             if "registers" in line:
                 print(f"  {source}: {line.strip()}")
 
-    kernels = [check_decode(device), check_attention(device),
-               check_topk(device)]
+    kernels = [check_decode(device), *check_paged(device),
+               check_attention(device), check_topk(device)]
     for entry in kernels:
         print(f"{entry['name']}: {entry['ms']:.4f} ms (plain "
               f"{entry['plain_ms']:.4f}, library {entry['library_ms']:.4f}, "
@@ -409,6 +599,7 @@ def main() -> int:
 
     wrappers = {"flash_decode_attention_stacked":
                 flash_decode_attention_stacked,
+                "flash_decode_attention_paged": flash_decode_attention_paged,
                 "flash_attention": flash_attention, "topk": topk}
     from aiko_services_tpu_torch.models import llama
     config = serving_config()
@@ -419,38 +610,87 @@ def main() -> int:
           f"{time.perf_counter() - begin:.1f} s, "
           f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
           f"params")
+    mixed, shared = mixed_requests(config), prefix_requests(config)
+    paged = dict(kv_page_tokens=64)
+    plan = [("dense-1", mixed, dict(decode_block=1)),
+            ("dense-4", mixed, dict(decode_block=4)),
+            ("paged-1", mixed, dict(decode_block=1, **paged)),
+            # inflight=1 retires each block before the next tick admits,
+            # so an admission short of pages preempts instead of waiting
+            # for the in-flight blocks (with 2 in flight it always waits).
+            ("paged-pressure-4", mixed,
+             dict(decode_block=4, inflight=1, kv_pages=97, **paged)),
+            ("prefix-warm-1", shared,
+             dict(decode_block=1, serial_first=True, prefix_cache="on",
+                  **paged)),
+            ("prefix-cold-1", shared,
+             dict(decode_block=1, serial_first=True, **paged))]
     runs = {}
-    for fn in wrappers.values():
-        fn.launches = 0
-    for decode_block in (1, 4):
-        before = {name: fn.launches for name, fn in wrappers.items()}
-        runs[decode_block] = serve(params, config, decode_block,
-                                   device, card)
-        counts = {name: fn.launches - before[name]
-                  for name, fn in wrappers.items()}
-        print(f"serving {json.dumps(runs[decode_block]['metrics'])} "
+    launches = {name: 0 for name in wrappers}
+    for label, requests, options in plan:
+        for fn in wrappers.values():
+            fn.launches = 0
+        runs[label] = serve(params, config, requests, label, device, card,
+                            **options)
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        print(f"serving {json.dumps(runs[label]['metrics'])} "
               f"launches {json.dumps(counts)}", flush=True)
+        decode = "flash_decode_attention_paged" if "kv_page_tokens" \
+            in options else "flash_decode_attention_stacked"
+        other = ({"flash_decode_attention_paged",
+                  "flash_decode_attention_stacked"} - {decode}).pop()
         for name, count in counts.items():
-            if count <= 0:
-                raise AssertionError(
-                    f"decode_block={decode_block}: {name} never "
-                    f"launched on the serving path")
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    greedy = [rid for index, rid in enumerate(runs[1]["streams"])
-              if index % 2 == 0]
-    agree = sum(runs[1]["streams"][rid] == runs[4]["streams"][rid]
-                for rid in greedy)
-    print(f"greedy streams equal across decode_block 1 and 4: "
-          f"{agree}/{len(greedy)}")
-    if agree != len(greedy):
-        raise AssertionError("decode_block 4 emitted other greedy tokens "
-                             "than decode_block 1")
+            if name != other and count <= 0:
+                raise AssertionError(f"{label}: {name} never launched on "
+                                     f"the serving path")
+        if counts[other]:
+            raise AssertionError(f"{label}: {other} launched {counts[other]}"
+                                 f" times; the run's decode is {decode}")
+        for name, count in counts.items():
+            launches[name] += count
+
+    def greedy_agree(a: str, b: str, rids) -> int:
+        return sum(runs[a]["streams"][rid] == runs[b]["streams"][rid]
+                   for rid in rids)
+    greedy = [f"r{index}" for index in range(0, len(mixed), 2)]
+    for a, b in (("dense-1", "dense-4"), ("dense-1", "paged-1")):
+        agree = greedy_agree(a, b, greedy)
+        print(f"greedy streams equal, {a} and {b}: {agree}/{len(greedy)}")
+        if agree != len(greedy):
+            raise AssertionError(f"{b} emitted other greedy tokens than {a}")
+    pressure = runs["paged-pressure-4"]
+    kept = [rid for rid in greedy if rid not in pressure["evicted"]]
+    lost = [rid for rid in greedy if rid in pressure["evicted"]]
+    agree = greedy_agree("dense-4", "paged-pressure-4", kept)
+    print(f"pool pressure: {pressure['metrics']['evictions']} evictions of "
+          f"{sorted(pressure['evicted'])}, leaked pages "
+          f"{pressure['leaked']}; greedy streams equal to dense-4: never "
+          f"evicted {agree}/{len(kept)}, evicted "
+          f"{greedy_agree('dense-4', 'paged-pressure-4', lost)}/{len(lost)}"
+          f" (a re-prefill rounds otherwise in bf16)")
+    if pressure["metrics"]["evictions"] < 1 or pressure["leaked"] \
+            or agree != len(kept):
+        raise AssertionError("pool pressure: expected >= 1 eviction, no "
+                             "leaked page and the dense greedy streams for "
+                             "every request never evicted")
+    warm, cold = runs["prefix-warm-1"], runs["prefix-cold-1"]
+    agree = greedy_agree("prefix-warm-1", "prefix-cold-1", warm["streams"])
+    print(f"prefix cache: {warm['metrics']['prefix_hits']} page hits, "
+          f"{warm['metrics']['prefix_shared_tokens']} shared tokens, "
+          f"warm streams equal to cold: {agree}/{len(warm['streams'])}")
+    if warm["metrics"]["prefix_hits"] != 48 \
+            or warm["metrics"]["prefix_shared_tokens"] != 3072 \
+            or agree != len(warm["streams"]) or warm["leaked"]:
+        raise AssertionError("prefix cache: expected 48 page hits, 3072 "
+                             "shared tokens, warm streams equal to cold and "
+                             "no leaked page")
     check_dense_agreement(params, config, device)
     del params
     torch.cuda.empty_cache()
 
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        if entry.get("path") != "kernel phase":
+            entry["launches"] = launches[entry["name"]]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -111,8 +111,7 @@ def test_pad_to_bucket_matches():
 
 
 @pytest.mark.parametrize("option", [
-    dict(decode_block_tokens=8), dict(speculative="ngram"),
-    dict(kv_page_tokens=16), dict(prefix_cache="on")])
+    dict(decode_block_tokens=8), dict(speculative="ngram")])
 def test_unported_batcher_options_raise(option):
     _, tc, _, tp = _twins()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -54,3 +54,39 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
         got_v, got_i = topk(x, kk)
         ref_v, ref_i = topk_reference(x, kk)
         assert torch.equal(got_v, ref_v) and torch.equal(got_i, ref_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_tokens", [64, 16, 8])
+def test_paged_kernel_bitwise_matches_flat_kernel(cuda_device, page_tokens):
+    """Kernel #3 walking a scattered page table is bitwise equal to
+    kernel #1 on the gathered contiguous view (acc, m and l), at page
+    sizes at and below the kernel's 64-row tile, for f32 and bf16
+    queries; and #3 holds its plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    b, pps, kv, hd, h = 3, 6, 2, 128, 8
+    pages = b * pps + 1
+    pool_k = torch.randn((2, pages, page_tokens, kv * hd), generator=gen,
+                         device=cuda_device).to(torch.bfloat16)
+    pool_v = torch.randn_like(pool_k, dtype=torch.float32).to(torch.bfloat16)
+    order = torch.randperm(pages - 1, generator=gen, device=cuda_device) + 1
+    table = order.reshape(b, pps).to(torch.int32)
+    t = pps * page_tokens
+    lengths = torch.tensor([t, 1, t - 5], dtype=torch.int32,
+                           device=cuda_device)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda_device)
+    for q_in in (tdec._prep_query(q, hd)[0],
+                 tdec._prep_query(q.to(torch.bfloat16), 64)[0]):
+        layer = 1
+        paged = tdec.flash_decode_attention_paged(q_in, pool_k, pool_v,
+                                                  layer, table, lengths)
+        flat = tdec.flash_decode_attention(
+            q_in, pool_k[layer][table.long()].reshape(b, t, kv * hd),
+            pool_v[layer][table.long()].reshape(b, t, kv * hd), lengths)
+        plain = tdec.flash_decode_attention_paged_reference(
+            q_in, pool_k, pool_v, layer, table, lengths)
+        torch.cuda.synchronize()
+        for got, same, want in zip(paged, flat, plain):
+            assert torch.equal(got, same)
+            torch.testing.assert_close(got, want, **(
+                F32 if q_in.dtype == torch.float32 else BF16))

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from aiko_services_tpu_torch.models import batching, bridge, llama
+from aiko_services_tpu_torch.models import batching, bridge, llama, paged
+from aiko_services_tpu_torch.ops import rope_frequencies
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "aiko_services_tpu_torch"
@@ -76,12 +77,20 @@ def _entry_points():
         "ContinuousBatcher": lambda: batching.ContinuousBatcher(
             params, config, max_slots=2),
         "params_from_numpy": lambda: bridge.params_from_numpy(tree, config),
+        "rope_frequencies": lambda: rope_frequencies(16, 8),
+        "init_paged_cache": lambda: paged.init_paged_cache(config, 2, 32,
+                                                           16),
+        "ContinuousBatcher_paged": lambda: batching.ContinuousBatcher(
+            params, config, max_slots=2, prefill_chunk=16,
+            kv_page_tokens=16),
     }
 
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache",
                                    "ContinuousBatcher",
-                                   "params_from_numpy"])
+                                   "params_from_numpy", "rope_frequencies",
+                                   "init_paged_cache",
+                                   "ContinuousBatcher_paged"])
 def test_entry_point_without_card_raises(entry, monkeypatch):
     call = _entry_points()[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,13 +98,19 @@ def test_entry_point_without_card_raises(entry, monkeypatch):
         call()
 
 
-@pytest.mark.parametrize("entry", ["init_params", "init_cache"])
+@pytest.mark.parametrize("entry", ["init_params", "init_cache",
+                                   "rope_frequencies", "init_paged_cache"])
 def test_entry_point_runs_on_cpu_when_asked(entry):
     config = _tiny()
     if entry == "init_params":
         out = llama.init_params(0, config, device="cpu")["embed"]
-    else:
+    elif entry == "init_cache":
         out = llama.init_cache(config, 2, device="cpu")["k"]
+    elif entry == "rope_frequencies":
+        out = rope_frequencies(16, 8, device="cpu")
+    else:
+        out = paged.init_paged_cache(config, 2, 32, 16,
+                                     device="cpu")["page_table"]
     assert out.device.type == "cpu"
 
 

@@ -159,3 +159,146 @@ def test_topk_plain_matches_pallas_and_lax(k, v):
 def test_topk_rejects_k_out_of_range(k):
     with pytest.raises(ValueError, match="must be in"):
         topk(torch.zeros(2, 300), k)
+
+
+# -- kernels #3 (paged) and #1 (flat) ---------------------------------------
+
+def _paged_inputs(seed, d, dtype, page_tokens=32):
+    """The layout of the JAX package's ``_paged_case``
+    (test_kernel_plane.py): L=2 layers, 3 slots x 4 logical pages, 2 kv
+    heads x 2 query groups, pages scattered through a 13-page pool (page
+    0 is trash), lengths {70, 128, 33} at pt=32."""
+    rng = np.random.default_rng(seed)
+    n_layers, pages, b, kv, h = 2, 13, 3, 2, 4
+    pool_k = rng.normal(size=(n_layers, pages, page_tokens, kv * d))
+    pool_v = rng.normal(size=(n_layers, pages, page_tokens, kv * d))
+    q = rng.normal(size=(b, 1, h, d))
+    k_new = rng.normal(size=(b, 1, kv, d))
+    v_new = rng.normal(size=(b, 1, kv, d))
+    table = np.array([[1, 2, 3, 0], [4, 5, 6, 7], [8, 9, 0, 0]],
+                     dtype=np.int32)
+    lengths = np.array([70, 128, 33], dtype=np.int32) * page_tokens // 32
+    jdtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    arrays = [a.astype(np.float32) for a in (pool_k, pool_v, q, k_new, v_new)]
+    jx = [jnp.asarray(a, jdtype) for a in arrays]
+    tx = [_t(a).to(tdtype) for a in arrays]
+    return jx, tx, table, lengths, h, kv
+
+
+def _own(x, h, kv, d):
+    """The port's compact [B, H, hd] blocks of a block-diagonal
+    [B, H, K*hd] TPU accumulator."""
+    blocks = np.arange(h) // (h // kv)
+    x = _np(x)
+    return x.reshape(x.shape[0], h, kv, d)[:, np.arange(h), blocks]
+
+
+@pytest.mark.parametrize("d,dtype,tol", DECODE_CASES)
+def test_paged_kernel_plain_matches_pallas(d, dtype, tol):
+    """The plain #3 (what the wrapper runs on a CPU tensor) against the
+    Pallas paged kernel in interpret mode, on every layer."""
+    jx, tx, table, lengths, h, kv = _paged_inputs(5, d, dtype)
+    (kj, vj, qj, _, _), (kt, vt, qt, _, _) = jx, tx
+    q_pad_j, _, _, _ = jdec._prep_query(qj[:, 0], h, kv, d)
+    q_t, _ = tdec._prep_query(qt[:, 0], d)
+    for layer in range(2):
+        acc_j, m_j, l_j = jdec.flash_decode_attention_paged(
+            q_pad_j, kj, vj, None, None, jnp.int32(layer),
+            jnp.asarray(table), jnp.asarray(lengths), interpret=True)
+        acc_t, m_t, l_t = tdec.flash_decode_attention_paged(
+            q_t, kt, vt, layer, _t(table), _t(lengths))
+        _close(acc_t, _own(acc_j, h, kv, d), tol)
+        _close(m_t, _np(m_j), tol)
+        _close(l_t, _np(l_j), tol)
+
+
+@pytest.mark.parametrize("d,dtype,tol", DECODE_CASES)
+def test_flat_kernel_plain_matches_pallas(d, dtype, tol):
+    """The plain #1 against the Pallas flat kernel on the gathered view
+    of the paged case, lengths 0 and T included."""
+    jx, tx, table, lengths, h, kv = _paged_inputs(6, d, dtype)
+    (kj, vj, qj, _, _), (kt, vt, qt, _, _) = jx, tx
+    lengths = np.array([0, 128, 33], dtype=np.int32)
+    q_pad_j, _, _, _ = jdec._prep_query(qj[:, 0], h, kv, d)
+    q_t, _ = tdec._prep_query(qt[:, 0], d)
+    kg = kt[1][_t(table).long()].reshape(3, 128, kv * d)
+    vg = vt[1][_t(table).long()].reshape(3, 128, kv * d)
+    acc_j, m_j, l_j = jdec.flash_decode_attention(
+        q_pad_j, kj[1][jnp.asarray(table)].reshape(3, 128, kv * d),
+        vj[1][jnp.asarray(table)].reshape(3, 128, kv * d), None, None,
+        jnp.asarray(lengths), block_t=32, interpret=True)
+    acc_t, m_t, l_t = tdec.flash_decode_attention(q_t, kg, vg, _t(lengths))
+    _close(acc_t, _own(acc_j, h, kv, d), tol)
+    _close(m_t, _np(m_j), tol)
+    _close(l_t, _np(l_j), tol)
+    assert bool((m_t[0] == -1e30).all()) and float(l_t[0].abs().max()) == 0
+
+
+@pytest.mark.parametrize("page_tokens", [32, 16, 8])
+def test_paged_plain_equals_flat_plain_on_gathered_view(page_tokens):
+    """The port's twin of test_paged_kernel_bitwise_matches_dense_kernel
+    for the plain versions: paged == flat on the gathered contiguous
+    view, bit for bit, at page sizes at and below the kernel's 64-row
+    tile (the CUDA kernels are held to the same in test_torch_cuda.py and
+    chip_smoke.py)."""
+    _, tx, table, lengths, h, kv = _paged_inputs(7, 32, "float32",
+                                                 page_tokens)
+    kt, vt, qt, _, _ = tx
+    q_t, _ = tdec._prep_query(qt[:, 0], 32)
+    for layer in range(2):
+        paged = tdec.flash_decode_attention_paged(
+            q_t, kt, vt, layer, _t(table), _t(lengths))
+        flat = tdec.flash_decode_attention(
+            q_t, kt[layer][_t(table).long()].reshape(3, -1, kv * 32),
+            vt[layer][_t(table).long()].reshape(3, -1, kv * 32),
+            _t(lengths))
+        for a, b in zip(paged, flat):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", dict(atol=1e-5,
+                                                         rtol=1e-5)),
+                                       ("bfloat16", BF16)])
+def test_paged_append_matches_pallas(dtype, tol):
+    """flash_decode_append_paged (the JAX signature) against the JAX
+    package's, f32 at the 1e-5 of test_kernel_plane.py's paged append
+    test."""
+    jx, tx, table, lengths, h, kv = _paged_inputs(8, 16, dtype)
+    kj, vj, qj, knj, vnj = jx
+    kt, vt, qt, knt, vnt = tx
+    out_j = jdec.flash_decode_append_paged(
+        qj, jdec._split_paged(kj), jdec._split_paged(vj), jnp.int32(1),
+        knj, vnj, jnp.asarray(table), jnp.asarray(lengths), interpret=True)
+    out_t = tdec.flash_decode_append_paged(
+        qt, tdec._split_paged(kt), tdec._split_paged(vt), 1, knt, vnt,
+        _t(table), _t(lengths))
+    assert out_t.dtype == tx[2].dtype and out_t.shape == qt.shape
+    _close(out_t.float(), _np(out_j), tol)
+
+
+@pytest.mark.parametrize("d,dtype,tol", DECODE_CASES)
+def test_flat_append_matches_pallas(d, dtype, tol):
+    """flash_decode_append (grouped [B, T, K, hd] caches, the JAX
+    signature) against the JAX package's."""
+    jx, tx, lengths, h, kv = _decode_inputs(9, d, dtype)
+    kj, vj, qj, knj, vnj = jx
+    kt, vt, qt, knt, vnt = tx
+    out_j = jdec.flash_decode_append(
+        qj, kj[0].reshape(3, 64, kv, d), vj[0].reshape(3, 64, kv, d), knj,
+        vnj, jnp.asarray(lengths), block_t=32, interpret=True)
+    out_t = tdec.flash_decode_append(
+        qt, kt[0].reshape(3, 64, kv, d), vt[0].reshape(3, 64, kv, d), knt,
+        vnt, _t(lengths))
+    assert out_t.dtype == tx[2].dtype
+    _close(out_t.float(), _np(out_j), tol)
+
+
+def test_paged_kernel_rejects_unaligned_pages():
+    """Pages must be a multiple of 8 tokens, on every device (the JAX
+    kernel refuses the same by name)."""
+    _, tx, table, lengths, _, _ = _paged_inputs(10, 16, "float32", 12)
+    kt, vt, qt, _, _ = tx
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tdec.flash_decode_attention_paged(tdec._prep_query(qt[:, 0], 16)[0],
+                                          kt, vt, 0, _t(table), _t(lengths))

@@ -15,6 +15,7 @@ import torch
 from aiko_services_tpu.models import llama as jl
 from aiko_services_tpu_torch.models import bridge
 from aiko_services_tpu_torch.models import llama as tl
+from aiko_services_tpu_torch.models.paged import init_paged_cache
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -236,7 +237,8 @@ def test_select_tokens_samples_within_top_k():
         assert all(int(got[row]) in allowed[row].tolist() for row in range(3))
 
 
-@pytest.mark.parametrize("case", ["kv_int8", "moe", "quantized", "paged"])
+@pytest.mark.parametrize("case", ["kv_int8", "moe", "quantized",
+                                  "paged_int8"])
 def test_unported_options_raise(case):
     _, tc = _configs()
     if case == "kv_int8":
@@ -250,11 +252,8 @@ def test_unported_options_raise(case):
             "int8": torch.zeros(2, 2, dtype=torch.int8),
             "scale": torch.ones(1, 2)})
     else:
-        cache = tl.init_cache(tc, 2, device="cpu")
-        cache["page_table"] = torch.zeros(2, 4, dtype=torch.int32)
-        call = lambda: tl.decode_step(
-            tl.init_params(0, tc, device="cpu"), tc,
-            torch.zeros(2, dtype=torch.long), cache,
-            torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call = lambda: init_paged_cache(dataclasses.replace(
+            tc, kv_dtype="int8"), 2, page_tokens=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"
+                       if case == "paged_int8" else "ROADMAP"):
         call()
