@@ -6,9 +6,11 @@ standard library only -- never jax, and nothing of ``aiko_services_tpu``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no such request they raise.
 
-This slice serves Llama-3 through ``models.batching.ContinuousBatcher``
-with three hand-written Hopper kernels (``ops/flash_decode.py``,
-``ops/flash_attention.py``, ``ops/topk.py``; sources under ``csrc/``).
+The ported slices serve Llama-3 through
+``models.batching.ContinuousBatcher`` -- dense or paged KV, bf16 or
+int8 weights and cache -- on hand-written Hopper kernels
+(``ops/flash_decode.py``, ``ops/flash_attention.py``, ``ops/topk.py``,
+``ops/int8_matmul.py``; sources under ``csrc/``).
 """
 
 from .device import resolve_device

@@ -1,5 +1,5 @@
 // Shared device helpers of the port's kernels: dtype conversion and
-// vectorised bf16 loads.
+// vectorised bf16 and int8 loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,6 +68,39 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ src,
                                          float* dst) {
 #pragma unroll
   for (int i = 0; i < N; ++i) dst[i] = src[i];
+}
+
+// The four signed bytes of a 32-bit word, in address order.
+__device__ __forceinline__ void bytes_to_float(uint32_t word, float* dst) {
+  dst[0] = static_cast<float>(static_cast<int32_t>(word << 24) >> 24);
+  dst[1] = static_cast<float>(static_cast<int32_t>(word << 16) >> 24);
+  dst[2] = static_cast<float>(static_cast<int32_t>(word << 8) >> 24);
+  dst[3] = static_cast<float>(static_cast<int32_t>(word) >> 24);
+}
+
+// N consecutive int8 codes at src (aligned to N bytes) -> float dst.
+template <int N>
+__device__ __forceinline__ void load_vec(const int8_t* __restrict__ src,
+                                         float* dst) {
+  static_assert(N == 2 || N % 4 == 0, "int8 loads of 2, 4, 8 or 16");
+  if constexpr (N % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 16; ++i) {
+      const uint4 raw = reinterpret_cast<const uint4*>(src)[i];
+      bytes_to_float(raw.x, dst + i * 16);
+      bytes_to_float(raw.y, dst + i * 16 + 4);
+      bytes_to_float(raw.z, dst + i * 16 + 8);
+      bytes_to_float(raw.w, dst + i * 16 + 12);
+    }
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      bytes_to_float(reinterpret_cast<const uint32_t*>(src)[i], dst + i * 4);
+  } else {
+    const char2 raw = *reinterpret_cast<const char2*>(src);
+    dst[0] = static_cast<float>(raw.x);
+    dst[1] = static_cast<float>(raw.y);
+  }
 }
 
 }  // namespace aiko

@@ -15,10 +15,15 @@
 // The result is the unnormalised online-softmax state (acc, m, l) that
 // the caller merges with the current token's own k/v.
 //
+// A second template parameter is the payload: bf16 caches, or int8 codes
+// with one f32 scale per (position, kv head) (the JAX package's
+// kv_dtype="int8", dequantized inside the kernel as the TPU kernels do).
+//
 // What bounds it on an H100: bytes.  Each launch streams the live part of
-// one layer's K and V (at B=8, T=2048, K*hd=1024, bf16: 64 MiB) and does
-// ~4 FLOP per cached element, far below the card's ~295 FLOP/byte ridge.
-// The paged form adds only the live table entries (4 bytes a page).
+// one layer's K and V (at B=8, T=2048, K*hd=1024, bf16: 64 MiB; int8: half
+// that plus 1/hd of it in scales) and does ~4 FLOP per cached element, far
+// below the card's ~295 FLOP/byte ridge.  The paged form adds only the
+// live table entries (4 bytes a page).
 //
 // Design:
 //  - The TPU kernel carries (m, l, acc) across a sequential grid axis in
@@ -56,10 +61,20 @@
 //  - bf16 queries (head dims whose softmax scale is a power of two) round
 //    the softmax weights to bf16 before the PV product, as the TPU
 //    kernel's p.astype(compute_dtype) does; f32 queries keep them f32.
+//  - int8 payloads: the rows are read as int8 codes (half the bytes; 16
+//    codes a 16-byte load in the score phase) and widened exactly; the
+//    scales are read in their stored [.., T, K] layout through the same
+//    row address (no transposed copy).  The score is dot(q, k) * k_scale
+//    and a position adds p * v_scale * v to acc but p alone to l -- the
+//    TPU kernel's fold: exact dequantization, no query or weight
+//    quantization.  The paged int8 form stays bitwise equal to the flat
+//    int8 form on the gathered view.
 //
 // Known limit: B * K blocks (64 at llama3-8b with 8 slots) leave about
 // half of the 132 SMs idle.  Splitting T across blocks with a second
 // combine pass is the next step for all three forms (a later change).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -70,26 +85,29 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
 
 // Row addressing of a flat [B, T, C] view: row t of batch row b at
-// base + b * stride_b + t * stride_t.
+// base + b * stride_b + t * stride_t, its scales (int8 payloads, a
+// [B, T, K] view) at scale_base + b * sstride_b + t * sstride_t.
 struct FlatRows {
   long long stride_b, stride_t;
-  const int32_t* table;   // unused
-  int pps, page_tokens, n_pages;
-  long long page_stride;
+  long long sstride_b, sstride_t;
 
   __device__ __forceinline__ void load(int, int, int*) const {}
   __device__ __forceinline__ long long row(int b, int t, const int*) const {
     return b * stride_b + t * stride_t;
   }
+  __device__ __forceinline__ long long srow(int b, int t, const int*) const {
+    return b * sstride_b + t * sstride_t;
+  }
 };
 
 // Row addressing of a paged pool [P, pt, C]: row t of batch row b at
-// base + table[b, t / pt] * page_stride + (t % pt) * stride_t.
+// base + table[b, t / pt] * page_stride + (t % pt) * stride_t, its scales
+// (a [P, pt, K] pool) at the same page and row of the scale pool.
 struct PagedRows {
-  long long stride_b, stride_t;   // stride_b unused
+  long long page_stride, stride_t;
+  long long spage_stride, sstride_t;
   const int32_t* table;           // [B, pps]
   int pps, page_tokens, n_pages;
-  long long page_stride;
 
   __device__ __forceinline__ void load(int b, int length, int* tbl) const {
     const int live = (length + page_tokens - 1) / page_tokens;
@@ -102,18 +120,26 @@ struct PagedRows {
     return tbl[t / page_tokens] * page_stride
            + (long long)(t % page_tokens) * stride_t;
   }
+  __device__ __forceinline__ long long srow(int, int t,
+                                            const int* tbl) const {
+    return tbl[t / page_tokens] * spage_stride
+           + (long long)(t % page_tokens) * sstride_t;
+  }
 };
 
-template <int HD, int G, typename QT, typename Rows>
+template <int HD, int G, typename QT, typename KV, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
-                    const __nv_bfloat16* __restrict__ k,   // one layer
-                    const __nv_bfloat16* __restrict__ v,
+                    const KV* __restrict__ k,              // one layer
+                    const KV* __restrict__ v,
+                    const float* __restrict__ k_scale,     // int8 only
+                    const float* __restrict__ v_scale,
                     const int32_t* __restrict__ lengths,   // [B]
                     float* __restrict__ acc_out,           // [B, H, HD]
                     float* __restrict__ m_out,             // [B, H]
                     float* __restrict__ l_out,             // [B, H]
                     int n_kv, int t_len, Rows rows) {
+  constexpr bool kInt8 = std::is_same_v<KV, int8_t>;
   constexpr int LPR = HD / 16;     // lanes sharing one row (score phase)
   constexpr int RPW = 32 / LPR;    // rows a warp scores per pass
   constexpr int DPL = HD / 32;     // dims a lane owns (PV phase)
@@ -151,8 +177,8 @@ flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
   rows.load(b, length, tbl_s);
   __syncthreads();
 
-  const __nv_bfloat16* kb = k + kvh * HD;
-  const __nv_bfloat16* vb = v + kvh * HD;
+  const KV* kb = k + kvh * HD;
+  const KV* vb = v + kvh * HD;
   const int n_tiles = (length + kTile - 1) / kTile;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int t0 = tile * kTile;
@@ -175,9 +201,14 @@ flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
         for (int g = 0; g < G; ++g)
           part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
       if (sub == 0) {
+        float ks = 1.f;
+        if constexpr (kInt8) {
+          if (t < length) ks = k_scale[rows.srow(b, t, tbl_s) + kvh];
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g)
-          p_s[g][r0 + rsub] = t < length ? part[g] : kNegInf;
+          p_s[g][r0 + rsub] = t < length ? (kInt8 ? part[g] * ks : part[g])
+                                         : kNegInf;
       }
     }
     __syncthreads();
@@ -200,8 +231,15 @@ flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
 #pragma unroll
       for (int off = 16; off > 0; off /= 2)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      p_s[g][lane] = aiko::round_to<QT>(p0);
-      p_s[g][lane + 32] = aiko::round_to<QT>(p1);
+      float w0 = p0, w1 = p1;
+      if constexpr (kInt8) {
+        // Value scales fold into the numerator's weights only.
+        if (valid0) w0 *= v_scale[rows.srow(b, t0 + lane, tbl_s) + kvh];
+        if (valid1)
+          w1 *= v_scale[rows.srow(b, t0 + lane + 32, tbl_s) + kvh];
+      }
+      p_s[g][lane] = aiko::round_to<QT>(w0);
+      p_s[g][lane + 32] = aiko::round_to<QT>(w1);
       if (lane == 0) {
         const float corr = expf(m_prev - m_safe);
         l_s[g] = l_s[g] * corr + sum;
@@ -251,12 +289,15 @@ flash_decode_kernel(const QT* __restrict__ q,              // [B, H, HD]
   }
 }
 
-// Everything a launch needs besides the two template choices.
+// Everything a launch needs besides the template choices.
 struct Args {
   const void* q;
   int q_bf16;
+  int kv_int8;
   const void* k;
   const void* v;
+  const void* k_scale;
+  const void* v_scale;
   const void* lengths;
   void* acc;
   void* m;
@@ -277,29 +318,38 @@ cudaError_t allow_shared(Kernel kernel, int dynamic_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic_bytes);
 }
 
-template <int HD, int G, typename QT, typename Rows>
+template <int HD, int G, typename QT, typename KV, typename Rows>
 int launch_typed(const Args& a, Rows rows, int dynamic_bytes,
                  cudaStream_t stream) {
-  auto kernel = flash_decode_kernel<HD, G, QT, Rows>;
+  auto kernel = flash_decode_kernel<HD, G, QT, KV, Rows>;
   if (dynamic_bytes > 0) {
     const cudaError_t status = allow_shared(kernel, dynamic_bytes);
     if (status != cudaSuccess) return static_cast<int>(status);
   }
   const dim3 grid(a.n_kv, a.batch);
   kernel<<<grid, kThreads, dynamic_bytes, stream>>>(
-      static_cast<const QT*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const QT*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale),
       static_cast<const int32_t*>(a.lengths), static_cast<float*>(a.acc),
       static_cast<float*>(a.m), static_cast<float*>(a.l), a.n_kv, a.t_len,
       rows);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD, int G, typename QT, typename Rows>
+int launch_payload(const Args& a, Rows rows, int dynamic_bytes,
+                   cudaStream_t s) {
+  if (a.kv_int8)
+    return launch_typed<HD, G, QT, int8_t>(a, rows, dynamic_bytes, s);
+  return launch_typed<HD, G, QT, __nv_bfloat16>(a, rows, dynamic_bytes, s);
+}
+
 template <int HD, int G, typename Rows>
 int launch(const Args& a, Rows rows, int dynamic_bytes, cudaStream_t s) {
   if (a.q_bf16)
-    return launch_typed<HD, G, __nv_bfloat16>(a, rows, dynamic_bytes, s);
-  return launch_typed<HD, G, float>(a, rows, dynamic_bytes, s);
+    return launch_payload<HD, G, __nv_bfloat16>(a, rows, dynamic_bytes, s);
+  return launch_payload<HD, G, float>(a, rows, dynamic_bytes, s);
 }
 
 template <int HD, typename Rows>
@@ -328,32 +378,39 @@ int launch_dims(int head_dim, int groups, const Args& a, Rows rows,
 }  // namespace
 
 // Flat form (kernels #1 and #2): k/v point at a [B, T, C] view whose rows
-// sit at b * stride_b + t * stride_t elements.
-extern "C" int aiko_flash_decode(const void* q, int q_bf16, const void* k,
-                                 const void* v, const void* lengths, void* acc,
-                                 void* m, void* l, int batch, int n_kv,
-                                 int groups, int head_dim, int t_len,
-                                 long long stride_b, long long stride_t,
-                                 void* stream) {
-  const Args a{q, q_bf16, k, v, lengths, acc, m, l, batch, n_kv, t_len};
-  const FlatRows rows{stride_b, stride_t, nullptr, 0, 1, 1, 0};
+// sit at b * stride_b + t * stride_t elements; for an int8 payload
+// (kv_int8 = 1) k_scale/v_scale point at its [B, T, K] f32 scales, rows
+// b * sstride_b + t * sstride_t floats apart (null for bf16).
+extern "C" int aiko_flash_decode(const void* q, int q_bf16, int kv_int8,
+                                 const void* k, const void* v,
+                                 const void* k_scale, const void* v_scale,
+                                 const void* lengths, void* acc, void* m,
+                                 void* l, int batch, int n_kv, int groups,
+                                 int head_dim, int t_len, long long stride_b,
+                                 long long stride_t, long long sstride_b,
+                                 long long sstride_t, void* stream) {
+  const Args a{q, q_bf16, kv_int8, k, v, k_scale, v_scale, lengths, acc, m,
+               l, batch, n_kv, t_len};
+  const FlatRows rows{stride_b, stride_t, sstride_b, sstride_t};
   return launch_dims(head_dim, groups, a, rows, 0, stream);
 }
 
 // Paged form (kernel #3): k/v point at one layer of the pools, [P, pt, C]
 // with rows page_stride and stride_t elements apart; table is [B, pps].
-extern "C" int aiko_flash_decode_paged(const void* q, int q_bf16,
-                                       const void* k, const void* v,
-                                       const void* table, const void* lengths,
-                                       void* acc, void* m, void* l, int batch,
-                                       int n_kv, int groups, int head_dim,
-                                       int pps, int page_tokens, int n_pages,
-                                       long long page_stride,
-                                       long long stride_t, void* stream) {
-  const Args a{q, q_bf16, k, v, lengths, acc, m, l, batch, n_kv,
-               pps * page_tokens};
-  const PagedRows rows{0, stride_t, static_cast<const int32_t*>(table), pps,
-                       page_tokens, n_pages, page_stride};
+// An int8 payload's scales are one layer of the [P, pt, K] scale pools,
+// spage_stride and sstride_t floats apart.
+extern "C" int aiko_flash_decode_paged(
+    const void* q, int q_bf16, int kv_int8, const void* k, const void* v,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* lengths, void* acc, void* m, void* l, int batch, int n_kv,
+    int groups, int head_dim, int pps, int page_tokens, int n_pages,
+    long long page_stride, long long stride_t, long long spage_stride,
+    long long sstride_t, void* stream) {
+  const Args a{q, q_bf16, kv_int8, k, v, k_scale, v_scale, lengths, acc, m,
+               l, batch, n_kv, pps * page_tokens};
+  const PagedRows rows{page_stride, stride_t, spage_stride, sstride_t,
+                       static_cast<const int32_t*>(table), pps, page_tokens,
+                       n_pages};
   return launch_dims(head_dim, groups, a, rows,
                      pps * static_cast<int>(sizeof(int)), stream);
 }

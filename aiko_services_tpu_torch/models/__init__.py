@@ -1,2 +1,2 @@
-"""Models of the PyTorch port: Llama-3 serving, its cache predicates,
-the numpy parameter bridge and the byte tokenizer."""
+"""Models of the PyTorch port: Llama-3 serving (dense and paged KV), its
+int8 quantization, the numpy parameter bridge and the byte tokenizer."""

@@ -24,9 +24,19 @@ kernel #3 (``flash_decode_append_paged``) or, on the reference path,
 the gathered layer.  ``prefill`` stays dense-only, as in the JAX
 package.
 
+int8 serving runs through the same entry points.  A tree from
+``models/quant.py`` ``quantize_params`` carries ``{"int8", "scale"}``
+weight leaves, which :func:`matmul` multiplies -- on the card through
+the int8 matmul kernel #5.  ``LlamaConfig(kv_dtype="int8")`` stores the
+cache (dense or paged) as int8 codes with one float32 scale per
+position and kv head: every write quantizes first, decode reads the
+codes through the int8 branch of the decode kernels (or the dense int8
+path, ``ops/layers.py``), and flash admission dequantizes the slot's
+row for the prefill kernel #4.
+
 Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): int8 weights and KV, mixture-of-experts and the device-resident
-decode loop with speculation.
+item): mixture-of-experts and the device-resident decode loop with
+speculation.
 """
 
 from __future__ import annotations
@@ -39,17 +49,18 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops import decode_backend, topk as ops_topk
+from ..ops import decode_backend, matmul_backend, topk as ops_topk
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import (_split_paged, _split_stacked,
                                 flash_decode_append_paged,
                                 flash_decode_append_stacked)
+from ..ops.int8_matmul import int8_matmul
 from ..ops.layers import (apply_rope, attention_decode_append,
                           attention_prefill, rms_norm, rope_frequencies)
 from ..utils.misc import not_ported
 from .paged import (gather_layer, gather_slot, is_paged, paged_extent,
                     pool_page_tokens, scatter_pages)
-from .quant import is_quantized
+from .quant import dequantize_kv, is_quantized, map_leaf, quantize_kv
 
 __all__ = ["LlamaConfig", "init_params", "param_shapes", "init_cache",
            "cache_array", "cache_extent", "prefill", "prefill_into_slot",
@@ -207,17 +218,51 @@ def init_cache(config: LlamaConfig, batch: int, max_seq: int | None = None,
                device: str | torch.device | None = None) -> dict:
     """Zeroed KV cache stored FLAT: [L, B, T, K*hd] per side -- the
     contiguous view the decode kernel reads (``cache[layer]`` is a view,
-    never a copy)."""
+    never a copy).  With ``kv_dtype="int8"`` each side is
+    ``{"int8": [L, B, T, K*hd] int8, "scale": [L, B, T, K, 1] float32}``
+    (the scales keep the JAX package's grouped shape)."""
     c = config
-    if c.kv_dtype == "int8":
-        raise not_ported("kv_dtype='int8'", "ROADMAP Queue 1: int8 "
-                         "weights and KV, with the int8 branch of "
-                         "kernel #2")
     device = resolve_device(device)
     t = max_seq or c.max_seq
     shape = (c.n_layers, batch, t, c.n_kv_heads * c.head_dim)
+    if c.kv_dtype == "int8":
+        def side():
+            return {"int8": torch.zeros(shape, dtype=torch.int8,
+                                        device=device),
+                    "scale": torch.zeros(shape[:-1] + (c.n_kv_heads, 1),
+                                         dtype=torch.float32,
+                                         device=device)}
+        return {"k": side(), "v": side()}
     return {"k": torch.zeros(shape, dtype=_dtype(c), device=device),
             "v": torch.zeros(shape, dtype=_dtype(c), device=device)}
+
+
+def _at_layer(leaf, index: int):
+    """Layer ``index`` of a stacked leaf -- a weight, a cache side or a
+    pool side, raw or int8 (a view)."""
+    return map_leaf(leaf, lambda arr: arr[index])
+
+
+def _kv_stored(leaf, new: torch.Tensor):
+    """Raw k/v ``[.., S, K, hd]`` -> what ``leaf``'s cache stores: the
+    flat ``[.., S, K*hd]`` rows, quantized first for an int8 leaf
+    (codes flat, scales ``[.., S, K, 1]``), as the JAX package's
+    ``_kv_store`` does."""
+    if is_quantized(leaf):
+        quantized = quantize_kv(new)
+        return {"int8": quantized["int8"].reshape(*new.shape[:-2], -1),
+                "scale": quantized["scale"]}
+    return new.reshape(*new.shape[:-2], -1)
+
+
+def _kv_write(leaf, new, write) -> None:
+    """``write(array, value)`` in place on each stored array of a cache
+    leaf, ``new`` from :func:`_kv_stored`."""
+    if is_quantized(leaf):
+        write(leaf["int8"], new["int8"])
+        write(leaf["scale"], new["scale"])
+    else:
+        write(leaf, new)
 
 
 def _require_whole_pages(cache: dict, starts, s: int) -> None:
@@ -245,18 +290,48 @@ def cache_extent(cache: dict) -> int:
     return cache_array(cache).shape[2]
 
 
-def matmul(x: torch.Tensor, w) -> torch.Tensor:
+def matmul(x: torch.Tensor, w, kernel: bool = False) -> torch.Tensor:
     """``x @ w`` for raw weights (a plain product, left to PyTorch as
-    the JAX package left it to XLA)."""
+    the JAX package left it to XLA) or weight-only int8 leaves
+    (``{"int8", "scale"}``, models/quant.py).
+
+    ``kernel=True`` sends a 2-D int8 leaf through kernel #5
+    (ops/int8_matmul.py): the weight streams as int8 bytes and the
+    per-column scale applies at the store.  Callers set it when
+    ``ops.matmul_backend(config.matmul_kernel)`` resolves to the kernel,
+    and the port does so for EVERY 2-D int8 leaf, the layer weights
+    too -- not only the unembed, as the JAX package does.  There, XLA
+    fuses the int8 -> bf16 convert into the dot's operand load and a
+    sliced scan operand would materialise in front of a pallas call;
+    here the layer leaves are views, and the eager plain product below
+    materialises a bf16 copy of the weight at every call (1 byte read,
+    2 written, 2 read again per weight, more than bf16 weights cost),
+    so the kernel is the port's counterpart of that fusion.  It
+    computes the same function; ``matmul_kernel="off"`` keeps the
+    plain product, which is the JAX package's arithmetic exactly."""
     if is_quantized(w):
-        raise not_ported("int8 weights (quantize)", "ROADMAP Queue 1: "
-                         "int8 weights with kernel #5")
+        if kernel and w["int8"].ndim == 2:
+            lead = x.shape[:-1]
+            out = int8_matmul(x.reshape(-1, x.shape[-1]), w["int8"],
+                              w["scale"])
+            return out.reshape(*lead, out.shape[-1])
+        return (x @ w["int8"].to(x.dtype)) * w["scale"].to(x.dtype)
     return x @ w
 
 
-def _grouped(layer: torch.Tensor, kv: int) -> torch.Tensor:
-    """Flat [.., T, K*hd] -> grouped [.., T, K, hd] view."""
-    return layer.reshape(*layer.shape[:-1], kv, layer.shape[-1] // kv)
+def _matmul_kernel(config: LlamaConfig, device: torch.device) -> bool:
+    """Whether int8 weight leaves go through kernel #5 on ``device``."""
+    return matmul_backend(config.matmul_kernel, device) != "reference"
+
+
+def _grouped(layer, kv: int):
+    """Flat [.., T, K*hd] -> grouped [.., T, K, hd] view (the payload of
+    an int8 layer; its [.., T, K, 1] scales are grouped already)."""
+    def regroup(arr):
+        return arr.reshape(*arr.shape[:-1], kv, arr.shape[-1] // kv)
+    if is_quantized(layer):
+        return {"int8": regroup(layer["int8"]), "scale": layer["scale"]}
+    return regroup(layer)
 
 
 @functools.lru_cache(maxsize=8)
@@ -274,42 +349,49 @@ def _rope(config: LlamaConfig, device: torch.device) -> torch.Tensor:
 
 
 def _layer(params: dict, index: int) -> dict:
-    return {name: leaf[index] for name, leaf in params["layers"].items()}
+    return {name: _at_layer(leaf, index)
+            for name, leaf in params["layers"].items()}
 
 
-def _block(config: LlamaConfig, hidden, layer: dict, attend):
+def _block(config: LlamaConfig, hidden, layer: dict, attend,
+           kernel: bool = False):
     """One transformer block.  ``attend(q, k, v) -> attn_out`` does RoPE,
-    the cache write and attention (prefill and decode differ there)."""
+    the cache write and attention (prefill and decode differ there);
+    ``kernel`` routes int8 weight leaves through kernel #5."""
     c = config
     b, s, _ = hidden.shape
     hd = c.head_dim
+
+    def mm(x, w):
+        return matmul(x, w, kernel)
     x = rms_norm(hidden, layer["attn_norm"], c.norm_eps)
-    q = matmul(x, layer["wq"]).reshape(b, s, c.n_heads, hd)
-    k = matmul(x, layer["wk"]).reshape(b, s, c.n_kv_heads, hd)
-    v = matmul(x, layer["wv"]).reshape(b, s, c.n_kv_heads, hd)
+    q = mm(x, layer["wq"]).reshape(b, s, c.n_heads, hd)
+    k = mm(x, layer["wk"]).reshape(b, s, c.n_kv_heads, hd)
+    v = mm(x, layer["wv"]).reshape(b, s, c.n_kv_heads, hd)
     attn_out = attend(q, k, v)
-    hidden = hidden + matmul(attn_out.reshape(b, s, c.n_heads * hd),
-                             layer["wo"])
+    hidden = hidden + mm(attn_out.reshape(b, s, c.n_heads * hd),
+                         layer["wo"])
     x = rms_norm(hidden, layer["mlp_norm"], c.norm_eps)
-    gate = F.silu(matmul(x, layer["w_gate"]))
-    return hidden + matmul(gate * matmul(x, layer["w_up"]),
-                           layer["w_down"])
+    gate = F.silu(mm(x, layer["w_gate"]))
+    return hidden + mm(gate * mm(x, layer["w_up"]), layer["w_down"])
 
 
 def _forward(params: dict, config: LlamaConfig, tokens: torch.Tensor,
              attend_factory) -> torch.Tensor:
     """Embed, run every layer with ``attend_factory(layer_index)``,
     final-norm and unembed -> logits [B, S, vocab]."""
+    kernel = _matmul_kernel(config, tokens.device)
     hidden = params["embed"][tokens]
     for index in range(config.n_layers):
         hidden = _block(config, hidden, _layer(params, index),
-                        attend_factory(index))
-    return _finish(params, config, hidden)
+                        attend_factory(index), kernel)
+    return _finish(params, config, hidden, kernel)
 
 
-def _finish(params: dict, config: LlamaConfig, hidden) -> torch.Tensor:
+def _finish(params: dict, config: LlamaConfig, hidden,
+            kernel: bool = False) -> torch.Tensor:
     hidden = rms_norm(hidden, params["final_norm"], config.norm_eps)
-    return matmul(hidden, params["unembed"])
+    return matmul(hidden, params["unembed"], kernel)
 
 
 def prefill(params: dict, config: LlamaConfig, tokens: torch.Tensor,
@@ -333,14 +415,18 @@ def prefill(params: dict, config: LlamaConfig, tokens: torch.Tensor,
     rows = torch.arange(b, device=tokens.device)[:, None]
 
     def factory(index):
+        def write(arr, value):
+            arr[index][rows, positions] = value
+
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
             k = apply_rope(k, rope, positions)
-            cache["k"][index][rows, positions] = k.reshape(b, s, -1)
-            cache["v"][index][rows, positions] = v.reshape(b, s, -1)
+            for side, new in (("k", k), ("v", v)):
+                _kv_write(cache[side], _kv_stored(cache[side], new), write)
             return attention_prefill(
-                q, _grouped(cache["k"][index], c.n_kv_heads),
-                _grouped(cache["v"][index], c.n_kv_heads), positions)
+                q, _grouped(_at_layer(cache["k"], index), c.n_kv_heads),
+                _grouped(_at_layer(cache["v"], index), c.n_kv_heads),
+                positions)
         return attend
 
     return _forward(params, c, tokens, factory), cache
@@ -374,24 +460,38 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
     positions = (start + torch.arange(s, device=tokens.device))[None, :]
 
     def factory(index):
+        def write(arr, value):
+            arr[index, slot:slot + 1, start:start + s] = value
+
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
             k = apply_rope(k, rope, positions)
             if paged:
                 table, pt = cache["page_table"], pool_page_tokens(cache)
                 for side, new in (("k", k), ("v", v)):
-                    scatter_pages(cache[side][index], new.reshape(1, s, -1),
-                                  table, [slot], [start], pt)
-                k_row = gather_slot(cache["k"][index], table[slot])
-                v_row = gather_slot(cache["v"][index], table[slot])
+                    layer = _at_layer(cache[side], index)
+                    scatter_pages(layer, _kv_stored(layer, new), table,
+                                  [slot], [start], pt)
+                k_row = gather_slot(_at_layer(cache["k"], index),
+                                    table[slot])
+                v_row = gather_slot(_at_layer(cache["v"], index),
+                                    table[slot])
             else:
-                cache["k"][index, slot, start:start + s] = k.reshape(s, -1)
-                cache["v"][index, slot, start:start + s] = v.reshape(s, -1)
-                k_row = cache["k"][index, slot:slot + 1]
-                v_row = cache["v"][index, slot:slot + 1]
+                for side, new in (("k", k), ("v", v)):
+                    _kv_write(cache[side], _kv_stored(cache[side], new),
+                              write)
+                k_row, v_row = (map_leaf(cache[side],
+                                        lambda arr: arr[index, slot:slot + 1])
+                                for side in ("k", "v"))
             k_row = _grouped(k_row, c.n_kv_heads)
             v_row = _grouped(v_row, c.n_kv_heads)
             if c.attention == "flash":
+                # The kernel reads the model dtype: an int8 row is
+                # dequantized here (admission is compute-bound; decode,
+                # where the bytes matter, never does this).
+                if is_quantized(k_row):
+                    k_row = dequantize_kv(k_row, q.dtype)
+                    v_row = dequantize_kv(v_row, q.dtype)
                 return flash_attention(q, k_row, v_row, q_offset=start)
             return attention_prefill(q, k_row, v_row, positions)
         return attend
@@ -429,25 +529,31 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
     slot_index = torch.tensor(slots, device=tokens.device)
 
     def factory(index):
+        def write_rows(arr, value):
+            for row, (slot, start) in enumerate(zip(slots, starts)):
+                arr[index, slot, start:start + s] = value[row]
+
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
             k = apply_rope(k, rope, positions)
             if paged:
                 table, pt = cache["page_table"], pool_page_tokens(cache)
                 for side, new in (("k", k), ("v", v)):
-                    scatter_pages(cache[side][index], new.reshape(n, s, -1),
-                                  table, slots, starts, pt)
+                    layer = _at_layer(cache[side], index)
+                    scatter_pages(layer, _kv_stored(layer, new), table,
+                                  slots, starts, pt)
                 rows_table = table[slot_index]
-                k_rows = gather_layer(cache["k"][index], rows_table)
-                v_rows = gather_layer(cache["v"][index], rows_table)
+                k_rows = gather_layer(_at_layer(cache["k"], index),
+                                      rows_table)
+                v_rows = gather_layer(_at_layer(cache["v"], index),
+                                      rows_table)
             else:
-                for row, (slot, start) in enumerate(zip(slots, starts)):
-                    cache["k"][index, slot, start:start + s] = \
-                        k[row].reshape(s, -1)
-                    cache["v"][index, slot, start:start + s] = \
-                        v[row].reshape(s, -1)
-                k_rows = cache["k"][index][slot_index]
-                v_rows = cache["v"][index][slot_index]
+                for side, new in (("k", k), ("v", v)):
+                    _kv_write(cache[side], _kv_stored(cache[side], new),
+                              write_rows)
+                k_rows, v_rows = (map_leaf(cache[side],
+                                          lambda arr: arr[index][slot_index])
+                                  for side in ("k", "v"))
             return attention_prefill(q, _grouped(k_rows, c.n_kv_heads),
                                      _grouped(v_rows, c.n_kv_heads),
                                      positions)
@@ -500,6 +606,9 @@ def _decode_step_impl(params: dict, config: LlamaConfig,
         v_view = split(cache["v"])
 
     def factory(index):
+        def write(arr, value):
+            arr[index][rows, cols] = value[:, 0]
+
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
             k = apply_rope(k, rope, positions)
@@ -510,15 +619,16 @@ def _decode_step_impl(params: dict, config: LlamaConfig,
                 out = flash_decode_append_stacked(q, k_view, v_view, index,
                                                   k, v, lengths)
             else:
-                k_layer, v_layer = cache["k"][index], cache["v"][index]
+                k_layer = _at_layer(cache["k"], index)
+                v_layer = _at_layer(cache["v"], index)
                 if paged:
                     k_layer = gather_layer(k_layer, table)
                     v_layer = gather_layer(v_layer, table)
                 out = attention_decode_append(
                     q, _grouped(k_layer, c.n_kv_heads),
                     _grouped(v_layer, c.n_kv_heads), k, v, lengths)
-            cache["k"][index][rows, cols] = k.reshape(b, -1)
-            cache["v"][index][rows, cols] = v.reshape(b, -1)
+            for side, new in (("k", k), ("v", v)):
+                _kv_write(cache[side], _kv_stored(cache[side], new), write)
             return out
         return attend
 

@@ -3,7 +3,9 @@
 Counterpart of ``aiko_services_tpu/models/paged.py``, ported whole:
 
 - one physical **pool** per cache side, ``[L, P, page_tokens, K*hd]``
-  bf16 (or the model dtype) on an explicit device;
+  bf16 (or the model dtype) on an explicit device -- or, with
+  ``kv_dtype="int8"``, ``{"int8": [L, P, pt, K*hd] int8, "scale":
+  [L, P, pt, K, 1] float32}``, the scales riding their pages;
 - a device **page table** ``[B, pages_per_slot] int32`` mapping each
   slot's logical pages to physical pages.  Entry 0 is the reserved
   TRASH page: unallocated logical pages point at it, and inactive batch
@@ -20,9 +22,6 @@ with every index computed on the device from the table, so no write
 waits for the host.  The page table itself is updated in place by the
 batcher (a copy enqueued on the same stream as the decode work, after
 the blocks already in flight).
-
-int8 pools (``kv_dtype="int8"``) wait for int8 KV (ROADMAP Queue 1
-item 3).
 """
 
 from __future__ import annotations
@@ -30,8 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from ..utils.misc import not_ported
-from .quant import is_quantized
+from .quant import is_quantized, map_leaf
 
 __all__ = ["PageAllocator", "init_paged_cache", "is_paged",
            "pages_per_slot", "pool_page_tokens", "paged_extent",
@@ -60,9 +58,6 @@ def init_paged_cache(config, batch: int, max_seq: int | None = None,
     slots than worst-case memory allows, with the ContinuousBatcher
     preempting under pool pressure)."""
     c = config
-    if c.kv_dtype == "int8":
-        raise not_ported("int8 page pools (kv_dtype='int8')",
-                         "ROADMAP Queue 1 item 3: int8 weights and KV")
     device = resolve_device(device)
     t = max_seq or c.max_seq
     pps = pages_per_slot(t, page_tokens)
@@ -74,9 +69,18 @@ def init_paged_cache(config, batch: int, max_seq: int | None = None,
             f"full slot plus the trash page ({pps + 1})")
     shape = (c.n_layers, pool_pages, page_tokens,
              c.n_kv_heads * c.head_dim)
-    dtype = getattr(torch, c.dtype)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+    if c.kv_dtype == "int8":
+        def side():
+            return {"int8": torch.zeros(shape, dtype=torch.int8,
+                                        device=device),
+                    "scale": torch.zeros(shape[:-1] + (c.n_kv_heads, 1),
+                                         dtype=torch.float32,
+                                         device=device)}
+    else:
+        def side():
+            return torch.zeros(shape, dtype=getattr(torch, c.dtype),
+                               device=device)
+    return {"k": side(), "v": side(),
             "page_table": torch.zeros((batch, pps), dtype=torch.int32,
                                       device=device)}
 
@@ -100,40 +104,34 @@ def paged_extent(cache: dict) -> int:
 
 
 def _gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``[P, pt, C]`` pool -> logical rows by an index gather on the
-    device: table [B, pps] -> [B, pps*pt, C]; table [pps] -> [pps*pt, C].
-    The result is a new contiguous tensor in the dense cache's flat row
-    layout."""
+    """``[P, pt, ...]`` pool -> logical rows by an index gather on the
+    device: table [B, pps] -> [B, pps*pt, ...]; table [pps] ->
+    [pps*pt, ...].  The result is a new contiguous tensor in the dense
+    cache's flat row layout."""
     rows = pool[table.long()]
     return rows.reshape(*table.shape[:-1], -1, *pool.shape[2:])
 
 
-def _require_raw(layer) -> None:
-    if is_quantized(layer):
-        raise not_ported("int8 page pools", "ROADMAP Queue 1 item 3: "
-                         "int8 weights and KV")
+def gather_layer(layer, table: torch.Tensor):
+    """One pool layer ``[P, pt, C]`` (or an int8 ``{"int8", "scale"}``
+    pool layer) -> the dense flat layer view ``[B, T, C]`` the
+    attention consumers expect."""
+    return map_leaf(layer, lambda pool: _gather(pool, table))
 
 
-def gather_layer(layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """One pool layer ``[P, pt, C]`` -> the dense flat layer view
-    ``[B, T, C]`` the attention consumers expect."""
-    _require_raw(layer)
-    return _gather(layer, table)
+def gather_slot(layer, table_row: torch.Tensor):
+    """One slot's pages -> its contiguous ``[1, T, C]`` row view (each
+    array of an int8 pool layer)."""
+    return map_leaf(layer, lambda pool: _gather(pool, table_row)[None])
 
 
-def gather_slot(layer: torch.Tensor, table_row: torch.Tensor) \
-        -> torch.Tensor:
-    """One slot's pages -> its contiguous ``[1, T, C]`` row view."""
-    _require_raw(layer)
-    return _gather(layer, table_row)[None]
-
-
-def scatter_pages(pool: torch.Tensor, new: torch.Tensor,
-                  table: torch.Tensor, slots, starts,
-                  page_tokens: int) -> torch.Tensor:
+def scatter_pages(pool, new, table: torch.Tensor, slots, starts,
+                  page_tokens: int):
     """Write whole-page prefill rows through the page table, in place.
     ``pool`` is one pool side ``[P, pt, C]``, ``new`` the page-aligned
-    chunk ``[N, S, C]`` (S a whole number of pages); ``slots``/``starts``
+    chunk ``[N, S, C]`` (S a whole number of pages) -- or both int8
+    ``{"int8", "scale"}`` pairs, codes and scales written through the
+    same pages; ``slots``/``starts``
     are N host integers indexing ``new``'s rows into the table.  The
     physical pages are read from the table ON THE DEVICE (no host
     sync), and one ``index_copy_`` writes every covered page.  A start
@@ -141,7 +139,11 @@ def scatter_pages(pool: torch.Tensor, new: torch.Tensor,
     Duplicated bucket-pad rows write the same physical pages with the
     same values.  The single shared authority for both prefill paths
     (models/llama.py).  Returns ``pool``."""
-    _require_raw(pool)
+    if is_quantized(pool):
+        for name in ("int8", "scale"):
+            scatter_pages(pool[name], new[name], table, slots, starts,
+                          page_tokens)
+        return pool
     n, s = new.shape[0], new.shape[1]
     if s % page_tokens:
         raise ValueError(f"scatter_pages: {s} tokens is not a whole "

@@ -15,7 +15,7 @@ from .layers import (rms_norm, rope_frequencies, apply_rope, swiglu,
                      repeat_kv, attention_prefill, attention_decode,
                      attention_decode_append)
 from .topk import topk
-from ..utils.misc import not_ported
+from ..device import resolve_device
 
 __all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu",
            "repeat_kv", "attention_prefill", "attention_decode",
@@ -55,10 +55,16 @@ def decode_backend(requested: str = "auto", *, paged: bool = False,
 
 def matmul_backend(requested: str = "auto",
                    device: torch.device | str | None = None) -> str:
-    """Capability probe for the fused int8 dequant-matmul.  The kernel is
-    not ported yet, so every device resolves to ``reference`` and asking
-    for the kernel (``pallas``) raises."""
+    """Capability probe for the int8 dequant-matmul (kernel #5,
+    ops/int8_matmul.py): ``cuda-int8`` or ``reference`` (the plain
+    widen-then-multiply product).  The config keeps the JAX package's
+    value names: ``pallas`` asks for the kernel's route -- here the
+    hand-written CUDA kernel, whose wrapper runs its plain version on a
+    CPU tensor; ``auto`` takes the kernel on a CUDA device (``None``
+    means the card, as for every entry point) and the reference on the
+    CPU; ``off`` always takes the reference."""
     if requested == "pallas":
-        raise not_ported("the fused int8 dequant-matmul kernel",
-                         "ROADMAP Queue 1 item 3: int8 weights and KV")
+        return "cuda-int8"
+    if requested == "auto" and resolve_device(device).type == "cuda":
+        return "cuda-int8"
     return "reference"

@@ -1,7 +1,9 @@
 """Split-K decode attention over the flat, layer-stacked and paged KV
 caches.
 
-Counterpart of ``aiko_services_tpu/ops/pallas_decode.py`` (bf16 caches):
+Counterpart of ``aiko_services_tpu/ops/pallas_decode.py``, over bf16
+caches and over int8 caches (``kv_dtype="int8"``: int8 codes with one
+float32 scale per position and kv head, dequantized inside the kernel):
 
 - ``flash_decode_attention`` (kernel #1) over a flat ``[B, T, K*hd]``
   cache, with ``flash_decode_append``, the drop-in for
@@ -13,8 +15,8 @@ Counterpart of ``aiko_services_tpu/ops/pallas_decode.py`` (bf16 caches):
   ``[L, P, pt, K*hd]`` page pools, walking a ``[B, pps]`` int32 page
   table, with ``flash_decode_append_paged`` for the layer loop;
 
-and the helpers ``_prep_query``, ``_combine_self``, ``_split_stacked``
-and ``_split_paged``.
+and the helpers ``_prep_query``, ``_combine_self``, ``_split_stacked``,
+``_split_paged`` and ``_require_matched_quantization``.
 
 All three launch one kernel body, ``csrc/flash_decode.cu`` (its header
 says what bounds it and how it is laid out), which differs between them
@@ -26,10 +28,17 @@ The TPU kernels took block-diagonal zero-padded queries ``[B, H, K*hd]``
 which ``_combine_self`` kept each head's own kv block; here only that
 block is passed in and computed.
 
+int8 caches pass their scales in the layout they are stored in,
+``[.., T, K]`` (the trailing unit axis of the cache leaf dropped, a
+view): the kernel reads them through the same row address as the
+payload.  The TPU kernels took ``[.., K, T]`` scales, which the JAX
+package transposed -- a copy -- every step.
+
 On a CPU tensor each wrapper runs its plain PyTorch version below; on a
-CUDA tensor it launches the kernel or raises.  Not ported yet: int8
-caches and pools (ROADMAP Queue 2 item 3) and the paged kernel's
-``qrow_period`` for the speculative verify rows (Queue 2 item 4).
+CUDA tensor it launches the kernel or raises.  ``launches`` counts a
+wrapper's bf16-payload launches and ``int8_launches`` its int8 ones.
+Not ported yet: the paged kernel's ``qrow_period`` for the speculative
+verify rows (ROADMAP Queue 2 item 4).
 """
 
 from __future__ import annotations
@@ -40,7 +49,6 @@ import math
 import torch
 
 from . import _build
-from ..utils.misc import not_ported
 from .layers import NEG_INF
 
 __all__ = ["flash_decode_attention", "flash_decode_append",
@@ -54,29 +62,49 @@ _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
 
 
-def _require_raw(cache, entry: str) -> None:
-    if isinstance(cache, dict):
-        raise not_ported(f"{entry} over an int8 KV cache",
-                         "ROADMAP Queue 1 item 3: int8 weights and KV")
+def is_quantized(leaf) -> bool:
+    """An int8 cache leaf (the contract of models/quant.py's predicate,
+    repeated here because models imports ops)."""
+    return isinstance(leaf, dict) and "int8" in leaf and "scale" in leaf
+
+
+def _split(leaf):
+    """Cache leaf -> (payload, [.., T, K] float32 scales or None): an
+    int8 leaf's ``[.., T, K, 1]`` scales lose their unit axis (a view)."""
+    if is_quantized(leaf):
+        return leaf["int8"], leaf["scale"][..., 0]
+    return leaf, None
+
+
+def _require_matched_quantization(k_quantized: bool, v_quantized: bool,
+                                  entry: str) -> None:
+    """k and v are quantized together (init_cache, init_paged_cache); a
+    mixed pair can only be a caller's error, and the kernel would read a
+    raw side as int8 codes."""
+    if k_quantized != v_quantized:
+        raise ValueError(
+            f"{entry}: k and v caches must share one quantization state "
+            f"(both int8 layers or both raw arrays); got k quantized="
+            f"{k_quantized}, v quantized={v_quantized}")
 
 
 def _split_stacked(cache):
-    """Stacked cache -> ([L, B, T, C] payload, None).  A grouped
-    ``[L, B, T, K, hd]`` payload collapses to the flat view (a
-    contiguous-minor reshape, no copy).  int8 caches wait for int8 KV."""
-    _require_raw(cache, "the stacked decode kernel")
-    if cache.ndim == 5:
-        n_layers, b, t, kv, d = cache.shape
-        cache = cache.reshape(n_layers, b, t, kv * d)
-    return cache, None
+    """Stacked cache -> ([L, B, T, C] payload, [L, B, T, K] f32 scales or
+    None).  A grouped ``[L, B, T, K, hd]`` payload collapses to the flat
+    view (a contiguous-minor reshape, no copy); scales stay where they
+    are stored."""
+    payload, scale = _split(cache)
+    if payload.ndim == 5:
+        n_layers, b, t, kv, d = payload.shape
+        payload = payload.reshape(n_layers, b, t, kv * d)
+    return payload, scale
 
 
 def _split_paged(side):
     """One paged pool side (models/paged.py layout) -> ([L, P, pt, C]
-    payload, None).  Pools are stored flat already; int8 pools wait for
-    int8 KV."""
-    _require_raw(side, "the paged decode kernel")
-    return side, None
+    payload, [L, P, pt, K] f32 scale pool or None), both read in
+    place."""
+    return _split(side)
 
 
 def _prep_query(q_flat: torch.Tensor, d: int):
@@ -114,10 +142,15 @@ def _combine_self(acc, m, l, q_flat, k_new, v_new, scale):
 
 # -- plain versions -----------------------------------------------------------
 
-def flash_decode_attention_reference(q, k_flat, v_flat, lengths):
+def flash_decode_attention_reference(q, k_flat, v_flat, lengths,
+                                     k_scale=None, v_scale=None):
     """Plain PyTorch version of the kernel over a flat [B, T, C] cache:
-    the same function, one softmax pass.  Returns (acc [B, H, hd] f32,
-    m [B, H], l [B, H])."""
+    the same function, one softmax pass.  An int8 cache passes its
+    [B, T, K] scales: the score is ``dot(q, k) * k_scale`` and the value
+    scale multiplies the numerator's weights only.  Returns (acc
+    [B, H, hd] f32, m [B, H], l [B, H])."""
+    _require_matched_quantization(k_scale is not None, v_scale is not None,
+                                  "flash_decode_attention")
     b, h, head_dim = q.shape
     kv = k_flat.shape[2] // head_dim
     t = k_flat.shape[1]
@@ -125,6 +158,8 @@ def flash_decode_attention_reference(q, k_flat, v_flat, lengths):
     v = v_flat.reshape(b, t, kv, head_dim).float()
     q_grouped = q.reshape(b, kv, h // kv, head_dim).float()
     scores = torch.einsum("bkgd,btkd->bkgt", q_grouped, k)
+    if k_scale is not None:
+        scores = scores * k_scale.float().permute(0, 2, 1)[:, :, None, :]
     valid = torch.arange(t, device=q.device)[None, None, None, :] \
         < lengths.to(q.device).long()[:, None, None, None]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
@@ -133,39 +168,51 @@ def flash_decode_attention_reference(q, k_flat, v_flat, lengths):
     p = torch.where(valid, torch.exp(scores - m_safe[..., None]),
                     torch.zeros_like(scores))
     l = p.sum(-1)
+    if v_scale is not None:
+        p = p * v_scale.float().permute(0, 2, 1)[:, :, None, :]
     acc = torch.einsum("bkgt,btkd->bkgd", p.to(q.dtype).float(), v)
     return acc.reshape(b, h, head_dim), m.reshape(b, h), l.reshape(b, h)
 
 
+def _layer(scale, layer: int):
+    return None if scale is None else scale[layer]
+
+
 def flash_decode_attention_stacked_reference(q, k_flat, v_flat,
-                                             layer: int, lengths):
+                                             layer: int, lengths,
+                                             k_scale=None, v_scale=None):
     """Plain version of the stacked kernel: the flat one on
-    ``cache[layer]``."""
-    return flash_decode_attention_reference(q, k_flat[layer],
-                                            v_flat[layer], lengths)
+    ``cache[layer]`` (and ``scale[layer]``)."""
+    return flash_decode_attention_reference(
+        q, k_flat[layer], v_flat[layer], lengths, _layer(k_scale, layer),
+        _layer(v_scale, layer))
 
 
 def _gathered(pool_layer, page_table):
-    """[P, pt, C] pool layer -> the [B, pps*pt, C] logical rows."""
+    """[P, pt, ...] pool layer -> the [B, pps*pt, ...] logical rows."""
     b, pps = page_table.shape
     return pool_layer[page_table.long()].reshape(
-        b, pps * pool_layer.shape[1], pool_layer.shape[2])
+        b, pps * pool_layer.shape[1], *pool_layer.shape[2:])
 
 
 def flash_decode_attention_paged_reference(q, k_pool, v_pool, layer: int,
-                                           page_table, lengths):
-    """Plain version of the paged kernel: gather the table's pages into
-    the logical rows, then the flat version."""
+                                           page_table, lengths,
+                                           k_scale=None, v_scale=None):
+    """Plain version of the paged kernel: gather the table's pages (and
+    scale pages) into the logical rows, then the flat version."""
+    scales = [None if pool is None else _gathered(pool[layer], page_table)
+              for pool in (k_scale, v_scale)]
     return flash_decode_attention_reference(
         q, _gathered(k_pool[layer], page_table),
-        _gathered(v_pool[layer], page_table), lengths)
+        _gathered(v_pool[layer], page_table), lengths, *scales)
 
 
 # -- kernel wrappers ----------------------------------------------------------
 
-def _check_common(entry: str, q, k, v, lengths, head_dim: int, kc: int):
-    """The checks the three wrappers share: head layout, dtypes and the
-    lengths vector."""
+def _check_common(entry: str, q, k, v, lengths, head_dim: int, kc: int,
+                  k_scale=None, v_scale=None):
+    """The checks the three wrappers share: head layout, dtypes, the
+    scales of an int8 payload and the lengths vector."""
     b, h, _ = q.shape
     kv = kc // head_dim
     if head_dim not in _HEAD_DIMS or kc % head_dim or h % kv \
@@ -173,8 +220,26 @@ def _check_common(entry: str, q, k, v, lengths, head_dim: int, kc: int):
         raise ValueError(
             f"{entry}: head_dim {head_dim} (one of {_HEAD_DIMS}) and "
             f"query groups {h}/{kv} (one of {_GROUPS}) not supported")
-    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise TypeError(f"{entry}: the kernel reads a bf16 cache")
+    _require_matched_quantization(k_scale is not None, v_scale is not None,
+                                  entry)
+    payload = torch.int8 if k_scale is not None else torch.bfloat16
+    if k.dtype != payload or v.dtype != payload:
+        raise TypeError(f"{entry}: the kernel reads a bf16 cache or int8 "
+                        f"codes with scales; got {k.dtype}/{v.dtype} with"
+                        f"{'' if k_scale is not None else 'out'} scales")
+    if k_scale is not None and (
+            k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+            or k_scale.shape != v_scale.shape
+            or k_scale.stride() != v_scale.stride()
+            or k_scale.shape[-1] != kc // head_dim or k_scale.stride(-1) != 1
+            or k_scale.shape[:-1] != k.shape[:-1]
+            or k_scale.device != q.device or v_scale.device != q.device):
+        raise ValueError(
+            f"{entry}: int8 scales must be float32 [.., T, K] views on the "
+            f"query's device, one per cache row and kv head, k and v with "
+            f"one set of strides and unit stride along K; got "
+            f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)} for a "
+            f"{tuple(k.shape)} cache")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{entry}: query dtype {q.dtype}")
     if k.device != q.device or v.device != q.device:
@@ -194,122 +259,157 @@ def _outputs(q):
     return acc, m, torch.empty_like(m)
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 \
-    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 \
+    + [ctypes.c_void_p]
 
-_PAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 \
-    + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+_PAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4 \
+    + [ctypes.c_void_p]
 
 
-def _launch_flat(entry: str, q, k_view, v_view, lengths):
-    """Launch the flat-addressed kernel on [B, T, C] views (unit-stride
-    rows, 16-byte aligned, k and v with one set of strides)."""
-    b, h, head_dim = q.shape
-    _, t, kc = k_view.shape
-    kv = kc // head_dim
-    if k_view.stride() != v_view.stride() or k_view.stride(2) != 1 \
-            or k_view.stride(0) % 8 or k_view.stride(1) % 8 \
+def _ptr(tensor) -> int | None:
+    return None if tensor is None else tensor.data_ptr()
+
+
+def _count(wrapper, k_scale) -> None:
+    """One more launch on the wrapper's bf16 or int8 counter."""
+    if k_scale is None:
+        wrapper.launches += 1
+    else:
+        wrapper.int8_launches += 1
+
+
+def _check_rows(entry: str, k_view, v_view) -> None:
+    """k/v rows must be unit-stride, share one set of strides and start
+    on 16-byte boundaries (whole 16-byte loads of bf16 or int8)."""
+    per_16 = 16 // k_view.element_size()
+    if k_view.stride() != v_view.stride() or k_view.stride(-1) != 1 \
+            or any(stride % per_16 for stride in k_view.stride()[:-1]) \
             or k_view.data_ptr() % 16 or v_view.data_ptr() % 16:
         raise ValueError(
             f"{entry}: k/v need unit-stride rows, one set of strides for "
             f"both and 16-byte aligned rows (strides "
             f"{k_view.stride()} / {v_view.stride()})")
+
+
+def _launch_flat(entry: str, q, k_view, v_view, lengths, k_scale=None,
+                 v_scale=None):
+    """Launch the flat-addressed kernel on [B, T, C] views (unit-stride
+    rows, 16-byte aligned, k and v with one set of strides), with the
+    [B, T, K] scales of an int8 payload."""
+    b, h, head_dim = q.shape
+    _, t, kc = k_view.shape
+    kv = kc // head_dim
+    _check_rows(entry, k_view, v_view)
+    sstrides = k_scale.stride()[:2] if k_scale is not None else (0, 0)
     q = q.contiguous()
     lengths = lengths.contiguous()
     acc, m, l = _outputs(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _build.entry("aiko_flash_decode", _ARGTYPES)(
         q.data_ptr(), int(q.dtype == torch.bfloat16),
-        k_view.data_ptr(), v_view.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, kv, h // kv,
-        head_dim, t, k_view.stride(0), k_view.stride(1), stream)
+        int(k_scale is not None), k_view.data_ptr(), v_view.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale), lengths.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, kv, h // kv, head_dim, t,
+        k_view.stride(0), k_view.stride(1), *sstrides, stream)
     _build.check(status, entry)
     return acc, m, l
 
 
 def flash_decode_attention(q: torch.Tensor, k_flat: torch.Tensor,
-                           v_flat: torch.Tensor, lengths: torch.Tensor):
+                           v_flat: torch.Tensor, lengths: torch.Tensor,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None):
     """Split-K decode attention over a FLAT cache (kernel #1).
 
     q: [B, H, hd] scaled queries from :func:`_prep_query` (f32 or bf16);
-    k_flat/v_flat: [B, T, K*hd] bf16 views with unit-stride rows (any T,
-    any row strides shared by k and v); lengths: [B] int32 valid
+    k_flat/v_flat: [B, T, K*hd] bf16 views, or int8 codes with their
+    k_scale/v_scale [B, T, K] float32 views, with unit-stride rows (any
+    T, any row strides shared by k and v); lengths: [B] int32 valid
     positions (0..T).  Returns (acc [B, H, hd] f32 unnormalised,
     m [B, H] f32 running max, l [B, H] f32 denominator)."""
-    _require_raw(k_flat, "flash_decode_attention")
     if q.device.type == "cpu":
-        return flash_decode_attention_reference(q, k_flat, v_flat, lengths)
+        return flash_decode_attention_reference(q, k_flat, v_flat, lengths,
+                                                k_scale, v_scale)
+    entry = "flash_decode_attention"
     if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_attention: unsupported device "
-                         f"{q.device}")
+        raise ValueError(f"{entry}: unsupported device {q.device}")
     b, _, head_dim = q.shape
     if k_flat.ndim != 3 or k_flat.shape[0] != b \
             or v_flat.shape != k_flat.shape:
         raise ValueError(
-            f"flash_decode_attention: q {tuple(q.shape)} does not match "
-            f"the cache {tuple(k_flat.shape)} / {tuple(v_flat.shape)}")
-    _check_common("flash_decode_attention", q, k_flat, v_flat, lengths,
-                  head_dim, k_flat.shape[2])
-    out = _launch_flat("flash_decode_attention", q, k_flat, v_flat, lengths)
-    flash_decode_attention.launches += 1
+            f"{entry}: q {tuple(q.shape)} does not match the cache "
+            f"{tuple(k_flat.shape)} / {tuple(v_flat.shape)}")
+    _check_common(entry, q, k_flat, v_flat, lengths, head_dim,
+                  k_flat.shape[2], k_scale, v_scale)
+    out = _launch_flat(entry, q, k_flat, v_flat, lengths, k_scale, v_scale)
+    _count(flash_decode_attention, k_scale)
     return out
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.int8_launches = 0
 
 
 def flash_decode_attention_stacked(q: torch.Tensor, k_flat: torch.Tensor,
                                    v_flat: torch.Tensor, layer: int,
-                                   lengths: torch.Tensor):
+                                   lengths: torch.Tensor,
+                                   k_scale: torch.Tensor | None = None,
+                                   v_scale: torch.Tensor | None = None):
     """Split-K decode attention over ONE layer of the stacked cache
     (kernel #2).
 
     q: [B, H, hd] scaled queries from :func:`_prep_query` (f32 or bf16);
-    k_flat/v_flat: [L, B, T, K*hd] bf16 caches, read in place through
-    the ``cache[layer]`` view; lengths: [B] int32 valid positions (0..T).
-    Returns (acc [B, H, hd] f32 unnormalised, m [B, H] f32 running max,
-    l [B, H] f32 denominator)."""
-    _require_raw(k_flat, "flash_decode_attention_stacked")
+    k_flat/v_flat: [L, B, T, K*hd] bf16 caches, or int8 codes with their
+    k_scale/v_scale [L, B, T, K] float32 scales, read in place through
+    the ``cache[layer]`` views; lengths: [B] int32 valid positions
+    (0..T).  Returns (acc [B, H, hd] f32 unnormalised, m [B, H] f32
+    running max, l [B, H] f32 denominator)."""
     if q.device.type == "cpu":
         return flash_decode_attention_stacked_reference(
-            q, k_flat, v_flat, layer, lengths)
+            q, k_flat, v_flat, layer, lengths, k_scale, v_scale)
+    entry = "flash_decode_attention_stacked"
     if q.device.type != "cuda":
-        raise ValueError(f"flash_decode: unsupported device {q.device}")
+        raise ValueError(f"{entry}: unsupported device {q.device}")
     b, _, head_dim = q.shape
     n_layers, kb, _, kc = k_flat.shape
     if kb != b or v_flat.shape != k_flat.shape \
             or not 0 <= layer < n_layers:
         raise ValueError(
-            f"flash_decode: q {tuple(q.shape)} does not match the cache "
+            f"{entry}: q {tuple(q.shape)} does not match the cache "
             f"{tuple(k_flat.shape)} / {tuple(v_flat.shape)} at layer "
             f"{layer}")
-    _check_common("flash_decode", q, k_flat, v_flat, lengths, head_dim, kc)
+    _check_common(entry, q, k_flat, v_flat, lengths, head_dim, kc, k_scale,
+                  v_scale)
     if not (k_flat.is_contiguous() and v_flat.is_contiguous()):
-        raise ValueError("flash_decode: the stacked cache must be "
-                         "contiguous")
-    out = _launch_flat("flash_decode_attention_stacked", q, k_flat[layer],
-                       v_flat[layer], lengths)
-    flash_decode_attention_stacked.launches += 1
+        raise ValueError(f"{entry}: the stacked cache must be contiguous")
+    out = _launch_flat(entry, q, k_flat[layer], v_flat[layer], lengths,
+                       _layer(k_scale, layer), _layer(v_scale, layer))
+    _count(flash_decode_attention_stacked, k_scale)
     return out
 
 
 flash_decode_attention_stacked.launches = 0
+flash_decode_attention_stacked.int8_launches = 0
 
 
 def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor, layer: int,
                                  page_table: torch.Tensor,
-                                 lengths: torch.Tensor):
+                                 lengths: torch.Tensor,
+                                 k_scale: torch.Tensor | None = None,
+                                 v_scale: torch.Tensor | None = None):
     """Split-K decode attention over ONE layer of the PAGED pools, the
     page table walked in the kernel (kernel #3).
 
     q: [B, H, hd] scaled queries from :func:`_prep_query` (f32 or bf16);
-    k_pool/v_pool: [L, P, pt, K*hd] contiguous bf16 pools (pt a multiple
-    of 8), read in place; page_table: [B, pps] int32 on the device, each
-    row covering the logical extent its length claims (entry 0 is the
-    trash page); lengths: [B] int32 valid positions (0..pps*pt).  Returns
-    the flat kernel's (acc, m, l)."""
-    _require_raw(k_pool, "flash_decode_attention_paged")
+    k_pool/v_pool: [L, P, pt, K*hd] contiguous bf16 pools, or int8 code
+    pools with their k_scale/v_scale [L, P, pt, K] float32 scale pools
+    (pt a multiple of 8), read in place; page_table: [B, pps] int32 on
+    the device, each row covering the logical extent its length claims
+    (entry 0 is the trash page); lengths: [B] int32 valid positions
+    (0..pps*pt).  Returns the flat kernel's (acc, m, l)."""
     page_tokens = k_pool.shape[2]
     if page_tokens % 8:
         raise ValueError(
@@ -318,11 +418,10 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
             f"reference gather path")
     if q.device.type == "cpu":
         return flash_decode_attention_paged_reference(
-            q, k_pool, v_pool, layer, page_table, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_attention_paged: unsupported "
-                         f"device {q.device}")
+            q, k_pool, v_pool, layer, page_table, lengths, k_scale, v_scale)
     entry = "flash_decode_attention_paged"
+    if q.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {q.device}")
     b, h, head_dim = q.shape
     n_layers, n_pages, _, kc = k_pool.shape
     if v_pool.shape != k_pool.shape or not 0 <= layer < n_layers \
@@ -332,31 +431,36 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
             f"{tuple(v_pool.shape)}, table {tuple(page_table.shape)} and "
             f"layer {layer} do not match")
     _, _, kv = _check_common(entry, q, k_pool, v_pool, lengths, head_dim,
-                             kc)
+                             kc, k_scale, v_scale)
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError(f"{entry}: the pools must be contiguous")
     if page_table.dtype != torch.int32 or page_table.device != q.device:
         raise ValueError(f"{entry}: the page table must be int32 on the "
                          f"query's device")
+    k_layer, v_layer = k_pool[layer], v_pool[layer]
+    _check_rows(entry, k_layer, v_layer)
+    k_scales, v_scales = _layer(k_scale, layer), _layer(v_scale, layer)
+    sstrides = k_scales.stride()[:2] if k_scales is not None else (0, 0)
     q = q.contiguous()
     page_table = page_table.contiguous()
     lengths = lengths.contiguous()
-    k_layer, v_layer = k_pool[layer], v_pool[layer]
     acc, m, l = _outputs(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pps = page_table.shape[1]
     status = _build.entry("aiko_flash_decode_paged", _PAGED_ARGTYPES)(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k_layer.data_ptr(),
-        v_layer.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, kv, h // kv,
-        head_dim, pps, page_tokens, n_pages, k_layer.stride(0),
-        k_layer.stride(1), stream)
+        q.data_ptr(), int(q.dtype == torch.bfloat16),
+        int(k_scale is not None), k_layer.data_ptr(), v_layer.data_ptr(),
+        _ptr(k_scales), _ptr(v_scales), page_table.data_ptr(),
+        lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b,
+        kv, h // kv, head_dim, pps, page_tokens, n_pages, k_layer.stride(0),
+        k_layer.stride(1), *sstrides, stream)
     _build.check(status, entry)
-    flash_decode_attention_paged.launches += 1
+    _count(flash_decode_attention_paged, k_scale)
     return acc, m, l
 
 
 flash_decode_attention_paged.launches = 0
+flash_decode_attention_paged.int8_launches = 0
 
 
 # -- layer-loop drop-ins for attention_decode_append --------------------------
@@ -376,41 +480,52 @@ def _append(q, k_new, v_new, attend):
 def flash_decode_append(q, k_cache, v_cache, k_new, v_new, lengths):
     """Drop-in for ``ops.layers.attention_decode_append`` (same signature
     and semantics) on kernel #1.  q: [B, 1, H, hd]; k_cache/v_cache:
-    [B, T, K, hd] grouped bf16 caches; k_new/v_new: [B, 1, K, hd] the
-    current token's k/v (not yet written); lengths: [B] int32 valid
-    cache positions.  Returns [B, 1, H, hd]."""
-    _require_raw(k_cache, "flash_decode_append")
-    _require_raw(v_cache, "flash_decode_append")
-    b, t = k_cache.shape[:2]
+    [B, T, K, hd] grouped bf16 caches or int8 cache layers
+    (``{"int8", "scale"}``, dequantized in the kernel); k_new/v_new:
+    [B, 1, K, hd] the current token's k/v (not yet written); lengths:
+    [B] int32 valid cache positions.  Returns [B, 1, H, hd]."""
+    _require_matched_quantization(is_quantized(k_cache),
+                                  is_quantized(v_cache),
+                                  "flash_decode_append")
+    k_payload, k_scale = _split(k_cache)
+    v_payload, v_scale = _split(v_cache)
+    b, t = k_payload.shape[:2]
     return _append(q, k_new, v_new, lambda q_scaled: flash_decode_attention(
-        q_scaled, k_cache.reshape(b, t, -1), v_cache.reshape(b, t, -1),
-        lengths))
+        q_scaled, k_payload.reshape(b, t, -1), v_payload.reshape(b, t, -1),
+        lengths, k_scale, v_scale))
 
 
 def flash_decode_append_stacked(q, k_view, v_view, layer: int, k_new, v_new,
                                 lengths):
     """Layer-loop form of ``attention_decode_append`` on kernel #2: the
-    cache stays stacked (``_split_stacked`` views) and ``layer`` picks
-    the layer inside the kernel's addressing -- no per-layer copy.
-    q/k_new/v_new/lengths as in :func:`flash_decode_append`."""
-    k_payload, _ = k_view
-    v_payload, _ = v_view
+    cache stays stacked (``_split_stacked`` views, scales included) and
+    ``layer`` picks the layer inside the kernel's addressing -- no
+    per-layer copy.  q/k_new/v_new/lengths as in
+    :func:`flash_decode_append`."""
+    k_payload, k_scale = k_view
+    v_payload, v_scale = v_view
+    _require_matched_quantization(k_scale is not None, v_scale is not None,
+                                  "flash_decode_append_stacked")
     return _append(q, k_new, v_new,
                    lambda q_scaled: flash_decode_attention_stacked(
-                       q_scaled, k_payload, v_payload, layer, lengths))
+                       q_scaled, k_payload, v_payload, layer, lengths,
+                       k_scale, v_scale))
 
 
 def flash_decode_append_paged(q, k_view, v_view, layer: int, k_new, v_new,
                               page_table, lengths):
     """Paged twin of :func:`flash_decode_append_stacked` on kernel #3: the
-    cache stays its physical page pools (``_split_paged`` views) and the
-    kernel resolves each row's pages from the [B, pps] table -- no
-    gather, no logical-row copy.  The table must cover the logical
-    extent the lengths claim (the allocator's ``ensure`` contract).
-    q/k_new/v_new/lengths as in :func:`flash_decode_append`."""
-    k_payload, _ = k_view
-    v_payload, _ = v_view
+    cache stays its physical page pools (``_split_paged`` views, scale
+    pools included) and the kernel resolves each row's pages from the
+    [B, pps] table -- no gather, no logical-row copy.  The table must
+    cover the logical extent the lengths claim (the allocator's
+    ``ensure`` contract).  q/k_new/v_new/lengths as in
+    :func:`flash_decode_append`."""
+    k_payload, k_scale = k_view
+    v_payload, v_scale = v_view
+    _require_matched_quantization(k_scale is not None, v_scale is not None,
+                                  "flash_decode_append_paged")
     return _append(q, k_new, v_new,
                    lambda q_scaled: flash_decode_attention_paged(
                        q_scaled, k_payload, v_payload, layer, page_table,
-                       lengths))
+                       lengths, k_scale, v_scale))

@@ -1,8 +1,10 @@
 """Where a serving step's time goes on the card.
 
-    python3 -m aiko_services_tpu_torch.profile_serving
+    python3 -m aiko_services_tpu_torch.profile_serving [bf16|int8]
 
-Builds llama3-8b at full width and depth (random weights from a seed),
+Builds llama3-8b at full width and depth (random weights from a seed;
+``int8`` serves their ``quantize_params`` quantization with
+``kv_dtype="int8"``, the bf16 tree freed first),
 fills all eight slots of a 2048-token cache with 1500-token prompts
 through the flash admission path, then times with CUDA events and
 ``torch.profiler``:
@@ -11,7 +13,9 @@ through the flash admission path, then times with CUDA events and
 - ``decode_step`` + ``select_tokens`` (top-k 50), host clock and device
   clock over 20 steps each;
 - device kernel time by name over 5 profiled decode steps, and the
-  device's busy share of that window (sum of kernel times / wall).
+  device's busy share of that window (sum of kernel times / wall);
+  host self time by operator over the same steps (where the enqueue
+  time goes; the profiler's own cost inflates it).
 
 Prints one JSON object per measurement, each with the card's name and
 power limit.  Needs a CUDA card.
@@ -22,11 +26,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 
 import torch
 
 from .models import llama
+from .models.quant import quantize_params
 
 
 def _card() -> str:
@@ -39,7 +45,10 @@ def _card() -> str:
 STEPS = 20
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    mode = argv[0] if argv else "bf16"
+    if mode not in ("bf16", "int8") or len(argv) > 1:
+        raise SystemExit("usage: profile_serving [bf16|int8]")
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     card = _card()
@@ -48,6 +57,10 @@ def main() -> int:
         llama.LlamaConfig.llama3_8b(), max_seq=2048, attention="flash",
         decode_attention="auto")
     params = llama.init_params(0, config, device=device)
+    if mode == "int8":
+        params = quantize_params(params)
+        config = dataclasses.replace(config, kv_dtype="int8")
+        torch.cuda.empty_cache()
     cache = llama.init_cache(config, 8, device=device)
     gen = torch.Generator(device=device).manual_seed(5)
     chunk = 512
@@ -88,7 +101,8 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - host) * 1e3 / STEPS
-        results.append({"measure": name, "layers": config.n_layers,
+        results.append({"measure": name, "mode": mode,
+                        "layers": config.n_layers,
                         "device_ms": start.elapsed_time(end) / STEPS,
                         "host_enqueue_ms": enqueue_ms, "wall_ms": wall_ms,
                         "card": card})
@@ -102,20 +116,29 @@ def main() -> int:
             decode_once()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - begin) * 1e3
-    kernels = {}
+    kernels, host = {}, {}
     for event in prof.key_averages():
         device_us = getattr(event, "device_time_total", None)
         if device_us is None:
             device_us = getattr(event, "cuda_time_total", 0)
         if device_us and event.device_type == torch.autograd.DeviceType.CUDA:
             kernels[event.key] = device_us / 1e3 / 5
+        elif event.device_type == torch.autograd.DeviceType.CPU:
+            host[event.key] = (event.self_cpu_time_total / 1e3 / 5,
+                               event.count // 5)
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda item: -item[1])[:12]
+    host_top = sorted(host.items(), key=lambda item: -item[1][0])[:12]
     results.append({"measure": "decode_step_kernels_ms_per_step",
+                    "mode": mode,
                     "window_ms_per_step": window_ms / 5,
                     "device_busy_ms_per_step": busy_ms,
                     "device_busy_share": busy_ms / (window_ms / 5),
                     "top": [[name[:80], ms] for name, ms in top],
+                    "host_self_ms_per_step": sum(ms for ms, _ in
+                                                 host.values()),
+                    "host_top": [[name[:60], ms, calls]
+                                 for name, (ms, calls) in host_top],
                     "card": card})
     for entry in results:
         print(json.dumps(entry))
@@ -123,4 +146,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

@@ -16,7 +16,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    computes the same function, that call's time (``library_ms``; timed
    here only, never used by the port).  The paged decode kernel (#3) is
    also held BITWISE against the flat kernel (#1) on the gathered view,
-   at 64- and 16-token pages;
+   at 64- and 16-token pages, over bf16 and over int8 caches; the int8
+   matmul (#5) is held exactly on grid inputs and within a stated
+   tolerance on random ones, at the decode and prefill unembed and the
+   decode w_down shapes;
 3. serving: ``ContinuousBatcher`` on Llama-3-8B widths (random weights
    from a seed) with flash prefill, flash decode and top-k sampling:
    dense at decode_block 1 and 4, then paged (64-token pages) at full
@@ -28,7 +31,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    kernel on the dense runs, the paged one on the paged runs, never the
    other), the greedy streams must agree as each run states, and
    kernel-path logits must agree with the dense reference settings on
-   the same prefill and decode step.
+   the same prefill and decode step;
+4. int8 serving: the same weights quantized (``quantize_params``, the
+   bf16 tree freed) with ``kv_dtype="int8"``: dense at decode_block 4
+   and paged at full provisioning, decode_block 1 -- #5, the int8 decode
+   kernels, #4 and #6 must launch, no bf16 decode kernel may; greedy
+   streams equal across the two, no leaked page; kernel-path logits
+   within 5 % of the plain path on the same quantized tree.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line, then ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -54,6 +63,10 @@ DECODE_TOL = 1e-4       # f32 queries: the two differ in summation order only
 ATTENTION_TOL = 2e-2    # bf16 out: exp in bf16 against a running max per tile
 BF16_TOL = 2e-2         # bf16 softmax weights: one-ulp flips (0.4%) of a weight
 LOGITS_TOL = 0.05       # kernel path vs dense path, relative to max |logit|
+# int8 matmul on random bf16 inputs, relative to max |out|: both round the
+# same f32 sum (up to order) to bf16 once, so at most one bf16 step (2^-8
+# of a value) apart; two steps of the largest value allowed.
+INT8_MATMUL_TOL = 2.0 ** -7
 
 
 def fail(message: str, code: int = 1):
@@ -395,6 +408,242 @@ def check_paged(device) -> list[dict]:
              "launches": flat_launches}]
 
 
+def _int8_side(shape, gen, device):
+    """A random int8 cache side [.., K*hd] with its [.., K] f32 scales,
+    quantized as ``kv_dtype="int8"`` stores it (one layer at a time, so
+    the float32 draw stays small)."""
+    import torch
+    from aiko_services_tpu_torch.models.quant import quantize_kv
+    kv, hd = 8, shape[-1] // 8
+    codes = torch.empty(shape, dtype=torch.int8, device=device)
+    scales = torch.empty((*shape[:-1], kv), dtype=torch.float32,
+                         device=device)
+    for layer in range(shape[0]):
+        leaf = quantize_kv(torch.randn((*shape[1:-1], kv, hd), generator=gen,
+                                       device=device))
+        codes[layer] = leaf["int8"].reshape(shape[1:])
+        scales[layer] = leaf["scale"][..., 0]
+    return codes, scales
+
+
+def _dequantized(codes, scales):
+    """[.., K*hd] codes and [.., K] scales -> the bf16 values."""
+    import torch
+    kv = scales.shape[-1]
+    grouped = codes.reshape(*codes.shape[:-1], kv, -1).float() \
+        * scales[..., None]
+    return grouped.reshape(codes.shape).to(torch.bfloat16)
+
+
+def check_int8_decode(device) -> list[dict]:
+    """The int8 payload of the decode body at PR 2's shapes: f32 and bf16
+    scaled queries [8, 32, 128] against int8 caches with per-(position,
+    kv head) f32 scales -- #2 on a [32, 8, 2048, 1024] stacked cache, #3
+    on [32, 257, 64, 1024] pools through a random permutation table, #1
+    on the gathered view -- each against its plain version; #3 BITWISE
+    against #1 at 64- and 16-token pages."""
+    import torch
+    from aiko_services_tpu_torch.ops import flash_decode as fd
+    gen = torch.Generator(device=device).manual_seed(6)
+    n_layers, b, t, kv, hd, h, pt = 32, 8, 2048, 8, 128, 32, 64
+    pps, layer = t // pt, 17
+    pages = b * pps + 1
+    k, ks = _int8_side((n_layers, b, t, kv * hd), gen, device)
+    v, vs = _int8_side((n_layers, b, t, kv * hd), gen, device)
+    pool_k, pool_ks = _int8_side((n_layers, pages, pt, kv * hd), gen, device)
+    pool_v, pool_vs = _int8_side((n_layers, pages, pt, kv * hd), gen, device)
+    table = (torch.randperm(pages - 1, generator=gen, device=device) + 1) \
+        .reshape(b, pps).to(torch.int32)
+    q = torch.randn((b, h, hd), generator=gen, device=device).to(
+        torch.bfloat16)
+    q_scaled, _ = fd._prep_query(q, hd)
+    lengths = torch.tensor([0, 2047, 1, 1500, 513, 64, 2046, 1024],
+                           device=device, dtype=torch.int32)
+
+    def gathered(pool, tbl):
+        return pool[layer][tbl.long()].reshape(b, t, pool.shape[-1])
+    errors = {"stacked": {}, "paged": {}, "flat": {}}
+    for q_in, tol in ((q_scaled, DECODE_TOL),
+                      (q_scaled.to(torch.bfloat16), BF16_TOL)):
+        stacked = (fd.flash_decode_attention_stacked(
+            q_in, k, v, layer, lengths, ks, vs),
+            fd.flash_decode_attention_stacked_reference(
+                q_in, k, v, layer, lengths, ks, vs))
+        paged = (fd.flash_decode_attention_paged(
+            q_in, pool_k, pool_v, layer, table, lengths, pool_ks, pool_vs),
+            fd.flash_decode_attention_paged_reference(
+                q_in, pool_k, pool_v, layer, table, lengths, pool_ks,
+                pool_vs))
+        views = [gathered(pool, table)
+                 for pool in (pool_k, pool_v, pool_ks, pool_vs)]
+        flat = (fd.flash_decode_attention(q_in, *views[:2], lengths,
+                                          *views[2:]),
+                fd.flash_decode_attention_reference(q_in, *views[:2],
+                                                    lengths, *views[2:]))
+        torch.cuda.synchronize()
+        for name, (got, want) in (("stacked", stacked), ("paged", paged),
+                                  ("flat", flat)):
+            errors[name][q_in.dtype] = err = _decode_error(got, want)
+            if got[0][0].abs().max() != 0 or got[2][0].abs().max() != 0 \
+                    or (got[1][0] != -1e30).any():
+                raise AssertionError(f"int8 {name} decode: a length-0 row "
+                                     f"must give acc=0, l=0, m=-1e30")
+            if not err <= tol:
+                raise AssertionError(f"int8 {name} decode kernel disagrees: "
+                                     f"{err} > {tol}")
+        same = _bitwise(paged[0], flat[0])
+        print(f"int8 decode q={q_in.dtype}: max_abs_err stacked "
+              f"{errors['stacked'][q_in.dtype]:.3e}, paged "
+              f"{errors['paged'][q_in.dtype]:.3e}, flat "
+              f"{errors['flat'][q_in.dtype]:.3e} (tol {tol}); paged bitwise "
+              f"equal to flat at pt={pt}: {same}")
+        if not same:
+            raise AssertionError("int8: the paged kernel is not bitwise "
+                                 "equal to the flat kernel")
+    # 16-token pages: the same pools seen as [L, 1028, 16, C].
+    small = [pool.view(n_layers, pages * 4, 16, pool.shape[-1])
+             for pool in (pool_k, pool_v, pool_ks, pool_vs)]
+    small_table = (torch.randperm(pages * 4 - 1, generator=gen,
+                                  device=device)[:b * t // 16] + 1) \
+        .reshape(b, t // 16).to(torch.int32)
+    for q_in in (q_scaled, q_scaled.to(torch.bfloat16)):
+        got = fd.flash_decode_attention_paged(
+            q_in, small[0], small[1], layer, small_table, lengths,
+            small[2], small[3])
+        flat = fd.flash_decode_attention(
+            q_in, *(gathered(pool, small_table) for pool in small[:2]),
+            lengths, *(gathered(pool, small_table) for pool in small[2:]))
+        torch.cuda.synchronize()
+        same = _bitwise(got, flat)
+        print(f"int8 paged decode q={q_in.dtype} pt=16: bitwise equal to "
+              f"the flat kernel: {same}")
+        if not same:
+            raise AssertionError("int8: the paged kernel at 16-token pages "
+                                 "is not bitwise equal to the flat kernel")
+    views = [gathered(pool, table) for pool in (pool_k, pool_v, pool_ks,
+                                                pool_vs)]
+    timed = {
+        "stacked": (lambda: fd.flash_decode_attention_stacked(
+            q_scaled, k, v, layer, lengths, ks, vs),
+            lambda: fd.flash_decode_attention_stacked_reference(
+                q_scaled, k, v, layer, lengths, ks, vs)),
+        "paged": (lambda: fd.flash_decode_attention_paged(
+            q_scaled, pool_k, pool_v, layer, table, lengths, pool_ks,
+            pool_vs),
+            lambda: fd.flash_decode_attention_paged_reference(
+                q_scaled, pool_k, pool_v, layer, table, lengths, pool_ks,
+                pool_vs)),
+        "flat": (lambda: fd.flash_decode_attention(
+            q_scaled, *views[:2], lengths, *views[2:]),
+            lambda: fd.flash_decode_attention_reference(
+                q_scaled, *views[:2], lengths, *views[2:]))}
+    fd.flash_decode_attention.int8_launches = 0
+    times = {name: (time_ms(kernel), time_ms(plain, iters=5))
+             for name, (kernel, plain) in timed.items()}
+    flat_launches = fd.flash_decode_attention.int8_launches
+
+    # Yardstick: SDPA over the dequantized bf16 view (normalised output,
+    # no m/l), lengths as a boolean mask.
+    def sdpa_inputs(codes, scales):
+        return _dequantized(codes, scales).reshape(b, t, kv, hd) \
+            .transpose(1, 2).repeat_interleave(h // kv, dim=1)
+    kt, vt = sdpa_inputs(views[0], views[2]), sdpa_inputs(views[1], views[3])
+    mask = (torch.arange(t, device=device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kt, vt, attn_mask=mask))
+    live_tokens = int(lengths.sum().item())
+    live_pages = int(((lengths + pt - 1) // pt).sum().item())
+    io_bytes = q_scaled.numel() * q_scaled.element_size() \
+        + lengths.numel() * 4 + b * h * (hd + 2) * 4
+    cache_bytes = 2 * live_tokens * (kv * hd + kv * 4)
+    flops = 4 * live_tokens * h * hd
+    source = "aiko_services_tpu_torch/csrc/flash_decode.cu"
+    rows = []
+    for name, wrapper, replaces, extra in (
+            ("stacked", "flash_decode_attention_stacked", 387, 0),
+            ("paged", "flash_decode_attention_paged", 487, live_pages * 4),
+            ("flat", "flash_decode_attention", 285, 0)):
+        bound, by = bound_ms(cache_bytes + io_bytes + extra, flops, "f32")
+        rows.append({"name": f"{wrapper}[int8]", "route": "cuda",
+                     "source": source,
+                     "replaces": f"aiko_services_tpu/ops/pallas_decode.py:"
+                                 f"{replaces}",
+                     "max_abs_err": errors[name][torch.float32],
+                     "ms": times[name][0], "plain_ms": times[name][1],
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": library,
+                     "library": "SDPA on the dequantized bf16 view"})
+    rows[2].update({"path": "kernel phase", "launches": flat_launches})
+    return rows
+
+
+def check_int8_matmul(device) -> dict:
+    """int8_matmul (#5) at the serving path's shapes: the decode unembed
+    (M 8, D 4,096, F 128,256), the prefill unembed (M 512) and the decode
+    w_down (M 8, D 14,336, F 4,096).  Exact against the plain version on
+    grid inputs (integer x, power-of-two scales: every product and sum
+    is an exact float) at every shape; within INT8_MATMUL_TOL of max
+    |out| on random bf16 inputs with quantizer-made weights."""
+    import torch
+    from aiko_services_tpu_torch.models.quant import quantize_weight
+    from aiko_services_tpu_torch.ops.int8_matmul import (
+        int8_matmul, int8_matmul_reference)
+    gen = torch.Generator(device=device).manual_seed(8)
+    shapes = {"decode_unembed": (8, 4096, 128_256),
+              "prefill_unembed": (512, 4096, 128_256),
+              "decode_w_down": (8, 14_336, 4096)}
+    weights = {}
+    for d, f in sorted({(d, f) for _, d, f in shapes.values()}):
+        w = torch.randint(-127, 128, (d, f), generator=gen, device=device,
+                          dtype=torch.int8)
+        scale = 2.0 ** torch.randint(-10, -4, (1, f), generator=gen,
+                                     device=device).float()
+        leaf = quantize_weight(torch.randn((d, f), generator=gen,
+                                           device=device))
+        weights[d, f] = (w, scale, leaf)
+    out = {}
+    for label, (m, d, f) in shapes.items():
+        w, scale, leaf = weights[d, f]
+        x = torch.randint(-3, 4, (m, d), generator=gen,
+                          device=device).to(torch.bfloat16)
+        exact = torch.equal(int8_matmul(x, w, scale),
+                            int8_matmul_reference(x, w, scale))
+        x = torch.randn((m, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        got = int8_matmul(x, leaf["int8"], leaf["scale"]).float()
+        want = int8_matmul_reference(x, leaf["int8"], leaf["scale"]).float()
+        torch.cuda.synchronize()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"int8_matmul {label} [{m}x{d}]@[{d}x{f}]: grid inputs exact "
+              f"{exact}; random rel err {err:.3e} (tol {INT8_MATMUL_TOL})")
+        if not exact or not err <= INT8_MATMUL_TOL:
+            raise AssertionError(f"int8_matmul disagrees at {label}")
+        dense = (leaf["int8"].float() * leaf["scale"]).to(torch.bfloat16)
+        ms = time_ms(lambda: int8_matmul(x, leaf["int8"], leaf["scale"]))
+        plain = time_ms(lambda: int8_matmul_reference(
+            x, leaf["int8"], leaf["scale"]), iters=5)
+        library = time_ms(lambda: torch.matmul(x, dense))
+        del dense
+        n_bytes = m * d * 2 + d * f + f * 4 + m * f * 2
+        bound, by = bound_ms(n_bytes, 2.0 * m * d * f, "bf16")
+        out[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                      "bound_by": by, "library_ms": library,
+                      "max_abs_err": err}
+        print(f"int8_matmul {label}: {ms:.4f} ms (plain {plain:.4f}, cuBLAS "
+              f"bf16 on the dequantized weight {library:.4f}, bound "
+              f"{bound:.4f} by {by})", flush=True)
+    del weights
+    torch.cuda.empty_cache()
+    main = out["decode_unembed"]
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "aiko_services_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "aiko_services_tpu/ops/pallas_matmul.py:73",
+            **main, "library": "torch.matmul (cuBLAS bf16) on the "
+            "dequantized weight", "max_abs_err_is": "relative to max |out|",
+            "shapes": out}
+
+
 # -- phase 3: serving -------------------------------------------------------
 
 PROMPT_LENGTHS = (100, 1500, 700, 300, 1200, 900, 513, 1024)
@@ -552,6 +801,104 @@ def check_dense_agreement(params, config, device) -> dict:
     return out
 
 
+def check_int8_agreement(qparams, config, device) -> dict:
+    """The same chunked prefill and decode step as check_dense_agreement,
+    on the quantized tree, through the int8 kernel path (#5 on every int8
+    leaf, the int8 KV cache, flash prefill and decode) and through the
+    plain path (``matmul_kernel="off"``, bf16 KV, dense attention): the
+    logits must agree to LOGITS_TOL of max |logit|."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    gen = torch.Generator(device=device).manual_seed(11)
+    prompt = torch.randint(0, config.vocab_size, (1, 1500), generator=gen,
+                           device=device)
+    plain = dataclasses.replace(config, attention="dense",
+                                decode_attention="dense",
+                                matmul_kernel="off", kv_dtype="bfloat16")
+    results = {}
+    for label, cfg in (("kernel", config), ("plain", plain)):
+        cache = llama.init_cache(cfg, 8, device=device)
+        for start in (0, 512, 1024):
+            chunk = torch.zeros((1, 512), dtype=torch.long, device=device)
+            part = prompt[:, start:start + 512]
+            chunk[:, :part.shape[1]] = part
+            logits, cache = llama.prefill_into_slot(qparams, cfg, chunk,
+                                                    cache, 3, start)
+        prefill_logits = logits[0, 1500 - 1024 - 1].float()
+        tokens = torch.full((8,), 17, dtype=torch.long, device=device)
+        tokens[3] = prompt[0, 0]
+        lengths = torch.full((8,), 2047, dtype=torch.int32, device=device)
+        lengths[3] = 1500
+        step_logits, cache = llama.decode_step(qparams, cfg, tokens, cache,
+                                               lengths)
+        results[label] = (prefill_logits, step_logits[3].float())
+        del cache
+    out = {}
+    for index, name in enumerate(("prefill", "decode")):
+        kernel, ref = results["kernel"][index], results["plain"][index]
+        err = ((kernel - ref).abs().max() / ref.abs().max()).item()
+        same = int(kernel.argmax()) == int(ref.argmax())
+        print(f"int8 {name} logits: kernel path vs plain path max rel err "
+              f"{err:.3e} (tol {LOGITS_TOL}), argmax agree {same}")
+        if not err <= LOGITS_TOL:
+            raise AssertionError(f"int8 {name} logits disagree: {err}")
+        out[name] = err
+    return out
+
+
+def _counters():
+    """Every launch counter of the serving path: name -> (wrapper, the
+    wrapper's attribute).  The decode wrappers count bf16 and int8
+    payloads apart."""
+    from aiko_services_tpu_torch.ops.flash_attention import flash_attention
+    from aiko_services_tpu_torch.ops.flash_decode import (
+        flash_decode_attention_paged, flash_decode_attention_stacked)
+    from aiko_services_tpu_torch.ops.int8_matmul import int8_matmul
+    from aiko_services_tpu_torch.ops.topk import topk
+    return {"flash_decode_attention_stacked":
+            (flash_decode_attention_stacked, "launches"),
+            "flash_decode_attention_paged":
+            (flash_decode_attention_paged, "launches"),
+            "flash_decode_attention_stacked[int8]":
+            (flash_decode_attention_stacked, "int8_launches"),
+            "flash_decode_attention_paged[int8]":
+            (flash_decode_attention_paged, "int8_launches"),
+            "int8_matmul": (int8_matmul, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "topk": (topk, "launches")}
+
+
+def run_plan(plan, params, config, device, card, runs, launches) -> None:
+    """Serve each (label, requests, options) of ``plan``: every counter
+    zeroed just before the run and read just after; the run's decode
+    kernel (stacked on dense runs, paged on paged runs, the int8 payload
+    with an int8 cache) and every other kernel of its path must launch,
+    and no decode kernel of another layout or payload may."""
+    counters = _counters()
+    int8 = config.kv_dtype == "int8"
+    quantized = isinstance(params["unembed"], dict)
+    for label, requests, options in plan:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        runs[label] = serve(params, config, requests, label, device, card,
+                            **options)
+        counts = {name: getattr(fn, attr)
+                  for name, (fn, attr) in counters.items()}
+        print(f"serving {json.dumps(runs[label]['metrics'])} "
+              f"launches {json.dumps(counts)}", flush=True)
+        decode = "flash_decode_attention_paged" if "kv_page_tokens" \
+            in options else "flash_decode_attention_stacked"
+        decode += "[int8]" if int8 else ""
+        wanted = {decode, "flash_attention", "topk"} \
+            | ({"int8_matmul"} if quantized else set())
+        for name, count in counts.items():
+            if (count > 0) != (name in wanted):
+                raise AssertionError(
+                    f"{label}: {name} launched {count} times; the run's "
+                    f"path is {sorted(wanted)}")
+            launches[name] = launches.get(name, 0) + count
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -568,10 +915,6 @@ def main() -> int:
              "CUDA card")
     sys.path.insert(0, str(ROOT))
     from aiko_services_tpu_torch.ops import _build
-    from aiko_services_tpu_torch.ops.flash_attention import flash_attention
-    from aiko_services_tpu_torch.ops.flash_decode import (
-        flash_decode_attention_paged, flash_decode_attention_stacked)
-    from aiko_services_tpu_torch.ops.topk import topk
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -589,6 +932,7 @@ def main() -> int:
                 print(f"  {source}: {line.strip()}")
 
     kernels = [check_decode(device), *check_paged(device),
+               *check_int8_decode(device), check_int8_matmul(device),
                check_attention(device), check_topk(device)]
     for entry in kernels:
         print(f"{entry['name']}: {entry['ms']:.4f} ms (plain "
@@ -597,11 +941,8 @@ def main() -> int:
               f"on {card}", flush=True)
     torch.cuda.empty_cache()
 
-    wrappers = {"flash_decode_attention_stacked":
-                flash_decode_attention_stacked,
-                "flash_decode_attention_paged": flash_decode_attention_paged,
-                "flash_attention": flash_attention, "topk": topk}
     from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.quant import quantize_params
     config = serving_config()
     begin = time.perf_counter()
     params = llama.init_params(0, config, device=device)
@@ -625,29 +966,8 @@ def main() -> int:
                   **paged)),
             ("prefix-cold-1", shared,
              dict(decode_block=1, serial_first=True, **paged))]
-    runs = {}
-    launches = {name: 0 for name in wrappers}
-    for label, requests, options in plan:
-        for fn in wrappers.values():
-            fn.launches = 0
-        runs[label] = serve(params, config, requests, label, device, card,
-                            **options)
-        counts = {name: fn.launches for name, fn in wrappers.items()}
-        print(f"serving {json.dumps(runs[label]['metrics'])} "
-              f"launches {json.dumps(counts)}", flush=True)
-        decode = "flash_decode_attention_paged" if "kv_page_tokens" \
-            in options else "flash_decode_attention_stacked"
-        other = ({"flash_decode_attention_paged",
-                  "flash_decode_attention_stacked"} - {decode}).pop()
-        for name, count in counts.items():
-            if name != other and count <= 0:
-                raise AssertionError(f"{label}: {name} never launched on "
-                                     f"the serving path")
-        if counts[other]:
-            raise AssertionError(f"{label}: {other} launched {counts[other]}"
-                                 f" times; the run's decode is {decode}")
-        for name, count in counts.items():
-            launches[name] += count
+    runs, launches = {}, {}
+    run_plan(plan, params, config, device, card, runs, launches)
 
     def greedy_agree(a: str, b: str, rids) -> int:
         return sum(runs[a]["streams"][rid] == runs[b]["streams"][rid]
@@ -685,7 +1005,30 @@ def main() -> int:
                              "shared tokens, warm streams equal to cold and "
                              "no leaked page")
     check_dense_agreement(params, config, device)
+
+    # -- phase 4: int8 serving on the same weights, quantized ----------------
+    begin = time.perf_counter()
+    qparams = quantize_params(params)
     del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tree_gb = sum(leaf.numel() * leaf.element_size()
+                  for leaf in _leaves(qparams)) / 1e9
+    print(f"quantize_params: {time.perf_counter() - begin:.1f} s, quantized "
+          f"tree {tree_gb:.3f} GB (bf16 tree freed)", flush=True)
+    int8_config = dataclasses.replace(config, kv_dtype="int8")
+    int8_plan = [("int8-dense-4", mixed, dict(decode_block=4)),
+                 ("int8-paged-1", mixed, dict(decode_block=1, **paged))]
+    run_plan(int8_plan, qparams, int8_config, device, card, runs, launches)
+    agree = greedy_agree("int8-dense-4", "int8-paged-1", greedy)
+    leaked = runs["int8-paged-1"]["leaked"]
+    print(f"int8: greedy streams equal, int8-dense-4 and int8-paged-1: "
+          f"{agree}/{len(greedy)}; leaked pages {leaked}")
+    if agree != len(greedy) or leaked:
+        raise AssertionError("int8: the paged run emitted other greedy "
+                             "tokens than the dense run, or leaked pages")
+    check_int8_agreement(qparams, int8_config, device)
+    del qparams
     torch.cuda.empty_cache()
 
     for entry in kernels:

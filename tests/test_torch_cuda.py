@@ -9,8 +9,11 @@ Without a card every test here skips."""
 import pytest
 import torch
 
+from aiko_services_tpu_torch.models.quant import quantize_kv, quantize_weight
 from aiko_services_tpu_torch.ops import flash_attention as tatt
 from aiko_services_tpu_torch.ops import flash_decode as tdec
+from aiko_services_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                     int8_matmul_reference)
 from aiko_services_tpu_torch.ops.topk import topk, topk_reference
 
 F32 = dict(atol=1e-4, rtol=1e-4)
@@ -90,3 +93,79 @@ def test_paged_kernel_bitwise_matches_flat_kernel(cuda_device, page_tokens):
             assert torch.equal(got, same)
             torch.testing.assert_close(got, want, **(
                 F32 if q_in.dtype == torch.float32 else BF16))
+
+
+def _int8_pool(shape, gen, device):
+    """A [.., K*hd] int8 cache side: (codes, [.., K] f32 scales)."""
+    raw = torch.randn(shape, generator=gen, device=device)
+    leaf = quantize_kv(raw.reshape(*shape[:-1], 2, shape[-1] // 2))
+    return leaf["int8"].reshape(shape), leaf["scale"][..., 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_tokens", [64, 16, 8])
+def test_int8_decode_kernels_match_plain_and_each_other(cuda_device,
+                                                        page_tokens):
+    """The int8 payload of the decode body: #3 over int8 pools with their
+    scale pools is bitwise equal to #1 on the gathered codes and scales,
+    #2 on the gathered view as a stacked cache equals #1 too, and each
+    holds its plain version, for f32 and bf16 queries."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    b, pps, kv, hd, h = 3, 6, 2, 128, 8
+    pages = b * pps + 1
+    k_pool, ks_pool = _int8_pool((2, pages, page_tokens, kv * hd), gen,
+                                 cuda_device)
+    v_pool, vs_pool = _int8_pool((2, pages, page_tokens, kv * hd), gen,
+                                 cuda_device)
+    order = torch.randperm(pages - 1, generator=gen, device=cuda_device) + 1
+    table = order.reshape(b, pps).to(torch.int32)
+    t = pps * page_tokens
+    lengths = torch.tensor([t, 1, t - 5], dtype=torch.int32,
+                           device=cuda_device)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda_device)
+    rows = table.long()
+    for q_in in (tdec._prep_query(q, hd)[0],
+                 tdec._prep_query(q.to(torch.bfloat16), 64)[0]):
+        layer = 1
+        gathered = [pool[layer][rows].reshape(b, t, -1)
+                    for pool in (k_pool, v_pool, ks_pool, vs_pool)]
+        paged = tdec.flash_decode_attention_paged(
+            q_in, k_pool, v_pool, layer, table, lengths, ks_pool, vs_pool)
+        flat = tdec.flash_decode_attention(q_in, gathered[0], gathered[1],
+                                           lengths, gathered[2], gathered[3])
+        stacked = tdec.flash_decode_attention_stacked(
+            q_in, *(g[None].contiguous() for g in gathered[:2]), 0, lengths,
+            *(g[None].contiguous() for g in gathered[2:]))
+        plain = tdec.flash_decode_attention_paged_reference(
+            q_in, k_pool, v_pool, layer, table, lengths, ks_pool, vs_pool)
+        torch.cuda.synchronize()
+        for got, same, also, want in zip(paged, flat, stacked, plain):
+            assert torch.equal(got, same) and torch.equal(same, also)
+            torch.testing.assert_close(got, want, **(
+                F32 if q_in.dtype == torch.float32 else BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 100])
+def test_int8_matmul_kernel_matches_plain(cuda_device, m):
+    """Kernel #5 at a decode-sized and a prefill-sized M: exact on grid
+    inputs (integer x, power-of-two scales), within one bf16 rounding of
+    the output on random inputs; D and F off the tile sizes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    d, f = 328, 400
+    w = torch.randint(-127, 128, (d, f), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    scale = 2.0 ** torch.randint(-8, -2, (1, f), generator=gen,
+                                 device=cuda_device).float()
+    x = torch.randint(-3, 4, (m, d), generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    assert torch.equal(int8_matmul(x, w, scale),
+                       int8_matmul_reference(x, w, scale))
+    leaf = quantize_weight(torch.randn((d, f), generator=gen,
+                                       device=cuda_device))
+    x = torch.randn((m, d), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    got = int8_matmul(x, leaf["int8"], leaf["scale"])
+    want = int8_matmul_reference(x, leaf["int8"], leaf["scale"])
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)

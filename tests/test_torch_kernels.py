@@ -1,8 +1,9 @@
-"""Port parity for the three kernels of the serving path: each plain
-PyTorch version (what the wrapper runs on a CPU tensor) against the JAX
-Pallas kernel in interpret mode on the same seeded inputs.  Tolerances:
-float32 1e-4 (summation order), bf16 2e-2 (bf16 rounding of softmax
-weights), top-k exact.  The CUDA kernels themselves are held against
+"""Port parity for the kernels of the serving path: each plain PyTorch
+version (what the wrapper runs on a CPU tensor) against the JAX Pallas
+kernel in interpret mode on the same seeded inputs, the decode kernels
+over bf16/f32 caches and over int8 caches.  Tolerances: float32 1e-4
+(summation order), bf16 2e-2 (bf16 rounding of softmax weights), top-k
+exact.  (The int8 matmul, kernel #5, is in test_torch_quant.py.)  The CUDA kernels themselves are held against
 these plain versions on the card by ``chip_smoke.py`` and by
 ``tests/test_torch_cuda.py``, which skips without a card."""
 
@@ -15,6 +16,8 @@ import torch
 from aiko_services_tpu.ops import pallas_attention as jatt
 from aiko_services_tpu.ops import pallas_decode as jdec
 from aiko_services_tpu.ops import pallas_topk as jtopk
+from aiko_services_tpu.models import quant as jq
+from aiko_services_tpu_torch.models import quant as tq
 from aiko_services_tpu_torch.ops import flash_attention as tatt
 from aiko_services_tpu_torch.ops import flash_decode as tdec
 from aiko_services_tpu_torch.ops.topk import topk
@@ -302,3 +305,180 @@ def test_paged_kernel_rejects_unaligned_pages():
     with pytest.raises(ValueError, match="multiple of 8"):
         tdec.flash_decode_attention_paged(tdec._prep_query(qt[:, 0], 16)[0],
                                           kt, vt, 0, _t(table), _t(lengths))
+
+
+# -- the int8 branches of #1, #2 and #3 --------------------------------------
+
+def _int8_side(x, kv, d):
+    """A [.., T, K*d] f32 cache side -> the JAX and the port int8 leaves
+    ({"int8": [.., T, K*d], "scale": [.., T, K, 1]}, bit-equal)."""
+    grouped = np.asarray(x, np.float32).reshape(*x.shape[:-1], kv, d)
+    theirs = jq.quantize_kv(jnp.asarray(grouped))
+    ours = tq.quantize_kv(_t(grouped))
+    flat = x.shape
+    return ({"int8": theirs["int8"].reshape(flat), "scale": theirs["scale"]},
+            {"int8": ours["int8"].reshape(flat), "scale": ours["scale"]})
+
+
+def _int8_case(seed, d, qdtype, page_tokens=32):
+    """The paged case's pools quantized, its queries in ``qdtype``."""
+    jx, _, table, lengths, h, kv = _paged_inputs(seed, d, "float32",
+                                                 page_tokens)
+    pools = [_int8_side(np.asarray(a), kv, d) for a in jx[:2]]
+    rng = np.random.default_rng(seed + 100)
+    q = rng.normal(size=(3, 1, h, d)).astype(np.float32)
+    new = [rng.normal(size=(3, 1, kv, d)).astype(np.float32)
+           for _ in range(2)]
+    jdtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[qdtype]
+    tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[qdtype]
+    return (pools, (jnp.asarray(q, jdtype), _t(q).to(tdtype)),
+            [(jnp.asarray(a, jdtype), _t(a).to(tdtype)) for a in new],
+            table, lengths, h, kv)
+
+
+def _scales_t(leaf):
+    """The TPU kernels' [.., K, T] scales from a stored [.., T, K, 1]."""
+    return jnp.swapaxes(leaf["scale"][..., 0], -1, -2)
+
+
+@pytest.mark.parametrize("d,dtype,tol", DECODE_CASES)
+def test_int8_paged_kernel_plain_matches_pallas(d, dtype, tol):
+    """Plain #3 over int8 pools (scale pools riding their pages) against
+    the Pallas paged kernel in interpret mode, on every layer: exact
+    in-kernel dequantization on both sides."""
+    (kp, vp), (qj, qt), _, table, lengths, h, kv = _int8_case(11, d, dtype)
+    q_pad_j, _, _, _ = jdec._prep_query(qj[:, 0], h, kv, d)
+    q_t, _ = tdec._prep_query(qt[:, 0], d)
+    (k_j, ks_j), (v_j, vs_j) = jdec._split_paged(kp[0]), \
+        jdec._split_paged(vp[0])
+    (k_t, ks_t), (v_t, vs_t) = tdec._split_paged(kp[1]), \
+        tdec._split_paged(vp[1])
+    for layer in range(2):
+        acc_j, m_j, l_j = jdec.flash_decode_attention_paged(
+            q_pad_j, k_j, v_j, ks_j, vs_j, jnp.int32(layer),
+            jnp.asarray(table), jnp.asarray(lengths), interpret=True)
+        acc_t, m_t, l_t = tdec.flash_decode_attention_paged(
+            q_t, k_t, v_t, layer, _t(table), _t(lengths), ks_t, vs_t)
+        _close(acc_t, _own(acc_j, h, kv, d), tol)
+        _close(m_t, _np(m_j), tol)
+        _close(l_t, _np(l_j), tol)
+
+
+@pytest.mark.parametrize("d,dtype,tol", DECODE_CASES)
+def test_int8_stacked_and_flat_kernels_plain_match_pallas(d, dtype, tol):
+    """Plain #2 on the stacked int8 cache (the gathered pools seen as
+    [L, B, T, C]) and plain #1 on one layer of it, against the Pallas
+    stacked and flat kernels, lengths 0 and T included."""
+    (kp, vp), (qj, qt), _, table, _, h, kv = _int8_case(12, d, dtype)
+    lengths = np.array([0, 128, 33], dtype=np.int32)
+
+    def stacked(leaf, gather):
+        return {name: gather(arr) for name, arr in leaf.items()}
+
+    def jgather(arr):
+        return arr[:, jnp.asarray(table)].reshape(2, 3, 128, *arr.shape[3:])
+
+    def tgather(arr):
+        return arr[:, _t(table).long()].reshape(2, 3, 128, *arr.shape[3:])
+    kj, vj = stacked(kp[0], jgather), stacked(vp[0], jgather)
+    kt, vt = stacked(kp[1], tgather), stacked(vp[1], tgather)
+    q_pad_j, _, _, _ = jdec._prep_query(qj[:, 0], h, kv, d)
+    q_t, _ = tdec._prep_query(qt[:, 0], d)
+    acc_j, m_j, l_j = jdec.flash_decode_attention_stacked(
+        q_pad_j, kj["int8"], vj["int8"], _scales_t(kj), _scales_t(vj), 1,
+        jnp.asarray(lengths), block_t=128, interpret=True)
+    (k_t, ks_t), (v_t, vs_t) = tdec._split_stacked(kt), \
+        tdec._split_stacked(vt)
+    got = tdec.flash_decode_attention_stacked(q_t, k_t, v_t, 1,
+                                              _t(lengths), ks_t, vs_t)
+    for ours, theirs in zip(got, (_own(acc_j, h, kv, d), _np(m_j),
+                                  _np(l_j))):
+        _close(ours, theirs, tol)
+    layer_j = {name: arr[1] for name, arr in kj.items()}
+    layer_vj = {name: arr[1] for name, arr in vj.items()}
+    acc_j, m_j, l_j = jdec.flash_decode_attention(
+        q_pad_j, layer_j["int8"], layer_vj["int8"], _scales_t(layer_j),
+        _scales_t(layer_vj), jnp.asarray(lengths), block_t=32,
+        interpret=True)
+    flat = tdec.flash_decode_attention(q_t, k_t[1], v_t[1], _t(lengths),
+                                       ks_t[1], vs_t[1])
+    for ours, theirs in zip(flat, (_own(acc_j, h, kv, d), _np(m_j),
+                                   _np(l_j))):
+        _close(ours, theirs, tol)
+    for a, b in zip(flat, got):
+        assert torch.equal(a, b)
+    assert bool((flat[1][0] == -1e30).all()) \
+        and float(flat[2][0].abs().max()) == 0
+
+
+@pytest.mark.parametrize("page_tokens", [32, 16, 8])
+def test_int8_paged_plain_equals_flat_plain_on_gathered_view(page_tokens):
+    """int8 #3 == int8 #1 on the gathered view (codes and scales), bit for
+    bit, at page sizes at and below the kernel's 64-row tile."""
+    (kp, vp), (_, qt), _, table, lengths, h, kv = _int8_case(
+        13, 32, "float32", page_tokens)
+    q_t, _ = tdec._prep_query(qt[:, 0], 32)
+    k_t, ks_t = tdec._split_paged(kp[1])
+    v_t, vs_t = tdec._split_paged(vp[1])
+    rows = _t(table).long()
+    for layer in range(2):
+        paged = tdec.flash_decode_attention_paged(
+            q_t, k_t, v_t, layer, _t(table), _t(lengths), ks_t, vs_t)
+        flat = tdec.flash_decode_attention(
+            q_t, k_t[layer][rows].reshape(3, -1, kv * 32),
+            v_t[layer][rows].reshape(3, -1, kv * 32), _t(lengths),
+            ks_t[layer][rows].reshape(3, -1, kv),
+            vs_t[layer][rows].reshape(3, -1, kv))
+        for a, b in zip(paged, flat):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["flat", "stacked", "paged"])
+@pytest.mark.parametrize("dtype,tol", [("float32", dict(atol=1e-5,
+                                                         rtol=1e-5)),
+                                       ("bfloat16", BF16)])
+def test_int8_appends_match_pallas(form, dtype, tol):
+    """flash_decode_append, _stacked and _paged over int8 caches (the
+    JAX signatures: dict leaves, ``_split_*`` views) against the JAX
+    package's, f32 at test_kernel_plane.py's 1e-5."""
+    (kp, vp), (qj, qt), ((knj, knt), (vnj, vnt)), table, lengths, h, kv = \
+        _int8_case(14, 16, dtype)
+    if form == "paged":
+        out_j = jdec.flash_decode_append_paged(
+            qj, jdec._split_paged(kp[0]), jdec._split_paged(vp[0]),
+            jnp.int32(1), knj, vnj, jnp.asarray(table), jnp.asarray(lengths),
+            interpret=True)
+        out_t = tdec.flash_decode_append_paged(
+            qt, tdec._split_paged(kp[1]), tdec._split_paged(vp[1]), 1, knt,
+            vnt, _t(table), _t(lengths))
+    else:
+        def jrows(leaf):
+            return {name: arr[1][jnp.asarray(table)].reshape(
+                3, 128, *arr.shape[3:]) for name, arr in leaf.items()}
+
+        def trows(leaf):
+            return {name: arr[1][_t(table).long()].reshape(
+                3, 128, *arr.shape[3:]) for name, arr in leaf.items()}
+        kj, vj, kt, vt = jrows(kp[0]), jrows(vp[0]), trows(kp[1]), \
+            trows(vp[1])
+        if form == "flat":
+            def grouped(leaf):
+                return {"int8": leaf["int8"].reshape(3, 128, kv, 16),
+                        "scale": leaf["scale"]}
+            out_j = jdec.flash_decode_append(
+                qj, grouped(kj), grouped(vj), knj, vnj, jnp.asarray(lengths),
+                block_t=32, interpret=True)
+            out_t = tdec.flash_decode_append(
+                qt, grouped(kt), grouped(vt), knt, vnt, _t(lengths))
+        else:
+            def stack(leaf):
+                return {name: arr[None] for name, arr in leaf.items()}
+            out_j = jdec.flash_decode_append_stacked(
+                qj, jdec._split_stacked(stack(kj)),
+                jdec._split_stacked(stack(vj)), 0, knj, vnj,
+                jnp.asarray(lengths), block_t=128, interpret=True)
+            out_t = tdec.flash_decode_append_stacked(
+                qt, tdec._split_stacked(stack(kt)),
+                tdec._split_stacked(stack(vt)), 0, knt, vnt, _t(lengths))
+    assert out_t.dtype == qt.dtype and out_t.shape == qt.shape
+    _close(out_t.float(), _np(out_j), tol)

@@ -1,8 +1,8 @@
 """Port parity for ``models/llama.py``: the same weights (bridged from
 the JAX pytree through numpy) and the same inputs through both packages
 on ``LlamaConfig.tiny`` at float32, logits within 1e-4 and greedy tokens
-identical; plus the bf16 bridge, config parity and the options that
-raise until their ROADMAP item lands."""
+identical; plus the bf16 bridge, config parity and the option that
+raises until its ROADMAP item lands."""
 
 import dataclasses
 
@@ -15,7 +15,6 @@ import torch
 from aiko_services_tpu.models import llama as jl
 from aiko_services_tpu_torch.models import bridge
 from aiko_services_tpu_torch.models import llama as tl
-from aiko_services_tpu_torch.models.paged import init_paged_cache
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -237,23 +236,10 @@ def test_select_tokens_samples_within_top_k():
         assert all(int(got[row]) in allowed[row].tolist() for row in range(3))
 
 
-@pytest.mark.parametrize("case", ["kv_int8", "moe", "quantized",
-                                  "paged_int8"])
+@pytest.mark.parametrize("case", ["moe"])
 def test_unported_options_raise(case):
     _, tc = _configs()
-    if case == "kv_int8":
-        call = lambda: tl.init_cache(dataclasses.replace(
-            tc, kv_dtype="int8"), 2, device="cpu")
-    elif case == "moe":
-        call = lambda: tl.init_params(0, dataclasses.replace(
-            tc, n_experts=4), device="cpu")
-    elif case == "quantized":
-        call = lambda: tl.matmul(torch.zeros(1, 2), {
-            "int8": torch.zeros(2, 2, dtype=torch.int8),
-            "scale": torch.ones(1, 2)})
-    else:
-        call = lambda: init_paged_cache(dataclasses.replace(
-            tc, kv_dtype="int8"), 2, page_tokens=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"
-                       if case == "paged_int8" else "ROADMAP"):
+    call = lambda: tl.init_params(0, dataclasses.replace(
+        tc, n_experts=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()

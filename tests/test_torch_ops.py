@@ -120,15 +120,6 @@ def test_attention_decode_append(lengths):
            tl.attention_decode_append(qt, kt, vt, knt, vnt, lt))
 
 
-def test_int8_cache_leaf_is_not_ported():
-    q = torch.zeros(1, 1, 2, 4)
-    leaf = {"int8": torch.zeros(1, 3, 1, 4, dtype=torch.int8),
-            "scale": torch.ones(1, 3, 1, 1)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.attention_decode_append(q, leaf, leaf, q[:, :, :1], q[:, :, :1],
-                                   torch.zeros(1, dtype=torch.int32))
-
-
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 8, 9, 1000])
 def test_tiles_and_power_of_two(n):
     assert ttiles.round_up(n, 8) == jtiles.round_up(n, 8)
@@ -153,11 +144,18 @@ def test_decode_backend_matches(requested, paged, extent, page_tokens):
 
 
 def test_matmul_backend_probe():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.matmul_backend("pallas")
+    """The JAX probe's counterpart: ``pallas`` forces the kernel's route
+    (here the CUDA kernel, whose wrapper runs its plain version on a CPU
+    tensor), ``auto`` takes it on a CUDA device only, ``off`` never."""
+    assert tops.matmul_backend("pallas", "cpu") == "cuda-int8"
     assert tops.matmul_backend("auto", "cpu") == "reference"
-    assert tops.matmul_backend("auto", "cuda") == "reference"
-    assert tops.matmul_backend("off", "cuda") == "reference"
+    assert tops.matmul_backend("off", "cpu") == "reference"
+    assert jops.matmul_backend("off") == "reference"
+    if torch.cuda.is_available():
+        assert tops.matmul_backend("auto", "cuda") == "cuda-int8"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tops.matmul_backend("auto", "cuda")
 
 
 @pytest.mark.parametrize("text", ["", "hello", "naïve ✓"])

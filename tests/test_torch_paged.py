@@ -3,8 +3,10 @@ gather/scatter, ``PageAllocator`` with the shared-prefix index), the
 paged paths of ``models/llama.py`` and the batcher's paged bookkeeping,
 against the JAX package on the same seeded inputs.  Model and batcher
 run at float32 on ``LlamaConfig.tiny`` (logits within 1e-4, greedy
-streams token-identical at temperature 0); the allocator twins run the
-same operation sequence on both packages and compare every observable."""
+streams token-identical at temperature 0), over bf16-layout pools and
+over int8 pools with a weight-quantized tree; the allocator twins run
+the same operation sequence on both packages and compare every
+observable."""
 
 import dataclasses
 
@@ -17,10 +19,12 @@ import torch
 from aiko_services_tpu.models import batching as jb
 from aiko_services_tpu.models import llama as jl
 from aiko_services_tpu.models import paged as jpaged
+from aiko_services_tpu.models import quant as jq
 from aiko_services_tpu_torch.models import batching as tb
 from aiko_services_tpu_torch.models import bridge
 from aiko_services_tpu_torch.models import llama as tl
 from aiko_services_tpu_torch.models import paged as tpaged
+from aiko_services_tpu_torch.models import quant as tq
 from aiko_services_tpu_torch.ops import flash_decode as tdec
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -502,3 +506,201 @@ def test_paged_batcher_option_checks(flash_twins):
     unpaged = tb.ContinuousBatcher(tp, tc, max_seq=64, device="cpu")
     assert unpaged.prefix_hits == unpaged.prefix_lookups == 0
     assert unpaged.prefix_hit_rate() == 0.0
+
+
+# -- int8 pools ---------------------------------------------------------------
+
+def _int8_twins(**overrides):
+    """The tiny twins with ``kv_dtype="int8"`` and the JAX package's
+    weight-quantized tree on both sides."""
+    settings = dict(dtype="float32", kv_dtype="int8", **overrides)
+    jc = dataclasses.replace(jl.LlamaConfig.tiny(512, 64), **settings)
+    tc = dataclasses.replace(tl.LlamaConfig.tiny(512, 64), **settings)
+    jp = jq.quantize_params(jl.init_params(jax.random.PRNGKey(0), jc))
+    tp = bridge.params_from_numpy(
+        jax.tree_util.tree_map(lambda a: np.asarray(a), jp), tc,
+        device="cpu")
+    return jc, tc, jp, tp
+
+
+def test_int8_pools_layout_scatter_and_gather():
+    """init_paged_cache's int8 pools have the JAX package's layout; the
+    codes and the scales go through scatter_pages, gather_layer and
+    gather_slot as the JAX package's do."""
+    jc, tc, _, _ = _int8_twins()
+    ours = tpaged.init_paged_cache(tc, 2, 64, page_tokens=16, device="cpu")
+    theirs = jpaged.init_paged_cache(jc, 2, 64, page_tokens=16)
+    for name in ("int8", "scale"):
+        assert tuple(ours["k"][name].shape) == theirs["k"][name].shape
+        assert str(ours["k"][name].dtype).split(".")[-1] \
+            == str(theirs["k"][name].dtype)
+    assert tpaged.pool_page_tokens(ours) == 16
+    assert tpaged.paged_extent(ours) == 64
+    rng = np.random.default_rng(2)
+    raw = rng.normal(size=(3, 8, 2, 16)).astype(np.float32)
+    raw[2] = raw[0]
+    new_t = tq.quantize_kv(torch.from_numpy(raw))
+    new_t = {"int8": new_t["int8"].reshape(3, 8, 32),
+             "scale": new_t["scale"]}
+    new_j = jq.quantize_kv(jnp.asarray(raw))
+    table = np.array([[3, 1, 0, 0], [2, 5, 6, 0]], dtype=np.int32)
+    pool_t = {"int8": torch.zeros((9, 4, 32), dtype=torch.int8),
+              "scale": torch.zeros((9, 4, 2, 1))}
+    tpaged.scatter_pages(pool_t, new_t, torch.from_numpy(table), [1, 0, 1],
+                         [4, 0, 4], 4)
+    pool_j = {"int8": jpaged.scatter_pages(
+        jnp.zeros((9, 4, 32), jnp.int8), new_j["int8"].reshape(3, 8, 32),
+        jnp.asarray(table), [1, 0, 1], [4, 0, 4], 4),
+        "scale": jpaged.scatter_pages(
+            jnp.zeros((9, 4, 2, 1)), new_j["scale"], jnp.asarray(table),
+            [1, 0, 1], [4, 0, 4], 4)}
+    for ours_view, theirs_view in (
+            (tpaged.gather_layer(pool_t, torch.from_numpy(table)),
+             jpaged.gather_layer(pool_j, jnp.asarray(table))),
+            (tpaged.gather_slot(pool_t, torch.from_numpy(table[1])),
+             jpaged.gather_slot(pool_j, jnp.asarray(table[1])))):
+        for name in ("int8", "scale"):
+            np.testing.assert_array_equal(ours_view[name].numpy(),
+                                          np.asarray(theirs_view[name]))
+
+
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_int8_paged_prefill_into_slot_matches(attention):
+    """Two chunks through a scattered page table into int8 pools: logits
+    equal the JAX package's and the port's dense int8 cache, and the
+    gathered codes equal the dense cache row."""
+    jc, tc, jp, tp = _int8_twins(attention=attention)
+    cache_j, cache_t = _paged_pair(jc, tc, 2, 64, 8, {1: [7, 2, 5, 1]})
+    dense = tl.init_cache(tc, 2, 64, device="cpu")
+    for index, start in enumerate((0, 16)):
+        chunk = _tokens((1, 16), seed=index)
+        lj, cache_j = jl.prefill_into_slot(jp, jc, jnp.asarray(chunk),
+                                           cache_j, jnp.int32(1),
+                                           jnp.int32(start))
+        lt, cache_t = tl.prefill_into_slot(tp, tc,
+                                           torch.from_numpy(chunk).long(),
+                                           cache_t, 1, start)
+        ld, dense = tl.prefill_into_slot(tp, tc,
+                                         torch.from_numpy(chunk).long(),
+                                         dense, 1, start)
+        _close(lt, lj)
+        assert torch.equal(lt, ld)
+    for side in ("k", "v"):
+        for name in ("int8", "scale"):
+            pool = {"k": cache_t["k"][name], "v": cache_t["v"][name],
+                    "page_table": cache_t["page_table"]}
+            np.testing.assert_array_equal(
+                _gathered_row(pool, side, 1)[:, :32],
+                dense[side][name][:, 1, :32].numpy())
+
+
+@pytest.mark.parametrize("decode_attention", ["dense", "flash"])
+def test_int8_paged_decode_steps_match(decode_attention):
+    """Paged int8 prefill then 6 decode steps through the gathered dense
+    int8 path and the int8 paged kernel route: logits within 1e-4 of the
+    JAX package's and equal to the port's dense int8 cache."""
+    jc, tc, jp, tp = _int8_twins(decode_attention=decode_attention)
+    rows = {0: [1, 2, 3, 4], 1: [8, 5, 6, 7]}
+    cache_j, cache_t = _paged_pair(jc, tc, 3, 64, 16, rows)
+    dense = tl.init_cache(tc, 3, 64, device="cpu")
+    prompts = _tokens((2, 16), seed=6)
+    for slot in range(2):
+        chunk = prompts[slot:slot + 1]
+        _, cache_j = jl.prefill_into_slot(jp, jc, jnp.asarray(chunk),
+                                          cache_j, jnp.int32(slot),
+                                          jnp.int32(0))
+        _, cache_t = tl.prefill_into_slot(tp, tc,
+                                          torch.from_numpy(chunk).long(),
+                                          cache_t, slot, 0)
+        _, dense = tl.prefill_into_slot(tp, tc,
+                                        torch.from_numpy(chunk).long(),
+                                        dense, slot, 0)
+    tokens = np.array([3, 9, 0], dtype=np.int32)
+    lengths = np.array([16, 16, 63], dtype=np.int32)
+    launches = tdec.flash_decode_attention_paged.int8_launches
+    for _ in range(6):
+        lj, cache_j = jl.decode_step(jp, jc, jnp.asarray(tokens), cache_j,
+                                     jnp.asarray(lengths))
+        lt, cache_t = tl.decode_step(tp, tc, torch.from_numpy(tokens).long(),
+                                     cache_t, torch.from_numpy(lengths))
+        ld, dense = tl.decode_step(tp, tc, torch.from_numpy(tokens).long(),
+                                   dense, torch.from_numpy(lengths))
+        _close(lt, lj)
+        _close(lt[:2], ld[:2])
+        tokens = np.array(jnp.argmax(lj, -1), dtype=np.int32)
+        assert tl.greedy_sample(lt)[:2].tolist() == tokens[:2].tolist()
+        lengths[:2] += 1
+    assert tdec.flash_decode_attention_paged.int8_launches == launches
+
+
+def test_int8_paged_prefill_into_slots_matches():
+    """Batched admission into int8 pools (a duplicated bucket row
+    included): logits and the pools' codes and scales equal the JAX
+    package's."""
+    jc, tc, jp, tp = _int8_twins()
+    cache_j, cache_t = _paged_pair(jc, tc, 3, 64, 8,
+                                   {0: [9, 10, 11], 1: [3, 4], 2: [1, 2]})
+    tokens = _tokens((4, 8), seed=4)
+    tokens[3] = tokens[0]
+    slots = np.array([2, 0, 1, 2], dtype=np.int32)
+    starts = np.array([0, 16, 8, 0], dtype=np.int32)
+    lj, cache_j = jl.prefill_into_slots(jp, jc, jnp.asarray(tokens), cache_j,
+                                        jnp.asarray(slots),
+                                        jnp.asarray(starts))
+    lt, cache_t = tl.prefill_into_slots(tp, tc,
+                                        torch.from_numpy(tokens).long(),
+                                        cache_t, slots.tolist(),
+                                        starts.tolist())
+    _close(lt, lj)
+    for side in ("k", "v"):
+        np.testing.assert_array_equal(cache_t[side]["int8"].numpy(),
+                                      np.asarray(cache_j[side]["int8"]))
+        _close(cache_t[side]["scale"], cache_j[side]["scale"])
+
+
+def test_int8_paged_decode_block_matches_jax():
+    """decode_block over int8 pools on the int8 paged kernel route: the
+    emitted greedy tokens and lengths equal the JAX package's."""
+    jc, tc, jp, tp = _int8_twins(decode_attention="flash")
+    cache_j, cache_t = _paged_pair(jc, tc, 2, 64, 16, {0: [3, 1, 2]})
+    prompt = _tokens((1, 16), seed=8)
+    _, cache_j = jl.prefill_into_slot(jp, jc, jnp.asarray(prompt), cache_j,
+                                      jnp.int32(0), jnp.int32(0))
+    _, cache_t = tl.prefill_into_slot(tp, tc, torch.from_numpy(prompt).long(),
+                                      cache_t, 0, 0)
+    first = np.array([3, 7], dtype=np.int32)
+    lengths = np.array([16, 0], dtype=np.int32)
+    active = np.array([True, False])
+    emitted_j, _, len_j, _, _ = jl.decode_block(
+        jp, jc, jnp.asarray(first), cache_j, jnp.asarray(lengths),
+        jnp.asarray(active), jnp.zeros(2), jax.random.PRNGKey(0),
+        num_steps=5, top_k=4)
+    emitted_t, _, len_t, _ = tl.decode_block(
+        tp, tc, torch.from_numpy(first), cache_t, torch.from_numpy(lengths),
+        torch.from_numpy(active), torch.zeros(2),
+        torch.Generator().manual_seed(0), num_steps=5, top_k=4)
+    np.testing.assert_array_equal(emitted_t.numpy()[:, 0],
+                                  np.asarray(emitted_j)[:, 0])
+    np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
+
+
+@pytest.mark.parametrize("decode_block", [1, 4])
+@pytest.mark.parametrize("kv_pages", [None, 5])
+def test_int8_paged_streams_match_jax_batcher(decode_block, kv_pages):
+    """Quantized weights, int8 pools, flash admission and the int8 paged
+    kernel route, at full provisioning and under pool pressure: the port
+    batcher's greedy streams equal the JAX package's synchronous paged
+    loop (its pipelined loop races on aliased host arrays on the CPU
+    backend, ROADMAP Queue 3) and the port's dense int8 streams, on both
+    host loops, with no page leaked."""
+    jc, tc, jp, tp = _int8_twins(attention="flash", decode_attention="flash")
+    prompts = _prompts()
+    paged = dict(kv_page_tokens=16, kv_pages=kv_pages)
+    theirs, _ = _serve(jb, jp, jc, prompts, decode_block=1, **paged)
+    ours, batcher = _serve(tb, tp, tc, prompts, decode_block=decode_block,
+                           device="cpu", **paged)
+    dense, _ = _serve(tb, tp, tc, prompts, decode_block=decode_block,
+                      device="cpu")
+    assert ours == theirs == dense
+    assert batcher._pages.leaked_pages() == 0
+    assert (batcher.evictions >= 1) == (kv_pages is not None)
