@@ -30,11 +30,20 @@ same code:
   stream, after the blocks already in flight; with blocks in flight an
   allocation that needs an eviction waits for them to retire;
 - ``prefix_cache`` (paged only) lets a request whose prompt starts with
-  indexed whole pages adopt them read-only and skip their prefill.
-
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the device-resident loop (``decode_block_tokens``) and
-speculation, ``recover()`` and ``export_state()``/``import_state()``.
+  indexed whole pages adopt them read-only and skip their prefill;
+- with ``decode_block_tokens > 0`` generation is DEVICE RESIDENT:
+  ``step()`` dispatches ``llama.decode_loop`` blocks -- sampling,
+  per-slot stop detection (EOS, budget, cache boundary) and an
+  emitted-token ring on the device, captured once as a CUDA graph and
+  replayed (``models/loop_graph.py``) -- and the host pays one fetch per
+  retired block (the ``fetch`` hook) instead of one round trip per
+  token.  Admission and eviction happen at block boundaries;
+  ``speculative: ngram|draft`` adds multi-token decoding on the chunk
+  verify kernel, with acceptance counted on the device;
+- ``recover()`` rebuilds the device state after a failed block and
+  resumes every live request from its committed tokens;
+  ``export_state()``/``import_state()`` hand live requests to another
+  batcher at their committed prefix.
 """
 
 from __future__ import annotations
@@ -48,15 +57,24 @@ import numpy as np
 import torch
 
 from . import llama
+from .loop_graph import LoopRunner
 from .paged import PageAllocator, init_paged_cache, pages_per_slot
+from .quant import draft_params
 from ..device import resolve_device
-from ..utils.misc import next_power_of_two, not_ported
+from ..utils.misc import next_power_of_two
 
 __all__ = ["Request", "ContinuousBatcher", "pad_to_bucket"]
 
 # Batched admission advances at most this many slots per tick (buckets
 # stay {1, 2, 4, 8} whatever max_slots is).
 _ADMISSION_BURST_MAX = 8
+
+# ``speculative: auto`` enables draft speculation only when the startup
+# micro-probe measures at least this tokens/s ratio over plain decode.
+SPEC_AUTO_MIN_RATIO = 1.2
+# Probe shape: one warm-up block (capture, off the clock) and timed blocks
+# per arm, best-of, so one host hiccup cannot flip the verdict.
+_SPEC_PROBE_BLOCKS = 3
 
 
 def _knob_on(value, default: bool) -> bool:
@@ -125,6 +143,21 @@ class _HostCopy:
         return self.host.numpy()
 
 
+class _HostTree:
+    """A device-loop block's result tree on its way to the host: every
+    tensor's asynchronous copy is enqueued at dispatch, right after the
+    block (before the next block can overwrite a captured graph's
+    outputs).  ``numpy()`` waits for them and returns name -> array."""
+    __slots__ = ("copies",)
+
+    def __init__(self, tree: dict):
+        self.copies = {name: _HostCopy(tensor)
+                       for name, tensor in tree.items()}
+
+    def numpy(self) -> dict:
+        return {name: copy.numpy() for name, copy in self.copies.items()}
+
+
 class _InflightBlock:
     """One dispatched-but-unretired fused decode block."""
     __slots__ = ("emitted", "snapshot", "firsts", "steps")
@@ -136,16 +169,33 @@ class _InflightBlock:
         self.steps = steps
 
 
+class _LoopBlock:
+    """One dispatched-but-unretired device-loop block
+    (``llama.decode_loop``): ``tree`` holds everything the retire reads --
+    emitted ring, counts, lengths, acceptance counters, folded first
+    tokens -- fetched with ONE call of the ``fetch`` hook."""
+    __slots__ = ("tree", "snapshot", "firsts_meta")
+
+    def __init__(self, tree, snapshot, firsts_meta):
+        self.tree = tree              # _HostTree
+        self.snapshot = snapshot      # [(slot, request)] in the block
+        self.firsts_meta = firsts_meta  # [(slot, request)] admissions
+
+
 class ContinuousBatcher:
     def __init__(self, params, config: llama.LlamaConfig,
                  max_slots: int = 8, max_seq: int | None = None,
                  prefill_chunk: int = 512, rng_seed: int = 0,
                  decode_block: int = 1, inflight: int = 2,
                  decode_block_tokens: int = 0, speculative: str = "off",
+                 spec_tokens: int = 4, spec_window: int = 32,
                  kv_page_tokens: int = 0, kv_pages: int | None = None,
+                 fetch: Callable | None = None,
+                 fault_probe: Callable | None = None,
                  sample_top_k: int = 0,
                  prefix_cache: bool | str = False,
                  prefix_min_tokens: int = 64,
+                 spec_autoprobe: bool | str = True,
                  on_block: Callable | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
@@ -153,15 +203,6 @@ class ContinuousBatcher:
             raise ValueError(
                 f"ContinuousBatcher: params live on "
                 f"{params['embed'].device}, the batcher on {self.device}")
-        if int(decode_block_tokens) > 0:
-            raise not_ported("the device-resident decode loop "
-                             "(decode_block_tokens > 0)",
-                             "ROADMAP Queue 1: the device loop with "
-                             "speculation and flash_verify_append")
-        if str(speculative or "off").strip().lower() != "off":
-            raise not_ported("speculative decoding", "ROADMAP Queue 1: "
-                             "the device loop with speculation and "
-                             "flash_verify_append")
         self.params = params
         self.config = config
         self.max_slots = max_slots
@@ -169,12 +210,48 @@ class ContinuousBatcher:
         self.prefill_chunk = min(prefill_chunk, self.max_seq)
         self.decode_block = max(1, int(decode_block))
         self.inflight = max(1, int(inflight))
+        # Device-resident generation: > 0 sizes the emitted ring of
+        # llama.decode_loop blocks (supersedes decode_block).
+        self.decode_block_tokens = max(0, int(decode_block_tokens))
+        self.device_loop = self.decode_block_tokens > 0
+        self.speculative = str(speculative or "off").strip().lower()
+        if self.speculative not in ("off", "ngram", "draft", "auto"):
+            raise ValueError(f"speculative={speculative!r}: one of "
+                             f"off|ngram|draft|auto")
+        # ``auto`` measures draft speculation against plain decode in a
+        # startup probe and enables it only on a >= SPEC_AUTO_MIN_RATIO
+        # win; configs explicit ``draft`` would refuse resolve to off.
+        self.spec_autoprobe = _knob_on(spec_autoprobe, default=True)
+        self.spec_probe_ratio = 0.0
+        if self.speculative == "auto" and (
+                not self.device_loop
+                or self.decode_block_tokens < max(1, int(spec_tokens)) + 1
+                or not self.spec_autoprobe):
+            self.speculative = "off"
+        if self.speculative != "off" and not self.device_loop:
+            raise ValueError(
+                "speculative decoding rides the device loop: set "
+                "decode_block_tokens > 0")
+        self.spec_tokens = max(1, int(spec_tokens))
+        if self.speculative != "off" \
+                and self.decode_block_tokens < self.spec_tokens + 1:
+            # The loop's room test needs one worst-case speculative
+            # emission (spec_tokens + 1) to fit the ring; a smaller ring
+            # would dispatch blocks that run ZERO iterations.
+            raise ValueError(
+                f"decode_block_tokens={self.decode_block_tokens} "
+                f"cannot hold one speculative emission (spec_tokens + "
+                f"1 = {self.spec_tokens + 1}); raise the ring or "
+                f"lower spec_tokens")
+        self.spec_window = max(4, int(spec_window))
         self.sample_top_k = max(0, int(sample_top_k))
         if self.sample_top_k > 128:
             raise ValueError(
                 f"sample_top_k={self.sample_top_k}: the top-k kernel "
                 f"holds at most 128 candidates; use k <= 128 (0 = "
                 f"full-vocab categorical)")
+        self._draft = draft_params(params) \
+            if self.speculative == "draft" else None
         # Paged KV cache: fixed-size pages + per-slot page table; 0 keeps
         # the monolithic [slots, max_seq] cache.
         self.kv_page_tokens = max(0, int(kv_page_tokens))
@@ -207,6 +284,12 @@ class ContinuousBatcher:
         else:
             self.cache = llama.init_cache(config, max_slots, self.max_seq,
                                           device=self.device)
+        # One fetch per retired device-loop block: ``fetch(tree)`` gets
+        # the block's _HostTree and returns name -> numpy array.
+        self._fetch = fetch if fetch is not None else _HostTree.numpy
+        # Called before every device-loop dispatch (the "decode_block"
+        # fault injection point); None = cold.
+        self._fault_probe = fault_probe
         self.on_block = on_block
         self.lengths = np.zeros(max_slots, dtype=np.int32)
         self.current = np.zeros(max_slots, dtype=np.int32)
@@ -227,6 +310,17 @@ class ContinuousBatcher:
         self._temps_dev = None
         self._pending_first: dict[int, tuple] = {}   # slot -> (req, dev)
         self._inflight: deque[_InflightBlock] = deque()
+        # Device-loop state: whether the runner's inputs hold the chained
+        # carries of the latest block, the in-flight loop blocks, host
+        # mirrors of the per-slot stop tokens, and slots whose chained
+        # active flag must drop at the next dispatch (a host-side finish,
+        # cancel or eviction the device has not seen).
+        self._loop: LoopRunner | None = None
+        self._loop_chained = False
+        self._loop_inflight: deque[_LoopBlock] = deque()
+        self._eos_width = 1
+        self._eos_rows = np.full((max_slots, 1), -1, dtype=np.int32)
+        self._force_inactive: set[int] = set()
         # Conservative per-slot length bound for page allocation while
         # blocks are in flight.
         self._lengths_upper = np.zeros(max_slots, dtype=np.int32)
@@ -235,11 +329,26 @@ class ContinuousBatcher:
         self.tokens_emitted = 0
         self.steps = 0
         self.prefill_tokens = 0
+        self.blocks_dispatched = 0
+        self.blocks_retired = 0
+        self.accepted_tokens = 0
+        self.draft_tokens = 0
         self.evictions = 0
+        self.recoveries = 0
         # Prompt tokens admission skipped because their pages were
         # adopted from the prefix index.
         self.prefix_shared_tokens = 0
         self._request_stats: list[dict] = []
+        if self.speculative == "auto":
+            self.spec_probe_ratio = self._spec_probe()
+            if self.spec_probe_ratio >= SPEC_AUTO_MIN_RATIO:
+                self.speculative = "draft"
+                self._draft = draft_params(params)
+            else:
+                self.speculative = "off"
+        if self.device_loop:
+            self._loop = self._runner(self.speculative, self._draft,
+                                      self._generator)
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without waiting for the stream
@@ -296,14 +405,30 @@ class ContinuousBatcher:
             self.temperatures[slot] = request.temperature
             self._temps_dev = None
             self.decoding[slot] = False
+            self._set_eos_row(slot, request.eos_tokens)
             self._prefilling.append(slot)
+
+    def _set_eos_row(self, slot: int, eos_tokens) -> None:
+        """Mirror one slot's stop tokens into the host eos table (uploaded
+        with every device-loop dispatch; -1 pads never match a token).  A
+        wider set than any seen before grows the table, and with it the
+        runner's buffer (a new capture, once per width)."""
+        width = max(1, len(eos_tokens or ()))
+        if width > self._eos_width:
+            grown = np.full((self.max_slots, width), -1, dtype=np.int32)
+            grown[:, :self._eos_width] = self._eos_rows
+            self._eos_rows = grown
+            self._eos_width = width
+        self._eos_rows[slot] = -1
+        for column, token in enumerate(eos_tokens or ()):
+            self._eos_rows[slot, column] = int(token)
 
     def _prefill_tick(self):
         """Advance admissions by one chunk each.  Pipelined path: every
         admitting slot advances (one batched pass for dense attention,
         per-slot passes for flash).  Synchronous path: at most ONE
         chunk in total, which bounds the decode stall to one chunk."""
-        pipelined = self.decode_block > 1
+        pipelined = self.decode_block > 1 or self.device_loop
         if (pipelined and len(self._prefilling) > 1
                 and self.config.attention != "flash"):
             self._prefill_tick_batched()
@@ -406,7 +531,7 @@ class ContinuousBatcher:
         self._lengths_upper[slot] = len(prompt)
         self.decoding[slot] = True
         self._active_dev = None
-        if self.decode_block > 1:
+        if self.device_loop or self.decode_block > 1:
             self._pending_first[slot] = (request, first)
         else:
             first_token = int(first.cpu()[0])
@@ -434,6 +559,14 @@ class ContinuousBatcher:
         self._admit()
         self._prefill_tick()
         decoding = [i for i in range(self.max_slots) if self.decoding[i]]
+        if self.device_loop:
+            if decoding or self._pending_first or self._loop_inflight:
+                while len(self._loop_inflight) < self.inflight:
+                    if not self._dispatch_loop_block():
+                        break
+                if self._loop_inflight:
+                    self._retire_loop_block()
+            return sum(1 for r in self.slots if r is not None)
         if self.decode_block > 1:
             if decoding:
                 # Top the pipeline up to `inflight` blocks, then retire
@@ -570,6 +703,207 @@ class ContinuousBatcher:
                 self.current[slot] = token
                 self._emit(request, token)
 
+    # -- speculative auto-probe --------------------------------------------
+
+    def _runner(self, speculative: str, draft, generator) -> LoopRunner:
+        return LoopRunner(
+            self.params, self.config, batch=self.max_slots,
+            ring=self.decode_block_tokens, speculative=speculative,
+            spec_tokens=self.spec_tokens, spec_window=self.spec_window,
+            draft=draft, top_k=self.sample_top_k, generator=generator,
+            history_width=self.spec_window if speculative == "ngram" else 1,
+            device=self.device)
+
+    def _spec_probe(self) -> float:
+        """Measure draft speculation against plain decode on a SCRATCH
+        cache (the serving cache's shapes; ``self.cache`` is never
+        touched) and return spec tokens/s over plain tokens/s.  Each arm
+        pays one warm-up block (the capture on the card), then the best
+        of ``_SPEC_PROBE_BLOCKS`` timed blocks counts."""
+        ring = self.decode_block_tokens
+        draft = draft_params(self.params)
+        rates = {}
+        for mode, dparams in (("off", None), ("draft", draft)):
+            cache = self._probe_cache()
+            runner = self._runner(mode, dparams, torch.Generator(
+                device=self.device).manual_seed(0))
+            best = 0.0
+            for index in range(_SPEC_PROBE_BLOCKS + 1):
+                runner.inputs["lengths"].fill_(self.max_seq // 2)
+                runner.inputs["active"].fill_(True)
+                runner.inputs["budget"].fill_(ring)
+                begin = time.perf_counter()
+                emitted = int(runner.run(cache)["counts"].sum())
+                elapsed = time.perf_counter() - begin
+                if index and elapsed > 0:       # block 0 = warm-up
+                    best = max(best, emitted / elapsed)
+            rates[mode] = best
+            del runner, cache
+        return rates["draft"] / rates["off"] if rates["off"] else 0.0
+
+    def _probe_cache(self) -> dict:
+        """A scratch serving cache for the probe.  Paged configs get a
+        fully mapped table (each slot's logical pages spread over the
+        pool), so the probe pays real page-table traffic."""
+        if not self.kv_page_tokens:
+            return llama.init_cache(self.config, self.max_slots,
+                                    self.max_seq, device=self.device)
+        cache = init_paged_cache(self.config, self.max_slots, self.max_seq,
+                                 self.kv_page_tokens, self._pages.total,
+                                 device=self.device)
+        pps = self._pages.pps
+        table = (np.arange(self.max_slots * pps, dtype=np.int32)
+                 % max(1, self._pages.total - 1)) + 1
+        cache["page_table"].copy_(torch.from_numpy(
+            table.reshape(self.max_slots, pps)))
+        return cache
+
+    # -- device-resident generation loop -----------------------------------
+
+    def _host_state(self) -> None:
+        """Fresh device carries from the host mirrors into the runner's
+        inputs (first dispatch and post-recover; every later block
+        chains on the device)."""
+        inputs = self._loop.inputs
+        self._loop.upload("tokens", self.current)
+        self._loop.upload("lengths", self.lengths)
+        inputs["active"].zero_()
+        inputs["budget"].zero_()
+        inputs["history"].fill_(-1)
+
+    def _dispatch_loop_block(self) -> bool:
+        """Chain one decode_loop block off the previous block's device
+        carries, folding completed admissions in (their first token,
+        budget, stop set and draft history land in the runner's inputs
+        on the device -- no host round trip).  Returns False when there
+        is nothing to decode, the outstanding blocks already cover every
+        request's budget, or page-pool pressure wants the in-flight
+        blocks retired before an eviction can free room."""
+        ring = self.decode_block_tokens
+        spec_extra = self.spec_tokens + 1 \
+            if self.speculative != "off" else 1
+        live = [i for i in range(self.max_slots) if self.decoding[i]]
+        joining = sorted(self._pending_first)
+        if not live and not joining:
+            return False
+        if not joining and self._loop_inflight:
+            # Outstanding blocks already cover every live request's
+            # remaining budget (EOS may cut a row shorter; the loop's own
+            # stop detection idles it).
+            remaining = max(
+                (self.slots[i].max_new_tokens - self.slots[i].generated
+                 for i in live if self.slots[i] is not None), default=0)
+            if len(self._loop_inflight) * ring >= remaining:
+                return False
+        for slot in sorted({*live, *joining}):
+            if self.slots[slot] is None:
+                continue                # evicted by an earlier ensure
+            upto = int(self._lengths_upper[slot]) + ring + spec_extra
+            if not self._ensure_pages(slot, upto):
+                return False            # retire in-flight blocks first
+        # An ensure above may have PREEMPTED a just-admitted slot for its
+        # pages: re-snapshot both lists.
+        live = [i for i in range(self.max_slots) if self.decoding[i]]
+        joining = sorted(self._pending_first)
+        if not live and not joining:
+            return False
+        if self._fault_probe is not None:
+            self._fault_probe("decode_block")
+        if not self._loop_chained:
+            self._host_state()
+        inputs = self._loop.inputs
+        for slot in self._force_inactive:
+            inputs["active"][slot] = False
+        self._force_inactive.clear()
+        self._loop.upload("eos", self._eos_rows)
+        self._loop.upload("temperatures", self.temperatures)
+        eos = inputs["eos"]
+        firsts_meta, first_vals = [], []
+        for slot in joining:
+            request, first = self._pending_first.pop(slot)
+            plen = len(request.prompt_tokens)
+            inputs["tokens"][slot] = first[0]
+            inputs["lengths"][slot] = plen
+            inputs["budget"][slot] = \
+                request.max_new_tokens - request.generated - 1
+            # The slot decodes on unless its FIRST token already finishes
+            # it; the EOS part of that verdict folds in on the device.
+            if (request.max_new_tokens - request.generated > 1
+                    and plen + 1 < self.max_seq):
+                inputs["active"][slot] = (first[0] != eos[slot]).all()
+            else:
+                inputs["active"][slot] = False
+            if self.speculative == "ngram":
+                tail = np.full(self.spec_window, -1, dtype=np.int32)
+                recent = request.prompt_tokens[-self.spec_window:]
+                tail[len(tail) - len(recent):] = recent
+                inputs["history"][slot] = self._upload(tail)
+            firsts_meta.append((slot, request))
+            first_vals.append(first)
+        self._sync_page_table()
+        out = self._loop.run(self.cache)
+        self._loop_chained = True
+        # Only what the retire reads travels to the host; the active,
+        # budget and history carries chain on the device.
+        tree = {name: out[name] for name in ("emitted", "counts", "lengths",
+                                             "accepted", "drafted",
+                                             "steps")}
+        if first_vals:
+            tree["firsts"] = torch.cat(first_vals)
+        snapshot = sorted({*live, *joining})
+        for slot in snapshot:
+            self._lengths_upper[slot] = min(
+                int(self._lengths_upper[slot]) + ring, self.max_seq)
+        self._loop_inflight.append(_LoopBlock(
+            _HostTree(tree), [(i, self.slots[i]) for i in snapshot],
+            firsts_meta))
+        self.blocks_dispatched += 1
+        if self.on_block is not None:
+            self.on_block("dispatch", len(snapshot))
+        return True
+
+    def _retire_loop_block(self):
+        """Fetch the OLDEST in-flight loop block -- ONE call of the
+        ``fetch`` hook on its whole result tree, whose copies have been
+        overlapping newer blocks' compute -- and de-multiplex: folded
+        first tokens, then each slot's ring prefix.  The host finish
+        test in ``_emit`` is the authority; the device's stop detection
+        never stops a row EARLIER, so truncation here only discards
+        overshoot."""
+        blk = self._loop_inflight.popleft()
+        if self.on_block is not None:
+            self.on_block("retire", len(blk.snapshot))
+        fetched = self._fetch(blk.tree)
+        emitted = fetched["emitted"]
+        counts = fetched["counts"]
+        self.steps += int(fetched["steps"])
+        self.blocks_retired += 1
+        self.accepted_tokens += int(fetched["accepted"].sum())
+        self.draft_tokens += int(fetched["drafted"].sum())
+        if "firsts" in fetched:
+            for (slot, request), token in zip(blk.firsts_meta,
+                                              fetched["firsts"]):
+                if self.slots[slot] is request and not request.done:
+                    token = int(token)
+                    self.current[slot] = token
+                    self._emit(request, token)
+        for slot, request in blk.snapshot:
+            if request is None or self.slots[slot] is not request:
+                continue
+            for index in range(int(counts[slot])):
+                if self.slots[slot] is not request or request.done:
+                    break
+                token = int(emitted[slot, index])
+                self.current[slot] = token
+                self._emit(request, token)
+        lengths = fetched["lengths"]
+        for slot, request in blk.snapshot:
+            if request is not None and self.slots[slot] is request \
+                    and not request.done:
+                self.lengths[slot] = int(lengths[slot])
+        if not self._loop_inflight:
+            self._lengths_upper = self.lengths.copy()
+
     # -- paged-cache bookkeeping -------------------------------------------
 
     def _ensure_pages(self, slot: int, upto_tokens: int) -> bool:
@@ -585,7 +919,7 @@ class ContinuousBatcher:
             min(int(upto_tokens), self.max_seq), self.kv_page_tokens)
         if self._pages.ensure(slot, pages):
             return True
-        if self._inflight:
+        if self._inflight or self._loop_inflight:
             return False
         while True:
             victims = [(occupant.admit_seq, index)
@@ -657,17 +991,90 @@ class ContinuousBatcher:
         return not finished
 
     def recover(self) -> int:
-        raise not_ported("ContinuousBatcher.recover()", "ROADMAP Queue 1:"
-                         " the device loop, with the batcher's failover "
-                         "contracts")
+        """Rebuild device state after a device-level failure (a raise
+        mid-block, a ``decode_block`` fault): drop every in-flight block,
+        chained carry and captured graph, reset the cache and page pool,
+        and re-queue each live request to resume from its LAST EMITTED
+        token -- prompt + committed re-prefill, generation continues
+        under the remaining budget, nothing delivered is re-emitted.
+        Returns how many requests were revived."""
+        revived = []
+        for slot in range(self.max_slots):
+            request, self.slots[slot] = self.slots[slot], None
+            if request is None or request.done:
+                continue
+            self._rebase(request)
+            request.slot = -1
+            request.prefill_pos = 0
+            revived.append(request)
+        self.pending = revived + self.pending
+        self._prefilling.clear()
+        self._pending_first.clear()
+        self._inflight.clear()
+        self._loop_inflight.clear()
+        self._chain = None
+        self._loop_chained = False
+        self._active_dev = None
+        self._temps_dev = None
+        self._force_inactive.clear()
+        self.lengths[:] = 0
+        self._lengths_upper[:] = 0
+        self.current[:] = 0
+        self.temperatures[:] = 0.0
+        self.decoding[:] = False
+        if self._loop is not None:
+            self._loop.reset()
+        self.cache = None               # free the old cache first
+        if self._pages is not None:
+            self._pages.reset()
+            self._table_host[:] = 0
+            self.cache = init_paged_cache(
+                self.config, self.max_slots, self.max_seq,
+                self.kv_page_tokens, self._pages.total, device=self.device)
+        else:
+            self.cache = llama.init_cache(self.config, self.max_slots,
+                                          self.max_seq, device=self.device)
+        self.recoveries += 1
+        return len(revived)
 
     def export_state(self) -> list[dict]:
-        raise not_ported("ContinuousBatcher.export_state()", "ROADMAP "
-                         "Queue 1: the batcher's failover contracts")
+        """Committed state of every live (not finished) request -- the
+        drain/migration handoff record; each entry is enough for
+        :meth:`import_state` on a peer to resume the request at its
+        committed prefix."""
+        entries = []
+        live = [request for request in self.slots
+                if request is not None] + list(self.pending)
+        for request in live:
+            if request.done:
+                continue
+            entries.append({
+                "request_id": request.request_id,
+                "prompt": [int(t) for t in request.base_prompt],
+                "committed": [int(t) for t in request.committed],
+                "max_new_tokens": int(request.max_new_tokens),
+                "temperature": float(request.temperature),
+                "eos_tokens": [int(t) for t in request.eos_tokens]})
+        return entries
 
     def import_state(self, entries, emit_factory=None) -> int:
-        raise not_ported("ContinuousBatcher.import_state()", "ROADMAP "
-                         "Queue 1: the batcher's failover contracts")
+        """Resume exported requests at their committed prefix.
+        ``emit_factory(entry) -> emit`` wires each request's token
+        callback (None = no emission).  Returns how many were queued."""
+        count = 0
+        for entry in entries:
+            request = Request(
+                request_id=str(entry["request_id"]),
+                prompt_tokens=list(entry["prompt"]),
+                max_new_tokens=int(entry.get("max_new_tokens", 128)),
+                temperature=float(entry.get("temperature", 0.0)),
+                eos_tokens=tuple(entry.get("eos_tokens", ())))
+            if emit_factory is not None:
+                request.emit = emit_factory(entry)
+            self.submit(request)
+            self.resume_request(request, entry.get("committed", ()))
+            count += 1
+        return count
 
     # -- emission and bookkeeping ------------------------------------------
 
@@ -720,6 +1127,8 @@ class ContinuousBatcher:
         self._temps_dev = None
         self.decoding[slot] = False
         self._active_dev = None
+        if self.device_loop:
+            self._force_inactive.add(slot)
         if self._pages is not None:
             self._pages.release(slot)
 
@@ -755,7 +1164,9 @@ class ContinuousBatcher:
 
     @property
     def blocks_in_flight(self) -> int:
-        return len(self._inflight)
+        """Dispatched-but-unretired fused or loop blocks; drive step()
+        until this reaches 0 to drain them."""
+        return len(self._inflight) + len(self._loop_inflight)
 
     @property
     def prefix_hits(self) -> int:
@@ -782,8 +1193,8 @@ class ContinuousBatcher:
 
     def run_until_drained(self, max_steps: int = 100_000) -> int:
         steps = 0
-        while (self.pending or self.active_count or self._inflight) \
-                and steps < max_steps:
+        while (self.pending or self.active_count or self._inflight
+               or self._loop_inflight) and steps < max_steps:
             self.step()
             steps += 1
         return steps

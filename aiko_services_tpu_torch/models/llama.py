@@ -34,9 +34,17 @@ codes through the int8 branch of the decode kernels (or the dense int8
 path, ``ops/layers.py``), and flash admission dequantizes the slot's
 row for the prefill kernel #4.
 
-Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): mixture-of-experts and the device-resident decode loop with
-speculation.
+The device-resident generation loop (``decode_loop``) runs ``ring``
+tokens per row with sampling, stop detection and, optionally, ngram or
+draft speculation inside one block of device work.  The JAX package's
+``lax.while_loop`` becomes a fixed number of masked iterations with no
+host synchronisation, which ``models/loop_graph.py`` captures as one
+CUDA graph; the speculative verify step reads the cache once for all
+draft positions through the chunk-verify kernel
+(``flash_verify_append``).
+
+Not yet ported (raises ``NotImplementedError`` naming its ROADMAP item):
+mixture-of-experts.
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ from ..ops import decode_backend, matmul_backend, topk as ops_topk
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import (_split_paged, _split_stacked,
                                 flash_decode_append_paged,
-                                flash_decode_append_stacked)
+                                flash_decode_append_stacked,
+                                flash_verify_append)
 from ..ops.int8_matmul import int8_matmul
 from ..ops.layers import (apply_rope, attention_decode_append,
                           attention_prefill, rms_norm, rope_frequencies)
@@ -65,7 +74,8 @@ from .quant import dequantize_kv, is_quantized, map_leaf, quantize_kv
 __all__ = ["LlamaConfig", "init_params", "param_shapes", "init_cache",
            "cache_array", "cache_extent", "prefill", "prefill_into_slot",
            "prefill_into_slots", "decode_step", "decode_block",
-           "greedy_sample", "temperature_sample", "select_tokens"]
+           "decode_loop", "greedy_sample", "temperature_sample",
+           "select_tokens"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -705,3 +715,357 @@ def decode_block(params: dict, config: LlamaConfig, tokens: torch.Tensor,
         lengths = lengths + active.to(lengths.dtype)
         emitted.append(tokens)
     return torch.stack(emitted), tokens, lengths, cache
+
+
+# ---------------------------------------------------------------------------
+# Device-resident generation loop: sampling, stop detection and speculation
+# for ``ring`` tokens per row in one block of device work, with no host
+# synchronisation inside.
+
+
+def _ngram_draft(history: torch.Tensor, tokens: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """Self-drafting proposal from the recent-token window: find the most
+    recent PRIOR occurrence of the current token in ``history`` (the
+    newest entry IS the current token) and propose the ``k`` tokens that
+    followed it; rows with no prior occurrence repeat the current token.
+    Unfilled window entries are -1 (never a real token id) and fall back
+    to repetition too.
+
+    history: [B, W] (old -> new); tokens: [B].  Returns [B, k] int32."""
+    w = history.shape[1]
+    prior = history[:, :-1]                          # continuation exists
+    match = prior == tokens[:, None]
+    index = torch.arange(w - 1, device=history.device)[None, :]
+    latest = torch.where(match, index, torch.full_like(index, -1)).amax(1)
+    gather = torch.clamp(
+        latest[:, None] + 1 + torch.arange(k, device=history.device)[None, :],
+        0, w - 1)
+    continuation = history.gather(1, gather)
+    drafts = torch.where((latest >= 0)[:, None] & (continuation >= 0),
+                         continuation, tokens[:, None].to(history.dtype))
+    return drafts.to(torch.int32)
+
+
+def _history_push(history: torch.Tensor, candidates: torch.Tensor,
+                  cut: torch.Tensor) -> torch.Tensor:
+    """Append each row's first ``cut[b]`` candidate tokens to its
+    recent-token window, dropping the oldest: one per-row gather over
+    ``cat(history, candidates)`` shifted by ``cut`` -- rejected
+    candidates (beyond the cut) sit past the gather's reach."""
+    w = history.shape[1]
+    combined = torch.cat([history, candidates.to(history.dtype)], dim=1)
+    index = torch.arange(w, device=history.device)[None, :] \
+        + cut.long()[:, None]
+    return combined.gather(1, index)
+
+
+def _draft_window(draft: dict, config: LlamaConfig, tokens, cache: dict,
+                  lengths, active, k: int, window: int, trash: int):
+    """``k`` greedy draft tokens per row from ONE read of the cache: the
+    last ``window`` positions of each row are gathered once (int8 windows
+    dequantized, small), and the k autoregressive draft steps attend over
+    window + the steps' own scratch k/v through
+    :func:`attention_prefill` with explicit key positions.  Nothing is
+    written to the cache: the verify step writes target-model k/v at
+    these positions.  The window approximates the full prefix (draft
+    quality only: verify accepts matching tokens alone).
+    tokens/lengths/active: [B]; returns drafts [B, k] int32."""
+    c = config
+    b = tokens.shape[0]
+    w = int(window)
+    device = tokens.device
+    extent = cache_extent(cache)
+    rope = _rope(c, device)
+    kernel = _matmul_kernel(c, device)
+    dtype = _dtype(c)
+    lengths = lengths.long()
+    # Window = the last w valid positions of each row (clamped; rows
+    # shorter than w mask the underflow out).
+    wpos_raw = lengths[:, None] - w + torch.arange(w, device=device)[None, :]
+    wvalid = wpos_raw >= 0
+    wpos = torch.clamp(wpos_raw, 0, extent - 1)               # [B, W]
+    if is_paged(cache):
+        pt = pool_page_tokens(cache)
+        linear = cache["page_table"].gather(1, wpos // pt).long() * pt \
+            + wpos % pt
+
+        def take(arr):                                  # [L, P, pt, ...]
+            return arr.reshape(arr.shape[0], -1, *arr.shape[3:])[:, linear]
+    else:
+        rows = torch.arange(b, device=device)[:, None]
+
+        def take(arr):                                  # [L, B, T, ...]
+            return arr[:, rows, wpos]
+
+    def gather_window(side):
+        """One cache side -> the window [L, B, W, K, hd] in the model
+        dtype: the only read of the cache."""
+        win = _grouped(map_leaf(side, take), c.n_kv_heads)
+        if is_quantized(win):
+            win = dequantize_kv(win, dtype)
+        return win.to(dtype)
+
+    win_k, win_v = gather_window(cache["k"]), gather_window(cache["v"])
+    # Scratch k/v for this call's draft tokens: column j holds step j's
+    # k/v at position lengths + j.
+    scratch_k = torch.zeros((c.n_layers, b, k, c.n_kv_heads, c.head_dim),
+                            dtype=dtype, device=device)
+    scratch_v = torch.zeros_like(scratch_k)
+    spos = torch.clamp(lengths[:, None]
+                       + torch.arange(k, device=device)[None, :], max=trash)
+    current = tokens
+    drafts = []
+    for step in range(k):
+        pos = torch.where(active, torch.clamp(lengths + step, max=trash),
+                          torch.full_like(lengths, trash))[:, None]
+        svalid = (torch.arange(k, device=device) < step)[None, :] \
+            .expand(b, k)
+        kv_positions = torch.cat([wpos, spos, pos], dim=1)   # [B, W+k+1]
+        valid = torch.cat([wvalid, svalid,
+                           torch.ones((b, 1), dtype=torch.bool,
+                                      device=device)], dim=1)
+        hidden = draft["embed"][current.long()[:, None]]     # [B, 1, D]
+        for index in range(c.n_layers):
+            def attend(q, kk, vv, index=index):
+                q = apply_rope(q, rope, pos)
+                kk = apply_rope(kk, rope, pos)
+                k_all = torch.cat([win_k[index], scratch_k[index],
+                                   kk.to(dtype)], dim=1)
+                v_all = torch.cat([win_v[index], scratch_v[index],
+                                   vv.to(dtype)], dim=1)
+                out = attention_prefill(q, k_all, v_all, pos,
+                                        kv_length_mask=valid,
+                                        kv_positions=kv_positions)
+                scratch_k[index, :, step] = kk[:, 0].to(dtype)
+                scratch_v[index, :, step] = vv[:, 0].to(dtype)
+                return out
+            hidden = _block(c, hidden, _layer(draft, index), attend, kernel)
+        logits = _finish(draft, c, hidden, kernel)           # [B, 1, V]
+        current = logits[:, 0, :].argmax(-1).to(torch.int32)
+        drafts.append(current)
+    return torch.stack(drafts, dim=1)
+
+
+def _chunk_verify(params: dict, config: LlamaConfig, chunk, cache: dict,
+                  starts, trash: int, use_flash: bool = False):
+    """One batched multi-token target step: forward ``chunk`` [B, S]
+    (current token + S-1 draft tokens per row) at positions
+    ``starts + i``, writing every position's k/v optimistically and
+    returning logits [B, S, V] for all S positions.  Rejected drafts
+    leave k/v beyond the advanced length, which the length masks never
+    admit and later steps overwrite.  Positions clamp to the trash
+    position at the cache boundary.
+
+    ``use_flash`` routes the attention through the chunk-verify kernel
+    (``flash_verify_append``: the cache read once for all S positions,
+    the page table walked in the kernel, int8 dequantized in the
+    kernel); otherwise the dense concat route attends the cache rows
+    (a paged cache gathered, int8 rows dequantized) concatenated with
+    the chunk's own k/v.  Each layer's S writes land in place after
+    that layer's attention, which never admits positions >= starts."""
+    c = config
+    b, s = chunk.shape
+    device = chunk.device
+    rope = _rope(c, device)
+    starts = starts.to(torch.int32)
+    positions = torch.clamp(starts.long()[:, None]
+                            + torch.arange(s, device=device)[None, :],
+                            max=trash)                         # [B, S]
+    paged = is_paged(cache)
+    extent = cache_extent(cache)
+    if paged:
+        table = cache["page_table"]
+        page_tokens = pool_page_tokens(cache)
+        rows = table.gather(1, positions // page_tokens).long()
+        cols = positions % page_tokens
+        split = _split_paged
+    else:
+        rows = torch.arange(b, device=device)[:, None].expand(b, s)
+        cols = positions
+        split = _split_stacked
+    if use_flash:
+        k_view = split(cache["k"])
+        v_view = split(cache["v"])
+    else:
+        kv_positions = torch.cat(
+            [torch.arange(extent, device=device)[None, :].expand(b, extent),
+             positions], dim=1)
+        valid = torch.cat(
+            [torch.arange(extent, device=device)[None, :]
+             < starts.long()[:, None],
+             torch.ones((b, s), dtype=torch.bool, device=device)], dim=1)
+
+    def factory(index):
+        def write(arr, value):
+            arr[index][rows, cols] = value
+
+        def attend(q, k, v):
+            q = apply_rope(q, rope, positions)
+            k = apply_rope(k, rope, positions)
+            if use_flash:
+                out = flash_verify_append(
+                    q, k_view, v_view, index, k, v, starts, positions,
+                    page_table=table if paged else None)
+            else:
+                k_layer = _at_layer(cache["k"], index)
+                v_layer = _at_layer(cache["v"], index)
+                if paged:
+                    k_layer = gather_layer(k_layer, table)
+                    v_layer = gather_layer(v_layer, table)
+                k_rows = _grouped(k_layer, c.n_kv_heads)
+                v_rows = _grouped(v_layer, c.n_kv_heads)
+                if is_quantized(k_rows):
+                    k_rows = dequantize_kv(k_rows, q.dtype)
+                    v_rows = dequantize_kv(v_rows, q.dtype)
+                out = attention_prefill(
+                    q, torch.cat([k_rows, k.to(k_rows.dtype)], dim=1),
+                    torch.cat([v_rows, v.to(v_rows.dtype)], dim=1),
+                    positions, kv_length_mask=valid,
+                    kv_positions=kv_positions)
+            for side, new in (("k", k), ("v", v)):
+                _kv_write(cache[side], _kv_stored(cache[side], new), write)
+            return out
+        return attend
+
+    return _forward(params, c, chunk, factory), cache
+
+
+_LOOP_MODES = ("off", "ngram", "draft")
+
+
+def decode_loop(params: dict, config: LlamaConfig, tokens: torch.Tensor,
+                cache: dict, lengths: torch.Tensor, active: torch.Tensor,
+                budget: torch.Tensor, temperatures: torch.Tensor,
+                eos: torch.Tensor, history: torch.Tensor,
+                generator: torch.Generator, *, ring: int,
+                speculative: str = "off", spec_tokens: int = 4,
+                spec_window: int = 32, draft: dict | None = None,
+                top_k: int = 0):
+    """The device-resident serving loop: up to ``ring`` tokens per row in
+    one block, with sampling, per-row stop detection (EOS, budget, cache
+    boundary) and speculative multi-token decoding (``ngram``: drafts
+    from the recent-token window; ``draft``: greedy drafts of the
+    ``draft`` tree, the int8 self-draft) on the device.
+
+    tokens: [B] current (sampled, unprocessed) tokens; lengths: [B]
+    valid cache positions; active: [B] bool; budget: [B] tokens each row
+    may still emit; temperatures: [B]; eos: [B, E] stop tokens (-1
+    pads); history: [B, W] recent-token window for the ngram draft
+    ([B, 1] otherwise); ``generator`` draws the samples (the JAX
+    package's ``key``).
+
+    The JAX package's ``lax.while_loop`` becomes a FIXED number of
+    masked iterations with no host synchronisation -- ``ring`` plain,
+    ``ring - spec_tokens`` speculative (an active row emits at least one
+    token an iteration, so the room test never holds longer).  Each
+    iteration computes the while loop's condition on the device (some
+    row active, the ring holding one more worst-case emission) and
+    gates every update with ``active & cond``: once the condition fails
+    nothing changes, inactive rows write to the trash position, and
+    ``steps`` counts the iterations where it held.  Every carry comes
+    back as a new tensor; the inputs are never written.
+
+    Returns ``(emitted [B, ring], counts [B], tokens', lengths',
+    active', budget', history', generator, accepted [B], drafted [B],
+    steps, cache)``, int32 except the bool ``active'``."""
+    if speculative not in _LOOP_MODES:
+        raise ValueError(
+            f"speculative={speculative!r}: one of off|ngram|draft")
+    ring = int(ring)
+    b = tokens.shape[0]
+    device = tokens.device
+    extent = cache_extent(cache)
+    trash = extent - 1
+    spec = speculative != "off"
+    k = int(spec_tokens) if spec else 0
+    per_iter = k + 1
+    window = max(1, int(spec_window))
+    draft = draft if draft is not None else params
+    use_flash = _resolve_decode_flash(config, cache)
+    int32 = torch.int32
+    tokens, lengths, budget = (x.to(int32) for x in (tokens, lengths,
+                                                     budget))
+    rows = torch.arange(b, device=device)
+    offsets = torch.arange(per_iter, device=device)[None, :]  # [1, k+1]
+    emitted = torch.zeros((b, ring + 1), dtype=int32, device=device)
+    counts = torch.zeros((b,), dtype=int32, device=device)
+    accepted = torch.zeros_like(counts)
+    drafted = torch.zeros_like(counts)
+    steps = torch.zeros((), dtype=int32, device=device)
+    trash_rows = torch.full_like(lengths, trash)
+
+    def stops(token, budget_left, total):
+        """Stop verdict after emitting ``token`` (any shape with a
+        trailing eos broadcast) -- the host batcher's finish test."""
+        return ((token[..., None] == eos.reshape(
+            b, *(1,) * (token.ndim - 1), -1)).any(-1)
+                | (budget_left <= 0) | (total >= extent))
+
+    for _ in range(ring - k):
+        room = torch.where(active, counts, torch.zeros_like(counts)).amax() \
+            + per_iter <= ring
+        go = active.any() & room
+        live = active & go
+        steps = steps + go.to(int32)
+        if not spec:
+            positions = torch.where(live, torch.clamp(lengths, max=trash),
+                                    trash_rows)
+            logits, cache = _decode_step_impl(params, config, tokens, cache,
+                                              positions, use_flash)
+            sampled = select_tokens(generator, logits, temperatures,
+                                    top_k=top_k).to(int32)
+            slot_index = torch.where(live, counts,
+                                     torch.full_like(counts, ring))
+            emitted = emitted.index_put((rows, slot_index.long()), sampled)
+            step = live.to(int32)
+            counts, lengths, budget = counts + step, lengths + step, \
+                budget - step
+            stopped = stops(sampled, budget, lengths) & live
+            tokens = torch.where(live, sampled, tokens)
+            active = active & ~stopped
+            continue
+        greedy_row = live & (temperatures <= 0)
+        if speculative == "ngram":
+            drafts = _ngram_draft(history, tokens, k)
+        else:
+            drafts = _draft_window(draft, config, tokens, cache, lengths,
+                                   live, k, window, trash)
+        chunk = torch.cat([tokens[:, None], drafts], dim=1)   # [B, k+1]
+        starts = torch.where(live, torch.clamp(lengths, max=trash),
+                             trash_rows)
+        logits, cache = _chunk_verify(params, config, chunk, cache, starts,
+                                      trash, use_flash)
+        greedy = logits.argmax(-1).to(int32)                 # [B, k+1]
+        first = select_tokens(generator, logits[:, 0, :], temperatures,
+                              top_k=top_k).to(int32)
+        candidates = torch.cat([first[:, None], greedy[:, 1:]], dim=1)
+        # Longest matching draft prefix; sampled rows accept none (their
+        # per-token distribution stays the non-speculative one).
+        match = (chunk[:, 1:] == candidates[:, :-1]) & greedy_row[:, None]
+        accept = torch.cumprod(match.to(int32), dim=1).sum(1)
+        stop_at = stops(candidates, budget[:, None] - (offsets + 1),
+                        lengths[:, None] + offsets + 1)
+        clean_before = torch.cumsum(
+            torch.nn.functional.pad(stop_at[:, :-1].to(int32), (1, 0)),
+            dim=1) == 0
+        emit_at = (offsets <= accept[:, None]) & clean_before \
+            & live[:, None]
+        cut = emit_at.sum(1).to(int32)
+        slot_index = torch.where(emit_at, counts[:, None] + offsets,
+                                 torch.full_like(emit_at, ring, dtype=int32))
+        emitted = emitted.scatter(1, slot_index.long(), candidates)
+        counts, lengths, budget = counts + cut, lengths + cut, budget - cut
+        stopped = (emit_at & stop_at).any(1)
+        last = candidates.gather(
+            1, torch.clamp(cut - 1, min=0).long()[:, None])[:, 0]
+        tokens = torch.where(live & (cut > 0), last, tokens)
+        accepted = accepted + torch.where(live, torch.clamp(cut - 1, min=0),
+                                          torch.zeros_like(cut))
+        drafted = drafted + torch.where(greedy_row, torch.full_like(cut, k),
+                                        torch.zeros_like(cut))
+        if speculative == "ngram":
+            history = _history_push(history, candidates, cut)
+        active = active & ~stopped
+    return (emitted[:, :ring], counts, tokens, lengths, active, budget,
+            history, generator, accepted, drafted, steps, cache)

@@ -20,7 +20,7 @@ from ..device import resolve_device
 __all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu",
            "repeat_kv", "attention_prefill", "attention_decode",
            "attention_decode_append", "decode_backend",
-           "matmul_backend", "topk", "DECODE_BACKENDS"]
+           "matmul_backend", "topk", "DECODE_BACKENDS", "launch_counters"]
 
 #: every value :func:`decode_backend` can return, in preference order.
 DECODE_BACKENDS = ("paged-kernel", "dense-flash", "reference")
@@ -68,3 +68,27 @@ def matmul_backend(requested: str = "auto",
     if requested == "auto" and resolve_device(device).type == "cuda":
         return "cuda-int8"
     return "reference"
+
+
+def launch_counters() -> dict:
+    """Every kernel launch counter of the port: name -> (wrapper, the
+    wrapper's attribute).  A wrapper adds one where it launches its
+    kernel, and nowhere else; the decode and verify wrappers count bf16
+    and int8 payloads apart (``[int8]`` names)."""
+    from .flash_attention import flash_attention
+    from .flash_decode import (flash_decode_attention,
+                               flash_decode_attention_paged,
+                               flash_decode_attention_stacked,
+                               flash_verify_attention_paged,
+                               flash_verify_attention_stacked)
+    from .int8_matmul import int8_matmul
+    counters = {}
+    for wrapper in (flash_decode_attention, flash_decode_attention_stacked,
+                    flash_decode_attention_paged,
+                    flash_verify_attention_stacked,
+                    flash_verify_attention_paged):
+        counters[wrapper.__name__] = (wrapper, "launches")
+        counters[f"{wrapper.__name__}[int8]"] = (wrapper, "int8_launches")
+    for wrapper in (int8_matmul, flash_attention, topk):
+        counters[wrapper.__name__] = (wrapper, "launches")
+    return counters

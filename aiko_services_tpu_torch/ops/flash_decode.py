@@ -14,14 +14,21 @@ float32 scale per position and kv head, dequantized inside the kernel):
 - ``flash_decode_attention_paged`` (kernel #3) over one layer of the
   ``[L, P, pt, K*hd]`` page pools, walking a ``[B, pps]`` int32 page
   table, with ``flash_decode_append_paged`` for the layer loop;
+- ``flash_verify_attention_stacked`` and ``flash_verify_attention_paged``
+  (the chunk verify of speculative decoding, which the TPU package ran
+  through #2/#3 with ``qrow_period``): S query tokens per row against
+  the cache up to ``starts``, one launch per layer, with
+  ``flash_verify_append``, which adds the chunk's own causal k/v
+  (``_combine_chunk``);
 
 and the helpers ``_prep_query``, ``_combine_self``, ``_split_stacked``,
 ``_split_paged`` and ``_require_matched_quantization``.
 
-All three launch one kernel body, ``csrc/flash_decode.cu`` (its header
-says what bounds it and how it is laid out), which differs between them
-only in the address of cache row t: the paged kernel is bitwise equal
-to the flat one on the gathered view.  One difference from the TPU
+The decode wrappers launch one kernel body, the verify wrappers another,
+both in ``csrc/flash_decode.cu`` (its comments say what bounds them and
+how they are laid out); each differs between its flat and paged forms
+only in the address of cache row t: a paged kernel is bitwise equal to
+its flat one on the gathered view.  One difference from the TPU
 kernels' interface: queries and accumulator are COMPACT, ``[B, H, hd]``.
 The TPU kernels took block-diagonal zero-padded queries ``[B, H, K*hd]``
 (a lane alignment trick for the MXU) and returned ``[B, H, K*hd]``, of
@@ -37,8 +44,6 @@ package transposed -- a copy -- every step.
 On a CPU tensor each wrapper runs its plain PyTorch version below; on a
 CUDA tensor it launches the kernel or raises.  ``launches`` counts a
 wrapper's bf16-payload launches and ``int8_launches`` its int8 ones.
-Not ported yet: the paged kernel's ``qrow_period`` for the speculative
-verify rows (ROADMAP Queue 2 item 4).
 """
 
 from __future__ import annotations
@@ -56,10 +61,16 @@ __all__ = ["flash_decode_attention", "flash_decode_append",
            "flash_decode_attention_stacked", "flash_decode_append_stacked",
            "flash_decode_attention_stacked_reference",
            "flash_decode_attention_paged", "flash_decode_append_paged",
-           "flash_decode_attention_paged_reference"]
+           "flash_decode_attention_paged_reference",
+           "flash_verify_attention_stacked", "flash_verify_attention_paged",
+           "flash_verify_attention_reference",
+           "flash_verify_attention_stacked_reference",
+           "flash_verify_attention_paged_reference", "flash_verify_append"]
 
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
+# Queries one verify block holds: S * G (csrc kMaxVerifyQueries).
+_MAX_VERIFY_QUERIES = 72
 
 
 def is_quantized(leaf) -> bool:
@@ -108,7 +119,8 @@ def _split_paged(side):
 
 
 def _prep_query(q_flat: torch.Tensor, d: int):
-    """(scaled queries [B, H, hd], softmax scale).  The scale folds in
+    """(scaled queries, softmax scale) of queries [..., hd] ([B, H, hd]
+    for decode, [B, S, H, hd] for verify).  The scale folds in
     q's dtype when it is a power of two (d = 64: bf16 queries stay bf16);
     otherwise (d = 128, scale 2^-3.5) the scaled queries are float32.
     The TPU kernel's block-diagonal zero padding over K*hd is not built:
@@ -142,26 +154,26 @@ def _combine_self(acc, m, l, q_flat, k_new, v_new, scale):
 
 # -- plain versions -----------------------------------------------------------
 
-def flash_decode_attention_reference(q, k_flat, v_flat, lengths,
-                                     k_scale=None, v_scale=None):
-    """Plain PyTorch version of the kernel over a flat [B, T, C] cache:
-    the same function, one softmax pass.  An int8 cache passes its
+def _plain_stats(q, k_flat, v_flat, lengths, k_scale, v_scale, entry: str):
+    """The plain version of both kernel bodies: queries q [B, S, H, hd]
+    (S = 1 for decode) against the first ``lengths[b]`` positions of a
+    flat [B, T, C] cache, one softmax pass.  An int8 cache passes its
     [B, T, K] scales: the score is ``dot(q, k) * k_scale`` and the value
     scale multiplies the numerator's weights only.  Returns (acc
-    [B, H, hd] f32, m [B, H], l [B, H])."""
+    [B, S, H, hd] f32, m [B, S, H], l [B, S, H])."""
     _require_matched_quantization(k_scale is not None, v_scale is not None,
-                                  "flash_decode_attention")
-    b, h, head_dim = q.shape
+                                  entry)
+    b, s, h, head_dim = q.shape
     kv = k_flat.shape[2] // head_dim
     t = k_flat.shape[1]
     k = k_flat.reshape(b, t, kv, head_dim).float()
     v = v_flat.reshape(b, t, kv, head_dim).float()
-    q_grouped = q.reshape(b, kv, h // kv, head_dim).float()
-    scores = torch.einsum("bkgd,btkd->bkgt", q_grouped, k)
+    q_grouped = q.reshape(b, s, kv, h // kv, head_dim).float()
+    scores = torch.einsum("bskgd,btkd->bskgt", q_grouped, k)
     if k_scale is not None:
-        scores = scores * k_scale.float().permute(0, 2, 1)[:, :, None, :]
-    valid = torch.arange(t, device=q.device)[None, None, None, :] \
-        < lengths.to(q.device).long()[:, None, None, None]
+        scores = scores * k_scale.float().permute(0, 2, 1)[:, None, :, None]
+    valid = torch.arange(t, device=q.device)[None, None, None, None, :] \
+        < lengths.to(q.device).long()[:, None, None, None, None]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     m = scores.amax(-1)
     m_safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
@@ -169,9 +181,30 @@ def flash_decode_attention_reference(q, k_flat, v_flat, lengths,
                     torch.zeros_like(scores))
     l = p.sum(-1)
     if v_scale is not None:
-        p = p * v_scale.float().permute(0, 2, 1)[:, :, None, :]
-    acc = torch.einsum("bkgt,btkd->bkgd", p.to(q.dtype).float(), v)
-    return acc.reshape(b, h, head_dim), m.reshape(b, h), l.reshape(b, h)
+        p = p * v_scale.float().permute(0, 2, 1)[:, None, :, None]
+    acc = torch.einsum("bskgt,btkd->bskgd", p.to(q.dtype).float(), v)
+    return (acc.reshape(b, s, h, head_dim), m.reshape(b, s, h),
+            l.reshape(b, s, h))
+
+
+def flash_decode_attention_reference(q, k_flat, v_flat, lengths,
+                                     k_scale=None, v_scale=None):
+    """Plain PyTorch version of the decode kernel over a flat [B, T, C]
+    cache (see :func:`_plain_stats`).  Returns (acc [B, H, hd] f32,
+    m [B, H], l [B, H])."""
+    acc, m, l = _plain_stats(q[:, None], k_flat, v_flat, lengths, k_scale,
+                             v_scale, "flash_decode_attention")
+    return acc[:, 0], m[:, 0], l[:, 0]
+
+
+def flash_verify_attention_reference(q, k_flat, v_flat, starts,
+                                     k_scale=None, v_scale=None):
+    """Plain PyTorch version of the verify kernel over a flat [B, T, C]
+    cache: every one of the S queries of row b against the positions
+    below ``starts[b]`` (see :func:`_plain_stats`).  Returns (acc
+    [B, S, H, hd] f32, m [B, S, H], l [B, S, H])."""
+    return _plain_stats(q, k_flat, v_flat, starts, k_scale, v_scale,
+                        "flash_verify_attention")
 
 
 def _layer(scale, layer: int):
@@ -205,6 +238,28 @@ def flash_decode_attention_paged_reference(q, k_pool, v_pool, layer: int,
     return flash_decode_attention_reference(
         q, _gathered(k_pool[layer], page_table),
         _gathered(v_pool[layer], page_table), lengths, *scales)
+
+
+def flash_verify_attention_stacked_reference(q, k_flat, v_flat,
+                                             layer: int, starts,
+                                             k_scale=None, v_scale=None):
+    """Plain version of the stacked verify kernel: the flat one on
+    ``cache[layer]`` (and ``scale[layer]``)."""
+    return flash_verify_attention_reference(
+        q, k_flat[layer], v_flat[layer], starts, _layer(k_scale, layer),
+        _layer(v_scale, layer))
+
+
+def flash_verify_attention_paged_reference(q, k_pool, v_pool, layer: int,
+                                           page_table, starts,
+                                           k_scale=None, v_scale=None):
+    """Plain version of the paged verify kernel: gather the table's pages
+    (and scale pages), then the flat version."""
+    scales = [None if pool is None else _gathered(pool[layer], page_table)
+              for pool in (k_scale, v_scale)]
+    return flash_verify_attention_reference(
+        q, _gathered(k_pool[layer], page_table),
+        _gathered(v_pool[layer], page_table), starts, *scales)
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -270,6 +325,22 @@ _PAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
 
 def _ptr(tensor) -> int | None:
     return None if tensor is None else tensor.data_ptr()
+
+
+def _ptrs(tensors) -> list:
+    """Pointers of tensors the caller still holds: a temporary (a
+    ``.contiguous()`` copy) must outlive the launch that reads it, or
+    the allocator may hand its memory to the launch's outputs."""
+    return [_ptr(tensor) for tensor in tensors]
+
+
+_VERIFY_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 4 \
+    + [ctypes.c_void_p]
+
+_VERIFY_PAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
+    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 
 
 def _count(wrapper, k_scale) -> None:
@@ -420,10 +491,33 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
         return flash_decode_attention_paged_reference(
             q, k_pool, v_pool, layer, page_table, lengths, k_scale, v_scale)
     entry = "flash_decode_attention_paged"
+    b, h, kv, pool = _check_paged(entry, q, k_pool, v_pool, layer,
+                                  page_table, lengths, k_scale, v_scale)
+    q = q.contiguous()
+    acc, m, l = _outputs(q)
+    status = _build.entry("aiko_flash_decode_paged", _PAGED_ARGTYPES)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16),
+        int(k_scale is not None), *_ptrs(pool[:6]), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, kv, h // kv, q.shape[2], *pool[6:])
+    _build.check(status, entry)
+    _count(flash_decode_attention_paged, k_scale)
+    return acc, m, l
+
+
+flash_decode_attention_paged.launches = 0
+flash_decode_attention_paged.int8_launches = 0
+
+
+def _check_paged(entry: str, q, k_pool, v_pool, layer: int, page_table,
+                 lengths, k_scale, v_scale):
+    """The checks of both paged wrappers (q is one [B, H, hd] query row
+    set).  Returns (B, H, K, pool arguments): the C entries' (k, v,
+    k_scale, v_scale, table, lengths) tensors -- kept alive until the
+    launch, see :func:`_ptrs` -- then (pps, pt, P, strides..., stream)."""
     if q.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {q.device}")
     b, h, head_dim = q.shape
-    n_layers, n_pages, _, kc = k_pool.shape
+    n_layers, n_pages, page_tokens, kc = k_pool.shape
     if v_pool.shape != k_pool.shape or not 0 <= layer < n_layers \
             or page_table.ndim != 2 or page_table.shape[0] != b:
         raise ValueError(
@@ -441,26 +535,131 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     _check_rows(entry, k_layer, v_layer)
     k_scales, v_scales = _layer(k_scale, layer), _layer(v_scale, layer)
     sstrides = k_scales.stride()[:2] if k_scales is not None else (0, 0)
-    q = q.contiguous()
     page_table = page_table.contiguous()
     lengths = lengths.contiguous()
-    acc, m, l = _outputs(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    pps = page_table.shape[1]
-    status = _build.entry("aiko_flash_decode_paged", _PAGED_ARGTYPES)(
-        q.data_ptr(), int(q.dtype == torch.bfloat16),
-        int(k_scale is not None), k_layer.data_ptr(), v_layer.data_ptr(),
-        _ptr(k_scales), _ptr(v_scales), page_table.data_ptr(),
-        lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b,
-        kv, h // kv, head_dim, pps, page_tokens, n_pages, k_layer.stride(0),
+    return b, h, kv, (
+        k_layer, v_layer, k_scales, v_scales, page_table, lengths,
+        page_table.shape[1], page_tokens, n_pages, k_layer.stride(0),
         k_layer.stride(1), *sstrides, stream)
+
+
+def _verify_shape(entry: str, q, kv: int):
+    """(S, H, queries per block) of [B, S, H, hd] verify queries; the
+    kernel holds at most _MAX_VERIFY_QUERIES queries a block."""
+    _, s, h, _ = q.shape
+    n_queries = s * (h // kv)
+    if n_queries > _MAX_VERIFY_QUERIES:
+        raise ValueError(f"{entry}: {s} verify tokens x {h // kv} query "
+                         f"groups = {n_queries} queries per kv head; the "
+                         f"kernel holds at most {_MAX_VERIFY_QUERIES}")
+    return s, h, n_queries
+
+
+def _verify_outputs(q):
+    acc = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    m = torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
+    return acc, m, torch.empty_like(m)
+
+
+def flash_verify_attention_stacked(q: torch.Tensor, k_flat: torch.Tensor,
+                                   v_flat: torch.Tensor, layer: int,
+                                   starts: torch.Tensor,
+                                   k_scale: torch.Tensor | None = None,
+                                   v_scale: torch.Tensor | None = None):
+    """Chunk-verify attention over ONE layer of the stacked cache: the
+    cache part of the speculative verify step, one launch for all S
+    verify tokens.
+
+    q: [B, S, H, hd] scaled queries from :func:`_prep_query` (f32 or
+    bf16), the reference's [S, H] row order; k_flat/v_flat (and the
+    scales of an int8 cache) as in
+    :func:`flash_decode_attention_stacked`; starts: [B] int32, the
+    cache frontier every query of row b sees (``t < starts[b]``).
+    Returns (acc [B, S, H, hd] f32 unnormalised, m [B, S, H] f32,
+    l [B, S, H] f32)."""
+    if q.device.type == "cpu":
+        return flash_verify_attention_stacked_reference(
+            q, k_flat, v_flat, layer, starts, k_scale, v_scale)
+    entry = "flash_verify_attention_stacked"
+    if q.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {q.device}")
+    b, _, _, head_dim = q.shape
+    n_layers, kb, t, kc = k_flat.shape
+    if q.ndim != 4 or kb != b or v_flat.shape != k_flat.shape \
+            or not 0 <= layer < n_layers:
+        raise ValueError(
+            f"{entry}: q {tuple(q.shape)} does not match the cache "
+            f"{tuple(k_flat.shape)} / {tuple(v_flat.shape)} at layer "
+            f"{layer}")
+    _, _, kv = _check_common(entry, q[:, 0], k_flat, v_flat, starts,
+                             head_dim, kc, k_scale, v_scale)
+    s, h, n_queries = _verify_shape(entry, q, kv)
+    if not (k_flat.is_contiguous() and v_flat.is_contiguous()):
+        raise ValueError(f"{entry}: the stacked cache must be contiguous")
+    k_view, v_view = k_flat[layer], v_flat[layer]
+    _check_rows(entry, k_view, v_view)
+    k_scales, v_scales = _layer(k_scale, layer), _layer(v_scale, layer)
+    sstrides = k_scales.stride()[:2] if k_scales is not None else (0, 0)
+    q = q.contiguous()
+    starts = starts.contiguous()
+    acc, m, l = _verify_outputs(q)
+    status = _build.entry("aiko_flash_verify", _VERIFY_ARGTYPES)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16),
+        int(k_scale is not None), k_view.data_ptr(), v_view.data_ptr(),
+        _ptr(k_scales), _ptr(v_scales), starts.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, kv, h // kv, head_dim, n_queries, h,
+        s * h, t, k_view.stride(0), k_view.stride(1), *sstrides,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, entry)
-    _count(flash_decode_attention_paged, k_scale)
+    _count(flash_verify_attention_stacked, k_scale)
     return acc, m, l
 
 
-flash_decode_attention_paged.launches = 0
-flash_decode_attention_paged.int8_launches = 0
+flash_verify_attention_stacked.launches = 0
+flash_verify_attention_stacked.int8_launches = 0
+
+
+def flash_verify_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, layer: int,
+                                 page_table: torch.Tensor,
+                                 starts: torch.Tensor,
+                                 k_scale: torch.Tensor | None = None,
+                                 v_scale: torch.Tensor | None = None):
+    """Paged twin of :func:`flash_verify_attention_stacked`: the pools,
+    scale pools and page table of :func:`flash_decode_attention_paged`
+    (pt a multiple of 8), read in place, the table walked in the
+    kernel.  Bitwise equal to the stacked kernel on the gathered view."""
+    page_tokens = k_pool.shape[2]
+    if page_tokens % 8:
+        raise ValueError(
+            f"flash_verify_attention_paged: kv_page_tokens={page_tokens} "
+            f"must be a multiple of 8; use an aligned page size or the "
+            f"reference gather path")
+    if q.device.type == "cpu":
+        return flash_verify_attention_paged_reference(
+            q, k_pool, v_pool, layer, page_table, starts, k_scale, v_scale)
+    entry = "flash_verify_attention_paged"
+    if q.ndim != 4:
+        raise ValueError(f"{entry}: q must be [B, S, H, hd], got "
+                         f"{tuple(q.shape)}")
+    b, _, kv, pool = _check_paged(entry, q[:, 0], k_pool, v_pool, layer,
+                                  page_table, starts, k_scale, v_scale)
+    s, h, n_queries = _verify_shape(entry, q, kv)
+    q = q.contiguous()
+    acc, m, l = _verify_outputs(q)
+    status = _build.entry("aiko_flash_verify_paged", _VERIFY_PAGED_ARGTYPES)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16),
+        int(k_scale is not None), *_ptrs(pool[:6]), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, kv, h // kv, q.shape[3], n_queries,
+        h, s * h, *pool[6:])
+    _build.check(status, entry)
+    _count(flash_verify_attention_paged, k_scale)
+    return acc, m, l
+
+
+flash_verify_attention_paged.launches = 0
+flash_verify_attention_paged.int8_launches = 0
 
 
 # -- layer-loop drop-ins for attention_decode_append --------------------------
@@ -529,3 +728,71 @@ def flash_decode_append_paged(q, k_view, v_view, layer: int, k_new, v_new,
                    lambda q_scaled: flash_decode_attention_paged(
                        q_scaled, k_payload, v_payload, layer, page_table,
                        lengths, k_scale, v_scale))
+
+
+# -- speculative chunk verify ------------------------------------------------
+
+def _combine_chunk(acc, m, l, q, k_new, v_new, positions, scale):
+    """Merge the verify chunk's own keys/values (the causal self part)
+    with the kernel's cache-part stats -- the S-query form of
+    :func:`_combine_self`.  acc [B, S, H, hd] (compact), m/l [B, S, H];
+    q [B, S, H, hd] rope'd unscaled queries; k_new/v_new [B, S, K, hd];
+    positions [B, S] trash-clamped absolute positions (chunk key j is
+    seen by query i where ``positions[j] <= positions[i]``, the dense
+    concat path's mask).  Returns [B, S, H, hd] f32."""
+    b, s, h, d = q.shape
+    kv = k_new.shape[2]
+    q_grouped = q.float().reshape(b, s, kv, h // kv, d)
+    chunk_logits = torch.einsum("bskgd,btkd->bskgt", q_grouped,
+                                k_new.float()) * scale    # [B, S, K, G, S]
+    causal = positions[:, None, None, None, :] \
+        <= positions[:, :, None, None, None]
+    chunk_logits = torch.where(causal, chunk_logits,
+                               torch.full_like(chunk_logits, NEG_INF))
+    m_k = m.reshape(b, s, kv, h // kv)
+    l_k = l.reshape(b, s, kv, h // kv)
+    m_joint = torch.maximum(m_k, chunk_logits.amax(-1))
+    correction = torch.where(m_k <= NEG_INF / 2, torch.zeros_like(m_k),
+                             torch.exp(m_k - m_joint))
+    weights = torch.where(causal, torch.exp(chunk_logits - m_joint[..., None]),
+                          torch.zeros_like(chunk_logits))
+    denominator = l_k * correction + weights.sum(-1)
+    chunk_part = torch.einsum("bskgt,btkd->bskgd", weights, v_new.float())
+    out = (acc.reshape(b, s, kv, h // kv, d) * correction[..., None]
+           + chunk_part) / denominator[..., None]
+    return out.reshape(b, s, h, d)
+
+
+def flash_verify_append(q, k_view, v_view, layer: int, k_new, v_new, starts,
+                        positions, page_table=None):
+    """Batched chunk-verify attention: the speculative verify step's
+    concat attention with the cache read ONCE for all S draft positions.
+    Counterpart of ``aiko_services_tpu/ops/pallas_decode.py``
+    ``flash_verify_append``.
+
+    All S queries of a row share one cache frontier (``t < starts[b]``;
+    chunk causality over cache rows follows from ``starts <=
+    positions``), so the cache part is one verify launch per layer, and
+    the chunk's own k/v merge in outside with causal masking by the
+    trash-clamped ``positions`` -- the semantics of the dense concat
+    route of ``models/llama.py`` ``_chunk_verify``.
+
+    q: [B, S, H, hd] rope'd queries; k_view/v_view: stacked cache views
+    (:func:`_split_stacked`) or, with ``page_table`` [B, pps], paged
+    pool views (:func:`_split_paged`); k_new/v_new: [B, S, K, hd] the
+    chunk's rope'd k/v (not yet written); starts: [B] int32; positions:
+    [B, S].  Returns [B, S, H, hd] in q's dtype."""
+    k_payload, k_scale = k_view
+    v_payload, v_scale = v_view
+    _require_matched_quantization(k_scale is not None, v_scale is not None,
+                                  "flash_verify_append")
+    q_scaled, scale = _prep_query(q, q.shape[3])
+    if page_table is not None:
+        acc, m, l = flash_verify_attention_paged(
+            q_scaled, k_payload, v_payload, layer, page_table, starts,
+            k_scale, v_scale)
+    else:
+        acc, m, l = flash_verify_attention_stacked(
+            q_scaled, k_payload, v_payload, layer, starts, k_scale, v_scale)
+    out = _combine_chunk(acc, m, l, q, k_new, v_new, positions, scale)
+    return out.to(q.dtype)

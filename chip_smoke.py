@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    at 64- and 16-token pages, over bf16 and over int8 caches; the int8
    matmul (#5) is held exactly on grid inputs and within a stated
    tolerance on random ones, at the decode and prefill unembed and the
-   decode w_down shapes;
+   decode w_down shapes; the chunk-verify kernel (speculative decoding's
+   verify step, S 5) stacked and paged, bf16 and int8, f32 and bf16
+   queries, the paged form BITWISE against the stacked form on the
+   gathered view at 64- and 16-token pages;
 3. serving: ``ContinuousBatcher`` on Llama-3-8B widths (random weights
    from a seed) with flash prefill, flash decode and top-k sampling:
    dense at decode_block 1 and 4, then paged (64-token pages) at full
@@ -32,12 +35,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    other), the greedy streams must agree as each run states, and
    kernel-path logits must agree with the dense reference settings on
    the same prefill and decode step;
-4. int8 serving: the same weights quantized (``quantize_params``, the
-   bf16 tree freed) with ``kv_dtype="int8"``: dense at decode_block 4
-   and paged at full provisioning, decode_block 1 -- #5, the int8 decode
-   kernels, #4 and #6 must launch, no bf16 decode kernel may; greedy
-   streams equal across the two, no leaked page; kernel-path logits
-   within 5 % of the plain path on the same quantized tree.
+4. the device-resident loop (``decode_block_tokens=16``, every block a
+   replay of one captured CUDA graph), bf16 tree: plain over the dense
+   cache (#2, #4, #6; greedy streams equal to dense-1's), ngram
+   speculation over 64-token pages (the paged verify kernel, never a
+   decode kernel), int8 self-draft speculation over the dense cache (the
+   stacked verify kernel and #5 on every draft step) and a fault at the
+   3rd dispatch with recover(); every request finishes, no page leaks,
+   speculative runs draft tokens and the draft run accepts some.  Then
+   the verify step's logits against 5 sequential decode steps on the
+   same cache, and one captured block replayed twice from the same
+   inputs at temperature 0.8 (the draws must differ);
+5. int8 serving: the same weights quantized (``quantize_params``, the
+   bf16 tree freed) with ``kv_dtype="int8"``: dense at decode_block 4,
+   paged at full provisioning, decode_block 1, and the ngram device loop
+   over 64-token pages -- #5, the int8 decode or verify kernels, #4 and
+   #6 must launch, no bf16 attention kernel may; greedy streams equal
+   across the first two, no leaked page; kernel-path logits within 5 %
+   of the plain path on the same quantized tree.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line, then ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -578,6 +593,151 @@ def check_int8_decode(device) -> list[dict]:
     return rows
 
 
+def check_verify(device) -> list[dict]:
+    """The chunk-verify kernel at llama3-8b verify shapes: S 5 (4 draft
+    tokens), f32 and bf16 scaled queries [8, 5, 32, 128], starts = the
+    decode check's lengths, against a [32, 8, 2048, 1024] stacked cache
+    and [32, 257, 64, 1024] pools through a random permutation table,
+    bf16 and int8.  The stacked and paged forms against their plain
+    versions, the paged form BITWISE against the stacked form on the
+    gathered view at 64- and 16-token pages.  Timed: the stacked and
+    paged forms, bf16 and int8, with their plain versions; the yardstick
+    is SDPA over the pre-gathered (dequantized) view, the cache part
+    only."""
+    import torch
+    from aiko_services_tpu_torch.ops import flash_decode as fd
+    gen = torch.Generator(device=device).manual_seed(12)
+    n_layers, b, t, kv, hd, h, s, pt = 32, 8, 2048, 8, 128, 32, 5, 64
+    pps, layer = t // pt, 17
+    pages = b * pps + 1
+    starts = torch.tensor([0, 2047, 1, 1500, 513, 64, 2046, 1024],
+                          device=device, dtype=torch.int32)
+    table = (torch.randperm(pages - 1, generator=gen, device=device) + 1) \
+        .reshape(b, pps).to(torch.int32)
+    small_table = (torch.randperm(pages * 4 - 1, generator=gen,
+                                  device=device)[:b * t // 16] + 1) \
+        .reshape(b, t // 16).to(torch.int32)
+    q = torch.randn((b, s, h, hd), generator=gen, device=device).to(
+        torch.bfloat16)
+    q_scaled, _ = fd._prep_query(q, hd)
+    shape = (n_layers, pages, pt, kv * hd)
+    caches = {}
+    for payload in ("bf16", "int8"):
+        if payload == "int8":
+            (k_pool, ks), (v_pool, vs) = (_int8_side(shape, gen, device)
+                                          for _ in range(2))
+        else:
+            k_pool, v_pool = (torch.randn(shape, generator=gen, device=device,
+                                          dtype=torch.float32)
+                              .to(torch.bfloat16) for _ in range(2))
+            ks = vs = None
+        caches[payload] = (k_pool, v_pool, ks, vs)
+
+    def stacked_view(pool, tbl):
+        """The table's pages as a [1, B, T, ...] stacked cache (layer 0)."""
+        if pool is None:
+            return None
+        return pool[layer][tbl.long()].reshape(1, b, t, pool.shape[-1]) \
+            .contiguous()
+    errors, timed = {}, {}
+    for payload, (k_pool, v_pool, ks, vs) in caches.items():
+        scales = (ks, vs)
+        for q_in, tol in ((q_scaled, DECODE_TOL),
+                          (q_scaled.to(torch.bfloat16), BF16_TOL)):
+            for page_tokens, tbl in ((pt, table), (16, small_table)):
+                pools = [None if pool is None else pool.view(
+                    n_layers, pages * pt // page_tokens, page_tokens,
+                    pool.shape[-1]) for pool in (k_pool, v_pool, *scales)]
+                paged = fd.flash_verify_attention_paged(
+                    q_in, pools[0], pools[1], layer, tbl, starts, *pools[2:])
+                views = [stacked_view(pool, tbl) for pool in pools]
+                flat = fd.flash_verify_attention_stacked(
+                    q_in, views[0], views[1], 0, starts, *views[2:])
+                want = fd.flash_verify_attention_stacked_reference(
+                    q_in, views[0], views[1], 0, starts, *views[2:])
+                torch.cuda.synchronize()
+                err = _decode_error(flat, want)
+                same = _bitwise(paged, flat)
+                print(f"verify {payload} q={q_in.dtype} pt={page_tokens}: "
+                      f"max_abs_err {err:.3e} (tol {tol}); paged bitwise "
+                      f"equal to stacked on the gathered view: {same}")
+                if flat[0][0].abs().max() != 0 or (flat[1][0] != -1e30).any():
+                    raise AssertionError("verify: a start-0 row must give "
+                                         "acc=0, m=-1e30")
+                if not err <= tol or not same:
+                    raise AssertionError(f"verify kernel disagrees "
+                                         f"({payload}, pt={page_tokens}): "
+                                         f"{err} > {tol} or not bitwise")
+                errors.setdefault(payload, {})[q_in.dtype] = max(
+                    err, errors.get(payload, {}).get(q_in.dtype, 0.0))
+        views = [stacked_view(pool, table) for pool in (k_pool, v_pool, *scales)]
+        suffix = "[int8]" if payload == "int8" else ""
+        fd.flash_verify_attention_stacked.int8_launches = 0
+        timed[f"flash_verify_attention_stacked{suffix}"] = (
+            time_ms(lambda: fd.flash_verify_attention_stacked(
+                q_scaled, views[0], views[1], 0, starts, *views[2:])),
+            time_ms(lambda: fd.flash_verify_attention_stacked_reference(
+                q_scaled, views[0], views[1], 0, starts, *views[2:]),
+                iters=5))
+        if payload == "int8":
+            stacked_int8_launches = fd.flash_verify_attention_stacked \
+                .int8_launches
+        timed[f"flash_verify_attention_paged{suffix}"] = (
+            time_ms(lambda: fd.flash_verify_attention_paged(
+                q_scaled, k_pool, v_pool, layer, table, starts, ks, vs)),
+            time_ms(lambda: fd.flash_verify_attention_paged_reference(
+                q_scaled, k_pool, v_pool, layer, table, starts, ks, vs),
+                iters=5))
+        # Yardstick: SDPA of the S queries over the pre-gathered view (the
+        # dequantized bf16 view for int8), the cache part only.
+        if payload == "int8":
+            kg = _dequantized(views[0][0], views[2][0])
+            vg = _dequantized(views[1][0], views[3][0])
+        else:
+            kg, vg = views[0][0], views[1][0]
+        kt = kg.reshape(b, t, kv, hd).transpose(1, 2) \
+            .repeat_interleave(h // kv, dim=1)
+        vt = vg.reshape(b, t, kv, hd).transpose(1, 2) \
+            .repeat_interleave(h // kv, dim=1)
+        mask = (torch.arange(t, device=device)[None, :]
+                < starts[:, None])[:, None, None, :]
+        library = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), kt, vt, attn_mask=mask))
+        timed[f"library{suffix}"] = library
+        del kt, vt, kg, vg
+    live_tokens = int(starts.sum().item())
+    live_pages = int(((starts + pt - 1) // pt).sum().item())
+    io_bytes = q_scaled.numel() * 4 + starts.numel() * 4 \
+        + b * s * h * (hd + 2) * 4
+    flops = 4 * live_tokens * s * h * hd
+    source = "aiko_services_tpu_torch/csrc/flash_decode.cu"
+    rows = []
+    for payload in ("bf16", "int8"):
+        suffix = "[int8]" if payload == "int8" else ""
+        per_token = kv * hd * 2 if payload == "bf16" else kv * hd + kv * 4
+        for form, extra in (("stacked", 0), ("paged", live_pages * 4)):
+            name = f"flash_verify_attention_{form}{suffix}"
+            ms, plain = timed[name]
+            bound, by = bound_ms(2 * live_tokens * per_token + io_bytes
+                                 + extra, flops, "f32")
+            row = {"name": name, "route": "cuda", "source": source,
+                   "replaces": "aiko_services_tpu/ops/pallas_decode.py:830",
+                   "max_abs_err": errors[payload][torch.float32], "ms": ms,
+                   "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                   "library_ms": timed[f"library{suffix}"],
+                   "library": "SDPA on the pre-gathered view, cache part"}
+            if name == "flash_verify_attention_stacked[int8]":
+                # No serving run of this script verifies over a dense int8
+                # cache: its launches are the kernel phase's.
+                row.update({"path": "kernel phase",
+                            "launches": stacked_int8_launches})
+            rows.append(row)
+    del caches
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_int8_matmul(device) -> dict:
     """int8_matmul (#5) at the serving path's shapes: the decode unembed
     (M 8, D 4,096, F 128,256), the prefill unembed (M 512) and the decode
@@ -678,15 +838,26 @@ def prefix_requests(config) -> list[tuple]:
 
 
 def serve(params, config, requests, label: str, device, card: str, *,
-          decode_block: int, serial_first: bool = False, **options) -> dict:
+          decode_block: int = 1, serial_first: bool = False,
+          recover_at: int = 0, **options) -> dict:
     """One ContinuousBatcher run (8 slots, prefill chunk 512, top-k 50)
     over ``requests``; ``serial_first`` drains the first request alone
-    before submitting the rest.  Returns the per-request token streams,
-    the ids of requests preempted under pool pressure, the batcher's
-    page and prefix counters and the run's metrics."""
+    before submitting the rest; ``recover_at`` > 0 arms a fault probe that
+    raises at that device-loop dispatch, and the run calls recover() on
+    the raise.  Returns the per-request token streams, the ids of
+    requests preempted under pool pressure, the batcher's page and prefix
+    counters and the run's metrics."""
     import torch
     from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
                                                          Request)
+    dispatches = [0]
+
+    def probe(point):
+        dispatches[0] += 1
+        if dispatches[0] == recover_at:
+            raise RuntimeError(f"injected fault at dispatch {recover_at}")
+    if recover_at:
+        options["fault_probe"] = probe
     batcher = ContinuousBatcher(params, config, max_slots=8,
                                 prefill_chunk=512, sample_top_k=50,
                                 decode_block=decode_block, device=device,
@@ -712,7 +883,16 @@ def serve(params, config, requests, label: str, device, card: str, *,
             emit=lambda r, token, done: streams[r].append(token)))
         if serial_first and index == 0:
             batcher.run_until_drained(max_steps=10_000)
-    batcher.run_until_drained(max_steps=10_000)
+    for _ in range(10_000):
+        if not (batcher.pending or batcher.active_count
+                or batcher.blocks_in_flight):
+            break
+        try:
+            batcher.step()
+        except RuntimeError:
+            if not recover_at or batcher.recoveries:
+                raise
+            batcher.recover()
     torch.cuda.synchronize()
     wall = time.perf_counter() - begin
     stats = batcher.take_request_stats()
@@ -732,6 +912,19 @@ def serve(params, config, requests, label: str, device, card: str, *,
         "prefix_hits": batcher.prefix_hits,
         "prefix_shared_tokens": batcher.prefix_shared_tokens,
         "card": card}
+    if batcher.device_loop:
+        loop = batcher._loop
+        metrics.update({
+            "decode_block_tokens": batcher.decode_block_tokens,
+            "speculative": batcher.speculative,
+            "blocks_dispatched": batcher.blocks_dispatched,
+            "blocks_retired": batcher.blocks_retired,
+            "loop_steps": batcher.steps,
+            "draft_tokens": batcher.draft_tokens,
+            "accepted_tokens": batcher.accepted_tokens,
+            "recoveries": batcher.recoveries,
+            "captures": loop.captures,
+            "replays": loop.replays, "capture_s": loop.capture_s})
     leaked = batcher._pages.leaked_pages() if batcher._pages else 0
     del batcher._evict_slot         # the hook's cycle would keep the cache
     del batcher
@@ -846,38 +1039,117 @@ def check_int8_agreement(qparams, config, device) -> dict:
     return out
 
 
-def _counters():
-    """Every launch counter of the serving path: name -> (wrapper, the
-    wrapper's attribute).  The decode wrappers count bf16 and int8
-    payloads apart."""
-    from aiko_services_tpu_torch.ops.flash_attention import flash_attention
-    from aiko_services_tpu_torch.ops.flash_decode import (
-        flash_decode_attention_paged, flash_decode_attention_stacked)
-    from aiko_services_tpu_torch.ops.int8_matmul import int8_matmul
-    from aiko_services_tpu_torch.ops.topk import topk
-    return {"flash_decode_attention_stacked":
-            (flash_decode_attention_stacked, "launches"),
-            "flash_decode_attention_paged":
-            (flash_decode_attention_paged, "launches"),
-            "flash_decode_attention_stacked[int8]":
-            (flash_decode_attention_stacked, "int8_launches"),
-            "flash_decode_attention_paged[int8]":
-            (flash_decode_attention_paged, "int8_launches"),
-            "int8_matmul": (int8_matmul, "launches"),
-            "flash_attention": (flash_attention, "launches"),
-            "topk": (topk, "launches")}
+def check_verify_agreement(params, config, device) -> float:
+    """The speculative verify step against S sequential decode steps on
+    the same cache: a 1500-token prompt prefilled into slot 3, then a
+    5-token chunk per row verified at once (``_chunk_verify`` on the
+    verify kernel, one copy of the cache) and decoded token by token
+    (``decode_step`` on kernel #2, the other copy).  The logits must agree
+    to LOGITS_TOL of max |logit|."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    gen = torch.Generator(device=device).manual_seed(13)
+    b, s = 8, 5
+    cache = llama.init_cache(config, b, device=device)
+    prompt = torch.randint(0, config.vocab_size, (1, 1500), generator=gen,
+                           device=device)
+    for start in (0, 512, 1024):
+        chunk = torch.zeros((1, 512), dtype=torch.long, device=device)
+        part = prompt[:, start:start + 512]
+        chunk[:, :part.shape[1]] = part
+        _, cache = llama.prefill_into_slot(params, config, chunk, cache, 3,
+                                           start)
+    tokens = torch.randint(0, config.vocab_size, (b, s), generator=gen,
+                           device=device)
+    starts = torch.zeros((b,), dtype=torch.int32, device=device)
+    starts[3] = 1500
+    copy = {side: cache[side].clone() for side in ("k", "v")}
+    verified, _ = llama._chunk_verify(params, config, tokens, copy, starts,
+                                      config.max_seq - 1, use_flash=True)
+    del copy
+    stepped = []
+    for i in range(s):
+        logits, cache = llama.decode_step(params, config, tokens[:, i], cache,
+                                          starts + i)
+        stepped.append(logits.float())
+    stepped = torch.stack(stepped, dim=1)
+    verified = verified.float()
+    err = ((verified - stepped).abs().max() / stepped.abs().max()).item()
+    agree = int((verified.argmax(-1) == stepped.argmax(-1)).sum())
+    print(f"verify-step logits vs {s} sequential decode steps: max rel err "
+          f"{err:.3e} (tol {LOGITS_TOL}), argmax agree {agree}/{b * s}")
+    if not err <= LOGITS_TOL:
+        raise AssertionError(f"verify-step logits disagree: {err}")
+    del cache
+    torch.cuda.empty_cache()
+    return err
+
+
+def check_loop_graph(params, config, device, card) -> dict:
+    """One captured decode_loop block (dense cache, no speculation, ring
+    16, top-k 50, every row at temperature 0.8) replayed twice from the
+    same inputs: the sampled tokens must differ (the generator is
+    registered with the graph, so a replay draws anew).  Reports the
+    capture time and one block's device time (CUDA events)."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.loop_graph import LoopRunner
+    b, ring = 8, 16
+    cache = llama.init_cache(config, b, device=device)
+    runner = LoopRunner(params, config, batch=b, ring=ring,
+                        speculative="off", spec_tokens=4, spec_window=32,
+                        draft=None, top_k=50,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(5), history_width=1, device=device)
+    inputs = runner.inputs
+
+    def load():
+        inputs["tokens"].copy_(torch.arange(b, device=device) * 7 + 3)
+        inputs["lengths"].fill_(1000)
+        inputs["active"].fill_(True)
+        inputs["budget"].fill_(ring)
+        inputs["temperatures"].fill_(0.8)
+    load()
+    first = runner.run(cache)["emitted"].clone()
+    load()
+    second = runner.run(cache)["emitted"].clone()
+    torch.cuda.synchronize()
+    differ = int((first != second).sum())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        load()
+        runner.run(cache)
+    end.record()
+    torch.cuda.synchronize()
+    block_ms = start.elapsed_time(end) / 5
+    out = {"capture_s": runner.capture_s, "replays": runner.replays,
+           "block_device_ms": block_ms, "ring": ring, "rows": b,
+           "sampled_tokens_differing": differ, "card": card}
+    print(f"loop graph: {json.dumps(out)}", flush=True)
+    if not differ:
+        raise AssertionError("two replays of one captured block from the "
+                             "same inputs at temperature 0.8 drew the same "
+                             "tokens: the generator is not advancing")
+    del runner, cache
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_plan(plan, params, config, device, card, runs, launches) -> None:
-    """Serve each (label, requests, options) of ``plan``: every counter
-    zeroed just before the run and read just after; the run's decode
-    kernel (stacked on dense runs, paged on paged runs, the int8 payload
-    with an int8 cache) and every other kernel of its path must launch,
-    and no decode kernel of another layout or payload may."""
-    counters = _counters()
+    """Serve each (label, requests, options[, path]) of ``plan``: every
+    launch counter of the port zeroed just before the run and read just
+    after; every kernel of the run's path must launch and no other may.
+    The default path is the run's decode kernel (stacked on dense runs,
+    paged on paged runs, the int8 payload with an int8 cache), #4, #6
+    and, on a quantized tree, #5; device-loop runs name theirs."""
+    from aiko_services_tpu_torch.ops import launch_counters
+    counters = launch_counters()
     int8 = config.kv_dtype == "int8"
+    suffix = "[int8]" if int8 else ""
     quantized = isinstance(params["unembed"], dict)
-    for label, requests, options in plan:
+    for label, requests, options, *path in plan:
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         runs[label] = serve(params, config, requests, label, device, card,
@@ -888,8 +1160,10 @@ def run_plan(plan, params, config, device, card, runs, launches) -> None:
               f"launches {json.dumps(counts)}", flush=True)
         decode = "flash_decode_attention_paged" if "kv_page_tokens" \
             in options else "flash_decode_attention_stacked"
-        decode += "[int8]" if int8 else ""
-        wanted = {decode, "flash_attention", "topk"} \
+        wanted = {name + suffix if name.startswith("flash_") and
+                  name != "flash_attention" else name
+                  for name in (path[0] if path else {decode})} \
+            | {"flash_attention", "topk"} \
             | ({"int8_matmul"} if quantized else set())
         for name, count in counts.items():
             if (count > 0) != (name in wanted):
@@ -932,8 +1206,9 @@ def main() -> int:
                 print(f"  {source}: {line.strip()}")
 
     kernels = [check_decode(device), *check_paged(device),
-               *check_int8_decode(device), check_int8_matmul(device),
-               check_attention(device), check_topk(device)]
+               *check_int8_decode(device), *check_verify(device),
+               check_int8_matmul(device), check_attention(device),
+               check_topk(device)]
     for entry in kernels:
         print(f"{entry['name']}: {entry['ms']:.4f} ms (plain "
               f"{entry['plain_ms']:.4f}, library {entry['library_ms']:.4f}, "
@@ -1006,7 +1281,41 @@ def main() -> int:
                              "no leaked page")
     check_dense_agreement(params, config, device)
 
-    # -- phase 4: int8 serving on the same weights, quantized ----------------
+    # -- phase 4: the device-resident loop, bf16 tree ------------------------
+    loop = dict(decode_block_tokens=16)
+    spec = dict(spec_tokens=4, **loop)
+    loop_plan = [
+        ("loop-16", mixed, dict(loop), {"flash_decode_attention_stacked"}),
+        ("loop-ngram-paged-16", mixed,
+         dict(speculative="ngram", **spec, **paged),
+         {"flash_verify_attention_paged"}),
+        ("loop-draft-16", mixed, dict(speculative="draft", **spec),
+         {"flash_verify_attention_stacked", "int8_matmul"}),
+        ("loop-recover-16", mixed, dict(recover_at=3, **loop),
+         {"flash_decode_attention_stacked"})]
+    run_plan(loop_plan, params, config, device, card, runs, launches)
+    agree = greedy_agree("dense-1", "loop-16", greedy)
+    print(f"greedy streams equal, dense-1 and loop-16: {agree}/{len(greedy)}")
+    if agree != len(greedy):
+        raise AssertionError("loop-16 emitted other greedy tokens than "
+                             "dense-1")
+    for label in ("loop-ngram-paged-16", "loop-draft-16"):
+        metrics = runs[label]["metrics"]
+        print(f"{label}: greedy streams equal to dense-1 "
+              f"{greedy_agree('dense-1', label, greedy)}/{len(greedy)} "
+              f"(reported: bf16 near-ties may flip a verify argmax); "
+              f"{metrics['accepted_tokens']} of {metrics['draft_tokens']} "
+              f"draft tokens accepted")
+        if metrics["draft_tokens"] <= 0 or runs[label]["leaked"]:
+            raise AssertionError(f"{label}: no draft tokens, or leaked pages")
+    if runs["loop-draft-16"]["metrics"]["accepted_tokens"] <= 0:
+        raise AssertionError("loop-draft-16 accepted no draft token")
+    if runs["loop-recover-16"]["metrics"]["recoveries"] != 1:
+        raise AssertionError("loop-recover-16: expected one recovery")
+    check_verify_agreement(params, config, device)
+    check_loop_graph(params, config, device, card)
+
+    # -- phase 5: int8 serving on the same weights, quantized ----------------
     begin = time.perf_counter()
     qparams = quantize_params(params)
     del params
@@ -1018,8 +1327,15 @@ def main() -> int:
           f"tree {tree_gb:.3f} GB (bf16 tree freed)", flush=True)
     int8_config = dataclasses.replace(config, kv_dtype="int8")
     int8_plan = [("int8-dense-4", mixed, dict(decode_block=4)),
-                 ("int8-paged-1", mixed, dict(decode_block=1, **paged))]
+                 ("int8-paged-1", mixed, dict(decode_block=1, **paged)),
+                 ("int8-loop-ngram-paged-16", mixed,
+                  dict(speculative="ngram", **spec, **paged),
+                  {"flash_verify_attention_paged"})]
     run_plan(int8_plan, qparams, int8_config, device, card, runs, launches)
+    int8_loop = runs["int8-loop-ngram-paged-16"]
+    if int8_loop["metrics"]["draft_tokens"] <= 0 or int8_loop["leaked"]:
+        raise AssertionError("int8-loop-ngram-paged-16: no draft tokens, or "
+                             "leaked pages")
     agree = greedy_agree("int8-dense-4", "int8-paged-1", greedy)
     leaked = runs["int8-paged-1"]["leaked"]
     print(f"int8: greedy streams equal, int8-dense-4 and int8-paged-1: "

@@ -169,3 +169,150 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, m):
     want = int8_matmul_reference(x, leaf["int8"], leaf["scale"])
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
                                rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_tokens", [64, 16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_verify_kernels_match_plain_and_each_other(cuda_device, page_tokens,
+                                                   int8):
+    """The chunk-verify kernel: the paged form walking a scattered table is
+    bitwise equal to the stacked form on the gathered view, and both hold
+    the plain version, for f32 and bf16 queries, over bf16 and int8
+    caches, with starts 0, 1, mid-page and the last position."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    b, pps, kv, hd, h, s = 4, 5, 2, 128, 8, 5
+    pages = b * pps + 1
+    t = pps * page_tokens
+    shape = (2, pages, page_tokens, kv * hd)
+    if int8:
+        (k_pool, ks_pool), (v_pool, vs_pool) = (
+            _int8_pool(shape, gen, cuda_device) for _ in range(2))
+    else:
+        k_pool, v_pool = (torch.randn(shape, generator=gen,
+                                      device=cuda_device).to(torch.bfloat16)
+                          for _ in range(2))
+        ks_pool = vs_pool = None
+    order = torch.randperm(pages - 1, generator=gen, device=cuda_device) + 1
+    table = order.reshape(b, pps).to(torch.int32)
+    starts = torch.tensor([0, 1, t // 2 + 3, t - 1], dtype=torch.int32,
+                          device=cuda_device)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda_device)
+    rows = table.long()
+
+    def stacked(pool):
+        return None if pool is None else \
+            pool[:, rows].reshape(2, b, t, -1).contiguous()
+    for q_in in (tdec._prep_query(q, hd)[0],
+                 tdec._prep_query(q.to(torch.bfloat16), 64)[0]):
+        paged = tdec.flash_verify_attention_paged(
+            q_in, k_pool, v_pool, 1, table, starts, ks_pool, vs_pool)
+        flat = tdec.flash_verify_attention_stacked(
+            q_in, stacked(k_pool), stacked(v_pool), 1, starts,
+            stacked(ks_pool), stacked(vs_pool))
+        plain = tdec.flash_verify_attention_paged_reference(
+            q_in, k_pool, v_pool, 1, table, starts, ks_pool, vs_pool)
+        torch.cuda.synchronize()
+        for got, same, want in zip(paged, flat, plain):
+            assert torch.equal(got, same)
+            torch.testing.assert_close(got, want, **(
+                F32 if q_in.dtype == torch.float32 else BF16))
+        assert paged[0][0].abs().max() == 0 and (paged[1][0] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,page_tokens", [("off", 0), ("ngram", 16),
+                                              ("draft", 0)])
+def test_graph_replayed_loop_block_equals_eager(cuda_device, mode,
+                                                page_tokens):
+    """One decode_loop block replayed from its captured CUDA graph equals
+    the same block run eagerly at temperature 0: emitted tokens, every
+    carry and the cache, on the decode or verify kernels (head_dim 64,
+    bf16), with the launch counters advanced by the captured launches."""
+    import dataclasses
+
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.loop_graph import LoopRunner
+    from aiko_services_tpu_torch.models.paged import init_paged_cache
+    from aiko_services_tpu_torch.models.quant import draft_params
+    config = dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab_size=512, max_seq=128), dim=256,
+        hidden_dim=512, decode_attention="flash")
+    params = llama.init_params(0, config, device=cuda_device)
+    draft = draft_params(params) if mode == "draft" else None
+    b, ring = 4, 12
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def cache():
+        if page_tokens:
+            out = init_paged_cache(config, b, 128, page_tokens,
+                                   device=cuda_device)
+            out["page_table"].copy_(torch.arange(
+                1, b * 128 // page_tokens + 1, dtype=torch.int32,
+                device=cuda_device).reshape(b, -1))
+        else:
+            out = llama.init_cache(config, b, device=cuda_device)
+        for side in ("k", "v"):
+            out[side].copy_(torch.randn(out[side].shape, generator=gen,
+                                        device=cuda_device) * 0.5)
+        return out
+    eager_cache = cache()
+    graph_cache = {name: tensor.clone() for name, tensor in
+                   eager_cache.items()}
+    width = 8 if mode == "ngram" else 1
+    inputs = {
+        "tokens": torch.tensor([5, 9, 2, 7], dtype=torch.int32),
+        "lengths": torch.tensor([10, 50, 100, 0], dtype=torch.int32),
+        "active": torch.tensor([True, True, True, False]),
+        "budget": torch.tensor([12, 5, 12, 0], dtype=torch.int32),
+        "temperatures": torch.zeros(b),
+        "eos": torch.full((b, 1), -1, dtype=torch.int32),
+        "history": torch.randint(0, 9, (b, width), dtype=torch.int32)}
+    options = dict(ring=ring, speculative=mode, spec_tokens=3,
+                   spec_window=8, top_k=0)
+    dev = {name: value.to(cuda_device) for name, value in inputs.items()}
+    eager = llama.decode_loop(
+        params, config, dev["tokens"], eager_cache, dev["lengths"],
+        dev["active"], dev["budget"], dev["temperatures"], dev["eos"],
+        dev["history"], torch.Generator(device=cuda_device).manual_seed(0),
+        draft=draft, **options)
+    runner = LoopRunner(params, config, batch=b, draft=draft,
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(0), history_width=width,
+                        device=cuda_device, **options)
+    for name, value in inputs.items():
+        runner.upload(name, value.numpy())
+    before = tdec.flash_verify_attention_stacked.launches \
+        + tdec.flash_verify_attention_paged.launches \
+        + tdec.flash_decode_attention_stacked.launches \
+        + tdec.flash_decode_attention_paged.launches
+    replayed = runner.run(graph_cache)
+    torch.cuda.synchronize()
+    after = tdec.flash_verify_attention_stacked.launches \
+        + tdec.flash_verify_attention_paged.launches \
+        + tdec.flash_decode_attention_stacked.launches \
+        + tdec.flash_decode_attention_paged.launches
+    assert runner.captures == 1 and runner.replays == 1
+    # warm-up (one iteration, eager) + the replayed block's launches
+    assert after - before >= (ring - options["spec_tokens"]
+                              if mode != "off" else ring) * config.n_layers
+    names = ("emitted", "counts", "tokens", "lengths", "active", "budget",
+             "history", None, "accepted", "drafted", "steps")
+    want = {name: value for name, value in zip(names, eager) if name}
+    for row in range(b):
+        count = int(want["counts"][row])
+        assert torch.equal(replayed["emitted"][row, :count],
+                           want["emitted"][row, :count])
+    for name in names[1:]:
+        if name:
+            assert torch.equal(replayed[name], want[name]), name
+    assert int(want["counts"][1]) == 5 and int(want["counts"][3]) == 0
+    # Every position but the trash one (several clamped writes land there,
+    # in no fixed order).
+    for side in ("k", "v"):
+        got, ref = graph_cache[side], eager_cache[side]
+        if page_tokens:
+            rows = graph_cache["page_table"].long()
+            got = got[:, rows].reshape(config.n_layers, b, 128, -1)
+            ref = ref[:, rows].reshape(config.n_layers, b, 128, -1)
+        assert torch.equal(got[:, :, :127], ref[:, :, :127])
