@@ -44,8 +44,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    3rd dispatch with recover(); every request finishes, no page leaks,
    speculative runs draft tokens and the draft run accepts some.  Then
    the verify step's logits against 5 sequential decode steps on the
-   same cache, and one captured block replayed twice from the same
-   inputs at temperature 0.8 (the draws must differ);
+   same cache, one captured block replayed twice from the same inputs
+   at temperature 0.8 (the draws must differ), and one block's device
+   time in each mode;
 5. int8 serving: the same weights quantized (``quantize_params``, the
    bf16 tree freed) with ``kv_dtype="int8"``: dense at decode_block 4,
    paged at full provisioning, decode_block 1, and the ngram device loop
@@ -1086,54 +1087,72 @@ def check_verify_agreement(params, config, device) -> float:
 
 
 def check_loop_graph(params, config, device, card) -> dict:
-    """One captured decode_loop block (dense cache, no speculation, ring
-    16, top-k 50, every row at temperature 0.8) replayed twice from the
-    same inputs: the sampled tokens must differ (the generator is
-    registered with the graph, so a replay draws anew).  Reports the
-    capture time and one block's device time (CUDA events)."""
+    """Captured decode_loop blocks at the serving runs' settings (8 rows at
+    1,000 cached positions, ring 16, top-k 50).  A plain block over the
+    dense cache replayed twice from the same inputs at temperature 0.8
+    must draw different tokens (the generator is registered with the
+    graph, so a replay draws anew).  Then one block's device time (CUDA
+    events, the mean of 5 replays) for each mode: plain over the dense
+    cache, ngram over 64-token pages, the int8 self-draft over the dense
+    cache.  A block runs a fixed number of iterations, so its device time
+    does not depend on how many drafts it accepts."""
     import torch
     from aiko_services_tpu_torch.models import llama
     from aiko_services_tpu_torch.models.loop_graph import LoopRunner
+    from aiko_services_tpu_torch.models.paged import init_paged_cache
+    from aiko_services_tpu_torch.models.quant import draft_params
     b, ring = 8, 16
-    cache = llama.init_cache(config, b, device=device)
-    runner = LoopRunner(params, config, batch=b, ring=ring,
-                        speculative="off", spec_tokens=4, spec_window=32,
-                        draft=None, top_k=50,
-                        generator=torch.Generator(device=device)
-                        .manual_seed(5), history_width=1, device=device)
-    inputs = runner.inputs
+    out = {"ring": ring, "rows": b, "block_device_ms": {}, "capture_s": {}}
+    for mode, page_tokens in (("off", 0), ("ngram", 64), ("draft", 0)):
+        if page_tokens:
+            cache = init_paged_cache(config, b, config.max_seq, page_tokens,
+                                     device=device)
+            cache["page_table"].copy_(torch.arange(
+                1, b * config.max_seq // page_tokens + 1, dtype=torch.int32,
+                device=device).reshape(b, -1))
+        else:
+            cache = llama.init_cache(config, b, device=device)
+        runner = LoopRunner(
+            params, config, batch=b, ring=ring, speculative=mode,
+            spec_tokens=4, spec_window=32,
+            draft=draft_params(params) if mode == "draft" else None,
+            top_k=50, generator=torch.Generator(device=device).manual_seed(5),
+            history_width=32 if mode == "ngram" else 1, device=device)
+        inputs = runner.inputs
 
-    def load():
-        inputs["tokens"].copy_(torch.arange(b, device=device) * 7 + 3)
-        inputs["lengths"].fill_(1000)
-        inputs["active"].fill_(True)
-        inputs["budget"].fill_(ring)
-        inputs["temperatures"].fill_(0.8)
-    load()
-    first = runner.run(cache)["emitted"].clone()
-    load()
-    second = runner.run(cache)["emitted"].clone()
-    torch.cuda.synchronize()
-    differ = int((first != second).sum())
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
+        def load():
+            inputs["tokens"].copy_(torch.arange(b, device=device) * 7 + 3)
+            inputs["lengths"].fill_(1000)
+            inputs["active"].fill_(True)
+            inputs["budget"].fill_(ring)
+            inputs["temperatures"].fill_(0.8)
+        if mode == "off":
+            load()
+            first = runner.run(cache)["emitted"].clone()
+            load()
+            second = runner.run(cache)["emitted"].clone()
+            torch.cuda.synchronize()
+            out["sampled_tokens_differing"] = int((first != second).sum())
         load()
-        runner.run(cache)
-    end.record()
-    torch.cuda.synchronize()
-    block_ms = start.elapsed_time(end) / 5
-    out = {"capture_s": runner.capture_s, "replays": runner.replays,
-           "block_device_ms": block_ms, "ring": ring, "rows": b,
-           "sampled_tokens_differing": differ, "card": card}
+        runner.run(cache)                   # the capture, off the clock
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            load()
+            runner.run(cache)
+        end.record()
+        torch.cuda.synchronize()
+        out["block_device_ms"][mode] = start.elapsed_time(end) / 5
+        out["capture_s"][mode] = runner.capture_s
+        del runner, cache, inputs
+        torch.cuda.empty_cache()
+    out["card"] = card
     print(f"loop graph: {json.dumps(out)}", flush=True)
-    if not differ:
+    if not out["sampled_tokens_differing"]:
         raise AssertionError("two replays of one captured block from the "
                              "same inputs at temperature 0.8 drew the same "
                              "tokens: the generator is not advancing")
-    del runner, cache
-    torch.cuda.empty_cache()
     return out
 
 
