@@ -74,7 +74,8 @@ def launch_counters() -> dict:
     """Every kernel launch counter of the port: name -> (wrapper, the
     wrapper's attribute).  A wrapper adds one where it launches its
     kernel, and nowhere else; the decode and verify wrappers count bf16
-    and int8 payloads apart (``[int8]`` names)."""
+    and int8 payloads apart (``[int8]`` names), the int8 matmul its
+    decode route (M <= 16) and its admission route (``[M>16]``)."""
     from .flash_attention import flash_attention
     from .flash_decode import (flash_decode_attention,
                                flash_decode_attention_paged,
@@ -91,4 +92,5 @@ def launch_counters() -> dict:
         counters[f"{wrapper.__name__}[int8]"] = (wrapper, "int8_launches")
     for wrapper in (int8_matmul, flash_attention, topk):
         counters[wrapper.__name__] = (wrapper, "launches")
+    counters["int8_matmul[M>16]"] = (int8_matmul, "wide_launches")
     return counters

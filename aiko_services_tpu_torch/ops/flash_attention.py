@@ -4,8 +4,9 @@ Counterpart of ``aiko_services_tpu/ops/pallas_attention.py``
 (``flash_attention``): q [B, S, H, d] attends k/v [B, T, K, d] with GQA,
 causal from the absolute offset ``q_offset`` of query row 0.  The kernel
 is ``csrc/flash_attention.cu`` (its header says what bounds it and how
-it is laid out); on a CPU tensor the wrapper runs the plain PyTorch
-version below, on a CUDA tensor it launches the kernel or raises.
+it is laid out): bf16 inputs take its tensor-core body, f32 inputs its
+FMA body.  On a CPU tensor the wrapper runs the plain PyTorch version
+below, on a CUDA tensor it launches the kernel or raises.
 
 The TPU kernel's ``pack_heads`` option is not ported: it paired two
 kv heads per grid row to fill the 128-wide MXU at head_dim 64, a trick
@@ -25,7 +26,9 @@ from .layers import NEG_INF
 __all__ = ["flash_attention", "flash_attention_reference"]
 
 _HEAD_DIMS = (64, 128)
-_ROWS = 64            # query rows per kernel block (G heads x 64/G positions)
+# Query rows per kernel block (G heads x rows/G positions): the bf16
+# tensor-core body's and the f32 FMA body's.
+_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 
 
 def _fold_scale(q: torch.Tensor, d: int):
@@ -81,10 +84,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
-    if d not in _HEAD_DIMS or h % kv or _ROWS % (h // kv):
+    rows = _ROWS.get(q.dtype, 64)
+    if d not in _HEAD_DIMS or h % kv or rows % (h // kv):
         raise ValueError(
             f"flash_attention: head_dim {d} (one of {_HEAD_DIMS}) or "
-            f"query groups {h}/{kv} (must divide {_ROWS}) not supported")
+            f"query groups {h}/{kv} (must divide {rows}) not supported")
     if k.shape != (b, t, kv, d) or v.shape != k.shape \
             or v.stride() != k.stride():
         raise ValueError(
@@ -96,11 +100,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{v.dtype}; one of bf16 or f32 for all three")
     if k.stride(3) != 1:
         raise ValueError("flash_attention: k/v need a unit-stride last dim")
+    if q.dtype == torch.bfloat16 and (
+            k.data_ptr() % 16 or v.data_ptr() % 16
+            or any(stride % 8 for stride in k.stride()[:3])):
+        raise ValueError("flash_attention: bf16 k/v rows are copied in "
+                         "16-byte pieces; they need 16-byte aligned "
+                         "pointers and strides")
     if not 0 <= int(q_offset) <= t:
         raise ValueError(f"flash_attention: q_offset {q_offset} outside "
                          f"[0, {t}]")
     q, scale = _fold_scale(q, d)
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _build.entry("aiko_flash_attention", _ARGTYPES)(

@@ -7,7 +7,11 @@ result is [M, F] in x's dtype, accumulated in float32 with the scale
 applied once, at the store.  The kernel is ``csrc/int8_matmul.cu`` (its
 header says what bounds it and how it is laid out): the weight streams
 as int8 bytes and is converted to bf16 in shared memory, so no
-dequantized weight and no unscaled product reach device memory.
+dequantized weight and no unscaled product reach device memory.  Two
+routes, picked by M: the decode route (M <= 16, counted in
+``int8_matmul.launches``) and the tensor-core admission route (M > 16:
+prompt chunks and the verify forward, counted in
+``int8_matmul.wide_launches``).
 
 On a CPU tensor the wrapper runs the plain version below; on a CUDA
 tensor it launches the kernel or raises (bf16 x, D a multiple of 8 and
@@ -23,7 +27,10 @@ import torch
 
 from . import _build
 
-__all__ = ["int8_matmul", "int8_matmul_reference"]
+__all__ = ["int8_matmul", "int8_matmul_reference", "kernel_tiles"]
+
+#: the largest M the decode route takes; larger M takes the admission route.
+DECODE_ROWS = 16
 
 
 def int8_matmul_reference(x: torch.Tensor, w_int8: torch.Tensor,
@@ -78,8 +85,23 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor,
         x.data_ptr(), w_int8.data_ptr(), scale.data_ptr(), out.data_ptr(),
         m, d, f, stream)
     _build.check(status, "int8_matmul")
-    int8_matmul.launches += 1
+    if m <= DECODE_ROWS:
+        int8_matmul.launches += 1
+    else:
+        int8_matmul.wide_launches += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.wide_launches = 0
+
+
+def kernel_tiles(m: int, f: int) -> tuple[int, int, int]:
+    """(tile rows, tile columns, blocks) of the kernel's launch for an
+    [m, *] @ [*, f] product (builds the kernel library)."""
+    values = [ctypes.c_int() for _ in range(3)]
+    _build.entry("aiko_int8_matmul_tiles",
+                 [ctypes.c_int, ctypes.c_int]
+                 + [ctypes.POINTER(ctypes.c_int)] * 3,
+                 None)(m, f, *(ctypes.byref(v) for v in values))
+    return tuple(v.value for v in values)

@@ -12,10 +12,11 @@ through the flash admission path, then times with CUDA events and
 - one admission chunk (``prefill_into_slot``, 512 tokens at offset 1024);
 - ``decode_step`` + ``select_tokens`` (top-k 50), host clock and device
   clock over 20 steps each;
-- device kernel time by name over 5 profiled decode steps, and the
-  device's busy share of that window (sum of kernel times / wall);
-  host self time by operator over the same steps (where the enqueue
-  time goes; the profiler's own cost inflates it).
+- device kernel time by name over 5 profiled admission chunks and 5
+  profiled decode steps, and the device's busy share of each window
+  (sum of kernel times / wall); host self time by operator over the
+  same calls (where the enqueue time goes; the profiler's own cost
+  inflates it).
 
 Prints one JSON object per measurement, each with the card's name and
 power limit.  Needs a CUDA card.
@@ -107,13 +108,24 @@ def main(argv: list[str]) -> int:
                         "host_enqueue_ms": enqueue_ms, "wall_ms": wall_ms,
                         "card": card})
 
+    for name, fn in (("prefill_chunk", prefill_once),
+                     ("decode_step", decode_once)):
+        results.append(_profile(name, fn, mode, card))
+    for entry in results:
+        print(json.dumps(entry))
+    return 0
+
+
+def _profile(name: str, fn, mode: str, card: str, calls: int = 5) -> dict:
+    """Device kernel time by name, the device's busy share and host self
+    time by operator over ``calls`` profiled calls of ``fn``."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
         begin = time.perf_counter()
-        for _ in range(5):
-            decode_once()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - begin) * 1e3
     kernels, host = {}, {}
@@ -122,27 +134,22 @@ def main(argv: list[str]) -> int:
         if device_us is None:
             device_us = getattr(event, "cuda_time_total", 0)
         if device_us and event.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[event.key] = device_us / 1e3 / 5
+            kernels[event.key] = device_us / 1e3 / calls
         elif event.device_type == torch.autograd.DeviceType.CPU:
-            host[event.key] = (event.self_cpu_time_total / 1e3 / 5,
-                               event.count // 5)
+            host[event.key] = (event.self_cpu_time_total / 1e3 / calls,
+                               event.count // calls)
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda item: -item[1])[:12]
     host_top = sorted(host.items(), key=lambda item: -item[1][0])[:12]
-    results.append({"measure": "decode_step_kernels_ms_per_step",
-                    "mode": mode,
-                    "window_ms_per_step": window_ms / 5,
-                    "device_busy_ms_per_step": busy_ms,
-                    "device_busy_share": busy_ms / (window_ms / 5),
-                    "top": [[name[:80], ms] for name, ms in top],
-                    "host_self_ms_per_step": sum(ms for ms, _ in
-                                                 host.values()),
-                    "host_top": [[name[:60], ms, calls]
-                                 for name, (ms, calls) in host_top],
-                    "card": card})
-    for entry in results:
-        print(json.dumps(entry))
-    return 0
+    return {"measure": f"{name}_kernels_ms_per_step", "mode": mode,
+            "window_ms_per_step": window_ms / calls,
+            "device_busy_ms_per_step": busy_ms,
+            "device_busy_share": busy_ms / (window_ms / calls),
+            "top": [[key[:80], ms] for key, ms in top],
+            "host_self_ms_per_step": sum(ms for ms, _ in host.values()),
+            "host_top": [[key[:60], ms, count]
+                         for key, (ms, count) in host_top],
+            "card": card}
 
 
 if __name__ == "__main__":

@@ -18,8 +18,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    also held BITWISE against the flat kernel (#1) on the gathered view,
    at 64- and 16-token pages, over bf16 and over int8 caches; the int8
    matmul (#5) is held exactly on grid inputs and within a stated
-   tolerance on random ones, at the decode and prefill unembed and the
-   decode w_down shapes; the chunk-verify kernel (speculative decoding's
+   tolerance on random ones, at the decode and prefill unembed, the
+   decode w_down, the admission chunk's w_up, w_down and wk (M 512) and
+   the verify forward's w_up (M 40) shapes; prefill attention (#4) at
+   offsets 0 and 1536; the chunk-verify kernel (speculative decoding's
    verify step, S 5) stacked and paged, bf16 and int8, f32 and bf16
    queries, the paged form BITWISE against the stacked form on the
    gathered view at 64- and 16-token pages;
@@ -50,8 +52,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 5. int8 serving: the same weights quantized (``quantize_params``, the
    bf16 tree freed) with ``kv_dtype="int8"``: dense at decode_block 4,
    paged at full provisioning, decode_block 1, and the ngram device loop
-   over 64-token pages -- #5, the int8 decode or verify kernels, #4 and
-   #6 must launch, no bf16 attention kernel may; greedy streams equal
+   over 64-token pages -- #5 (its admission route on every run, its
+   decode route on the two host-loop runs), the int8 decode or verify
+   kernels, #4 and #6 must launch, no bf16 attention kernel may (#5's
+   routes are counted apart); greedy streams equal
    across the first two, no leaked page; kernel-path logits within 5 %
    of the plain path on the same quantized tree.
 
@@ -98,21 +102,6 @@ def card_line() -> str:
     return result.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean CUDA-event time of ``fn`` over ``iters`` launches."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_ms(n_bytes: float, flops: float, flop_type: str):
     """(least time in ms, what bounds it) at the card's peaks."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S
@@ -147,6 +136,7 @@ def check_decode(device) -> dict:
     scaled queries [8, 32, 128] against a [32, 8, 2048, 1024] bf16
     cache, ragged lengths including 0 and T-1."""
     import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops import flash_decode as fd
     gen = torch.Generator(device=device).manual_seed(1)
     n_layers, b, t, kv, hd, h = 32, 8, 2048, 8, 128, 32
@@ -181,9 +171,9 @@ def check_decode(device) -> dict:
             raise AssertionError(f"decode kernel disagrees: {err} > {tol}")
         errors[q_in.dtype] = err
     worst = errors[torch.float32]
-    ms = time_ms(lambda: fd.flash_decode_attention_stacked(
+    ms = graph_ms(lambda: fd.flash_decode_attention_stacked(
         q_scaled, k, v, layer, lengths))
-    plain = time_ms(lambda: fd.flash_decode_attention_stacked_reference(
+    plain = graph_ms(lambda: fd.flash_decode_attention_stacked_reference(
         q_scaled, k, v, layer, lengths), iters=5)
     # Yardstick: SDPA over the same cache view (normalised output, no
     # m/l), lengths as a boolean mask.
@@ -194,8 +184,9 @@ def check_decode(device) -> dict:
     mask = (torch.arange(t, device=device)[None, :]
             < lengths[:, None])[:, None, None, :]
     qs = q.float().to(torch.bfloat16)[:, :, None, :]
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask))
+    library = graph_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask))
     # Bytes: the live k/v rows (bf16), the f32 queries in, acc/m/l out.
     live_tokens = int(lengths.sum().item())
     n_bytes = 2 * live_tokens * kv * hd * 2 \
@@ -210,10 +201,12 @@ def check_decode(device) -> dict:
 
 
 def check_attention(device) -> dict:
-    """flash_attention at the last admission chunks of a 2048-token
-    prompt: q [1, 512, 32, 128] against k/v [1, 2048, 8, 128] bf16 at
-    q_offset 0 and 1536."""
+    """flash_attention at the first and the last admission chunk of a
+    2048-token prompt: q [1, 512, 32, 128] against k/v [1, 2048, 8, 128]
+    bf16 at q_offset 0 and 1536, each within ATTENTION_TOL of the plain
+    version and timed beside SDPA; the line's numbers are offset 1536's."""
     import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=device).manual_seed(2)
     b, s, h, t, kv, d = 1, 512, 32, 2048, 8, 128
@@ -223,8 +216,10 @@ def check_attention(device) -> dict:
         torch.bfloat16)
     v = torch.randn((b, t, kv, d), generator=gen, device=device).to(
         torch.bfloat16)
-    worst = 0.0
-    timed = {}
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+    shapes = {}
     for offset in (0, 1536):
         out = fa.flash_attention(q, k, v, q_offset=offset)
         ref = fa.flash_attention_reference(q, k, v, offset)
@@ -234,34 +229,41 @@ def check_attention(device) -> dict:
               f"(tol {ATTENTION_TOL})")
         if not err <= ATTENTION_TOL:
             raise AssertionError(f"attention kernel disagrees: {err}")
-        worst = max(worst, err)
-    offset = 1536
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, q_offset=offset))
-    plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, offset),
-                    iters=5)
-    qt = q.transpose(1, 2)
-    kt = k.transpose(1, 2).repeat_interleave(h // kv, dim=1)
-    vt = v.transpose(1, 2).repeat_interleave(h // kv, dim=1)
-    mask = torch.arange(t, device=device)[None, :] \
-        <= offset + torch.arange(s, device=device)[:, None]
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask))
-    pairs = sum(min(t, offset + i + 1) for i in range(s))
-    flops = 4 * b * h * d * pairs
-    n_bytes = (2 * q.numel() + 2 * k.numel()) * 2
-    bound, by = bound_ms(n_bytes, flops, "bf16")
-    timed.update({"name": "flash_attention", "route": "cuda",
-                  "source": "aiko_services_tpu_torch/csrc/flash_attention.cu",
-                  "replaces": "aiko_services_tpu/ops/pallas_attention.py:138",
-                  "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-                  "bound_ms": bound, "bound_by": by, "library_ms": library})
-    return timed
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, q_offset=offset))
+        plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v,
+                                                             offset),
+                        iters=5)
+        mask = torch.arange(t, device=device)[None, :] \
+            <= offset + torch.arange(s, device=device)[:, None]
+        library = graph_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        pairs = sum(min(t, offset + i + 1) for i in range(s))
+        flops = 4 * b * h * d * pairs
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * 2
+        bound, by = bound_ms(n_bytes, flops, "bf16")
+        shapes[f"q_offset={offset}"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": library, "max_abs_err": err,
+            "tflops": flops / ms / 1e9}
+        print(f"attention q_offset={offset}: {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.4f}, SDPA "
+              f"{library:.4f}, bound {bound:.4f} by {by})", flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "aiko_services_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "aiko_services_tpu/ops/pallas_attention.py:138",
+            **{key: value for key, value in shapes["q_offset=1536"].items()
+               if key != "tflops"},
+            "max_abs_err": max(entry["max_abs_err"]
+                               for entry in shapes.values()),
+            "shapes": shapes}
 
 
 def check_topk(device) -> dict:
     """topk on [8, 128256] f32 logits with planted ties and one mostly
     -inf row, at k 1 and 50; exact agreement with the plain version."""
     import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops.topk import topk, topk_reference
     gen = torch.Generator(device=device).manual_seed(3)
     b, vocab = 8, 128_256
@@ -281,9 +283,9 @@ def check_topk(device) -> dict:
             if len(set(row)) != k:
                 raise AssertionError(f"topk: duplicate index at k={k}")
         print(f"topk k={k}: exact (values and indices)")
-    ms = time_ms(lambda: topk(x, 50))
-    plain = time_ms(lambda: topk_reference(x, 50), iters=5)
-    library = time_ms(lambda: torch.topk(x, 50))
+    ms = graph_ms(lambda: topk(x, 50))
+    plain = graph_ms(lambda: topk_reference(x, 50), iters=5)
+    library = graph_ms(lambda: torch.topk(x, 50))
     n_bytes = x.numel() * 4 + b * 50 * 8
     bound, by = bound_ms(n_bytes, x.numel(), "f32")
     return {"name": "topk", "route": "cuda",
@@ -303,6 +305,7 @@ def check_paged(device) -> list[dict]:
     the gathered contiguous view, at 64- and at 16-token pages (the same
     pools seen as [32, 1028, 16, 1024]); #1 against its plain version."""
     import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops import flash_decode as fd
     gen = torch.Generator(device=device).manual_seed(4)
     n_layers, b, t, kv, hd, h, pt = 32, 8, 2048, 8, 128, 32, 64
@@ -374,13 +377,13 @@ def check_paged(device) -> list[dict]:
             raise AssertionError("the paged kernel at 16-token pages is not "
                                  "bitwise equal to the flat kernel")
     kg, vg = gathered(pool_k, table), gathered(pool_v, table)
-    ms = time_ms(lambda: fd.flash_decode_attention_paged(
+    ms = graph_ms(lambda: fd.flash_decode_attention_paged(
         q_scaled, pool_k, pool_v, layer, table, lengths))
-    plain = time_ms(lambda: fd.flash_decode_attention_paged_reference(
+    plain = graph_ms(lambda: fd.flash_decode_attention_paged_reference(
         q_scaled, pool_k, pool_v, layer, table, lengths), iters=5)
-    flat_ms = time_ms(lambda: fd.flash_decode_attention(q_scaled, kg, vg,
+    flat_ms = graph_ms(lambda: fd.flash_decode_attention(q_scaled, kg, vg,
                                                         lengths))
-    flat_plain = time_ms(lambda: fd.flash_decode_attention_reference(
+    flat_plain = graph_ms(lambda: fd.flash_decode_attention_reference(
         q_scaled, kg, vg, lengths), iters=5)
     # Yardstick for both: SDPA over the PRE-GATHERED contiguous view
     # (normalised output, no m/l; no single PyTorch call walks a page
@@ -392,8 +395,9 @@ def check_paged(device) -> list[dict]:
     mask = (torch.arange(t, device=device)[None, :]
             < lengths[:, None])[:, None, None, :]
     qs = q[:, :, None, :]
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kt, vt, attn_mask=mask))
+    library = graph_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask))
     flat_launches = fd.flash_decode_attention.launches
     live_tokens = int(lengths.sum().item())
     live_pages = int(((lengths + pt - 1) // pt).sum().item())
@@ -459,6 +463,7 @@ def check_int8_decode(device) -> list[dict]:
     on the gathered view -- each against its plain version; #3 BITWISE
     against #1 at 64- and 16-token pages."""
     import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops import flash_decode as fd
     gen = torch.Generator(device=device).manual_seed(6)
     n_layers, b, t, kv, hd, h, pt = 32, 8, 2048, 8, 128, 32, 64
@@ -554,7 +559,7 @@ def check_int8_decode(device) -> list[dict]:
             lambda: fd.flash_decode_attention_reference(
                 q_scaled, *views[:2], lengths, *views[2:]))}
     fd.flash_decode_attention.int8_launches = 0
-    times = {name: (time_ms(kernel), time_ms(plain, iters=5))
+    times = {name: (graph_ms(kernel), graph_ms(plain, iters=5))
              for name, (kernel, plain) in timed.items()}
     flat_launches = fd.flash_decode_attention.int8_launches
 
@@ -566,8 +571,9 @@ def check_int8_decode(device) -> list[dict]:
     kt, vt = sdpa_inputs(views[0], views[2]), sdpa_inputs(views[1], views[3])
     mask = (torch.arange(t, device=device)[None, :]
             < lengths[:, None])[:, None, None, :]
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None, :], kt, vt, attn_mask=mask))
+    library = graph_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], kt, vt, attn_mask=mask))
     live_tokens = int(lengths.sum().item())
     live_pages = int(((lengths + pt - 1) // pt).sum().item())
     io_bytes = q_scaled.numel() * q_scaled.element_size() \
@@ -606,6 +612,7 @@ def check_verify(device) -> list[dict]:
     is SDPA over the pre-gathered (dequantized) view, the cache part
     only."""
     import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops import flash_decode as fd
     gen = torch.Generator(device=device).manual_seed(12)
     n_layers, b, t, kv, hd, h, s, pt = 32, 8, 2048, 8, 128, 32, 5, 64
@@ -675,18 +682,18 @@ def check_verify(device) -> list[dict]:
         suffix = "[int8]" if payload == "int8" else ""
         fd.flash_verify_attention_stacked.int8_launches = 0
         timed[f"flash_verify_attention_stacked{suffix}"] = (
-            time_ms(lambda: fd.flash_verify_attention_stacked(
+            graph_ms(lambda: fd.flash_verify_attention_stacked(
                 q_scaled, views[0], views[1], 0, starts, *views[2:])),
-            time_ms(lambda: fd.flash_verify_attention_stacked_reference(
+            graph_ms(lambda: fd.flash_verify_attention_stacked_reference(
                 q_scaled, views[0], views[1], 0, starts, *views[2:]),
                 iters=5))
         if payload == "int8":
             stacked_int8_launches = fd.flash_verify_attention_stacked \
                 .int8_launches
         timed[f"flash_verify_attention_paged{suffix}"] = (
-            time_ms(lambda: fd.flash_verify_attention_paged(
+            graph_ms(lambda: fd.flash_verify_attention_paged(
                 q_scaled, k_pool, v_pool, layer, table, starts, ks, vs)),
-            time_ms(lambda: fd.flash_verify_attention_paged_reference(
+            graph_ms(lambda: fd.flash_verify_attention_paged_reference(
                 q_scaled, k_pool, v_pool, layer, table, starts, ks, vs),
                 iters=5))
         # Yardstick: SDPA of the S queries over the pre-gathered view (the
@@ -702,7 +709,7 @@ def check_verify(device) -> list[dict]:
             .repeat_interleave(h // kv, dim=1)
         mask = (torch.arange(t, device=device)[None, :]
                 < starts[:, None])[:, None, None, :]
-        library = time_ms(
+        library = graph_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), kt, vt, attn_mask=mask))
         timed[f"library{suffix}"] = library
@@ -740,20 +747,30 @@ def check_verify(device) -> list[dict]:
 
 
 def check_int8_matmul(device) -> dict:
-    """int8_matmul (#5) at the serving path's shapes: the decode unembed
-    (M 8, D 4,096, F 128,256), the prefill unembed (M 512) and the decode
-    w_down (M 8, D 14,336, F 4,096).  Exact against the plain version on
-    grid inputs (integer x, power-of-two scales: every product and sum
-    is an exact float) at every shape; within INT8_MATMUL_TOL of max
-    |out| on random bf16 inputs with quantizer-made weights."""
+    """int8_matmul (#5) at the serving path's shapes.  Decode route (M 8):
+    the decode unembed (D 4,096, F 128,256) and w_down (D 14,336, F
+    4,096).  Admission route (M > 16): the prefill unembed (M 512), the
+    layer leaves that dominate an int8 admission chunk at M 512 (w_up
+    4,096 x 14,336, w_down 14,336 x 4,096, wk 4,096 x 1,024) and w_up at
+    the verify forward's M 40.  Exact against the plain version on grid
+    inputs (integer x, power-of-two scales: every product and sum is an
+    exact float) at every shape; within INT8_MATMUL_TOL of max |out| on
+    random bf16 inputs with quantizer-made weights.  Each shape is timed
+    beside cuBLAS bf16 on the dequantized weight, with its tile and
+    grid."""
     import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.models.quant import quantize_weight
     from aiko_services_tpu_torch.ops.int8_matmul import (
-        int8_matmul, int8_matmul_reference)
+        int8_matmul, int8_matmul_reference, kernel_tiles)
     gen = torch.Generator(device=device).manual_seed(8)
     shapes = {"decode_unembed": (8, 4096, 128_256),
               "prefill_unembed": (512, 4096, 128_256),
-              "decode_w_down": (8, 14_336, 4096)}
+              "decode_w_down": (8, 14_336, 4096),
+              "prefill_w_up": (512, 4096, 14_336),
+              "prefill_w_down": (512, 14_336, 4096),
+              "prefill_wk": (512, 4096, 1024),
+              "verify_w_up": (40, 4096, 14_336)}
     weights = {}
     for d, f in sorted({(d, f) for _, d, f in shapes.values()}):
         w = torch.randint(-127, 128, (d, f), generator=gen, device=device,
@@ -776,32 +793,42 @@ def check_int8_matmul(device) -> dict:
         want = int8_matmul_reference(x, leaf["int8"], leaf["scale"]).float()
         torch.cuda.synchronize()
         err = ((got - want).abs().max() / want.abs().max()).item()
+        tile_m, tile_n, blocks = kernel_tiles(m, f)
         print(f"int8_matmul {label} [{m}x{d}]@[{d}x{f}]: grid inputs exact "
-              f"{exact}; random rel err {err:.3e} (tol {INT8_MATMUL_TOL})")
+              f"{exact}; random rel err {err:.3e} (tol {INT8_MATMUL_TOL}); "
+              f"tile {tile_m}x{tile_n}, {blocks} blocks")
         if not exact or not err <= INT8_MATMUL_TOL:
             raise AssertionError(f"int8_matmul disagrees at {label}")
         dense = (leaf["int8"].float() * leaf["scale"]).to(torch.bfloat16)
-        ms = time_ms(lambda: int8_matmul(x, leaf["int8"], leaf["scale"]))
-        plain = time_ms(lambda: int8_matmul_reference(
+        ms = graph_ms(lambda: int8_matmul(x, leaf["int8"], leaf["scale"]))
+        plain = graph_ms(lambda: int8_matmul_reference(
             x, leaf["int8"], leaf["scale"]), iters=5)
-        library = time_ms(lambda: torch.matmul(x, dense))
+        library = graph_ms(lambda: torch.matmul(x, dense))
         del dense
         n_bytes = m * d * 2 + d * f + f * 4 + m * f * 2
-        bound, by = bound_ms(n_bytes, 2.0 * m * d * f, "bf16")
+        flops = 2.0 * m * d * f
+        bound, by = bound_ms(n_bytes, flops, "bf16")
         out[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                       "bound_by": by, "library_ms": library,
-                      "max_abs_err": err}
-        print(f"int8_matmul {label}: {ms:.4f} ms (plain {plain:.4f}, cuBLAS "
-              f"bf16 on the dequantized weight {library:.4f}, bound "
-              f"{bound:.4f} by {by})", flush=True)
+                      "max_abs_err": err, "matmul_route": "m<=16" if m <= 16
+                      else "m>16", "tile": f"{tile_m}x{tile_n}",
+                      "blocks": blocks}
+        print(f"int8_matmul {label}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s; plain {plain:.4f}, cuBLAS bf16 on the dequantized "
+              f"weight {library:.4f}, bound {bound:.4f} by {by})",
+              flush=True)
     del weights
     torch.cuda.empty_cache()
     main = out["decode_unembed"]
     return {"name": "int8_matmul", "route": "cuda",
             "source": "aiko_services_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "aiko_services_tpu/ops/pallas_matmul.py:73",
-            **main, "library": "torch.matmul (cuBLAS bf16) on the "
-            "dequantized weight", "max_abs_err_is": "relative to max |out|",
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "max_abs_err": max(entry["max_abs_err"]
+                               for entry in out.values()),
+            "library": "torch.matmul (cuBLAS bf16) on the dequantized "
+            "weight", "max_abs_err_is": "relative to max |out|",
             "shapes": out}
 
 
@@ -1162,7 +1189,9 @@ def run_plan(plan, params, config, device, card, runs, launches) -> None:
     after; every kernel of the run's path must launch and no other may.
     The default path is the run's decode kernel (stacked on dense runs,
     paged on paged runs, the int8 payload with an int8 cache), #4, #6
-    and, on a quantized tree, #5; device-loop runs name theirs."""
+    and, on a quantized tree, #5's admission route (M > 16: prompt
+    chunks, verify forwards) and its decode route (M <= 16); device-loop
+    runs name theirs, the decode route among them where it runs."""
     from aiko_services_tpu_torch.ops import launch_counters
     counters = launch_counters()
     int8 = config.kv_dtype == "int8"
@@ -1183,7 +1212,8 @@ def run_plan(plan, params, config, device, card, runs, launches) -> None:
                   name != "flash_attention" else name
                   for name in (path[0] if path else {decode})} \
             | {"flash_attention", "topk"} \
-            | ({"int8_matmul"} if quantized else set())
+            | ({"int8_matmul[M>16]"} | (set() if path else {"int8_matmul"})
+               if quantized else set())
         for name, count in counts.items():
             if (count > 0) != (name in wanted):
                 raise AssertionError(
@@ -1369,6 +1399,11 @@ def main() -> int:
     for entry in kernels:
         if entry.get("path") != "kernel phase":
             entry["launches"] = launches[entry["name"]]
+        if entry["name"] == "int8_matmul":
+            wide = launches["int8_matmul[M>16]"]
+            entry["launches_by_route"] = {"m<=16": entry["launches"],
+                                          "m>16": wide}
+            entry["launches"] += wide
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

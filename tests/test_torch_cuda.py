@@ -146,13 +146,16 @@ def test_int8_decode_kernels_match_plain_and_each_other(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [8, 100])
-def test_int8_matmul_kernel_matches_plain(cuda_device, m):
-    """Kernel #5 at a decode-sized and a prefill-sized M: exact on grid
-    inputs (integer x, power-of-two scales), within one bf16 rounding of
-    the output on random inputs; D and F off the tile sizes."""
+@pytest.mark.parametrize("f", [400, 3984, 15376])
+@pytest.mark.parametrize("m", [8, 17, 40, 100, 512, 513])
+def test_int8_matmul_kernel_matches_plain(cuda_device, m, f):
+    """Kernel #5 at decode-sized M (the M <= 16 route) and at the
+    admission route's M (verify forward 40, prompt chunks 512 and 513):
+    exact on grid inputs (integer x, power-of-two scales), within one
+    bf16 rounding of the output on random inputs; D and F off the tile
+    sizes, F picking each of the admission route's three tiles."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    d, f = 328, 400
+    d = 328
     w = torch.randint(-127, 128, (d, f), generator=gen, device=cuda_device,
                       dtype=torch.int8)
     scale = 2.0 ** torch.randint(-8, -2, (1, f), generator=gen,
@@ -169,6 +172,49 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, m):
     want = int8_matmul_reference(x, leaf["int8"], leaf["scale"])
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
                                rtol=1e-2)
+
+
+def _attention_inputs(gen, device, dtype, b, s, t, kv, groups, d):
+    """q [b, s, kv * groups, d] and k/v [b, t, kv, d] as strided views of
+    a cache row [b, t + 24, kv * d] (the serving path's layout)."""
+    q = torch.randn((b, s, kv * groups, d), generator=gen, device=device)
+    rows = [torch.randn((b, t + 24, kv * d), generator=gen, device=device)
+            .to(dtype) for _ in range(2)]
+    k, v = (row[:, :t].view(b, t, kv, d) for row in rows)
+    return q.to(dtype), k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [40, 512, 513])
+@pytest.mark.parametrize("q_offset", [0, 100, 1536])
+def test_flash_attention_tensor_cores_match_plain(cuda_device, q_offset, s,
+                                                  d, groups):
+    """The bf16 tensor-core body of #4 against its plain version: chunks
+    that are and are not a multiple of the row block, at the start of a
+    row and deep in it, T = q_offset + s + 37 (not a multiple of the
+    128-key tile), both head dims and every accepted group size."""
+    gen = torch.Generator(device=cuda_device).manual_seed(q_offset + s + d)
+    t = q_offset + s + 37
+    q, k, v = _attention_inputs(gen, cuda_device, torch.bfloat16, 2, s, t,
+                                2, groups, d)
+    got = tatt.flash_attention(q, k, v, q_offset=q_offset)
+    want = tatt.flash_attention_reference(q, k, v, q_offset)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 4, 8])
+def test_flash_attention_f32_keeps_fma_body(cuda_device, groups):
+    """f32 inputs take the FMA body (no TF32 rounding): within F32 of the
+    plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(groups)
+    q, k, v = _attention_inputs(gen, cuda_device, torch.float32, 1, 77, 300,
+                                2, groups, 64)
+    got = tatt.flash_attention(q, k, v, q_offset=200)
+    want = tatt.flash_attention_reference(q, k, v, 200)
+    torch.testing.assert_close(got, want, **F32)
 
 
 @pytest.mark.cuda
