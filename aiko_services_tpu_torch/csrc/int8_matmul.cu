@@ -14,13 +14,31 @@
 //
 // Two bodies, picked by M.
 //
-// M <= 16, the decode route: one block owns a 16 x 64 output tile and a
-// 256-deep contraction tile (16 KB of weight loads in flight per block);
-// x and w are read into registers with 16-byte loads, the int8 codes are
-// widened to bf16 on their way into shared memory, and nvcuda::wmma
-// 16x16x16 fragments accumulate in f32.  The next tile's loads are issued
-// before the current tile's products.
-//
+// M <= 16, the decode route: a streaming product, split over D.
+//  - Grid: one block a 16 x 64 output tile and a split of the
+//    contraction; the wrapper picks the split (a function of D and F
+//    only: the route runs inside the captured draft loop) so that every
+//    decode leaf of Llama-3-8B launches about 4 x 132 blocks or more
+//    (w_down: 64 column tiles x 10 splits) while the 128,256-column
+//    unembed keeps one split.
+//  - Copies: 16-byte cp.async into two stages, each a 128-deep slice of
+//    x (bf16) and of the raw int8 weight (8 KB): the next slice streams
+//    in while this one is widened and multiplied.  What bounds the route
+//    is latency inside a block (a copy, a widening pass, the products,
+//    two barriers a slice), so the block is kept small -- 43.5 KB of
+//    shared memory, five blocks to an SM -- and many blocks overlap each
+//    other's latency; deeper rings, which cost blocks per SM, measured
+//    slower.  The codes are widened exactly into bf16 in shared memory
+//    (integer ops, sm90.cuh widen16) and nvcuda::wmma 16x16x16
+//    fragments accumulate in f32 (2 M operations a weight byte: the
+//    tensor cores idle).
+//  - Epilogue: with one split the block scales its f32 tile and stores
+//    bf16; with several it stores the f32 partial [split, M, F], and
+//    int8_combine_kernel adds the splits in split order (no atomics:
+//    the sum, and every greedy stream, is the same from run to run),
+//    scales once and rounds to bf16.  Every partial of integer inputs is
+//    an exact float, so grid inputs stay bit-exact.
+
 // M > 16, the admission route: warp-specialised tensor-core tiles.
 //  - Copies: one producer thread keeps TMA loads in flight, into rings of
 //    shared memory: x as bf16 (BM x 64, 128-byte swizzled: the K-major A
@@ -63,190 +81,165 @@ namespace {
 
 using namespace nvcuda;
 
-// Two int8 codes -> their packed bf16 pair, low element first (exact for
-// |code| <= 127).
-__device__ __forceinline__ uint32_t bf16_pair(int lo, int hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__int2bfloat16_rn(lo)))
-         | (static_cast<uint32_t>(
-                __bfloat16_as_ushort(__int2bfloat16_rn(hi))) << 16);
-}
+// ---------------------------------------------------------------------------
+// M <= 16: split over D, double-buffered cp.async, wmma
+// ---------------------------------------------------------------------------
+namespace gemv {
 
-// Sixteen int8 codes (one 16-byte load) -> sixteen bf16 (two 16-byte
-// stores), in address order.
-__device__ __forceinline__ void codes_to_bf16(uint4 codes, uint4& lo,
-                                              uint4& hi) {
-  const uint32_t words[4] = {codes.x, codes.y, codes.z, codes.w};
-  uint32_t pairs[8];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t word = words[j];
-    pairs[2 * j] = bf16_pair(static_cast<int32_t>(word << 24) >> 24,
-                             static_cast<int32_t>(word << 16) >> 24);
-    pairs[2 * j + 1] = bf16_pair(static_cast<int32_t>(word << 8) >> 24,
-                                 static_cast<int32_t>(word) >> 24);
-  }
-  lo = make_uint4(pairs[0], pairs[1], pairs[2], pairs[3]);
-  hi = make_uint4(pairs[4], pairs[5], pairs[6], pairs[7]);
-}
+using namespace aiko::sm90;
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
-struct Tile {
-  static constexpr int kThreads = 32 * WARPS_M * WARPS_N;
-  static constexpr int kWarpM = BM / WARPS_M;     // rows of a warp's tile
-  static constexpr int kWarpN = BN / WARPS_N;     // columns of a warp's tile
-  static constexpr int kFragM = kWarpM / 16;
-  static constexpr int kFragN = kWarpN / 16;
-  // Row pitches in shared memory, padded against bank conflicts (multiples
-  // of 8 bf16 / 4 f32 elements, as wmma's ldm requires).
-  static constexpr int kXPitch = BK + 8;
-  static constexpr int kWPitch = BN + 8;
-  static constexpr int kCPitch = BN + 4;
-  static constexpr int kXVecs = BM * BK / 8 / kThreads;    // bf16 x8 loads
-  static constexpr int kWVecs = BK * BN / 16 / kThreads;   // int8 x16 loads
-  static constexpr int kOperandBytes = (BM * kXPitch + BK * kWPitch) * 2;
-  static constexpr int kEpilogueBytes = BM * kCPitch * 4;
-  static constexpr int kSharedBytes =
-      kOperandBytes > kEpilogueBytes ? kOperandBytes : kEpilogueBytes;
-  static_assert(BM % (16 * WARPS_M) == 0 && BN % (16 * WARPS_N) == 0,
-                "warp tiles are whole 16x16 fragments");
-  static_assert((BM * BK) % (8 * kThreads) == 0, "x tile splits evenly");
-  static_assert((BK * BN) % (16 * kThreads) == 0, "w tile splits evenly");
-  static_assert(kSharedBytes <= 48 * 1024, "static shared memory");
-};
+constexpr int kBM = 16;          // rows (M <= 16)
+constexpr int kBN = 64;          // output columns a block, 16 a warp
+constexpr int kBK = 128;         // contraction a stage
+constexpr int kStages = 2;
+constexpr int kThreads = 32 * (kBN / 16);
+constexpr int kXPitch = kBK + 8;              // bf16, padded (wmma ldm)
+constexpr int kWPitch = kBN + 8;              // widened bf16 weight
+constexpr int kCPitch = kBN + 4;              // f32 epilogue tile
+constexpr int kXBytes = kBM * kXPitch * 2;
+constexpr int kRawBytes = kBK * kBN;          // raw int8 codes
+constexpr int kStageBytes = kXBytes + kRawBytes;
+constexpr int kWideBytes = kBK * kWPitch * 2;
+constexpr int kBytes = kStages * kStageBytes + kWideBytes;   // 43.5 KB
+static_assert(kStageBytes % 32 == 0 && kBM * kCPitch * 4 <= kWideBytes,
+              "32-byte stages (wmma pointers); the epilogue reuses the "
+              "widened tile");
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
-__global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
-int8_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // [M, D]
-                   const int8_t* __restrict__ w,          // [D, F]
-                   const float* __restrict__ scale,       // [F]
-                   __nv_bfloat16* __restrict__ out,       // [M, F]
-                   int m, int d, int f) {
-  using T = Tile<BM, BN, BK, WARPS_M, WARPS_N>;
-  __shared__ __align__(128) unsigned char smem[T::kSharedBytes];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = xs + BM * T::kXPitch;
-  float* cs = reinterpret_cast<float*>(smem);   // epilogue, after the loop
+__global__ void __launch_bounds__(kThreads)
+int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,    // [M, D]
+                 const int8_t* __restrict__ w,           // [D, F]
+                 const float* __restrict__ scale,        // [F]
+                 __nv_bfloat16* __restrict__ out,        // [M, F], 1 split
+                 float* __restrict__ partial,            // [splits, M, F]
+                 int m, int d, int f, int steps_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = smem_addr(smem);
+  __nv_bfloat16* wide =
+      reinterpret_cast<__nv_bfloat16*>(smem + kStages * kStageBytes);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int n0 = blockIdx.x * kBN;
+  const int split = blockIdx.y;
+  const int n_k = (d + kBK - 1) / kBK;
+  const int first = split * steps_per_split;
+  const int steps = min(n_k - first, steps_per_split);
 
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32;
-  const int warp_m = warp / WARPS_N;
-  const int warp_n = warp % WARPS_N;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::kFragM]
-                                                           [T::kFragN];
-#pragma unroll
-  for (int i = 0; i < T::kFragM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kFragN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  uint4 x_regs[T::kXVecs];
-  uint4 w_regs[T::kWVecs];
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < T::kXVecs; ++i) {
-      const int v = threadIdx.x + i * T::kThreads;
-      const int row = v / (BK / 8);
-      const int col = (v % (BK / 8)) * 8;
-      const int gm = m0 + row, gk = k0 + col;
-      x_regs[i] = (gm < m && gk < d)
-          ? *reinterpret_cast<const uint4*>(x + (long long)gm * d + gk)
-          : zero;
+  auto load = [&](int step, int slot) {
+    const int k0 = (first + step) * kBK;
+    const uint32_t xs = sbase + slot * kStageBytes;
+    const uint32_t ws = xs + kXBytes;
+    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
+      const int r = i / (kBK / 8);
+      const int c = (i % (kBK / 8)) * 8;
+      const bool live = r < m && k0 + c < d;
+      cp_async16(xs + (r * kXPitch + c) * 2,
+                 x + (live ? (long long)r * d + k0 + c : 0), live);
     }
 #pragma unroll
-    for (int i = 0; i < T::kWVecs; ++i) {
-      const int v = threadIdx.x + i * T::kThreads;
-      const int row = v / (BN / 16);
-      const int col = (v % (BN / 16)) * 16;
-      const int gk = k0 + row, gn = n0 + col;
-      w_regs[i] = (gk < d && gn < f)
-          ? *reinterpret_cast<const uint4*>(w + (long long)gk * f + gn)
-          : zero;
+    for (int i = tid; i < kBK * (kBN / 16); i += kThreads) {
+      const int r = i / (kBN / 16);
+      const int c = (i % (kBN / 16)) * 16;
+      const bool live = k0 + r < d && n0 + c < f;
+      cp_async16(ws + r * kBN + c,
+                 w + (live ? (long long)(k0 + r) * f + n0 + c : 0), live);
     }
   };
 
-  auto stage = [&]() {
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+  wmma::fill_fragment(acc, 0.f);
+  load(0, 0);
+  cp_async_commit();
+  for (int step = 0; step < steps; ++step) {
+    const int slot = step % kStages;
+    cp_async_wait<0>();                 // this thread's copies of `step`
+    __syncthreads();                    // everyone's; step - 1 is spent
+    if (step + 1 < steps) load(step + 1, (step + 1) % kStages);
+    cp_async_commit();
+    const unsigned char* raw = smem + slot * kStageBytes + kXBytes;
 #pragma unroll
-    for (int i = 0; i < T::kXVecs; ++i) {
-      const int v = threadIdx.x + i * T::kThreads;
-      const int row = v / (BK / 8);
-      const int col = (v % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(xs + row * T::kXPitch + col) = x_regs[i];
+    for (int i = tid; i < kBK * (kBN / 16); i += kThreads) {
+      const int r = i / (kBN / 16);
+      const int c = (i % (kBN / 16)) * 16;
+      uint4* dst = reinterpret_cast<uint4*>(wide + r * kWPitch + c);
+      widen16(*reinterpret_cast<const uint4*>(raw + r * kBN + c), dst[0],
+              dst[1]);
     }
-#pragma unroll
-    for (int i = 0; i < T::kWVecs; ++i) {
-      const int v = threadIdx.x + i * T::kThreads;
-      const int row = v / (BN / 16);
-      const int col = (v % (BN / 16)) * 16;
-      uint4* dst = reinterpret_cast<uint4*>(ws + row * T::kWPitch + col);
-      codes_to_bf16(w_regs[i], dst[0], dst[1]);
-    }
-  };
-
-  load(0);
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    stage();
     __syncthreads();
-    if (k0 + BK < d) load(k0 + BK);   // in flight during the products
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(smem + slot * kStageBytes);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
+    for (int kk = 0; kk < kBK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[T::kFragM];
+                     wmma::row_major> a;
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[T::kFragN];
-#pragma unroll
-      for (int i = 0; i < T::kFragM; ++i)
-        wmma::load_matrix_sync(
-            a[i], xs + (warp_m * T::kWarpM + i * 16) * T::kXPitch + kk,
-            T::kXPitch);
-#pragma unroll
-      for (int j = 0; j < T::kFragN; ++j)
-        wmma::load_matrix_sync(
-            b[j], ws + kk * T::kWPitch + warp_n * T::kWarpN + j * 16,
-            T::kWPitch);
-#pragma unroll
-      for (int i = 0; i < T::kFragM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::kFragN; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+                     wmma::row_major> b;
+      wmma::load_matrix_sync(a, xs + kk, kXPitch);
+      wmma::load_matrix_sync(b, wide + kk * kWPitch + warp * 16, kWPitch);
+      wmma::mma_sync(acc, a, b, acc);
     }
-    __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < T::kFragM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kFragN; ++j)
-      wmma::store_matrix_sync(
-          cs + (warp_m * T::kWarpM + i * 16) * T::kCPitch
-              + warp_n * T::kWarpN + j * 16,
-          acc[i][j], T::kCPitch, wmma::mem_row_major);
+  cp_async_wait<0>();
+  __syncthreads();                      // the widened tile is spent
+  float* cs = reinterpret_cast<float*>(wide);
+  wmma::store_matrix_sync(cs + warp * 16, acc, kCPitch, wmma::mem_row_major);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * BN; idx += T::kThreads) {
-    const int r = idx / BN;
-    const int c = idx % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm < m && gn < f)
-      out[(long long)gm * f + gn] =
-          __float2bfloat16_rn(cs[r * T::kCPitch + c] * scale[gn]);
+  for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
+    const int r = idx / kBN;
+    const int c = idx % kBN;
+    const int gn = n0 + c;
+    if (r >= m || gn >= f) continue;
+    const float sum = cs[r * kCPitch + c];
+    if (gridDim.y == 1)
+      out[(long long)r * f + gn] = __float2bfloat16_rn(sum * scale[gn]);
+    else
+      partial[((long long)split * m + r) * f + gn] = sum;
   }
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
+// out[i] = bf16((partial[0][i] + partial[1][i] + ...) * scale[col]), the
+// splits added in order; four columns a thread (F % 16 == 0; partial and
+// out 16-byte aligned).
+__global__ void __launch_bounds__(256)
+int8_combine_kernel(const float* __restrict__ partial,  // [splits, M, F]
+                    const float* __restrict__ scale,    // [F]
+                    __nv_bfloat16* __restrict__ out,    // [M, F]
+                    int m, int f, int splits) {
+  const long long total = (long long)m * f;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= total) return;
+  float4 sum = *reinterpret_cast<const float4*>(partial + i);
+  for (int s = 1; s < splits; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(partial + s * total + i);
+    sum.x = sum.x + p.x;
+    sum.y = sum.y + p.y;
+    sum.z = sum.z + p.z;
+    sum.w = sum.w + p.w;
+  }
+  const int col = static_cast<int>(i % f);
+  uint2 packed;
+  packed.x = pack_bf16(sum.x * scale[col], sum.y * scale[col + 1]);
+  packed.y = pack_bf16(sum.z * scale[col + 2], sum.w * scale[col + 3]);
+  *reinterpret_cast<uint2*>(out + i) = packed;
+}
+
 int launch(const void* x, const void* w, const void* scale, void* out,
-           int m, int d, int f, void* stream) {
-  const dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM);
-  int8_matmul_kernel<BM, BN, BK, WARPS_M, WARPS_N>
-      <<<grid, 32 * WARPS_M * WARPS_N, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-          static_cast<__nv_bfloat16*>(out), m, d, f);
+           void* partial, int m, int d, int f, int steps_per_split,
+           void* stream) {
+  if (steps_per_split < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_k = (d + kBK - 1) / kBK;
+  const dim3 grid((f + kBN - 1) / kBN,
+                  (n_k + steps_per_split - 1) / steps_per_split);
+  if (grid.y > 1 && partial == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int8_gemv_kernel<<<grid, kThreads, kBytes,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), m, d, f, steps_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace gemv
 
 // ---------------------------------------------------------------------------
 // M > 16: tensor cores (wgmma), a producer warpgroup, an mbarrier ring
@@ -276,23 +269,6 @@ struct Layout {
   static_assert(STAGES >= 3, "x runs STAGES - 2 steps ahead");
   static_assert(kBytes <= 227 * 1024, "shared memory of one block");
 };
-
-// Two int8 codes, each in the low byte of a 16-bit lane -> the packed
-// bf16 pair of their values, exactly: 128 + (v & 127) and -128 or -256
-// (v < 0) are both exact bf16 bit patterns, and so is their sum v.
-// Each mask-and-merge is one 3-input lop3 (the compiler splits the C
-// form into two instructions, one per constant).
-__device__ __forceinline__ uint32_t widen_pair(uint32_t lanes) {
-  uint32_t hi7, sign;
-  asm("lop3.b32 %0, %1, 0x007F007F, 0x43004300, 0xEA;\n"   // (a & b) | c
-      : "=r"(hi7) : "r"(lanes));
-  asm("lop3.b32 %0, %1, 0x00800080, 0xC300C300, 0x6A;\n"   // (a & b) ^ c
-      : "=r"(sign) : "r"(lanes));
-  const __nv_bfloat162 sum =
-      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&hi7),
-              *reinterpret_cast<const __nv_bfloat162*>(&sign));
-  return *reinterpret_cast<const uint32_t*>(&sum);
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -567,13 +543,18 @@ void pick_tile(int m, int f, int* bm, int* bn) {
 
 // x [M, D] bf16 row-major, w [D, F] int8 row-major, scale [F] f32, out
 // [M, F] bf16; D % 8 == 0, F % 16 == 0, every pointer 16-byte aligned.
+// M <= 16 splits D into runs of steps_per_split 128-deep steps: with one
+// split the kernel writes out, with several it writes partial [splits, M,
+// F] f32 for aiko_int8_combine (M > 16 reads neither).
 extern "C" int aiko_int8_matmul(const void* x, const void* w,
-                                const void* scale, void* out, int m, int d,
-                                int f, void* stream) {
+                                const void* scale, void* out, void* partial,
+                                int m, int d, int f, int steps_per_split,
+                                void* stream) {
   if (m <= 0 || d <= 0 || f <= 0 || d % 8 || f % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (m <= 16) return launch<16, 64, 256, 1, 4>(x, w, scale, out, m, d, f,
-                                                stream);
+  if (m <= 16)
+    return gemv::launch(x, w, scale, out, partial, m, d, f, steps_per_split,
+                        stream);
   int bm, bn;
   tc::pick_tile(m, f, &bm, &bn);
   // <consumer warpgroups, columns, operand stages, producer warpgroups>:
@@ -589,11 +570,27 @@ extern "C" int aiko_int8_matmul(const void* x, const void* w,
   return tc::launch<1, 64, 5, 1>(x, w, scale, out, m, d, f, stream);
 }
 
-// The tile (rows x columns of one block) and the number of blocks that
+// The M <= 16 route's combine: out [M, F] bf16 from partial [splits, M, F]
+// f32 and scale [F] f32 (F % 16 == 0, 16-byte aligned pointers).
+extern "C" int aiko_int8_combine(const void* partial, const void* scale,
+                                 void* out, int m, int f, int splits,
+                                 void* stream) {
+  if (m <= 0 || f <= 0 || f % 16 || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long quads = (long long)m * f / 4;
+  gemv::int8_combine_kernel<<<static_cast<unsigned>((quads + 255) / 256), 256,
+                              0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(out), m, f, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile (rows x columns of one block) and the number of column tiles
+// (M <= 16; the wrapper multiplies by its splits) or blocks (M > 16) that
 // aiko_int8_matmul launches for [m, f], for reports.
 extern "C" void aiko_int8_matmul_tiles(int m, int f, int* tile_m,
                                        int* tile_n, int* n_blocks) {
-  int bm = 16, bn = 64;
+  int bm = 16, bn = gemv::kBN;
   if (m > 16) tc::pick_tile(m, f, &bm, &bn);
   *tile_m = bm;
   *tile_n = bn;

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
-// 16-byte cp.async copies into shared memory, the proxy fence between
-// them and the tensor cores, shared-memory matrix descriptors for the
-// 128-byte swizzle, and warpgroup MMAs (wgmma) with f32 accumulators.
+// 16- and 4-byte cp.async copies into shared memory, the proxy fence
+// between them and the tensor cores, shared-memory matrix descriptors for
+// the 128-byte swizzle, warpgroup MMAs (wgmma) with f32 accumulators, and
+// the exact widening of int8 codes to bf16.
 //
 // Tile layout shared by every kernel that includes this header: a tile
 // of 128-byte rows (64 bf16), 16-byte chunk c of row r stored at chunk
@@ -39,6 +40,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool live) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(live ? 16 : 0) : "memory");
+}
+// 4 bytes global -> shared (through L1: the source need not be 16-byte
+// aligned); `live` false writes zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(live ? 4 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -91,6 +99,38 @@ __device__ __forceinline__ float bf16_lo(uint32_t pair) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t pair) {
   return __uint_as_float(pair & 0xFFFF0000u);
+}
+
+// Two int8 codes, each in the low byte of a 16-bit lane -> the packed
+// bf16 pair of their values, exactly: 128 + (v & 127) and -128 or -256
+// (v < 0) are both exact bf16 bit patterns, and so is their sum v.
+// Each mask-and-merge is one 3-input lop3 (the compiler splits the C
+// form into two instructions, one per constant).  Feed it
+// __byte_perm(word, 0, 0x4140) for codes 0, 1 of a 32-bit word and
+// 0x4342 for codes 2, 3.
+__device__ __forceinline__ uint32_t widen_pair(uint32_t lanes) {
+  uint32_t hi7, sign;
+  asm("lop3.b32 %0, %1, 0x007F007F, 0x43004300, 0xEA;\n"   // (a & b) | c
+      : "=r"(hi7) : "r"(lanes));
+  asm("lop3.b32 %0, %1, 0x00800080, 0xC300C300, 0x6A;\n"   // (a & b) ^ c
+      : "=r"(sign) : "r"(lanes));
+  const __nv_bfloat162 sum =
+      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&hi7),
+              *reinterpret_cast<const __nv_bfloat162*>(&sign));
+  return *reinterpret_cast<const uint32_t*>(&sum);
+}
+
+// Sixteen int8 codes (one 16-byte vector) -> sixteen bf16 in address
+// order, as two 16-byte vectors.
+__device__ __forceinline__ void widen16(uint4 codes, uint4& lo, uint4& hi) {
+  lo = make_uint4(widen_pair(__byte_perm(codes.x, 0, 0x4140)),
+                  widen_pair(__byte_perm(codes.x, 0, 0x4342)),
+                  widen_pair(__byte_perm(codes.y, 0, 0x4140)),
+                  widen_pair(__byte_perm(codes.y, 0, 0x4342)));
+  hi = make_uint4(widen_pair(__byte_perm(codes.z, 0, 0x4140)),
+                  widen_pair(__byte_perm(codes.z, 0, 0x4342)),
+                  widen_pair(__byte_perm(codes.w, 0, 0x4140)),
+                  widen_pair(__byte_perm(codes.w, 0, 0x4342)));
 }
 
 // d (+)= a * b on the warpgroup's tensor cores, m64nNk16, bf16 inputs,
@@ -242,6 +282,73 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
         "n"(TRANS_B));
+}
+
+// Narrow widths, both operands from shared memory, each operand's
+// transpose bit an immediate: d (+)= a * b, m64nNk16 with N = 8, 24, 40
+// or 72 (the accumulator holds N / 2 registers a thread).  TRANS_A 1 reads
+// an MN-major A (a [K][M] tile, as V for V^T P^T); TRANS_B as above.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[4], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[12], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "%12, %13, p, 1, 1, %15, %16;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[20], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19}, "
+      "%20, %21, p, 1, 1, %23, %24;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[36], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+      "%36, %37, p, 1, 1, %39, %40;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 }  // namespace aiko::sm90

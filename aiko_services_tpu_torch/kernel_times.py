@@ -1,4 +1,4 @@
-"""Time the prefill-attention (#4) and int8-matmul (#5) kernels on the card.
+"""Time the prefill-attention (#4), int8-matmul (#5) and chunk-verify kernels on the card.
 
     python3 aiko_services_tpu_torch/kernel_times.py [--root DIR] [--label NAME]
 
@@ -9,10 +9,14 @@ time of 20 calls replayed from one CUDA graph (no host enqueue between
 the launches), at ``chip_smoke.py``'s shapes: #4 on q [1, 512, 32, 128]
 against 2,048 keys at offsets 0 and 1,536; #5 at the decode and prefill
 unembed, the admission chunk's w_up, w_down and wk (M 512), the verify
-forward's w_up (M 40) and the decode w_down (M 8).  Beside each, the
-library call on the same inputs (SDPA; cuBLAS bf16 on the dequantized
-weight).  Prints one JSON object a shape, with the card's name and power
-limit.  Needs a CUDA card.
+forward's w_up (M 40) and the decode leaves w_down, wq/wo, wk/wv and
+w_gate/w_up (M 8); the chunk verify (its cache part, S 5, f32 queries
+[8, 5, 32, 128] against 7,195 live positions of a 2,048-position row:
+``chip_smoke.py``'s shapes) stacked and paged over bf16 and int8 caches.
+Beside each, the library call on the same inputs (SDPA, over the
+pre-gathered and dequantized view for the verify; cuBLAS bf16 on the
+dequantized weight).  Prints one JSON object a shape, with the card's
+name and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ MATMULS = {"decode_unembed": (8, 4096, 128_256),
            "prefill_w_up": (512, 4096, 14_336),
            "prefill_w_down": (512, 14_336, 4096),
            "prefill_wk": (512, 4096, 1024),
-           "verify_w_up": (40, 4096, 14_336)}
+           "verify_w_up": (40, 4096, 14_336),
+           "decode_wq": (8, 4096, 4096),
+           "decode_wk": (8, 4096, 1024),
+           "decode_w_up": (8, 4096, 14_336)}
+VERIFY = (8, 5, 32, 2048, 8, 128, 64)          # b, s, h, t, kv, d, pt
+VERIFY_STARTS = (0, 2047, 1, 1500, 513, 64, 2046, 1024)
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -117,7 +126,70 @@ def main(argv: list[str]) -> int:
                           "tflops": 2 * m * d * f / ms / 1e9}), flush=True)
         del leaf, x, dense
         torch.cuda.empty_cache()
+    time_verify(base, device, gen)
     return 0
+
+
+def time_verify(base: dict, device, gen) -> None:
+    """The chunk verify's cache part: the stacked form over one layer of a
+    [1, B, T, C] cache and the paged form over [1, B*T/pt + 1, pt, C]
+    pools through a shuffled table, bf16 and int8, f32 queries; SDPA of
+    the S queries over the (dequantized) gathered view beside them."""
+    import torch
+    from aiko_services_tpu_torch.models.quant import quantize_kv
+    from aiko_services_tpu_torch.ops import flash_decode as fd
+    b, s, h, t, kv, d, pt = VERIFY
+    pages = b * t // pt + 1
+    starts = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=device)
+    table = (torch.randperm(pages - 1, generator=gen, device=device) + 1) \
+        .reshape(b, t // pt).to(torch.int32)
+    q = torch.randn((b, s, h, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    q_scaled, _ = fd._prep_query(q, d)
+    mask = (torch.arange(t, device=device)[None, :]
+            < starts[:, None])[:, None, None, :]
+    for payload in ("bf16", "int8"):
+        sides = []
+        for _ in range(2):
+            raw = torch.randn((1, pages, pt, kv, d), generator=gen,
+                              device=device)
+            if payload == "int8":
+                leaf = quantize_kv(raw)
+                sides.append((leaf["int8"].reshape(1, pages, pt, kv * d),
+                              leaf["scale"][..., 0]))
+            else:
+                sides.append((raw.to(torch.bfloat16).reshape(
+                    1, pages, pt, kv * d), None))
+            del raw
+        (k_pool, ks), (v_pool, vs) = sides
+        gathered = [None if pool is None else pool[0][table.long()].reshape(
+            1, b, t, pool.shape[-1]).contiguous()
+            for pool in (k_pool, v_pool, ks, vs)]
+        stacked_ms = graph_ms(lambda: fd.flash_verify_attention_stacked(
+            q_scaled, gathered[0], gathered[1], 0, starts, *gathered[2:]))
+        paged_ms = graph_ms(lambda: fd.flash_verify_attention_paged(
+            q_scaled, k_pool, v_pool, 0, table, starts, ks, vs))
+        views = []
+        for codes, scales in ((gathered[0], gathered[2]),
+                              (gathered[1], gathered[3])):
+            values = codes[0].reshape(b, t, kv, d)
+            if scales is not None:
+                values = (values.float() * scales[0][..., None]).to(
+                    torch.bfloat16)
+            views.append(values.transpose(1, 2)
+                         .repeat_interleave(h // kv, dim=1))
+        sdpa = graph_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), views[0], views[1], attn_mask=mask))
+        suffix = "[int8]" if payload == "int8" else ""
+        for form, ms in (("stacked", stacked_ms), ("paged", paged_ms)):
+            print(json.dumps({**base,
+                              "kernel": f"flash_verify_attention_{form}"
+                                        f"{suffix}",
+                              "shape": f"b{b} s{s} h{h} t{t}",
+                              "ms": ms, "library_ms": sdpa}), flush=True)
+        del sides, gathered, views, k_pool, v_pool, ks, vs
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1149,6 +1149,10 @@ class ContinuousBatcher:
             request.done = True
             self._free_slot(slot)
             self._pending_first.pop(slot, None)
+            # A slot cancelled mid-admission leaves the admission FIFO, as
+            # _evict_slot does; else the next request admitted into it is
+            # queued twice and runs an extra chunk.
+            self._prefilling = [s for s in self._prefilling if s != slot]
             found = True
         return found
 

@@ -75,14 +75,17 @@ def launch_counters() -> dict:
     wrapper's attribute).  A wrapper adds one where it launches its
     kernel, and nowhere else; the decode and verify wrappers count bf16
     and int8 payloads apart (``[int8]`` names), the int8 matmul its
-    decode route (M <= 16) and its admission route (``[M>16]``)."""
+    decode route (M <= 16) and its admission route (``[M>16]``); the
+    combines of the split verify body (``verify_combine``) and of the
+    decode route split over D (``int8_combine``) count apart."""
     from .flash_attention import flash_attention
     from .flash_decode import (flash_decode_attention,
                                flash_decode_attention_paged,
                                flash_decode_attention_stacked,
                                flash_verify_attention_paged,
-                               flash_verify_attention_stacked)
-    from .int8_matmul import int8_matmul
+                               flash_verify_attention_stacked,
+                               verify_combine)
+    from .int8_matmul import int8_combine, int8_matmul
     counters = {}
     for wrapper in (flash_decode_attention, flash_decode_attention_stacked,
                     flash_decode_attention_paged,
@@ -90,7 +93,8 @@ def launch_counters() -> dict:
                     flash_verify_attention_paged):
         counters[wrapper.__name__] = (wrapper, "launches")
         counters[f"{wrapper.__name__}[int8]"] = (wrapper, "int8_launches")
-    for wrapper in (int8_matmul, flash_attention, topk):
+    for wrapper in (int8_matmul, flash_attention, topk, verify_combine,
+                    int8_combine):
         counters[wrapper.__name__] = (wrapper, "launches")
     counters["int8_matmul[M>16]"] = (int8_matmul, "wide_launches")
     return counters

@@ -17,18 +17,21 @@ float32 scale per position and kv head, dequantized inside the kernel):
 - ``flash_verify_attention_stacked`` and ``flash_verify_attention_paged``
   (the chunk verify of speculative decoding, which the TPU package ran
   through #2/#3 with ``qrow_period``): S query tokens per row against
-  the cache up to ``starts``, one launch per layer, with
-  ``flash_verify_append``, which adds the chunk's own causal k/v
-  (``_combine_chunk``);
+  the cache up to ``starts``, per layer one launch of the verify body
+  split over T (``flash_verify_partials_stacked`` / ``_paged``, the
+  split from :func:`verify_splits`) and one of its combine
+  (:func:`verify_combine`), with ``flash_verify_append``, which adds the
+  chunk's own causal k/v (``_combine_chunk``);
 
 and the helpers ``_prep_query``, ``_combine_self``, ``_split_stacked``,
 ``_split_paged`` and ``_require_matched_quantization``.
 
-The decode wrappers launch one kernel body, the verify wrappers another,
-both in ``csrc/flash_decode.cu`` (its comments say what bounds them and
-how they are laid out); each differs between its flat and paged forms
-only in the address of cache row t: a paged kernel is bitwise equal to
-its flat one on the gathered view.  One difference from the TPU
+The decode wrappers launch the body of ``csrc/flash_decode.cu``, the
+verify wrappers the tensor-core body and the combine of
+``csrc/flash_verify.cu`` (their comments say what bounds them and how
+they are laid out); each differs between its flat and paged forms only
+in the address of cache row t (``csrc/kv_rows.cuh``): a paged kernel is
+bitwise equal to its flat one on the gathered view.  One difference from the TPU
 kernels' interface: queries and accumulator are COMPACT, ``[B, H, hd]``.
 The TPU kernels took block-diagonal zero-padded queries ``[B, H, K*hd]``
 (a lane alignment trick for the MXU) and returned ``[B, H, K*hd]``, of
@@ -43,7 +46,9 @@ package transposed -- a copy -- every step.
 
 On a CPU tensor each wrapper runs its plain PyTorch version below; on a
 CUDA tensor it launches the kernel or raises.  ``launches`` counts a
-wrapper's bf16-payload launches and ``int8_launches`` its int8 ones.
+wrapper's bf16-payload launches and ``int8_launches`` its int8 ones
+(the verify wrappers count their body's launches; ``verify_combine``
+counts the combine's).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import torch
 
 from . import _build
 from .layers import NEG_INF
+from .tiles import CARD_SMS, ceil_div
 
 __all__ = ["flash_decode_attention", "flash_decode_append",
            "flash_decode_attention_reference",
@@ -65,12 +71,29 @@ __all__ = ["flash_decode_attention", "flash_decode_append",
            "flash_verify_attention_stacked", "flash_verify_attention_paged",
            "flash_verify_attention_reference",
            "flash_verify_attention_stacked_reference",
-           "flash_verify_attention_paged_reference", "flash_verify_append"]
+           "flash_verify_attention_paged_reference", "flash_verify_append",
+           "flash_verify_partials_stacked", "flash_verify_partials_paged",
+           "flash_verify_partials_reference", "verify_combine",
+           "verify_combine_reference", "verify_splits"]
 
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
-# Queries one verify block holds: S * G (csrc kMaxVerifyQueries).
+# Queries one verify block holds: S * G (csrc/flash_verify.cu kMaxQueries).
 _MAX_VERIFY_QUERIES = 72
+#: keys a verify tile: split boundaries are multiples of it (csrc kKeys).
+VERIFY_TILE = 64
+
+
+def verify_splits(t_len: int, batch: int, n_kv: int) -> tuple[int, int]:
+    """(splits, tiles per split) of the verify body's grid over a cache of
+    ``t_len`` positions: splits of ``tiles`` 64-key tiles, as few tiles a
+    split as give about 4 x 132 blocks of (row, kv head, split) -- blocks
+    past a row's start exit at once, so the live ones still fill the
+    card.  A function of the static shapes only: the launch is captured
+    in the device loop's graph, where the host cannot read the starts."""
+    tiles = max(1, ceil_div(t_len, VERIFY_TILE))
+    per_split = ceil_div(tiles, ceil_div(4 * CARD_SMS, max(1, batch * n_kv)))
+    return ceil_div(tiles, per_split), per_split
 
 
 def is_quantized(leaf) -> bool:
@@ -154,9 +177,10 @@ def _combine_self(acc, m, l, q_flat, k_new, v_new, scale):
 
 # -- plain versions -----------------------------------------------------------
 
-def _plain_stats(q, k_flat, v_flat, lengths, k_scale, v_scale, entry: str):
+def _plain_stats(q, k_flat, v_flat, lengths, k_scale, v_scale, entry: str,
+                 begin: int = 0):
     """The plain version of both kernel bodies: queries q [B, S, H, hd]
-    (S = 1 for decode) against the first ``lengths[b]`` positions of a
+    (S = 1 for decode) against positions ``begin <= t < lengths[b]`` of a
     flat [B, T, C] cache, one softmax pass.  An int8 cache passes its
     [B, T, K] scales: the score is ``dot(q, k) * k_scale`` and the value
     scale multiplies the numerator's weights only.  Returns (acc
@@ -172,8 +196,10 @@ def _plain_stats(q, k_flat, v_flat, lengths, k_scale, v_scale, entry: str):
     scores = torch.einsum("bskgd,btkd->bskgt", q_grouped, k)
     if k_scale is not None:
         scores = scores * k_scale.float().permute(0, 2, 1)[:, None, :, None]
-    valid = torch.arange(t, device=q.device)[None, None, None, None, :] \
-        < lengths.to(q.device).long()[:, None, None, None, None]
+    positions = torch.arange(t, device=q.device)[None, None, None, None, :]
+    valid = (positions < lengths.to(q.device).long()[:, None, None, None,
+                                                     None]) \
+        & (positions >= begin)
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     m = scores.amax(-1)
     m_safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
@@ -205,6 +231,63 @@ def flash_verify_attention_reference(q, k_flat, v_flat, starts,
     [B, S, H, hd] f32, m [B, S, H], l [B, S, H])."""
     return _plain_stats(q, k_flat, v_flat, starts, k_scale, v_scale,
                         "flash_verify_attention")
+
+
+def _by_kv_head(x, n_kv: int):
+    """[B, S, H, ...] in the queries' [S, H] order -> [B, K, S*G, ...]:
+    query j = s * G + g of kv head k, the verify block's order."""
+    b, s, h = x.shape[:3]
+    g = h // n_kv
+    return x.reshape(b, s, n_kv, g, *x.shape[3:]).transpose(1, 2) \
+        .reshape(b, n_kv, s * g, *x.shape[3:])
+
+
+def _by_query_row(x, s: int):
+    """Inverse of :func:`_by_kv_head`: [B, K, S*G, ...] -> [B, S, H, ...]."""
+    b, kv, nq = x.shape[:3]
+    g = nq // s
+    return x.reshape(b, kv, s, g, *x.shape[3:]).transpose(1, 2) \
+        .reshape(b, s, kv * g, *x.shape[3:])
+
+
+def flash_verify_partials_reference(q, k_flat, v_flat, starts, k_scale=None,
+                                    v_scale=None):
+    """Plain version of the verify body split over T: the stats of each
+    split of :func:`verify_splits` (positions [z * tiles * 64,
+    (z + 1) * tiles * 64), cut at the row's start), in the kernel's
+    scratch layout: (acc [B, K, splits, S*G, hd] f32, m and l [B, K,
+    splits, S*G]).  A split past a row's start is neutral: acc 0,
+    m -1e30, l 0."""
+    b, s, h, head_dim = q.shape
+    t = k_flat.shape[1]
+    kv = k_flat.shape[2] // head_dim
+    splits, per_split = verify_splits(t, b, kv)
+    span = per_split * VERIFY_TILE
+    parts = []
+    for split in range(splits):
+        ends = torch.clamp(starts.to(q.device).long(),
+                           max=(split + 1) * span)
+        parts.append(_plain_stats(q, k_flat, v_flat, ends, k_scale, v_scale,
+                                  "flash_verify_attention",
+                                  begin=split * span))
+    return tuple(torch.stack([_by_kv_head(part[i], kv) for part in parts],
+                             dim=2) for i in range(3))
+
+
+def verify_combine_reference(part_acc, part_m, part_l, s: int):
+    """Plain version of the verify's combine: merge the splits of
+    partials [B, K, splits, S*G, (hd)] -- m = max m_z, acc and l summed
+    with weights exp(m_z - m), neutral splits (m_z = -1e30) left out --
+    back into the queries' [S, H] order: (acc [B, S, H, hd], m, l
+    [B, S, H])."""
+    live = part_m > NEG_INF / 2
+    m = part_m.amax(2)
+    weights = torch.where(live, torch.exp(part_m - m[:, :, None]),
+                          torch.zeros_like(part_m))
+    acc = (weights[..., None] * torch.where(
+        live[..., None], part_acc, torch.zeros_like(part_acc))).sum(2)
+    l = (weights * part_l).sum(2)
+    return _by_query_row(acc, s), _by_query_row(m, s), _by_query_row(l, s)
 
 
 def _layer(scale, layer: int):
@@ -335,12 +418,15 @@ def _ptrs(tensors) -> list:
 
 
 _VERIFY_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
-    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 4 \
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 4 \
     + [ctypes.c_void_p]
 
 _VERIFY_PAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
-    + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
+    + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 \
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+
+_COMBINE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
 
 
 def _count(wrapper, k_scale) -> None:
@@ -481,12 +567,7 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     the device, each row covering the logical extent its length claims
     (entry 0 is the trash page); lengths: [B] int32 valid positions
     (0..pps*pt).  Returns the flat kernel's (acc, m, l)."""
-    page_tokens = k_pool.shape[2]
-    if page_tokens % 8:
-        raise ValueError(
-            f"flash_decode_attention_paged: kv_page_tokens={page_tokens} "
-            f"must be a multiple of 8; use an aligned page size or the "
-            f"reference gather path")
+    _require_page_tokens("flash_decode_attention_paged", k_pool)
     if q.device.type == "cpu":
         return flash_decode_attention_paged_reference(
             q, k_pool, v_pool, layer, page_table, lengths, k_scale, v_scale)
@@ -506,6 +587,18 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
 
 flash_decode_attention_paged.launches = 0
 flash_decode_attention_paged.int8_launches = 0
+
+
+def _require_page_tokens(entry: str, k_pool) -> int:
+    """The pools' page size, which the kernels need a multiple of 8 (on
+    every device, so a configuration fails the same way here as on the
+    card)."""
+    page_tokens = k_pool.shape[2]
+    if page_tokens % 8:
+        raise ValueError(
+            f"{entry}: kv_page_tokens={page_tokens} must be a multiple of "
+            f"8; use an aligned page size or the reference gather path")
+    return page_tokens
 
 
 def _check_paged(entry: str, q, k_pool, v_pool, layer: int, page_table,
@@ -556,31 +649,38 @@ def _verify_shape(entry: str, q, kv: int):
     return s, h, n_queries
 
 
-def _verify_outputs(q):
-    acc = torch.empty(q.shape, device=q.device, dtype=torch.float32)
-    m = torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
+def _verify_scratch(q, kv: int, splits: int):
+    """The body's partials: acc [B, K, splits, S*G, hd], m and l [B, K,
+    splits, S*G] (f32, from the caching allocator: capture-safe)."""
+    b, s, h, head_dim = q.shape
+    nq = s * (h // kv)
+    acc = torch.empty((b, kv, splits, nq, head_dim), device=q.device,
+                      dtype=torch.float32)
+    m = torch.empty((b, kv, splits, nq), device=q.device,
+                    dtype=torch.float32)
     return acc, m, torch.empty_like(m)
 
 
-def flash_verify_attention_stacked(q: torch.Tensor, k_flat: torch.Tensor,
-                                   v_flat: torch.Tensor, layer: int,
-                                   starts: torch.Tensor,
-                                   k_scale: torch.Tensor | None = None,
-                                   v_scale: torch.Tensor | None = None):
-    """Chunk-verify attention over ONE layer of the stacked cache: the
-    cache part of the speculative verify step, one launch for all S
-    verify tokens.
+def _verify_query(q):
+    """Contiguous queries on a 16-byte boundary (the body's vector loads)."""
+    q = q.contiguous()
+    return q if q.data_ptr() % 16 == 0 else q.clone()
 
-    q: [B, S, H, hd] scaled queries from :func:`_prep_query` (f32 or
-    bf16), the reference's [S, H] row order; k_flat/v_flat (and the
-    scales of an int8 cache) as in
-    :func:`flash_decode_attention_stacked`; starts: [B] int32, the
-    cache frontier every query of row b sees (``t < starts[b]``).
-    Returns (acc [B, S, H, hd] f32 unnormalised, m [B, S, H] f32,
-    l [B, S, H] f32)."""
+
+def flash_verify_partials_stacked(q: torch.Tensor, k_flat: torch.Tensor,
+                                  v_flat: torch.Tensor, layer: int,
+                                  starts: torch.Tensor,
+                                  k_scale: torch.Tensor | None = None,
+                                  v_scale: torch.Tensor | None = None):
+    """The verify body over ONE layer of the stacked cache, split over T
+    (:func:`verify_splits`): the partials of
+    :func:`flash_verify_partials_reference`, which a CPU tensor gets.
+    Arguments as in :func:`flash_verify_attention_stacked`; a launch
+    counts on that wrapper."""
     if q.device.type == "cpu":
-        return flash_verify_attention_stacked_reference(
-            q, k_flat, v_flat, layer, starts, k_scale, v_scale)
+        return flash_verify_partials_reference(
+            q, k_flat[layer], v_flat[layer], starts, _layer(k_scale, layer),
+            _layer(v_scale, layer))
     entry = "flash_verify_attention_stacked"
     if q.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {q.device}")
@@ -601,19 +701,122 @@ def flash_verify_attention_stacked(q: torch.Tensor, k_flat: torch.Tensor,
     _check_rows(entry, k_view, v_view)
     k_scales, v_scales = _layer(k_scale, layer), _layer(v_scale, layer)
     sstrides = k_scales.stride()[:2] if k_scales is not None else (0, 0)
-    q = q.contiguous()
+    q = _verify_query(q)
     starts = starts.contiguous()
-    acc, m, l = _verify_outputs(q)
+    splits, per_split = verify_splits(t, b, kv)
+    parts = _verify_scratch(q, kv, splits)
     status = _build.entry("aiko_flash_verify", _VERIFY_ARGTYPES)(
         q.data_ptr(), int(q.dtype == torch.bfloat16),
         int(k_scale is not None), k_view.data_ptr(), v_view.data_ptr(),
-        _ptr(k_scales), _ptr(v_scales), starts.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, kv, h // kv, head_dim, n_queries, h,
-        s * h, t, k_view.stride(0), k_view.stride(1), *sstrides,
+        _ptr(k_scales), _ptr(v_scales), starts.data_ptr(),
+        *(part.data_ptr() for part in parts), b, kv, h // kv, head_dim,
+        n_queries, h, s * h, t, splits, per_split, k_view.stride(0),
+        k_view.stride(1), *sstrides,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, entry)
     _count(flash_verify_attention_stacked, k_scale)
+    return parts
+
+
+def flash_verify_partials_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, layer: int,
+                                page_table: torch.Tensor,
+                                starts: torch.Tensor,
+                                k_scale: torch.Tensor | None = None,
+                                v_scale: torch.Tensor | None = None):
+    """Paged twin of :func:`flash_verify_partials_stacked` (arguments as
+    in :func:`flash_verify_attention_paged`; a launch counts on that
+    wrapper): bitwise equal to it on the gathered view, the split over
+    the logical extent pps * pt."""
+    page_tokens = _require_page_tokens("flash_verify_attention_paged",
+                                       k_pool)
+    if q.device.type == "cpu":
+        scales = [None if pool is None else _gathered(pool[layer], page_table)
+                  for pool in (k_scale, v_scale)]
+        return flash_verify_partials_reference(
+            q, _gathered(k_pool[layer], page_table),
+            _gathered(v_pool[layer], page_table), starts, *scales)
+    entry = "flash_verify_attention_paged"
+    if q.ndim != 4:
+        raise ValueError(f"{entry}: q must be [B, S, H, hd], got "
+                         f"{tuple(q.shape)}")
+    b, _, kv, pool = _check_paged(entry, q[:, 0], k_pool, v_pool, layer,
+                                  page_table, starts, k_scale, v_scale)
+    s, h, n_queries = _verify_shape(entry, q, kv)
+    q = _verify_query(q)
+    splits, per_split = verify_splits(page_table.shape[1] * page_tokens, b,
+                                      kv)
+    parts = _verify_scratch(q, kv, splits)
+    status = _build.entry("aiko_flash_verify_paged", _VERIFY_PAGED_ARGTYPES)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16),
+        int(k_scale is not None), *_ptrs(pool[:6]),
+        *(part.data_ptr() for part in parts), b, kv, h // kv, q.shape[3],
+        n_queries, h, s * h, splits, per_split, *pool[6:])
+    _build.check(status, entry)
+    _count(flash_verify_attention_paged, k_scale)
+    return parts
+
+
+def verify_combine(part_acc: torch.Tensor, part_m: torch.Tensor,
+                   part_l: torch.Tensor, s: int):
+    """Merge the verify body's split partials [B, K, splits, S*G, (hd)]
+    in split order (the combine kernel of ``csrc/flash_verify.cu``; its
+    plain version :func:`verify_combine_reference` on a CPU tensor).
+    Returns (acc [B, S, H, hd] f32, m [B, S, H], l [B, S, H])."""
+    if part_acc.device.type == "cpu":
+        return verify_combine_reference(part_acc, part_m, part_l, s)
+    if part_acc.device.type != "cuda":
+        raise ValueError(f"verify_combine: unsupported device "
+                         f"{part_acc.device}")
+    b, kv, splits, nq, head_dim = part_acc.shape
+    if nq % s or part_m.shape != part_acc.shape[:4] \
+            or part_l.shape != part_m.shape or not all(
+                part.dtype == torch.float32 and part.is_contiguous()
+                for part in (part_acc, part_m, part_l)):
+        raise ValueError(f"verify_combine: partials {tuple(part_acc.shape)} "
+                         f"/ {tuple(part_m.shape)} / {tuple(part_l.shape)} "
+                         f"are not contiguous f32 [B, K, splits, S*G(, hd)] "
+                         f"of {s} verify tokens")
+    g = nq // s
+    acc = torch.empty((b, s, kv * g, head_dim), device=part_acc.device,
+                      dtype=torch.float32)
+    m = torch.empty((b, s, kv * g), device=part_acc.device,
+                    dtype=torch.float32)
+    l = torch.empty_like(m)
+    status = _build.entry("aiko_verify_combine", _COMBINE_ARGTYPES)(
+        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, kv, g, head_dim, nq,
+        kv * g, s * kv * g, splits,
+        torch.cuda.current_stream(part_acc.device).cuda_stream)
+    _build.check(status, "verify_combine")
+    verify_combine.launches += 1
     return acc, m, l
+
+
+verify_combine.launches = 0
+
+
+def flash_verify_attention_stacked(q: torch.Tensor, k_flat: torch.Tensor,
+                                   v_flat: torch.Tensor, layer: int,
+                                   starts: torch.Tensor,
+                                   k_scale: torch.Tensor | None = None,
+                                   v_scale: torch.Tensor | None = None):
+    """Chunk-verify attention over ONE layer of the stacked cache: the
+    cache part of the speculative verify step, for all S verify tokens
+    at once -- the body split over T, then the combine.
+
+    q: [B, S, H, hd] scaled queries from :func:`_prep_query` (f32 or
+    bf16), the reference's [S, H] row order; k_flat/v_flat (and the
+    scales of an int8 cache) as in
+    :func:`flash_decode_attention_stacked`; starts: [B] int32, the
+    cache frontier every query of row b sees (``t < starts[b]``).
+    Returns (acc [B, S, H, hd] f32 unnormalised, m [B, S, H] f32,
+    l [B, S, H] f32)."""
+    if q.device.type == "cpu":
+        return flash_verify_attention_stacked_reference(
+            q, k_flat, v_flat, layer, starts, k_scale, v_scale)
+    return verify_combine(*flash_verify_partials_stacked(
+        q, k_flat, v_flat, layer, starts, k_scale, v_scale), q.shape[1])
 
 
 flash_verify_attention_stacked.launches = 0
@@ -630,32 +833,13 @@ def flash_verify_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     scale pools and page table of :func:`flash_decode_attention_paged`
     (pt a multiple of 8), read in place, the table walked in the
     kernel.  Bitwise equal to the stacked kernel on the gathered view."""
-    page_tokens = k_pool.shape[2]
-    if page_tokens % 8:
-        raise ValueError(
-            f"flash_verify_attention_paged: kv_page_tokens={page_tokens} "
-            f"must be a multiple of 8; use an aligned page size or the "
-            f"reference gather path")
+    _require_page_tokens("flash_verify_attention_paged", k_pool)
     if q.device.type == "cpu":
         return flash_verify_attention_paged_reference(
             q, k_pool, v_pool, layer, page_table, starts, k_scale, v_scale)
-    entry = "flash_verify_attention_paged"
-    if q.ndim != 4:
-        raise ValueError(f"{entry}: q must be [B, S, H, hd], got "
-                         f"{tuple(q.shape)}")
-    b, _, kv, pool = _check_paged(entry, q[:, 0], k_pool, v_pool, layer,
-                                  page_table, starts, k_scale, v_scale)
-    s, h, n_queries = _verify_shape(entry, q, kv)
-    q = q.contiguous()
-    acc, m, l = _verify_outputs(q)
-    status = _build.entry("aiko_flash_verify_paged", _VERIFY_PAGED_ARGTYPES)(
-        q.data_ptr(), int(q.dtype == torch.bfloat16),
-        int(k_scale is not None), *_ptrs(pool[:6]), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, kv, h // kv, q.shape[3], n_queries,
-        h, s * h, *pool[6:])
-    _build.check(status, entry)
-    _count(flash_verify_attention_paged, k_scale)
-    return acc, m, l
+    return verify_combine(*flash_verify_partials_paged(
+        q, k_pool, v_pool, layer, page_table, starts, k_scale, v_scale),
+        q.shape[1])
 
 
 flash_verify_attention_paged.launches = 0

@@ -19,12 +19,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    at 64- and 16-token pages, over bf16 and over int8 caches; the int8
    matmul (#5) is held exactly on grid inputs and within a stated
    tolerance on random ones, at the decode and prefill unembed, the
-   decode w_down, the admission chunk's w_up, w_down and wk (M 512) and
-   the verify forward's w_up (M 40) shapes; prefill attention (#4) at
-   offsets 0 and 1536; the chunk-verify kernel (speculative decoding's
-   verify step, S 5) stacked and paged, bf16 and int8, f32 and bf16
-   queries, the paged form BITWISE against the stacked form on the
-   gathered view at 64- and 16-token pages;
+   decode leaves wq/wo, wk, w_up and w_down (M 8, split over D), the
+   admission chunk's w_up, w_down and wk (M 512) and the verify
+   forward's w_up (M 40) shapes, and its decode route's combine exactly
+   against the plain combine; prefill attention (#4) at offsets 0 and
+   1536; the chunk-verify kernel (speculative decoding's verify step,
+   S 5: the tensor-core body split over T, then its combine) stacked
+   and paged, bf16 and int8, f32 and bf16 queries, the paged form
+   BITWISE against the stacked form on the gathered view at 64- and
+   16-token pages, and the combine against the plain combine on the
+   body's partials;
 3. serving: ``ContinuousBatcher`` on Llama-3-8B widths (random weights
    from a seed) with flash prefill, flash decode and top-k sampling:
    dense at decode_block 1 and 4, then paged (64-token pages) at full
@@ -714,6 +718,8 @@ def check_verify(device) -> list[dict]:
                 q.transpose(1, 2), kt, vt, attn_mask=mask))
         timed[f"library{suffix}"] = library
         del kt, vt, kg, vg
+        if payload == "bf16":
+            combine = _check_verify_combine(q_scaled, views, starts, s)
     live_tokens = int(starts.sum().item())
     live_pages = int(((starts + pt - 1) // pt).sum().item())
     io_bytes = q_scaled.numel() * 4 + starts.numel() * 4 \
@@ -743,13 +749,49 @@ def check_verify(device) -> list[dict]:
             rows.append(row)
     del caches
     torch.cuda.empty_cache()
-    return rows
+    return rows + [combine]
+
+
+def _check_verify_combine(q_scaled, views, starts, s) -> dict:
+    """verify_combine on the stacked bf16 body's own partials at the
+    verify check's shapes (8 splits of 4 tiles a row) against its plain
+    version on the same partials, timed beside it."""
+    import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
+    from aiko_services_tpu_torch.ops import flash_decode as fd
+    parts = fd.flash_verify_partials_stacked(q_scaled, views[0], views[1], 0,
+                                             starts)
+    got = fd.verify_combine(*parts, s)
+    want = fd.verify_combine_reference(*parts, s)
+    torch.cuda.synchronize()
+    err = _decode_error(got, want)
+    print(f"verify combine, partials {tuple(parts[0].shape)}: max_abs_err "
+          f"{err:.3e} (tol {DECODE_TOL})")
+    if not err <= DECODE_TOL:
+        raise AssertionError(f"verify combine disagrees: {err}")
+    ms = graph_ms(lambda: fd.verify_combine(*parts, s))
+    plain = graph_ms(lambda: fd.verify_combine_reference(*parts, s), iters=5)
+    # Bytes: every m/l partial, the acc partials of live splits, the
+    # outputs; two operations an accumulated element.
+    live = int((parts[1] > -1e29).sum().item())
+    head_dim = parts[0].shape[-1]
+    n_bytes = 2 * parts[1].numel() * 4 + live * head_dim * 4 \
+        + got[0].numel() * 4 + 2 * got[1].numel() * 4
+    bound, by = bound_ms(n_bytes, 2 * live * head_dim, "f32")
+    return {"name": "verify_combine", "route": "cuda",
+            "source": "aiko_services_tpu_torch/csrc/flash_verify.cu",
+            "replaces": "aiko_services_tpu/ops/pallas_decode.py:830",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "splits": parts[0].shape[2]}
 
 
 def check_int8_matmul(device) -> dict:
-    """int8_matmul (#5) at the serving path's shapes.  Decode route (M 8):
-    the decode unembed (D 4,096, F 128,256) and w_down (D 14,336, F
-    4,096).  Admission route (M > 16): the prefill unembed (M 512), the
+    """int8_matmul (#5) at the serving path's shapes.  Decode route (M 8,
+    split over D; its combine checked and timed in check_int8_combine):
+    the decode unembed (D 4,096, F 128,256), w_down (D 14,336, F 4,096),
+    wq/wo (4,096 x 4,096), wk/wv (4,096 x 1,024) and w_gate/w_up (4,096 x
+    14,336).  Admission route (M > 16): the prefill unembed (M 512), the
     layer leaves that dominate an int8 admission chunk at M 512 (w_up
     4,096 x 14,336, w_down 14,336 x 4,096, wk 4,096 x 1,024) and w_up at
     the verify forward's M 40.  Exact against the plain version on grid
@@ -767,6 +809,9 @@ def check_int8_matmul(device) -> dict:
     shapes = {"decode_unembed": (8, 4096, 128_256),
               "prefill_unembed": (512, 4096, 128_256),
               "decode_w_down": (8, 14_336, 4096),
+              "decode_wq": (8, 4096, 4096),
+              "decode_wk": (8, 4096, 1024),
+              "decode_w_up": (8, 4096, 14_336),
               "prefill_w_up": (512, 4096, 14_336),
               "prefill_w_down": (512, 14_336, 4096),
               "prefill_wk": (512, 4096, 1024),
@@ -793,7 +838,7 @@ def check_int8_matmul(device) -> dict:
         want = int8_matmul_reference(x, leaf["int8"], leaf["scale"]).float()
         torch.cuda.synchronize()
         err = ((got - want).abs().max() / want.abs().max()).item()
-        tile_m, tile_n, blocks = kernel_tiles(m, f)
+        tile_m, tile_n, blocks = kernel_tiles(m, d, f)
         print(f"int8_matmul {label} [{m}x{d}]@[{d}x{f}]: grid inputs exact "
               f"{exact}; random rel err {err:.3e} (tol {INT8_MATMUL_TOL}); "
               f"tile {tile_m}x{tile_n}, {blocks} blocks")
@@ -830,6 +875,37 @@ def check_int8_matmul(device) -> dict:
             "library": "torch.matmul (cuBLAS bf16) on the dequantized "
             "weight", "max_abs_err_is": "relative to max |out|",
             "shapes": out}
+
+
+def check_int8_combine(device) -> dict:
+    """int8_combine, the decode route's combine, at decode w_down's split
+    (D 14,336 in decode_splits' splits, M 8, F 4,096): exactly its plain
+    version (both add the splits in split order), timed beside it."""
+    import torch
+    from aiko_services_tpu_torch.kernel_times import graph_ms
+    from aiko_services_tpu_torch.ops.int8_matmul import (
+        decode_splits, int8_combine, int8_combine_reference)
+    gen = torch.Generator(device=device).manual_seed(14)
+    m, d, f = 8, 14_336, 4096
+    splits = decode_splits(d, f)[0]
+    partial = torch.randn((splits, m, f), generator=gen, device=device) * 50
+    scale = torch.rand((1, f), generator=gen, device=device) / 64
+    exact = torch.equal(int8_combine(partial, scale),
+                        int8_combine_reference(partial, scale))
+    print(f"int8 combine [{splits}x{m}x{f}]: equal to the plain combine "
+          f"{exact}")
+    if not exact:
+        raise AssertionError("int8 combine disagrees with its plain version")
+    ms = graph_ms(lambda: int8_combine(partial, scale))
+    plain = graph_ms(lambda: int8_combine_reference(partial, scale), iters=5)
+    n_bytes = partial.numel() * 4 + f * 4 + m * f * 2
+    bound, by = bound_ms(n_bytes, partial.numel() + m * f, "f32")
+    return {"name": "int8_combine", "route": "cuda",
+            "source": "aiko_services_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "aiko_services_tpu/ops/pallas_matmul.py:73",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "splits": splits}
 
 
 # -- phase 3: serving -------------------------------------------------------
@@ -1191,7 +1267,10 @@ def run_plan(plan, params, config, device, card, runs, launches) -> None:
     paged on paged runs, the int8 payload with an int8 cache), #4, #6
     and, on a quantized tree, #5's admission route (M > 16: prompt
     chunks, verify forwards) and its decode route (M <= 16); device-loop
-    runs name theirs, the decode route among them where it runs."""
+    runs name theirs, the decode route among them where it runs.  A split
+    kernel brings its combine: ``verify_combine`` with a verify kernel,
+    ``int8_combine`` with the decode route (every decode leaf but the
+    unembed splits D)."""
     from aiko_services_tpu_torch.ops import launch_counters
     counters = launch_counters()
     int8 = config.kv_dtype == "int8"
@@ -1214,6 +1293,10 @@ def run_plan(plan, params, config, device, card, runs, launches) -> None:
             | {"flash_attention", "topk"} \
             | ({"int8_matmul[M>16]"} | (set() if path else {"int8_matmul"})
                if quantized else set())
+        if any(name.startswith("flash_verify") for name in wanted):
+            wanted.add("verify_combine")
+        if "int8_matmul" in wanted:
+            wanted.add("int8_combine")
         for name, count in counts.items():
             if (count > 0) != (name in wanted):
                 raise AssertionError(
@@ -1256,11 +1339,14 @@ def main() -> int:
 
     kernels = [check_decode(device), *check_paged(device),
                *check_int8_decode(device), *check_verify(device),
-               check_int8_matmul(device), check_attention(device),
+               check_int8_matmul(device), check_int8_combine(device),
+               check_attention(device),
                check_topk(device)]
     for entry in kernels:
+        library = entry["library_ms"]
         print(f"{entry['name']}: {entry['ms']:.4f} ms (plain "
-              f"{entry['plain_ms']:.4f}, library {entry['library_ms']:.4f}, "
+              f"{entry['plain_ms']:.4f}, library "
+              f"{'none' if library is None else f'{library:.4f}'}, "
               f"bound {entry['bound_ms']:.4f} by {entry['bound_by']}) "
               f"on {card}", flush=True)
     torch.cuda.empty_cache()

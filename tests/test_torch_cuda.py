@@ -12,8 +12,9 @@ import torch
 from aiko_services_tpu_torch.models.quant import quantize_kv, quantize_weight
 from aiko_services_tpu_torch.ops import flash_attention as tatt
 from aiko_services_tpu_torch.ops import flash_decode as tdec
-from aiko_services_tpu_torch.ops.int8_matmul import (int8_matmul,
-                                                     int8_matmul_reference)
+from aiko_services_tpu_torch.ops.int8_matmul import (
+    decode_splits, int8_combine, int8_combine_reference, int8_matmul,
+    int8_matmul_reference)
 from aiko_services_tpu_torch.ops.topk import topk, topk_reference
 
 F32 = dict(atol=1e-4, rtol=1e-4)
@@ -362,3 +363,152 @@ def test_graph_replayed_loop_block_equals_eager(cuda_device, mode,
             got = got[:, rows].reshape(config.n_layers, b, 128, -1)
             ref = ref[:, rows].reshape(config.n_layers, b, 128, -1)
         assert torch.equal(got[:, :, :127], ref[:, :, :127])
+
+
+def _normalised_error(got, want) -> float:
+    """chip_smoke.py's measure of two (acc, m, l) triples: the largest of
+    the normalised-output, running-max and relative-denominator
+    differences."""
+    (acc, m, l), (acc_w, m_w, l_w) = got, want
+    live = (l_w > 0)[..., None]
+    out = torch.where(live, acc / l[..., None], acc)
+    out_w = torch.where(live, acc_w / l_w[..., None], acc_w)
+    return max((out - out_w).abs().max().item(),
+               (m - m_w).abs().max().item(),
+               ((l - l_w).abs() / l_w.clamp(min=1.0)).max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,groups", [(1, 4), (2, 4), (5, 4), (9, 4),
+                                      (9, 8)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_verify_kernel_every_query_width(cuda_device, s, groups, int8):
+    """S * G = 4, 8, 20, 36 and 72 queries a block (the wgmma widths 8,
+    8, 24, 40 and 72): the body split over T and its combine against the
+    plain version (f32 and bf16 queries), the paged form bitwise equal
+    to the stacked one, and the combine kernel against the plain combine
+    on the body's own partials."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10 * s + groups)
+    b, pps, pt, kv, hd = 3, 12, 64, 2, 128
+    h, t = kv * groups, pps * pt
+    pages = b * pps + 1
+    shape = (1, pages, pt, kv * hd)
+    if int8:
+        (k_pool, ks_pool), (v_pool, vs_pool) = (
+            _int8_pool(shape, gen, cuda_device) for _ in range(2))
+    else:
+        k_pool, v_pool = (torch.randn(shape, generator=gen,
+                                      device=cuda_device).to(torch.bfloat16)
+                          for _ in range(2))
+        ks_pool = vs_pool = None
+    table = (torch.randperm(pages - 1, generator=gen, device=cuda_device)
+             + 1).reshape(b, pps).to(torch.int32)
+    starts = torch.tensor([0, 300, t - 1], dtype=torch.int32,
+                          device=cuda_device)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda_device)
+
+    def stacked(pool):
+        return None if pool is None else \
+            pool[:, table.long()].reshape(1, b, t, -1).contiguous()
+    for q_in in (tdec._prep_query(q, hd)[0],
+                 tdec._prep_query(q.to(torch.bfloat16), 64)[0]):
+        paged = tdec.flash_verify_attention_paged(
+            q_in, k_pool, v_pool, 0, table, starts, ks_pool, vs_pool)
+        flat = tdec.flash_verify_attention_stacked(
+            q_in, stacked(k_pool), stacked(v_pool), 0, starts,
+            stacked(ks_pool), stacked(vs_pool))
+        plain = tdec.flash_verify_attention_paged_reference(
+            q_in, k_pool, v_pool, 0, table, starts, ks_pool, vs_pool)
+        parts = tdec.flash_verify_partials_paged(
+            q_in, k_pool, v_pool, 0, table, starts, ks_pool, vs_pool)
+        merged = tdec.verify_combine(*parts, s)
+        merged_plain = tdec.verify_combine_reference(*parts, s)
+        torch.cuda.synchronize()
+        for got, same in zip(paged, flat):
+            assert torch.equal(got, same)
+        if q_in.dtype == torch.float32:
+            for got, want in zip(paged, plain):
+                torch.testing.assert_close(got, want, **F32)
+        else:
+            # bf16 weights round against each split's running max, the
+            # plain version's against the row's: the raw sums of a row
+            # cut into 12 splits differ by one-ulp flips, so bf16 queries
+            # are held as chip_smoke.py holds them -- BF16 on the
+            # normalised output, m and relative l.
+            assert _normalised_error(paged, plain) <= BF16["atol"]
+        for got, want in zip(merged, merged_plain):
+            torch.testing.assert_close(got, want, **F32)
+        assert paged[0][0].abs().max() == 0 and (paged[1][0] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(4096, 4096), (4096, 1024), (4096, 14_336),
+                                 (14_336, 4096)])
+def test_int8_decode_route_split_at_leaf_shapes(cuda_device, d, f):
+    """The M <= 16 route at Llama-3-8B's decode leaves (M 8), split over
+    D: exact on grid inputs, its combine kernel exactly the plain combine
+    on the same partials."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + f)
+    assert decode_splits(d, f)[0] > 1
+    w = torch.randint(-127, 128, (d, f), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    scale = 2.0 ** torch.randint(-10, -4, (1, f), generator=gen,
+                                 device=cuda_device).float()
+    x = torch.randint(-3, 4, (8, d), generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    assert torch.equal(int8_matmul(x, w, scale),
+                       int8_matmul_reference(x, w, scale))
+    partial = torch.randn((decode_splits(d, f)[0], 8, f), generator=gen,
+                          device=cuda_device)
+    assert torch.equal(int8_combine(partial, scale),
+                       int8_combine_reference(partial, scale))
+
+
+@pytest.mark.cuda
+def test_split_kernels_replay_in_a_graph(cuda_device):
+    """The verify body with its combine, and the int8 decode route with
+    its combine, captured in one CUDA graph: a replay equals the eager
+    calls bit for bit (scratch comes from the graph's pool; the splits
+    depend on shapes only)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    b, pps, pt, kv, hd, h, s = 4, 8, 64, 2, 128, 8, 5
+    pages = b * pps + 1
+    k_pool, v_pool = (torch.randn((1, pages, pt, kv * hd), generator=gen,
+                                  device=cuda_device).to(torch.bfloat16)
+                      for _ in range(2))
+    table = (torch.arange(b * pps, device=cuda_device) + 1).reshape(
+        b, pps).to(torch.int32)
+    starts = torch.tensor([0, 1, 200, 511], dtype=torch.int32,
+                          device=cuda_device)
+    q = tdec._prep_query(torch.randn((b, s, h, hd), generator=gen,
+                                     device=cuda_device), hd)[0]
+    w = torch.randint(-127, 128, (14_336, 4096), generator=gen,
+                      device=cuda_device, dtype=torch.int8)
+    scale = torch.rand((1, 4096), generator=gen, device=cuda_device) / 64
+    x = torch.randn((8, 14_336), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+
+    def run():
+        return (*tdec.flash_verify_attention_paged(q, k_pool, v_pool, 0,
+                                                   table, starts),
+                int8_matmul(x, w, scale))
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    starts.copy_(torch.tensor([5, 0, 511, 300], dtype=torch.int32))
+    graph.replay()
+    moved = run()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, moved):
+        assert torch.equal(got, want)
+    starts.copy_(torch.tensor([0, 1, 200, 511], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
