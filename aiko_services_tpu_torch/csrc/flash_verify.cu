@@ -1,16 +1,23 @@
-// Chunk-verify attention (the cache part of speculative decoding's verify
-// step): S query tokens per batch row, all against the first lengths[b]
-// cache positions of that row.  Replaces the TPU entry flash_verify_append
-// (aiko_services_tpu/ops/pallas_decode.py:830), which ran kernels #2/#3
-// with lengths = starts and the qrow_period head map.
+// Split-T attention of S query tokens per batch row, all against the
+// first lengths[b] cache positions of that row, in two forms:
+//
+//  - S = 1 is decode attention: it replaces the TPU kernels
+//    flash_decode_attention (aiko_services_tpu/ops/pallas_decode.py:285,
+//    kernel #1, flat rows), flash_decode_attention_stacked (:387, #2,
+//    the flat rows of cache[layer]) and flash_decode_attention_paged
+//    (:487, #3, paged rows), with period = n_rows = H and G queries a
+//    block;
+//  - S > 1 is the cache part of speculative decoding's chunk verify: it
+//    replaces the TPU entry flash_verify_append (:830), which ran #2/#3
+//    with lengths = starts and the qrow_period head map.
 //
 // The query rows come in the reference's [S, H] order, [B, S*H, HD]; row
 // r belongs to kv head (r mod H) div G.  A block serves one (kv head,
 // batch row) pair and its nq = S*G queries: query j of the block is
-// r = (j / G) * H + kvh * G + j % G (20 at llama3-8b with 4 draft tokens;
-// up to 72).  The cache rows come through the Rows functors of
-// kv_rows.cuh (flat or paged), bf16 or int8 with per-(position, kv head)
-// f32 scales.
+// r = (j / G) * H + kvh * G + j % G (4 at llama3-8b decode, 20 with 4
+// draft tokens; up to 72).  The cache rows come through the Rows functors
+// of kv_rows.cuh (flat or paged), bf16 or int8 with per-(position, kv
+// head) f32 scales.
 //
 // What bounds it on an H100: bytes.  Each cached element meets nq
 // queries, ~4 nq operations per element against the 1-2 bytes it costs,
@@ -33,7 +40,9 @@
 //    O^T[hd, N] += V^T P^T with hd = 128 as two m64 halves and V read
 //    MN-major from the same swizzled tile (the transpose bit of A).  N
 //    is nq padded to the next of 8, 24, 40, 72 (sm90.cuh's narrow
-//    widths), so 20 queries cost 24 columns, not 64 rows.
+//    widths), so 20 queries cost 24 columns, not 64 rows, and a decode
+//    block's G <= 8 queries one n8 product (columns the byte-bound body
+//    can spare).
 //  - f32 accuracy from bf16 products.  f32 queries and the f32 softmax
 //    weights are each split into a bf16 high and low part (x = hi + lo
 //    to ~16 bits) and both products accumulate into one f32
@@ -598,7 +607,7 @@ extern "C" int aiko_flash_verify_paged(
                period, n_rows, pps * page_tokens, splits, tiles_per_split};
   const PagedRows rows{page_stride, stride_t, spage_stride, sstride_t,
                        static_cast<const int32_t*>(table), pps, page_tokens,
-                       n_pages};
+                       n_pages, aiko::power_of_two_shift(page_tokens)};
   return launch(head_dim, a, rows, pps * static_cast<int>(sizeof(int)),
                 stream);
 }
@@ -629,4 +638,8 @@ extern "C" int aiko_verify_combine(
     return static_cast<int>(cudaErrorInvalidValue);
 #undef AIKO_COMBINE
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* aiko_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -26,14 +26,28 @@ struct FlatRows {
   }
 };
 
+// log2(n) when n is a power of two, else -1 (PagedRows::page_shift).
+inline int power_of_two_shift(int n) {
+  return n > 0 && (n & (n - 1)) == 0 ? __builtin_ctz(n) : -1;
+}
+
 // Row addressing of a paged pool [P, pt, C]: row t of batch row b at
 // base + table[b, t / pt] * page_stride + (t % pt) * stride_t, its scales
-// (a [P, pt, K] pool) at the same page and row of the scale pool.
+// (a [P, pt, K] pool) at the same page and row of the scale pool.  A
+// power-of-two pt divides by a shift and a mask.
 struct PagedRows {
   long long page_stride, stride_t;
   long long spage_stride, sstride_t;
   const int32_t* table;           // [B, pps]
   int pps, page_tokens, n_pages;
+  int page_shift;                 // power_of_two_shift(page_tokens)
+
+  __device__ __forceinline__ int page(int t) const {
+    return page_shift >= 0 ? t >> page_shift : t / page_tokens;
+  }
+  __device__ __forceinline__ int within(int t) const {
+    return page_shift >= 0 ? t & (page_tokens - 1) : t % page_tokens;
+  }
 
   __device__ __forceinline__ void load(int b, int length, int* tbl) const {
     const int live = (length + page_tokens - 1) / page_tokens;
@@ -43,13 +57,11 @@ struct PagedRows {
     }
   }
   __device__ __forceinline__ long long row(int, int t, const int* tbl) const {
-    return tbl[t / page_tokens] * page_stride
-           + (long long)(t % page_tokens) * stride_t;
+    return tbl[page(t)] * page_stride + (long long)within(t) * stride_t;
   }
   __device__ __forceinline__ long long srow(int, int t,
                                             const int* tbl) const {
-    return tbl[t / page_tokens] * spage_stride
-           + (long long)(t % page_tokens) * sstride_t;
+    return tbl[page(t)] * spage_stride + (long long)within(t) * sstride_t;
   }
 };
 

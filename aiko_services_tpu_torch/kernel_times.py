@@ -1,4 +1,4 @@
-"""Time the prefill-attention (#4), int8-matmul (#5) and chunk-verify kernels on the card.
+"""Time the port's kernels on the card: #1-#6 and the chunk verify.
 
     python3 aiko_services_tpu_torch/kernel_times.py [--root DIR] [--label NAME]
 
@@ -10,13 +10,16 @@ the launches), at ``chip_smoke.py``'s shapes: #4 on q [1, 512, 32, 128]
 against 2,048 keys at offsets 0 and 1,536; #5 at the decode and prefill
 unembed, the admission chunk's w_up, w_down and wk (M 512), the verify
 forward's w_up (M 40) and the decode leaves w_down, wq/wo, wk/wv and
-w_gate/w_up (M 8); the chunk verify (its cache part, S 5, f32 queries
-[8, 5, 32, 128] against 7,195 live positions of a 2,048-position row:
-``chip_smoke.py``'s shapes) stacked and paged over bf16 and int8 caches.
-Beside each, the library call on the same inputs (SDPA, over the
-pre-gathered and dequantized view for the verify; cuBLAS bf16 on the
-dequantized weight).  Prints one JSON object a shape, with the card's
-name and power limit.  Needs a CUDA card.
+w_gate/w_up (M 8); the split attention body against 7,195 live positions
+of 2,048-position rows (``chip_smoke.py``'s shapes), bf16 and int8
+caches: the chunk verify (its cache part, S 5, f32 queries [8, 5, 32,
+128]) stacked and paged, and the decode forms #1 flat, #2 stacked and #3
+paged (f32 queries [8, 32, 128]); top-k (#6) of [8, 128256] logits at k
+1, 50 and 128.  Beside each, the library call on the same inputs (SDPA
+over the pre-gathered and dequantized view for the attention forms;
+cuBLAS bf16 on the dequantized weight; ``torch.topk``).  Prints one JSON
+object a shape, with the card's name and power limit.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ MATMULS = {"decode_unembed": (8, 4096, 128_256),
            "decode_w_up": (8, 4096, 14_336)}
 VERIFY = (8, 5, 32, 2048, 8, 128, 64)          # b, s, h, t, kv, d, pt
 VERIFY_STARTS = (0, 2047, 1, 1500, 513, 64, 2046, 1024)
+TOPK = (8, 128_256)
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -126,15 +130,18 @@ def main(argv: list[str]) -> int:
                           "tflops": 2 * m * d * f / ms / 1e9}), flush=True)
         del leaf, x, dense
         torch.cuda.empty_cache()
-    time_verify(base, device, gen)
+    time_attention(base, device, gen)
+    time_topk(base, device, gen)
     return 0
 
 
-def time_verify(base: dict, device, gen) -> None:
-    """The chunk verify's cache part: the stacked form over one layer of a
-    [1, B, T, C] cache and the paged form over [1, B*T/pt + 1, pt, C]
-    pools through a shuffled table, bf16 and int8, f32 queries; SDPA of
-    the S queries over the (dequantized) gathered view beside them."""
+def time_attention(base: dict, device, gen) -> None:
+    """The split attention body's forms over one layer: the chunk verify's
+    cache part (S 5) stacked and paged, and the decode forms (S 1) --
+    #2 stacked over a [1, B, T, C] cache, #3 paged over [1, B*T/pt + 1,
+    pt, C] pools through a shuffled table, #1 flat on the gathered
+    [B, T, C] view -- bf16 and int8, f32 queries; SDPA of the same
+    queries over the (dequantized) gathered view beside them."""
     import torch
     from aiko_services_tpu_torch.models.quant import quantize_kv
     from aiko_services_tpu_torch.ops import flash_decode as fd
@@ -146,6 +153,7 @@ def time_verify(base: dict, device, gen) -> None:
     q = torch.randn((b, s, h, d), generator=gen, device=device).to(
         torch.bfloat16)
     q_scaled, _ = fd._prep_query(q, d)
+    q1, q1_scaled = q[:, 0], q_scaled[:, 0].contiguous()
     mask = (torch.arange(t, device=device)[None, :]
             < starts[:, None])[:, None, None, :]
     for payload in ("bf16", "int8"):
@@ -165,10 +173,25 @@ def time_verify(base: dict, device, gen) -> None:
         gathered = [None if pool is None else pool[0][table.long()].reshape(
             1, b, t, pool.shape[-1]).contiguous()
             for pool in (k_pool, v_pool, ks, vs)]
-        stacked_ms = graph_ms(lambda: fd.flash_verify_attention_stacked(
-            q_scaled, gathered[0], gathered[1], 0, starts, *gathered[2:]))
-        paged_ms = graph_ms(lambda: fd.flash_verify_attention_paged(
-            q_scaled, k_pool, v_pool, 0, table, starts, ks, vs))
+        flat = [None if view is None else view[0] for view in gathered]
+        timed = {
+            "flash_verify_attention_stacked": (
+                lambda: fd.flash_verify_attention_stacked(
+                    q_scaled, gathered[0], gathered[1], 0, starts,
+                    *gathered[2:]), s),
+            "flash_verify_attention_paged": (
+                lambda: fd.flash_verify_attention_paged(
+                    q_scaled, k_pool, v_pool, 0, table, starts, ks, vs), s),
+            "flash_decode_attention_stacked": (
+                lambda: fd.flash_decode_attention_stacked(
+                    q1_scaled, gathered[0], gathered[1], 0, starts,
+                    *gathered[2:]), 1),
+            "flash_decode_attention_paged": (
+                lambda: fd.flash_decode_attention_paged(
+                    q1_scaled, k_pool, v_pool, 0, table, starts, ks, vs), 1),
+            "flash_decode_attention": (
+                lambda: fd.flash_decode_attention(
+                    q1_scaled, flat[0], flat[1], starts, *flat[2:]), 1)}
         views = []
         for codes, scales in ((gathered[0], gathered[2]),
                               (gathered[1], gathered[3])):
@@ -178,18 +201,34 @@ def time_verify(base: dict, device, gen) -> None:
                     torch.bfloat16)
             views.append(values.transpose(1, 2)
                          .repeat_interleave(h // kv, dim=1))
-        sdpa = graph_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), views[0], views[1], attn_mask=mask))
+        sdpa = {
+            n: graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    queries, views[0], views[1], attn_mask=mask))
+            for n, queries in ((s, q.transpose(1, 2)),
+                               (1, q1[:, :, None, :]))}
         suffix = "[int8]" if payload == "int8" else ""
-        for form, ms in (("stacked", stacked_ms), ("paged", paged_ms)):
-            print(json.dumps({**base,
-                              "kernel": f"flash_verify_attention_{form}"
-                                        f"{suffix}",
-                              "shape": f"b{b} s{s} h{h} t{t}",
-                              "ms": ms, "library_ms": sdpa}), flush=True)
-        del sides, gathered, views, k_pool, v_pool, ks, vs
+        for name, (fn, n) in timed.items():
+            print(json.dumps({**base, "kernel": f"{name}{suffix}",
+                              "shape": f"b{b} s{n} h{h} t{t}",
+                              "ms": graph_ms(fn), "library_ms": sdpa[n]}),
+                  flush=True)
+        del sides, gathered, flat, views, k_pool, v_pool, ks, vs, timed
         torch.cuda.empty_cache()
+
+
+def time_topk(base: dict, device, gen) -> None:
+    """Top-k of [8, 128256] f32 logits (the sampling step's) at k 1, 50
+    and 128, beside torch.topk on the same rows."""
+    import torch
+    from aiko_services_tpu_torch.ops.topk import topk
+    x = torch.randn(TOPK, generator=gen, device=device)
+    for k in (1, 50, 128):
+        print(json.dumps({**base, "kernel": "topk",
+                          "shape": f"{TOPK[0]}x{TOPK[1]} k{k}",
+                          "ms": graph_ms(lambda: topk(x, k)),
+                          "library_ms": graph_ms(lambda: torch.topk(x, k))}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -76,10 +76,11 @@ def launch_counters() -> dict:
     kernel, and nowhere else; the decode and verify wrappers count bf16
     and int8 payloads apart (``[int8]`` names), the int8 matmul its
     decode route (M <= 16) and its admission route (``[M>16]``); the
-    combines of the split verify body (``verify_combine``) and of the
+    combines of the split attention body (``decode_combine`` after a
+    decode form, ``verify_combine`` after a verify form) and of the int8
     decode route split over D (``int8_combine``) count apart."""
     from .flash_attention import flash_attention
-    from .flash_decode import (flash_decode_attention,
+    from .flash_decode import (decode_combine, flash_decode_attention,
                                flash_decode_attention_paged,
                                flash_decode_attention_stacked,
                                flash_verify_attention_paged,
@@ -93,8 +94,8 @@ def launch_counters() -> dict:
                     flash_verify_attention_paged):
         counters[wrapper.__name__] = (wrapper, "launches")
         counters[f"{wrapper.__name__}[int8]"] = (wrapper, "int8_launches")
-    for wrapper in (int8_matmul, flash_attention, topk, verify_combine,
-                    int8_combine):
+    for wrapper in (int8_matmul, flash_attention, topk, decode_combine,
+                    verify_combine, int8_combine):
         counters[wrapper.__name__] = (wrapper, "launches")
     counters["int8_matmul[M>16]"] = (int8_matmul, "wide_launches")
     return counters

@@ -17,26 +17,26 @@ float32 scale per position and kv head, dequantized inside the kernel):
 - ``flash_verify_attention_stacked`` and ``flash_verify_attention_paged``
   (the chunk verify of speculative decoding, which the TPU package ran
   through #2/#3 with ``qrow_period``): S query tokens per row against
-  the cache up to ``starts``, per layer one launch of the verify body
-  split over T (``flash_verify_partials_stacked`` / ``_paged``, the
-  split from :func:`verify_splits`) and one of its combine
-  (:func:`verify_combine`), with ``flash_verify_append``, which adds the
-  chunk's own causal k/v (``_combine_chunk``);
+  the cache up to ``starts``, with ``flash_verify_append``, which adds
+  the chunk's own causal k/v (``_combine_chunk``);
 
 and the helpers ``_prep_query``, ``_combine_self``, ``_split_stacked``,
 ``_split_paged`` and ``_require_matched_quantization``.
 
-The decode wrappers launch the body of ``csrc/flash_decode.cu``, the
-verify wrappers the tensor-core body and the combine of
-``csrc/flash_verify.cu`` (their comments say what bounds them and how
-they are laid out); each differs between its flat and paged forms only
-in the address of cache row t (``csrc/kv_rows.cuh``): a paged kernel is
-bitwise equal to its flat one on the gathered view.  One difference from the TPU
-kernels' interface: queries and accumulator are COMPACT, ``[B, H, hd]``.
-The TPU kernels took block-diagonal zero-padded queries ``[B, H, K*hd]``
-(a lane alignment trick for the MXU) and returned ``[B, H, K*hd]``, of
-which ``_combine_self`` kept each head's own kv block; here only that
-block is passed in and computed.
+All of them run ONE body, the tensor-core kernel of
+``csrc/flash_verify.cu`` (its comments say what bounds it and how it is
+laid out), split over T by :func:`verify_splits` (shapes only), then
+its combine: a decode form is the S = 1 case (``flash_decode_partials_*``,
+then :func:`decode_combine`), a verify form S draft tokens
+(``flash_verify_partials_*``, then :func:`verify_combine`).  The flat
+and paged forms differ only in the address of cache row t
+(``csrc/kv_rows.cuh``): a paged launch is bitwise equal to its flat one
+on the gathered view.  One difference from the TPU kernels' interface:
+queries and accumulator are COMPACT, ``[B, H, hd]``.  The TPU kernels
+took block-diagonal zero-padded queries ``[B, H, K*hd]`` (a lane
+alignment trick for the MXU) and returned ``[B, H, K*hd]``, of which
+``_combine_self`` kept each head's own kv block; here only that block
+is passed in and computed.
 
 int8 caches pass their scales in the layout they are stored in,
 ``[.., T, K]`` (the trailing unit axis of the cache leaf dropped, a
@@ -46,9 +46,9 @@ package transposed -- a copy -- every step.
 
 On a CPU tensor each wrapper runs its plain PyTorch version below; on a
 CUDA tensor it launches the kernel or raises.  ``launches`` counts a
-wrapper's bf16-payload launches and ``int8_launches`` its int8 ones
-(the verify wrappers count their body's launches; ``verify_combine``
-counts the combine's).
+wrapper's bf16-payload launches of the body and ``int8_launches`` its
+int8 ones; the two combines count apart (``decode_combine.launches``,
+``verify_combine.launches``).
 """
 
 from __future__ import annotations
@@ -74,7 +74,10 @@ __all__ = ["flash_decode_attention", "flash_decode_append",
            "flash_verify_attention_paged_reference", "flash_verify_append",
            "flash_verify_partials_stacked", "flash_verify_partials_paged",
            "flash_verify_partials_reference", "verify_combine",
-           "verify_combine_reference", "verify_splits"]
+           "verify_combine_reference", "verify_splits",
+           "flash_decode_partials_stacked", "flash_decode_partials_paged",
+           "flash_decode_partials_reference", "decode_combine",
+           "decode_combine_reference"]
 
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
@@ -85,12 +88,13 @@ VERIFY_TILE = 64
 
 
 def verify_splits(t_len: int, batch: int, n_kv: int) -> tuple[int, int]:
-    """(splits, tiles per split) of the verify body's grid over a cache of
-    ``t_len`` positions: splits of ``tiles`` 64-key tiles, as few tiles a
-    split as give about 4 x 132 blocks of (row, kv head, split) -- blocks
-    past a row's start exit at once, so the live ones still fill the
-    card.  A function of the static shapes only: the launch is captured
-    in the device loop's graph, where the host cannot read the starts."""
+    """(splits, tiles per split) of the split body's grid (decode and
+    verify) over a cache of ``t_len`` positions: splits of ``tiles``
+    64-key tiles, as few tiles a split as give about 4 x 132 blocks of
+    (row, kv head, split) -- blocks past a row's length exit at once, so
+    the live ones still fill the card.  A function of the static shapes
+    only: the launch is captured in the device loop's graph, where the
+    host cannot read the lengths."""
     tiles = max(1, ceil_div(t_len, VERIFY_TILE))
     per_split = ceil_div(tiles, ceil_div(4 * CARD_SMS, max(1, batch * n_kv)))
     return ceil_div(tiles, per_split), per_split
@@ -290,6 +294,23 @@ def verify_combine_reference(part_acc, part_m, part_l, s: int):
     return _by_query_row(acc, s), _by_query_row(m, s), _by_query_row(l, s)
 
 
+def flash_decode_partials_reference(q, k_flat, v_flat, lengths, k_scale=None,
+                                    v_scale=None):
+    """Plain version of the decode body split over T: the S = 1 case of
+    :func:`flash_verify_partials_reference` for queries q [B, H, hd]
+    against positions below ``lengths`` of a flat [B, T, C] cache: (acc
+    [B, K, splits, G, hd] f32, m and l [B, K, splits, G])."""
+    return flash_verify_partials_reference(q[:, None], k_flat, v_flat,
+                                           lengths, k_scale, v_scale)
+
+
+def decode_combine_reference(part_acc, part_m, part_l):
+    """Plain version of the decode combine: the verify combine at one
+    query token, (acc [B, H, hd], m [B, H], l [B, H])."""
+    acc, m, l = verify_combine_reference(part_acc, part_m, part_l, 1)
+    return acc[:, 0], m[:, 0], l[:, 0]
+
+
 def _layer(scale, layer: int):
     return None if scale is None else scale[layer]
 
@@ -389,23 +410,6 @@ def _check_common(entry: str, q, k, v, lengths, head_dim: int, kc: int,
     return b, h, kv
 
 
-def _outputs(q):
-    b, h, head_dim = q.shape
-    acc = torch.empty((b, h, head_dim), device=q.device,
-                      dtype=torch.float32)
-    m = torch.empty((b, h), device=q.device, dtype=torch.float32)
-    return acc, m, torch.empty_like(m)
-
-
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
-    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 \
-    + [ctypes.c_void_p]
-
-_PAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
-    + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4 \
-    + [ctypes.c_void_p]
-
-
 def _ptr(tensor) -> int | None:
     return None if tensor is None else tensor.data_ptr()
 
@@ -417,11 +421,11 @@ def _ptrs(tensors) -> list:
     return [_ptr(tensor) for tensor in tensors]
 
 
-_VERIFY_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+_BODY_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
     + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 4 \
     + [ctypes.c_void_p]
 
-_VERIFY_PAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+_BODY_PAGED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
     + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 \
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 
@@ -450,35 +454,183 @@ def _check_rows(entry: str, k_view, v_view) -> None:
             f"{k_view.stride()} / {v_view.stride()})")
 
 
-def _launch_flat(entry: str, q, k_view, v_view, lengths, k_scale=None,
-                 v_scale=None):
-    """Launch the flat-addressed kernel on [B, T, C] views (unit-stride
-    rows, 16-byte aligned, k and v with one set of strides), with the
-    [B, T, K] scales of an int8 payload."""
-    b, h, head_dim = q.shape
+def _scratch(q, kv: int, splits: int):
+    """The body's partials: acc [B, K, splits, S*G, hd], m and l [B, K,
+    splits, S*G] (f32, from the caching allocator: capture-safe)."""
+    b, s, h, head_dim = q.shape
+    nq = s * (h // kv)
+    acc = torch.empty((b, kv, splits, nq, head_dim), device=q.device,
+                      dtype=torch.float32)
+    m = torch.empty((b, kv, splits, nq), device=q.device,
+                    dtype=torch.float32)
+    return acc, m, torch.empty_like(m)
+
+
+def _body_query(q):
+    """Contiguous queries on a 16-byte boundary (the body's vector loads)."""
+    q = q.contiguous()
+    return q if q.data_ptr() % 16 == 0 else q.clone()
+
+
+def _partials_flat(entry: str, wrapper, q, k_view, v_view, starts,
+                   k_scale=None, v_scale=None):
+    """Launch the split body (``aiko_flash_verify``) for queries
+    q [B, S, H, hd] (S = 1: decode) on [B, T, C] views (unit-stride rows,
+    16-byte aligned, k and v with one set of strides), with the [B, T, K]
+    scales of an int8 payload; the launch counts on ``wrapper``.
+    Returns the partials of :func:`flash_verify_partials_reference`."""
+    b, s, h, head_dim = q.shape
     _, t, kc = k_view.shape
     kv = kc // head_dim
+    _verify_shape(entry, q, kv)
     _check_rows(entry, k_view, v_view)
     sstrides = k_scale.stride()[:2] if k_scale is not None else (0, 0)
-    q = q.contiguous()
-    lengths = lengths.contiguous()
-    acc, m, l = _outputs(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _build.entry("aiko_flash_decode", _ARGTYPES)(
+    q = _body_query(q)
+    starts = starts.contiguous()
+    splits, per_split = verify_splits(t, b, kv)
+    parts = _scratch(q, kv, splits)
+    status = _build.entry("aiko_flash_verify", _BODY_ARGTYPES)(
         q.data_ptr(), int(q.dtype == torch.bfloat16),
         int(k_scale is not None), k_view.data_ptr(), v_view.data_ptr(),
-        _ptr(k_scale), _ptr(v_scale), lengths.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, kv, h // kv, head_dim, t,
-        k_view.stride(0), k_view.stride(1), *sstrides, stream)
+        _ptr(k_scale), _ptr(v_scale), starts.data_ptr(),
+        *(part.data_ptr() for part in parts), b, kv, h // kv, head_dim,
+        s * (h // kv), h, s * h, t, splits, per_split, k_view.stride(0),
+        k_view.stride(1), *sstrides,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, entry)
+    _count(wrapper, k_scale)
+    return parts
+
+
+def _partials_paged(entry: str, wrapper, q, k_pool, v_pool, layer: int,
+                    page_table, starts, k_scale=None, v_scale=None):
+    """Paged twin of :func:`_partials_flat` over one layer of the pools
+    (``aiko_flash_verify_paged``), the split over the logical extent
+    pps * pt: bitwise equal to it on the gathered view."""
+    kv, pool = _check_paged(entry, q[:, 0], k_pool, v_pool, layer,
+                            page_table, starts, k_scale, v_scale)
+    _verify_shape(entry, q, kv)
+    b, s, h, head_dim = q.shape
+    q = _body_query(q)
+    splits, per_split = verify_splits(pool[6] * pool[7], b, kv)
+    parts = _scratch(q, kv, splits)
+    status = _build.entry("aiko_flash_verify_paged", _BODY_PAGED_ARGTYPES)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16),
+        int(k_scale is not None), *_ptrs(pool[:6]),
+        *(part.data_ptr() for part in parts), b, kv, h // kv, head_dim,
+        s * (h // kv), h, s * h, splits, per_split, *pool[6:])
+    _build.check(status, entry)
+    _count(wrapper, k_scale)
+    return parts
+
+
+def _combine(entry: str, part_acc, part_m, part_l, s: int):
+    """Launch the combine kernel on partials [B, K, splits, S*G, (hd)]:
+    (acc [B, S, H, hd], m [B, S, H], l [B, S, H]) f32."""
+    if part_acc.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {part_acc.device}")
+    b, kv, splits, nq, head_dim = part_acc.shape
+    if nq % s or part_m.shape != part_acc.shape[:4] \
+            or part_l.shape != part_m.shape or not all(
+                part.dtype == torch.float32 and part.is_contiguous()
+                for part in (part_acc, part_m, part_l)):
+        raise ValueError(f"{entry}: partials {tuple(part_acc.shape)} / "
+                         f"{tuple(part_m.shape)} / {tuple(part_l.shape)} "
+                         f"are not contiguous f32 [B, K, splits, S*G(, hd)] "
+                         f"of {s} query tokens")
+    g = nq // s
+    acc = torch.empty((b, s, kv * g, head_dim), device=part_acc.device,
+                      dtype=torch.float32)
+    m = torch.empty((b, s, kv * g), device=part_acc.device,
+                    dtype=torch.float32)
+    l = torch.empty_like(m)
+    status = _build.entry("aiko_verify_combine", _COMBINE_ARGTYPES)(
+        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, kv, g, head_dim, nq,
+        kv * g, s * kv * g, splits,
+        torch.cuda.current_stream(part_acc.device).cuda_stream)
     _build.check(status, entry)
     return acc, m, l
+
+
+def decode_combine(part_acc: torch.Tensor, part_m: torch.Tensor,
+                   part_l: torch.Tensor):
+    """Merge the decode body's split partials [B, K, splits, G, (hd)] in
+    split order (the combine kernel of ``csrc/flash_verify.cu`` at one
+    query token; its plain version :func:`decode_combine_reference` on a
+    CPU tensor).  Returns (acc [B, H, hd] f32, m [B, H], l [B, H])."""
+    if part_acc.device.type == "cpu":
+        return decode_combine_reference(part_acc, part_m, part_l)
+    acc, m, l = _combine("decode_combine", part_acc, part_m, part_l, 1)
+    decode_combine.launches += 1
+    return acc[:, 0], m[:, 0], l[:, 0]
+
+
+decode_combine.launches = 0
+
+
+def flash_decode_partials_stacked(q: torch.Tensor, k_flat: torch.Tensor,
+                                  v_flat: torch.Tensor, layer: int,
+                                  lengths: torch.Tensor,
+                                  k_scale: torch.Tensor | None = None,
+                                  v_scale: torch.Tensor | None = None):
+    """Kernel #2's body alone: the split partials of ONE layer of the
+    stacked cache (:func:`flash_decode_partials_reference`'s, which a
+    CPU tensor gets), before :func:`decode_combine`.  Arguments as in
+    :func:`flash_decode_attention_stacked`; a launch counts on it."""
+    if q.device.type == "cpu":
+        return flash_decode_partials_reference(
+            q, k_flat[layer], v_flat[layer], lengths, _layer(k_scale, layer),
+            _layer(v_scale, layer))
+    entry = "flash_decode_attention_stacked"
+    if q.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {q.device}")
+    b, _, head_dim = q.shape
+    n_layers, kb, _, kc = k_flat.shape
+    if kb != b or v_flat.shape != k_flat.shape \
+            or not 0 <= layer < n_layers:
+        raise ValueError(
+            f"{entry}: q {tuple(q.shape)} does not match the cache "
+            f"{tuple(k_flat.shape)} / {tuple(v_flat.shape)} at layer "
+            f"{layer}")
+    _check_common(entry, q, k_flat, v_flat, lengths, head_dim, kc, k_scale,
+                  v_scale)
+    if not (k_flat.is_contiguous() and v_flat.is_contiguous()):
+        raise ValueError(f"{entry}: the stacked cache must be contiguous")
+    return _partials_flat(entry, flash_decode_attention_stacked, q[:, None],
+                          k_flat[layer], v_flat[layer], lengths,
+                          _layer(k_scale, layer), _layer(v_scale, layer))
+
+
+def flash_decode_partials_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, layer: int,
+                                page_table: torch.Tensor,
+                                lengths: torch.Tensor,
+                                k_scale: torch.Tensor | None = None,
+                                v_scale: torch.Tensor | None = None):
+    """Kernel #3's body alone: paged twin of
+    :func:`flash_decode_partials_stacked` (arguments as in
+    :func:`flash_decode_attention_paged`; a launch counts on it),
+    bitwise equal to it on the gathered view."""
+    _require_page_tokens("flash_decode_attention_paged", k_pool)
+    if q.device.type == "cpu":
+        scales = [None if pool is None else _gathered(pool[layer], page_table)
+                  for pool in (k_scale, v_scale)]
+        return flash_decode_partials_reference(
+            q, _gathered(k_pool[layer], page_table),
+            _gathered(v_pool[layer], page_table), lengths, *scales)
+    return _partials_paged("flash_decode_attention_paged",
+                           flash_decode_attention_paged, q[:, None], k_pool,
+                           v_pool, layer, page_table, lengths, k_scale,
+                           v_scale)
 
 
 def flash_decode_attention(q: torch.Tensor, k_flat: torch.Tensor,
                            v_flat: torch.Tensor, lengths: torch.Tensor,
                            k_scale: torch.Tensor | None = None,
                            v_scale: torch.Tensor | None = None):
-    """Split-K decode attention over a FLAT cache (kernel #1).
+    """Split-K decode attention over a FLAT cache (kernel #1): the body
+    split over T, then :func:`decode_combine`.
 
     q: [B, H, hd] scaled queries from :func:`_prep_query` (f32 or bf16);
     k_flat/v_flat: [B, T, K*hd] bf16 views, or int8 codes with their
@@ -500,9 +652,9 @@ def flash_decode_attention(q: torch.Tensor, k_flat: torch.Tensor,
             f"{tuple(k_flat.shape)} / {tuple(v_flat.shape)}")
     _check_common(entry, q, k_flat, v_flat, lengths, head_dim,
                   k_flat.shape[2], k_scale, v_scale)
-    out = _launch_flat(entry, q, k_flat, v_flat, lengths, k_scale, v_scale)
-    _count(flash_decode_attention, k_scale)
-    return out
+    return decode_combine(*_partials_flat(
+        entry, flash_decode_attention, q[:, None], k_flat, v_flat, lengths,
+        k_scale, v_scale))
 
 
 flash_decode_attention.launches = 0
@@ -515,7 +667,8 @@ def flash_decode_attention_stacked(q: torch.Tensor, k_flat: torch.Tensor,
                                    k_scale: torch.Tensor | None = None,
                                    v_scale: torch.Tensor | None = None):
     """Split-K decode attention over ONE layer of the stacked cache
-    (kernel #2).
+    (kernel #2): :func:`flash_decode_partials_stacked`, then
+    :func:`decode_combine`.
 
     q: [B, H, hd] scaled queries from :func:`_prep_query` (f32 or bf16);
     k_flat/v_flat: [L, B, T, K*hd] bf16 caches, or int8 codes with their
@@ -526,25 +679,8 @@ def flash_decode_attention_stacked(q: torch.Tensor, k_flat: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_attention_stacked_reference(
             q, k_flat, v_flat, layer, lengths, k_scale, v_scale)
-    entry = "flash_decode_attention_stacked"
-    if q.device.type != "cuda":
-        raise ValueError(f"{entry}: unsupported device {q.device}")
-    b, _, head_dim = q.shape
-    n_layers, kb, _, kc = k_flat.shape
-    if kb != b or v_flat.shape != k_flat.shape \
-            or not 0 <= layer < n_layers:
-        raise ValueError(
-            f"{entry}: q {tuple(q.shape)} does not match the cache "
-            f"{tuple(k_flat.shape)} / {tuple(v_flat.shape)} at layer "
-            f"{layer}")
-    _check_common(entry, q, k_flat, v_flat, lengths, head_dim, kc, k_scale,
-                  v_scale)
-    if not (k_flat.is_contiguous() and v_flat.is_contiguous()):
-        raise ValueError(f"{entry}: the stacked cache must be contiguous")
-    out = _launch_flat(entry, q, k_flat[layer], v_flat[layer], lengths,
-                       _layer(k_scale, layer), _layer(v_scale, layer))
-    _count(flash_decode_attention_stacked, k_scale)
-    return out
+    return decode_combine(*flash_decode_partials_stacked(
+        q, k_flat, v_flat, layer, lengths, k_scale, v_scale))
 
 
 flash_decode_attention_stacked.launches = 0
@@ -558,7 +694,8 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                  k_scale: torch.Tensor | None = None,
                                  v_scale: torch.Tensor | None = None):
     """Split-K decode attention over ONE layer of the PAGED pools, the
-    page table walked in the kernel (kernel #3).
+    page table walked in the kernel (kernel #3):
+    :func:`flash_decode_partials_paged`, then :func:`decode_combine`.
 
     q: [B, H, hd] scaled queries from :func:`_prep_query` (f32 or bf16);
     k_pool/v_pool: [L, P, pt, K*hd] contiguous bf16 pools, or int8 code
@@ -571,18 +708,8 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_attention_paged_reference(
             q, k_pool, v_pool, layer, page_table, lengths, k_scale, v_scale)
-    entry = "flash_decode_attention_paged"
-    b, h, kv, pool = _check_paged(entry, q, k_pool, v_pool, layer,
-                                  page_table, lengths, k_scale, v_scale)
-    q = q.contiguous()
-    acc, m, l = _outputs(q)
-    status = _build.entry("aiko_flash_decode_paged", _PAGED_ARGTYPES)(
-        q.data_ptr(), int(q.dtype == torch.bfloat16),
-        int(k_scale is not None), *_ptrs(pool[:6]), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, kv, h // kv, q.shape[2], *pool[6:])
-    _build.check(status, entry)
-    _count(flash_decode_attention_paged, k_scale)
-    return acc, m, l
+    return decode_combine(*flash_decode_partials_paged(
+        q, k_pool, v_pool, layer, page_table, lengths, k_scale, v_scale))
 
 
 flash_decode_attention_paged.launches = 0
@@ -603,10 +730,10 @@ def _require_page_tokens(entry: str, k_pool) -> int:
 
 def _check_paged(entry: str, q, k_pool, v_pool, layer: int, page_table,
                  lengths, k_scale, v_scale):
-    """The checks of both paged wrappers (q is one [B, H, hd] query row
-    set).  Returns (B, H, K, pool arguments): the C entries' (k, v,
-    k_scale, v_scale, table, lengths) tensors -- kept alive until the
-    launch, see :func:`_ptrs` -- then (pps, pt, P, strides..., stream)."""
+    """The checks of the paged launches (q is one [B, H, hd] query row
+    set).  Returns (K, pool arguments): the C entries' (k, v, k_scale,
+    v_scale, table, lengths) tensors -- kept alive until the launch, see
+    :func:`_ptrs` -- then (pps, pt, P, strides..., stream)."""
     if q.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {q.device}")
     b, h, head_dim = q.shape
@@ -631,40 +758,20 @@ def _check_paged(entry: str, q, k_pool, v_pool, layer: int, page_table,
     page_table = page_table.contiguous()
     lengths = lengths.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return b, h, kv, (
+    return kv, (
         k_layer, v_layer, k_scales, v_scales, page_table, lengths,
         page_table.shape[1], page_tokens, n_pages, k_layer.stride(0),
         k_layer.stride(1), *sstrides, stream)
 
 
-def _verify_shape(entry: str, q, kv: int):
-    """(S, H, queries per block) of [B, S, H, hd] verify queries; the
-    kernel holds at most _MAX_VERIFY_QUERIES queries a block."""
+def _verify_shape(entry: str, q, kv: int) -> None:
+    """The kernel holds at most _MAX_VERIFY_QUERIES queries (S * G) a
+    block of [B, S, H, hd] verify queries."""
     _, s, h, _ = q.shape
-    n_queries = s * (h // kv)
-    if n_queries > _MAX_VERIFY_QUERIES:
+    if s * (h // kv) > _MAX_VERIFY_QUERIES:
         raise ValueError(f"{entry}: {s} verify tokens x {h // kv} query "
-                         f"groups = {n_queries} queries per kv head; the "
-                         f"kernel holds at most {_MAX_VERIFY_QUERIES}")
-    return s, h, n_queries
-
-
-def _verify_scratch(q, kv: int, splits: int):
-    """The body's partials: acc [B, K, splits, S*G, hd], m and l [B, K,
-    splits, S*G] (f32, from the caching allocator: capture-safe)."""
-    b, s, h, head_dim = q.shape
-    nq = s * (h // kv)
-    acc = torch.empty((b, kv, splits, nq, head_dim), device=q.device,
-                      dtype=torch.float32)
-    m = torch.empty((b, kv, splits, nq), device=q.device,
-                    dtype=torch.float32)
-    return acc, m, torch.empty_like(m)
-
-
-def _verify_query(q):
-    """Contiguous queries on a 16-byte boundary (the body's vector loads)."""
-    q = q.contiguous()
-    return q if q.data_ptr() % 16 == 0 else q.clone()
+                         f"groups = {s * (h // kv)} queries per kv head; "
+                         f"the kernel holds at most {_MAX_VERIFY_QUERIES}")
 
 
 def flash_verify_partials_stacked(q: torch.Tensor, k_flat: torch.Tensor,
@@ -685,37 +792,20 @@ def flash_verify_partials_stacked(q: torch.Tensor, k_flat: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {q.device}")
     b, _, _, head_dim = q.shape
-    n_layers, kb, t, kc = k_flat.shape
+    n_layers, kb, _, kc = k_flat.shape
     if q.ndim != 4 or kb != b or v_flat.shape != k_flat.shape \
             or not 0 <= layer < n_layers:
         raise ValueError(
             f"{entry}: q {tuple(q.shape)} does not match the cache "
             f"{tuple(k_flat.shape)} / {tuple(v_flat.shape)} at layer "
             f"{layer}")
-    _, _, kv = _check_common(entry, q[:, 0], k_flat, v_flat, starts,
-                             head_dim, kc, k_scale, v_scale)
-    s, h, n_queries = _verify_shape(entry, q, kv)
+    _check_common(entry, q[:, 0], k_flat, v_flat, starts, head_dim, kc,
+                  k_scale, v_scale)
     if not (k_flat.is_contiguous() and v_flat.is_contiguous()):
         raise ValueError(f"{entry}: the stacked cache must be contiguous")
-    k_view, v_view = k_flat[layer], v_flat[layer]
-    _check_rows(entry, k_view, v_view)
-    k_scales, v_scales = _layer(k_scale, layer), _layer(v_scale, layer)
-    sstrides = k_scales.stride()[:2] if k_scales is not None else (0, 0)
-    q = _verify_query(q)
-    starts = starts.contiguous()
-    splits, per_split = verify_splits(t, b, kv)
-    parts = _verify_scratch(q, kv, splits)
-    status = _build.entry("aiko_flash_verify", _VERIFY_ARGTYPES)(
-        q.data_ptr(), int(q.dtype == torch.bfloat16),
-        int(k_scale is not None), k_view.data_ptr(), v_view.data_ptr(),
-        _ptr(k_scales), _ptr(v_scales), starts.data_ptr(),
-        *(part.data_ptr() for part in parts), b, kv, h // kv, head_dim,
-        n_queries, h, s * h, t, splits, per_split, k_view.stride(0),
-        k_view.stride(1), *sstrides,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, entry)
-    _count(flash_verify_attention_stacked, k_scale)
-    return parts
+    return _partials_flat(entry, flash_verify_attention_stacked, q,
+                          k_flat[layer], v_flat[layer], starts,
+                          _layer(k_scale, layer), _layer(v_scale, layer))
 
 
 def flash_verify_partials_paged(q: torch.Tensor, k_pool: torch.Tensor,
@@ -728,8 +818,7 @@ def flash_verify_partials_paged(q: torch.Tensor, k_pool: torch.Tensor,
     in :func:`flash_verify_attention_paged`; a launch counts on that
     wrapper): bitwise equal to it on the gathered view, the split over
     the logical extent pps * pt."""
-    page_tokens = _require_page_tokens("flash_verify_attention_paged",
-                                       k_pool)
+    _require_page_tokens("flash_verify_attention_paged", k_pool)
     if q.device.type == "cpu":
         scales = [None if pool is None else _gathered(pool[layer], page_table)
                   for pool in (k_scale, v_scale)]
@@ -740,21 +829,9 @@ def flash_verify_partials_paged(q: torch.Tensor, k_pool: torch.Tensor,
     if q.ndim != 4:
         raise ValueError(f"{entry}: q must be [B, S, H, hd], got "
                          f"{tuple(q.shape)}")
-    b, _, kv, pool = _check_paged(entry, q[:, 0], k_pool, v_pool, layer,
-                                  page_table, starts, k_scale, v_scale)
-    s, h, n_queries = _verify_shape(entry, q, kv)
-    q = _verify_query(q)
-    splits, per_split = verify_splits(page_table.shape[1] * page_tokens, b,
-                                      kv)
-    parts = _verify_scratch(q, kv, splits)
-    status = _build.entry("aiko_flash_verify_paged", _VERIFY_PAGED_ARGTYPES)(
-        q.data_ptr(), int(q.dtype == torch.bfloat16),
-        int(k_scale is not None), *_ptrs(pool[:6]),
-        *(part.data_ptr() for part in parts), b, kv, h // kv, q.shape[3],
-        n_queries, h, s * h, splits, per_split, *pool[6:])
-    _build.check(status, entry)
-    _count(flash_verify_attention_paged, k_scale)
-    return parts
+    return _partials_paged(entry, flash_verify_attention_paged, q, k_pool,
+                           v_pool, layer, page_table, starts, k_scale,
+                           v_scale)
 
 
 def verify_combine(part_acc: torch.Tensor, part_m: torch.Tensor,
@@ -765,32 +842,9 @@ def verify_combine(part_acc: torch.Tensor, part_m: torch.Tensor,
     Returns (acc [B, S, H, hd] f32, m [B, S, H], l [B, S, H])."""
     if part_acc.device.type == "cpu":
         return verify_combine_reference(part_acc, part_m, part_l, s)
-    if part_acc.device.type != "cuda":
-        raise ValueError(f"verify_combine: unsupported device "
-                         f"{part_acc.device}")
-    b, kv, splits, nq, head_dim = part_acc.shape
-    if nq % s or part_m.shape != part_acc.shape[:4] \
-            or part_l.shape != part_m.shape or not all(
-                part.dtype == torch.float32 and part.is_contiguous()
-                for part in (part_acc, part_m, part_l)):
-        raise ValueError(f"verify_combine: partials {tuple(part_acc.shape)} "
-                         f"/ {tuple(part_m.shape)} / {tuple(part_l.shape)} "
-                         f"are not contiguous f32 [B, K, splits, S*G(, hd)] "
-                         f"of {s} verify tokens")
-    g = nq // s
-    acc = torch.empty((b, s, kv * g, head_dim), device=part_acc.device,
-                      dtype=torch.float32)
-    m = torch.empty((b, s, kv * g), device=part_acc.device,
-                    dtype=torch.float32)
-    l = torch.empty_like(m)
-    status = _build.entry("aiko_verify_combine", _COMBINE_ARGTYPES)(
-        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, kv, g, head_dim, nq,
-        kv * g, s * kv * g, splits,
-        torch.cuda.current_stream(part_acc.device).cuda_stream)
-    _build.check(status, "verify_combine")
+    out = _combine("verify_combine", part_acc, part_m, part_l, s)
     verify_combine.launches += 1
-    return acc, m, l
+    return out
 
 
 verify_combine.launches = 0

@@ -14,9 +14,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    shapes, with its error against a stated tolerance, its CUDA-event
    time, its plain version's time, its bound and, where one PyTorch call
    computes the same function, that call's time (``library_ms``; timed
-   here only, never used by the port).  The paged decode kernel (#3) is
-   also held BITWISE against the flat kernel (#1) on the gathered view,
-   at 64- and 16-token pages, over bf16 and over int8 caches; the int8
+   here only, never used by the port).  The decode forms #1-#3 (the
+   tensor-core attention body split over T at one query token, then its
+   combine) are held within 1e-4 (f32 queries) and the bf16 tolerance
+   (bf16 queries), length-0 rows neutral, the paged form (#3) BITWISE
+   against the flat one (#1) on the gathered view at 64- and 16-token
+   pages, over bf16 and over int8 caches, and the decode combine against
+   the plain combine on the body's partials; top-k (#6, threshold
+   select) exactly at k 1, 50 and 128; the int8
    matmul (#5) is held exactly on grid inputs and within a stated
    tolerance on random ones, at the decode and prefill unembed, the
    decode leaves wq/wo, wk, w_up and w_down (M 8, split over D), the
@@ -115,6 +120,16 @@ def bound_ms(n_bytes: float, flops: float, flop_type: str):
     return t_ops * 1e3, "operations"
 
 
+def attention_bound_ms(n_bytes: float, live_tokens: int, queries: int,
+                       head_dim: int, f32_queries: bool):
+    """bound_ms of the split attention body (decode and verify): the
+    bytes given, and its operations as the tensor cores run them -- 4 a
+    (cached position, query, dim), in bf16, twice over for f32 queries
+    (their hi and lo products)."""
+    flops = 4 * live_tokens * queries * head_dim * (2 if f32_queries else 1)
+    return bound_ms(n_bytes, flops, "bf16")
+
+
 # -- phase 2: kernels -------------------------------------------------------
 
 def _decode_error(got, want) -> float:
@@ -135,10 +150,12 @@ def _bitwise(got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def check_decode(device) -> dict:
-    """flash_decode_attention_stacked at llama3-8b decode shapes: f32
-    scaled queries [8, 32, 128] against a [32, 8, 2048, 1024] bf16
-    cache, ragged lengths including 0 and T-1."""
+def check_decode(device) -> list[dict]:
+    """flash_decode_attention_stacked (#2: the split body at one query
+    token, then its combine) at llama3-8b decode shapes: f32 scaled
+    queries [8, 32, 128] against a [32, 8, 2048, 1024] bf16 cache,
+    ragged lengths including 0 and T-1; then decode_combine alone on the
+    body's own partials against the plain combine."""
     import torch
     from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops import flash_decode as fd
@@ -195,13 +212,17 @@ def check_decode(device) -> dict:
     live_tokens = int(lengths.sum().item())
     n_bytes = 2 * live_tokens * kv * hd * 2 \
         + q_scaled.numel() * q_scaled.element_size() + b * h * (hd + 2) * 4
-    flops = 4 * live_tokens * h * hd
-    bound, by = bound_ms(n_bytes, flops, "f32")
-    return {"name": "flash_decode_attention_stacked", "route": "cuda",
-            "source": "aiko_services_tpu_torch/csrc/flash_decode.cu",
-            "replaces": "aiko_services_tpu/ops/pallas_decode.py:387",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": library}
+    bound, by = attention_bound_ms(n_bytes, live_tokens, h, hd, True)
+    combine = _check_combine(
+        "decode_combine", 387,
+        fd.flash_decode_partials_stacked(q_scaled, k, v, layer, lengths),
+        fd.decode_combine, fd.decode_combine_reference)
+    return [{"name": "flash_decode_attention_stacked", "route": "cuda",
+             "source": "aiko_services_tpu_torch/csrc/flash_verify.cu",
+             "replaces": "aiko_services_tpu/ops/pallas_decode.py:387",
+             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": by, "library_ms": library},
+            combine]
 
 
 def check_attention(device) -> dict:
@@ -265,7 +286,8 @@ def check_attention(device) -> dict:
 
 def check_topk(device) -> dict:
     """topk on [8, 128256] f32 logits with planted ties and one mostly
-    -inf row, at k 1 and 50; exact agreement with the plain version."""
+    -inf row, at k 1, 50 and 128; exact agreement with the plain version
+    (values and indices), no duplicate index."""
     import torch
     from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops.topk import topk, topk_reference
@@ -277,7 +299,7 @@ def check_topk(device) -> dict:
     x[2] = float("-inf")                              # mostly -inf
     x[2, [5, 90_000]] = 1.0
     x[3, ::2] = 0.25                                  # ties everywhere
-    for k in (1, 50):
+    for k in (1, 50, 128):
         values, indices = topk(x, k)
         ref_v, ref_i = topk_reference(x, k)
         torch.cuda.synchronize()
@@ -407,13 +429,12 @@ def check_paged(device) -> list[dict]:
     live_pages = int(((lengths + pt - 1) // pt).sum().item())
     io_bytes = q_scaled.numel() * q_scaled.element_size() \
         + lengths.numel() * 4 + b * h * (hd + 2) * 4
-    flops = 4 * live_tokens * h * hd
-    paged_bound, paged_by = bound_ms(
-        2 * live_tokens * kv * hd * 2 + live_pages * 4 + io_bytes, flops,
-        "f32")
-    flat_bound, flat_by = bound_ms(2 * live_tokens * kv * hd * 2 + io_bytes,
-                                   flops, "f32")
-    source = "aiko_services_tpu_torch/csrc/flash_decode.cu"
+    paged_bound, paged_by = attention_bound_ms(
+        2 * live_tokens * kv * hd * 2 + live_pages * 4 + io_bytes,
+        live_tokens, h, hd, True)
+    flat_bound, flat_by = attention_bound_ms(
+        2 * live_tokens * kv * hd * 2 + io_bytes, live_tokens, h, hd, True)
+    source = "aiko_services_tpu_torch/csrc/flash_verify.cu"
     library_note = "SDPA on the pre-gathered view"
     return [{"name": "flash_decode_attention_paged", "route": "cuda",
              "source": source,
@@ -583,14 +604,14 @@ def check_int8_decode(device) -> list[dict]:
     io_bytes = q_scaled.numel() * q_scaled.element_size() \
         + lengths.numel() * 4 + b * h * (hd + 2) * 4
     cache_bytes = 2 * live_tokens * (kv * hd + kv * 4)
-    flops = 4 * live_tokens * h * hd
-    source = "aiko_services_tpu_torch/csrc/flash_decode.cu"
+    source = "aiko_services_tpu_torch/csrc/flash_verify.cu"
     rows = []
     for name, wrapper, replaces, extra in (
             ("stacked", "flash_decode_attention_stacked", 387, 0),
             ("paged", "flash_decode_attention_paged", 487, live_pages * 4),
             ("flat", "flash_decode_attention", 285, 0)):
-        bound, by = bound_ms(cache_bytes + io_bytes + extra, flops, "f32")
+        bound, by = attention_bound_ms(cache_bytes + io_bytes + extra,
+                                       live_tokens, h, hd, True)
         rows.append({"name": f"{wrapper}[int8]", "route": "cuda",
                      "source": source,
                      "replaces": f"aiko_services_tpu/ops/pallas_decode.py:"
@@ -719,13 +740,16 @@ def check_verify(device) -> list[dict]:
         timed[f"library{suffix}"] = library
         del kt, vt, kg, vg
         if payload == "bf16":
-            combine = _check_verify_combine(q_scaled, views, starts, s)
+            combine = _check_combine(
+                "verify_combine", 830, fd.flash_verify_partials_stacked(
+                    q_scaled, views[0], views[1], 0, starts),
+                lambda *parts: fd.verify_combine(*parts, s),
+                lambda *parts: fd.verify_combine_reference(*parts, s))
     live_tokens = int(starts.sum().item())
     live_pages = int(((starts + pt - 1) // pt).sum().item())
     io_bytes = q_scaled.numel() * 4 + starts.numel() * 4 \
         + b * s * h * (hd + 2) * 4
-    flops = 4 * live_tokens * s * h * hd
-    source = "aiko_services_tpu_torch/csrc/flash_decode.cu"
+    source = "aiko_services_tpu_torch/csrc/flash_verify.cu"
     rows = []
     for payload in ("bf16", "int8"):
         suffix = "[int8]" if payload == "int8" else ""
@@ -733,8 +757,9 @@ def check_verify(device) -> list[dict]:
         for form, extra in (("stacked", 0), ("paged", live_pages * 4)):
             name = f"flash_verify_attention_{form}{suffix}"
             ms, plain = timed[name]
-            bound, by = bound_ms(2 * live_tokens * per_token + io_bytes
-                                 + extra, flops, "f32")
+            bound, by = attention_bound_ms(
+                2 * live_tokens * per_token + io_bytes + extra, live_tokens,
+                s * h, hd, True)
             row = {"name": name, "route": "cuda", "source": source,
                    "replaces": "aiko_services_tpu/ops/pallas_decode.py:830",
                    "max_abs_err": errors[payload][torch.float32], "ms": ms,
@@ -752,25 +777,24 @@ def check_verify(device) -> list[dict]:
     return rows + [combine]
 
 
-def _check_verify_combine(q_scaled, views, starts, s) -> dict:
-    """verify_combine on the stacked bf16 body's own partials at the
-    verify check's shapes (8 splits of 4 tiles a row) against its plain
-    version on the same partials, timed beside it."""
+def _check_combine(name: str, replaces: int, parts, combine,
+                   plain_combine) -> dict:
+    """A split body's combine kernel (``combine``: decode_combine or
+    verify_combine) on the body's own partials at the serving shapes (8
+    splits of 4 tiles a row) against its plain version on the same
+    partials, timed beside it."""
     import torch
     from aiko_services_tpu_torch.kernel_times import graph_ms
-    from aiko_services_tpu_torch.ops import flash_decode as fd
-    parts = fd.flash_verify_partials_stacked(q_scaled, views[0], views[1], 0,
-                                             starts)
-    got = fd.verify_combine(*parts, s)
-    want = fd.verify_combine_reference(*parts, s)
+    got = combine(*parts)
+    want = plain_combine(*parts)
     torch.cuda.synchronize()
     err = _decode_error(got, want)
-    print(f"verify combine, partials {tuple(parts[0].shape)}: max_abs_err "
+    print(f"{name}, partials {tuple(parts[0].shape)}: max_abs_err "
           f"{err:.3e} (tol {DECODE_TOL})")
     if not err <= DECODE_TOL:
-        raise AssertionError(f"verify combine disagrees: {err}")
-    ms = graph_ms(lambda: fd.verify_combine(*parts, s))
-    plain = graph_ms(lambda: fd.verify_combine_reference(*parts, s), iters=5)
+        raise AssertionError(f"{name} disagrees: {err}")
+    ms = graph_ms(lambda: combine(*parts))
+    plain = graph_ms(lambda: plain_combine(*parts), iters=5)
     # Bytes: every m/l partial, the acc partials of live splits, the
     # outputs; two operations an accumulated element.
     live = int((parts[1] > -1e29).sum().item())
@@ -778,9 +802,9 @@ def _check_verify_combine(q_scaled, views, starts, s) -> dict:
     n_bytes = 2 * parts[1].numel() * 4 + live * head_dim * 4 \
         + got[0].numel() * 4 + 2 * got[1].numel() * 4
     bound, by = bound_ms(n_bytes, 2 * live * head_dim, "f32")
-    return {"name": "verify_combine", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "aiko_services_tpu_torch/csrc/flash_verify.cu",
-            "replaces": "aiko_services_tpu/ops/pallas_decode.py:830",
+            "replaces": f"aiko_services_tpu/ops/pallas_decode.py:{replaces}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "splits": parts[0].shape[2]}
@@ -1270,7 +1294,7 @@ def run_plan(plan, params, config, device, card, runs, launches) -> None:
     runs name theirs, the decode route among them where it runs.  A split
     kernel brings its combine: ``verify_combine`` with a verify kernel,
     ``int8_combine`` with the decode route (every decode leaf but the
-    unembed splits D)."""
+    unembed splits D), ``decode_combine`` with a decode kernel."""
     from aiko_services_tpu_torch.ops import launch_counters
     counters = launch_counters()
     int8 = config.kv_dtype == "int8"
@@ -1293,6 +1317,8 @@ def run_plan(plan, params, config, device, card, runs, launches) -> None:
             | {"flash_attention", "topk"} \
             | ({"int8_matmul[M>16]"} | (set() if path else {"int8_matmul"})
                if quantized else set())
+        if any(name.startswith("flash_decode") for name in wanted):
+            wanted.add("decode_combine")
         if any(name.startswith("flash_verify") for name in wanted):
             wanted.add("verify_combine")
         if "int8_matmul" in wanted:
@@ -1337,7 +1363,7 @@ def main() -> int:
             if "registers" in line:
                 print(f"  {source}: {line.strip()}")
 
-    kernels = [check_decode(device), *check_paged(device),
+    kernels = [*check_decode(device), *check_paged(device),
                *check_int8_decode(device), *check_verify(device),
                check_int8_matmul(device), check_int8_combine(device),
                check_attention(device),

@@ -512,3 +512,178 @@ def test_split_kernels_replay_in_a_graph(cuda_device):
     torch.cuda.synchronize()
     for got, want in zip(captured, eager):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page_tokens", [64, 16])
+def test_decode_forms_split_body_match_plain(cuda_device, int8, page_tokens):
+    """The decode forms on the split body at one query token: #2's and
+    #3's partials against the plain split partials (acc on the live
+    splits), the decode combine
+    against the plain combine on them, #1, #2 and #3 against their plain
+    versions (f32 queries within F32, bf16 queries on the normalised
+    output within BF16), #3 bitwise equal to #1 and #2 on the gathered
+    view, lengths 0, 1, mid-page, T - 1 and T, the length-0 row neutral."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31 + page_tokens)
+    b, pps, kv, hd, h = 5, 1024 // page_tokens, 2, 128, 8
+    pages = b * pps + 1
+    t = pps * page_tokens
+    shape = (1, pages, page_tokens, kv * hd)
+    if int8:
+        (k_pool, ks_pool), (v_pool, vs_pool) = (
+            _int8_pool(shape, gen, cuda_device) for _ in range(2))
+    else:
+        k_pool, v_pool = (torch.randn(shape, generator=gen,
+                                      device=cuda_device).to(torch.bfloat16)
+                          for _ in range(2))
+        ks_pool = vs_pool = None
+    table = (torch.randperm(pages - 1, generator=gen, device=cuda_device)
+             + 1).reshape(b, pps).to(torch.int32)
+    lengths = torch.tensor([0, 1, t // 2 + 3, t - 1, t], dtype=torch.int32,
+                           device=cuda_device)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda_device)
+
+    def stacked(pool):
+        return None if pool is None else \
+            pool[:, table.long()].reshape(1, b, t, -1).contiguous()
+    views = [stacked(pool) for pool in (k_pool, v_pool, ks_pool, vs_pool)]
+    flat = [None if view is None else view[0] for view in views]
+    for q_in in (tdec._prep_query(q, hd)[0],
+                 tdec._prep_query(q.to(torch.bfloat16), 64)[0]):
+        parts = tdec.flash_decode_partials_paged(
+            q_in, k_pool, v_pool, 0, table, lengths, ks_pool, vs_pool)
+        parts_stacked = tdec.flash_decode_partials_stacked(
+            q_in, views[0], views[1], 0, lengths, *views[2:])
+        parts_plain = tdec.flash_decode_partials_reference(
+            q_in, *flat[:2], lengths, *flat[2:])
+        merged = tdec.decode_combine(*parts)
+        merged_plain = tdec.decode_combine_reference(*parts)
+        forms = [tdec.flash_decode_attention_paged(
+                     q_in, k_pool, v_pool, 0, table, lengths, ks_pool,
+                     vs_pool),
+                 tdec.flash_decode_attention_stacked(
+                     q_in, views[0], views[1], 0, lengths, *views[2:]),
+                 tdec.flash_decode_attention(q_in, *flat[:2], lengths,
+                                             *flat[2:])]
+        plain = tdec.flash_decode_attention_reference(q_in, *flat[:2],
+                                                      lengths, *flat[2:])
+        torch.cuda.synchronize()
+        # A split past a row's length writes m and l only (the combine
+        # skips it): acc partials are compared on the live splits.
+        live = parts[1] > -1e29
+        assert torch.equal(parts[0][live], parts_stacked[0][live])
+        for got, same in zip(parts[1:], parts_stacked[1:]):
+            assert torch.equal(got, same)
+        for got, want in zip(merged, merged_plain):
+            torch.testing.assert_close(got, want, **F32)
+        for form in forms:
+            for got, same in zip(form, forms[0]):
+                assert torch.equal(got, same)
+        for got, same in zip(merged, forms[0]):
+            assert torch.equal(got, same)
+        if q_in.dtype == torch.float32:
+            torch.testing.assert_close(parts[0][live], parts_plain[0][live],
+                                       **F32)
+            for got, want in zip(parts[1:], parts_plain[1:]):
+                torch.testing.assert_close(got, want, **F32)
+            for got, want in zip(forms[0], plain):
+                torch.testing.assert_close(got, want, **F32)
+        else:
+            assert _normalised_error(forms[0], plain) <= BF16["atol"]
+        acc, m, l = forms[0]
+        assert acc[0].abs().max() == 0 and l[0].abs().max() == 0
+        assert (m[0] == -1e30).all()
+
+
+def _tie_heavy_rows(gen, device, b, vocab):
+    """Logit rows that stress the tie rule: tied maxima, a 100-way tie, a
+    mostly -inf row, an all -inf row, ties everywhere, and -0 beside +0."""
+    x = torch.randn((b, vocab), generator=gen, device=device)
+    x[0, [7, vocab // 2, vocab - 1, 3]] = 9.0
+    x[1, 1000:1100] = 5.0
+    x[2] = float("-inf")
+    x[2, [5, vocab - 7]] = 1.0
+    x[3] = float("-inf")
+    x[4, ::2] = 0.25
+    x[5] = 0.0
+    x[5, 1::3] = -0.0
+    x[5, 40] = 1.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,vocab", [(8, 128_256), (6, 5001), (1, 128_256)])
+def test_topk_threshold_select_exact_on_tie_heavy_rows(cuda_device, b,
+                                                       vocab):
+    """Top-k by threshold select: values and indices exactly the stable
+    sort's, and the kernel's own algorithm's plain version, at k 1, 50
+    and 128, with no duplicate index, on tie-heavy rows, V both a
+    multiple of the chunk and not, and a strided view of wider rows."""
+    from aiko_services_tpu_torch.ops.topk import topk_threshold_reference
+    gen = torch.Generator(device=cuda_device).manual_seed(vocab + b)
+    x = _tie_heavy_rows(gen, cuda_device, max(b, 6), vocab)[:b]
+    wide = torch.full((b, vocab + 3), 7.0, device=cuda_device)
+    wide[:, 1:vocab + 1] = x
+    for rows in (x, wide[:, 1:vocab + 1]):
+        for k in (1, 50, 128):
+            got_v, got_i = topk(rows, k)
+            ref_v, ref_i = topk_reference(rows, k)
+            alg_v, alg_i = topk_threshold_reference(rows, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got_i, ref_i) and torch.equal(got_v, ref_v)
+            assert torch.equal(alg_i, ref_i)
+            for row in got_i.tolist():
+                assert len(set(row)) == k
+
+
+@pytest.mark.cuda
+def test_decode_and_topk_replay_in_a_graph(cuda_device):
+    """The decode forms (#2 stacked, #3 paged, each with its combine) and
+    top-k captured in one CUDA graph: a replay equals the eager calls
+    bit for bit, also after the lengths change (the split and the chunk
+    plan depend on shapes only)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    b, pps, pt, kv, hd, h = 4, 8, 64, 2, 128, 8
+    pages = b * pps + 1
+    k_pool, v_pool = (torch.randn((1, pages, pt, kv * hd), generator=gen,
+                                  device=cuda_device).to(torch.bfloat16)
+                      for _ in range(2))
+    table = (torch.arange(b * pps, device=cuda_device) + 1).reshape(
+        b, pps).to(torch.int32)
+    k_flat = k_pool[:, table.long()].reshape(1, b, pps * pt, -1).contiguous()
+    v_flat = v_pool[:, table.long()].reshape(1, b, pps * pt, -1).contiguous()
+    lengths = torch.tensor([0, 1, 200, 511], dtype=torch.int32,
+                           device=cuda_device)
+    q = tdec._prep_query(torch.randn((b, h, hd), generator=gen,
+                                     device=cuda_device), hd)[0]
+    logits = _tie_heavy_rows(gen, cuda_device, 8, 128_256)
+
+    def run():
+        return (*tdec.flash_decode_attention_paged(q, k_pool, v_pool, 0,
+                                                   table, lengths),
+                *tdec.flash_decode_attention_stacked(q, k_flat, v_flat, 0,
+                                                     lengths),
+                *topk(logits, 50))
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    lengths.copy_(torch.tensor([5, 0, 511, 300], dtype=torch.int32))
+    logits[1].neg_()
+    graph.replay()
+    moved = run()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, moved):
+        assert torch.equal(got, want)
+    lengths.copy_(torch.tensor([0, 1, 200, 511], dtype=torch.int32))
+    logits[1].neg_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
