@@ -10,7 +10,10 @@ The ported slices serve Llama-3 through
 ``models.batching.ContinuousBatcher`` -- dense or paged KV, bf16 or
 int8 weights and cache -- on hand-written Hopper kernels
 (``ops/flash_decode.py``, ``ops/flash_attention.py``, ``ops/topk.py``,
-``ops/int8_matmul.py``; sources under ``csrc/``).
+``ops/int8_matmul.py``; sources under ``csrc/``), and run pipeline
+definitions through the engine (``pipeline.create_pipeline``; the
+control plane, transport and services beside it) with the ``LLM`` and
+``DetectionCaption`` elements (``elements``).
 """
 
 from .device import resolve_device

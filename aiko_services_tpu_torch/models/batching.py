@@ -648,7 +648,7 @@ class ContinuousBatcher:
         for slot in sorted(self._pending_first):
             request, first = self._pending_first[slot]
             tokens[slot] = first[0]
-            lengths[slot] = len(request.prompt_tokens)
+            lengths[slot].fill_(len(request.prompt_tokens))   # no host wait
             first_meta.append((slot, request))
             first_vals.append(first)
         self._pending_first.clear()
@@ -812,8 +812,11 @@ class ContinuousBatcher:
         if not self._loop_chained:
             self._host_state()
         inputs = self._loop.inputs
+        # Host values reach device rows by fill_ (a kernel argument): an
+        # item assignment of a Python number copies it from pageable
+        # memory, which waits for every block in flight.
         for slot in self._force_inactive:
-            inputs["active"][slot] = False
+            inputs["active"][slot].fill_(False)
         self._force_inactive.clear()
         self._loop.upload("eos", self._eos_rows)
         self._loop.upload("temperatures", self.temperatures)
@@ -823,16 +826,16 @@ class ContinuousBatcher:
             request, first = self._pending_first.pop(slot)
             plen = len(request.prompt_tokens)
             inputs["tokens"][slot] = first[0]
-            inputs["lengths"][slot] = plen
-            inputs["budget"][slot] = \
-                request.max_new_tokens - request.generated - 1
+            inputs["lengths"][slot].fill_(plen)
+            inputs["budget"][slot].fill_(
+                request.max_new_tokens - request.generated - 1)
             # The slot decodes on unless its FIRST token already finishes
             # it; the EOS part of that verdict folds in on the device.
             if (request.max_new_tokens - request.generated > 1
                     and plen + 1 < self.max_seq):
                 inputs["active"][slot] = (first[0] != eos[slot]).all()
             else:
-                inputs["active"][slot] = False
+                inputs["active"][slot].fill_(False)
             if self.speculative == "ngram":
                 tail = np.full(self.spec_window, -1, dtype=np.int32)
                 recent = request.prompt_tokens[-self.spec_window:]

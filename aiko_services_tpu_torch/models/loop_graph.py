@@ -32,7 +32,14 @@ launch sequence once as a ``torch.cuda.CUDAGraph`` and replays it:
 - the kernel wrappers count launches as Python runs them, which during
   a capture reaches no card: the runner takes the capture's counts back
   and adds them again at every replay, so the counters count launches
-  that ran.
+  that ran;
+- the capture runs on whatever thread steps the batcher (the ``LLM``
+  element's worker, while the pipeline's event loop goes on) in
+  ``thread_local`` capture mode: a CUDA call that another thread makes
+  meanwhile (an allocation, an event) neither fails nor breaks the
+  capture.  Its own waits (``torch.cuda.graph`` synchronises the card
+  first) are planned, so it lifts the process's synchronisation guard
+  (``device.sync_allowed``) while it runs.
 
 On the CPU the same ``decode_loop`` runs eagerly on the same buffers.
 On the card a capture that fails raises: there is no eager fallback.
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 
 from . import llama
+from ..device import sync_allowed
 from ..ops import launch_counters
 
 __all__ = ["LoopRunner"]
@@ -141,7 +149,8 @@ class LoopRunner:
             outputs = self._loop(cache, self.inputs)
         else:
             if self._graph is None:
-                self._capture(cache)
+                with sync_allowed():        # the capture's planned waits
+                    self._capture(cache)
             if self._pointers(cache) != self._bound:
                 raise RuntimeError(
                     "LoopRunner: the cache or page table moved since the "
@@ -182,7 +191,7 @@ class LoopRunner:
         before = [getattr(wrapper, attr) for wrapper, attr in counters]
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outputs = self._loop(cache, self.inputs)
         self._launch_delta = {}
         for (wrapper, attr), start in zip(counters, before):

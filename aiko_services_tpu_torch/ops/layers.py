@@ -46,8 +46,13 @@ def rope_frequencies(head_dim: int, max_positions: int,
                                           dtype=np.float32) / head_dim))
     positions = np.arange(max_positions, dtype=np.float32)
     angles = np.outer(positions, inv_freq)
-    table = np.stack([np.cos(angles), np.sin(angles)]).astype(np.float32)
-    return torch.from_numpy(table).to(device)
+    table = torch.from_numpy(
+        np.stack([np.cos(angles), np.sin(angles)]).astype(np.float32))
+    if device.type == "cuda":
+        # Through pinned memory: a pageable upload waits for the card
+        # (and trips a transfer guard around the first admission).
+        return table.pin_memory().to(device, non_blocking=True)
+    return table
 
 
 def apply_rope(x: torch.Tensor, rope_table: torch.Tensor,

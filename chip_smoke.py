@@ -66,10 +66,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    kernels, #4 and #6 must launch, no bf16 attention kernel may (#5's
    routes are counted apart); greedy streams equal
    across the first two, no leaked page; kernel-path logits within 5 %
-   of the plain path on the same quantized tree.
+   of the plain path on the same quantized tree;
+6. the pipeline: a ``(CAP (LLM))`` definition through the port's
+   ``create_pipeline`` on the loopback transport, eight frames of
+   detections (one empty) captioned by ``DetectionCaption`` and served
+   by the ``LLM`` element at Llama-3-8B widths (``model: llama3-8b``,
+   full depth, random weights from seed 0, each element drawing its own
+   tree) with a 1,127-byte system prompt: ``pipeline-loop-16`` (the
+   device loop under ``transfer_guard: disallow``: #2, its combine, #4,
+   #6; one ledger fetch per retired block, no guard error) and
+   ``pipeline-paged-4`` (64-token pages, decode_block 4, the prefix
+   cache: #3, its combine, #4, #6; prefix page hits, no leaked page).
+   Every frame must complete OKAY with the text -- and the token ids --
+   that the port's ``ContinuousBatcher`` gives when run directly with
+   the element's settings on the element's weights and prompts.  Each
+   run prints frames/s, wall per frame, the first frame's latency, the
+   model build, the host time in admission and decode, the engine's
+   inbound and return hops, and peak memory.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
-line, then ``{"ok": true, "device": {...}}``.  It imports nothing of
+line (each kernel's ``launches`` over every serving and pipeline run,
+the pipeline runs' own under ``pipeline_launches``), then
+``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX or of the JAX package.
 """
 
@@ -1331,6 +1349,276 @@ def run_plan(plan, params, config, device, card, runs, launches) -> None:
             launches[name] = launches.get(name, 0) + count
 
 
+# -- phase 6: the pipeline engine and the LLM element ----------------------
+
+#: 1,127 bytes, one ByteTokenizer token each: admission runs the
+#: chunked prefill (#4) over three 512-token chunks, and the paged run's
+#: prefix cache shares its whole pages between frames.
+SYSTEM_PROMPT = " ".join(
+    f"Rule {index:02d}: describe what the detector saw in one short, "
+    f"plain sentence." for index in range(16)) + " Scene: "
+PIPELINE_DETECTIONS = [
+    [{"class": "car"}] * 3 + [{"class": "person"}],
+    [],
+    [{"class": "dog"}],
+    [{"class": "truck"}, {"class": "bicycle"}] + [{"class": "person"}] * 5,
+    [{"class": "cat"}, {"class": "dog"}],
+    [{"class": "bus"}] * 4 + [{"class": "car"}] * 2,
+    [{"class": "traffic light"}] * 2 + [{"class": "person"}],
+    [{"class": "motorcycle"}, {"class": "car"}, {"class": "stop sign"}],
+]
+PIPELINE_LLM = {"model": "llama3-8b", "seed": 0, "max_seq": 2048,
+                "attention": "flash", "sample_top_k": 50, "temperature": 0,
+                "max_new_tokens": NEW_TOKENS, "max_slots": 8,
+                "system_prompt": SYSTEM_PROMPT}
+#: (label, LLM parameters, pipeline parameters, the run's decode kernel)
+PIPELINE_PLAN = (
+    ("pipeline-loop-16", {"decode_block_tokens": 16},
+     {"transfer_guard": "disallow"}, "flash_decode_attention_stacked"),
+    ("pipeline-paged-4",
+     {"kv_page_tokens": 64, "decode_block": 4, "prefix_cache": "on"}, {},
+     "flash_decode_attention_paged"))
+
+
+def _pipeline_definition(label: str, llm: dict, parameters: dict) -> dict:
+    module = "aiko_services_tpu_torch.elements.llm"
+    return {"version": 0, "name": label, "runtime": "torch",
+            "graph": ["(CAP (LLM))"], "parameters": parameters,
+            "elements": [
+                {"name": "CAP", "input": [{"name": "detections"}],
+                 "output": [{"name": "text"}],
+                 "deploy": {"local": {"module": module,
+                                      "class_name": "DetectionCaption"}}},
+                {"name": "LLM", "input": [{"name": "text"}],
+                 "output": [{"name": "text"}],
+                 "parameters": {**PIPELINE_LLM, **llm},
+                 "deploy": {"local": {"module": module,
+                                      "class_name": "LLM"}}}]}
+
+
+def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
+                 card: str) -> dict:
+    """One run of the ``(CAP (LLM))`` pipeline over PIPELINE_DETECTIONS
+    (see the module docstring), then the same prompts through a
+    ``ContinuousBatcher`` built directly with the element's settings on
+    the element's weights.  The launch counters are zeroed just before
+    the frames and read as the last frame's response arrives; the direct
+    run is a comparison and counts nowhere.  The element's module is
+    instrumented for the run only: its batcher class records its
+    settings, submit times and host time in admission and decode, its
+    emit records token ids, its model build is timed."""
+    import queue
+    import tempfile
+
+    import torch
+    from aiko_services_tpu_torch.elements import llm as port_llm
+    from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
+                                                         Request)
+    from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
+    from aiko_services_tpu_torch.ops import launch_counters
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import init_process, reset_process
+    from aiko_services_tpu_torch.services.share import reset_services_cache
+    from aiko_services_tpu_torch.transport import reset_broker
+
+    timers = {"build_s": 0.0, "admission_s": 0.0, "decode_s": 0.0}
+    made, prompts, tokens, submitted, finished = [], {}, {}, {}, {}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            begin = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timers[key] += time.perf_counter() - begin
+        return wrapper
+
+    class Batcher(ContinuousBatcher):
+        def __init__(self, params, config, **kwargs):
+            made.append((config, kwargs))
+            super().__init__(params, config, **kwargs)
+
+        def submit(self, request):
+            submitted[request.request_id] = time.perf_counter()
+            prompts[request.request_id] = list(request.prompt_tokens)
+            super().submit(request)
+    Batcher._prefill_tick = timed(ContinuousBatcher._prefill_tick,
+                                  "admission_s")
+    for name in ("_decode_tick", "_dispatch_block", "_retire_block",
+                 "_dispatch_loop_block", "_retire_loop_block"):
+        setattr(Batcher, name, timed(getattr(ContinuousBatcher, name),
+                                     "decode_s"))
+    collector = port_llm._collector
+
+    def recording_collector(tokenizer, collected):
+        inner = collector(tokenizer, collected)
+
+        def emit(request_id, token, done):
+            tokens.setdefault(request_id, []).append(int(token))
+            if done:
+                finished[request_id] = time.perf_counter()
+            inner(request_id, token, done)
+        return emit
+    arrivals, failures = {}, []
+
+    class Responses(queue.Queue):
+        def put(self, item, *args, **kwargs):
+            arrivals[item[1]] = time.perf_counter()
+            if not item[4]:             # an ERROR ends the stream: stop
+                failures.append(f"frame {item[1]}: {item[5]}")
+            super().put(item, *args, **kwargs)
+    patched = {"ContinuousBatcher": Batcher,
+               "_collector": recording_collector}
+    saved = {name: getattr(port_llm, name) for name in patched}
+    ensure_model = port_llm.LLM._ensure_model
+    for name, value in patched.items():
+        setattr(port_llm, name, value)
+
+    def build(self, settings=None):
+        if self._batcher is None:
+            begin = time.perf_counter()
+            ensure_model(self, settings)
+            torch.cuda.synchronize()    # the weights' draw is asynchronous
+            timers["build_s"] += time.perf_counter() - begin
+    port_llm.LLM._ensure_model = build
+    reset_broker()
+    reset_services_cache()
+    runtime = init_process(transport="loopback")
+    runtime.initialize()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            path = Path(workdir) / "cap.json"
+            path.write_text(json.dumps(_pipeline_definition(label, llm,
+                                                            parameters)))
+            pipeline = create_pipeline(str(path), runtime=runtime)
+        counters = launch_counters()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        responses = Responses()
+        frames = len(PIPELINE_DETECTIONS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        begin = time.perf_counter()
+        stream = pipeline.create_stream_local("1", queue_response=responses)
+        # The first frame alone (it pays the model build and, in the
+        # loop, the capture), then the rest at once: their prompts find
+        # the first one's pages in the prefix index.
+        pipeline.create_frame_local(stream,
+                                    {"detections": PIPELINE_DETECTIONS[0]})
+        runtime.run(until=lambda: responses.qsize() >= 1, timeout=300.0)
+        burst = time.perf_counter()
+        for detections in PIPELINE_DETECTIONS[1:]:
+            pipeline.create_frame_local(stream, {"detections": detections})
+        runtime.run(until=lambda: responses.qsize() >= frames or failures,
+                    timeout=300.0)
+        counts = {name: getattr(fn, attr)
+                  for name, (fn, attr) in counters.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - begin
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if failures or responses.qsize() < frames:
+            raise AssertionError(f"{label}: {responses.qsize()} of {frames} "
+                                 f"frames answered; failed: {failures}")
+        element = pipeline.graph.get_node("LLM").element
+        batcher = element._batcher
+        texts, captions = {}, {}
+        while not responses.empty():
+            _, frame_id, swag, _, okay, diagnostic = responses.get()
+            if not okay:
+                raise AssertionError(f"{label}: frame {frame_id} failed: "
+                                     f"{diagnostic}")
+            texts[frame_id], captions[frame_id] = swag["text"], \
+                swag["CAP.text"]
+        tokenizer = ByteTokenizer()
+        by_prompt = {tuple(prompt): rid for rid, prompt in prompts.items()}
+        request_of = {
+            frame_id: by_prompt[tuple(tokenizer.encode(SYSTEM_PROMPT
+                                                       + caption))]
+            for frame_id, caption in captions.items()}
+        ledger = pipeline.transfer_ledger.stats
+        loop = batcher._loop
+        burst_s = begin + wall - burst
+        first_rid = next(iter(prompts))
+        metrics = {
+            "run": label, "frames": frames, "wall_s": wall,
+            "first_frame_ms": (min(arrivals.values()) - begin) * 1e3,
+            "burst_frames_per_s": (frames - 1) / burst_s,
+            "burst_wall_per_frame_ms": burst_s * 1e3 / (frames - 1),
+            **timers,
+            "capture_s": loop.capture_s if loop is not None else 0.0,
+            "inbound_hop_ms_max": max(submitted[rid] - burst
+                                      for rid in submitted
+                                      if rid != first_rid) * 1e3,
+            "return_hop_ms_max": max(arrivals[frame] - finished[rid]
+                                     for frame, rid in request_of.items())
+            * 1e3,
+            "tokens": batcher.tokens_emitted,
+            "blocks_retired": batcher.blocks_retired,
+            "ledger": ledger, "recoveries": batcher.recoveries,
+            "prefix_hits": batcher.prefix_hits,
+            "leaked": batcher._pages.leaked_pages() if batcher._pages else 0,
+            "peak_memory_gib": peak, "card": card}
+        print(f"pipeline {json.dumps(metrics)} launches "
+              f"{json.dumps(counts)}", flush=True)
+        wanted = {decode, "decode_combine", "flash_attention", "topk"}
+        for name, count in counts.items():
+            if (count > 0) != (name in wanted):
+                raise AssertionError(
+                    f"{label}: {name} launched {count} times; the run's "
+                    f"path is {sorted(wanted)}")
+        if batcher.device_loop and (
+                ledger["explicit_by_label"].get("llm_block", 0)
+                != batcher.blocks_retired or ledger["implicit"]
+                or batcher.recoveries):
+            raise AssertionError(f"{label}: ledger fetches {ledger} against "
+                                 f"{batcher.blocks_retired} blocks retired, "
+                                 f"{batcher.recoveries} recoveries")
+        if metrics["leaked"] or (batcher.prefix_cache
+                                 and batcher.prefix_hits <= 0):
+            raise AssertionError(f"{label}: {metrics['leaked']} leaked pages,"
+                                 f" {batcher.prefix_hits} prefix hits")
+
+        # The same prompts, directly, on the element's weights.
+        config, kwargs = made[0]
+        direct = ContinuousBatcher(batcher.params, config, **{
+            name: value for name, value in kwargs.items()
+            if name not in ("fetch", "fault_probe", "on_block")})
+        streams = {rid: [] for rid in prompts}
+        for rid, prompt in prompts.items():
+            direct.submit(Request(
+                rid, prompt, max_new_tokens=NEW_TOKENS, temperature=0.0,
+                eos_tokens=tokenizer.eos_tokens,
+                emit=lambda r, token, done: streams[r].append(int(token))))
+            if rid == first_rid:
+                direct.run_until_drained()
+        direct.run_until_drained()
+        agree = 0
+        for frame_id, rid in request_of.items():
+            direct_text = tokenizer.decode(
+                [t for t in streams[rid] if t not in tokenizer.eos_tokens])
+            agree += streams[rid] == tokens[rid] \
+                and direct_text == texts[frame_id]
+        print(f"{label}: frames equal to the direct batcher (text and "
+              f"token ids): {agree}/{frames}; ledger {json.dumps(ledger)}",
+              flush=True)
+        if agree != frames:
+            raise AssertionError(f"{label}: {frames - agree} frames differ "
+                                 f"from the direct batcher")
+        del direct, batcher, loop
+        pipeline.stop()
+        element.close()
+        return {"metrics": metrics, "launches": counts}
+    finally:
+        runtime.engine.terminate()
+        reset_process()
+        reset_services_cache()
+        reset_broker()
+        for name, value in saved.items():
+            setattr(port_llm, name, value)
+        port_llm.LLM._ensure_model = ensure_model
+        torch.cuda.empty_cache()
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -1508,9 +1796,19 @@ def main() -> int:
     del qparams
     torch.cuda.empty_cache()
 
+    # -- phase 6: the pipeline engine and the LLM element --------------------
+    pipeline_launches = {}
+    for label, llm, parameters, decode in PIPELINE_PLAN:
+        pipeline_launches[label] = pipeline_run(label, llm, parameters,
+                                                decode, card)["launches"]
+
     for entry in kernels:
+        by_run = {label: counts.get(entry["name"], 0)
+                  for label, counts in pipeline_launches.items()}
+        entry["pipeline_launches"] = by_run
         if entry.get("path") != "kernel phase":
-            entry["launches"] = launches[entry["name"]]
+            entry["launches"] = launches[entry["name"]] \
+                + sum(by_run.values())
         if entry["name"] == "int8_matmul":
             wide = launches["int8_matmul[M>16]"]
             entry["launches_by_route"] = {"m<=16": entry["launches"],

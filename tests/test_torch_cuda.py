@@ -16,6 +16,7 @@ from aiko_services_tpu_torch.ops.int8_matmul import (
     decode_splits, int8_combine, int8_combine_reference, int8_matmul,
     int8_matmul_reference)
 from aiko_services_tpu_torch.ops.topk import topk, topk_reference
+from aiko_services_tpu_torch.pipeline import PipelineElement, StreamEvent
 
 F32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=2e-2, rtol=2e-2)
@@ -687,3 +688,184 @@ def test_decode_and_topk_replay_in_a_graph(cuda_device):
     torch.cuda.synchronize()
     for got, want in zip(captured, eager):
         assert torch.equal(got, want)
+
+
+# -- the pipeline engine's guard, window and capture on the card --------------
+
+class Upload(PipelineElement):
+    """Pipeline element: host value -> tensor on the card."""
+    device_resident = True
+
+    def process_frame(self, stream, x=None, **inputs):
+        return StreamEvent.OKAY, {"x": torch.as_tensor(x).cuda()}
+
+
+class ItemCall(PipelineElement):
+    """A device element that forces a per-frame host sync."""
+    device_resident = True
+
+    def process_frame(self, stream, x=None, **inputs):
+        return StreamEvent.OKAY, {"total": (x * 2).sum().item()}
+
+
+@pytest.mark.cuda
+def test_guard_disallow_fails_item_through_ledger(cuda_device, tmp_path):
+    """Under ``transfer_guard: disallow`` a port element that calls
+    ``.item()`` on the card fails its frame and counts as implicit; the
+    ledger's own fetch inside the guard does not trip it."""
+    import json
+    import queue
+
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.pipeline.overlap import TransferLedger
+    from aiko_services_tpu_torch.runtime import init_process, reset_process
+    from aiko_services_tpu_torch.transport import reset_broker
+    ledger = TransferLedger("disallow")
+    x = torch.arange(4, device=cuda_device, dtype=torch.float32)
+    with ledger.guard():
+        with pytest.raises(RuntimeError) as raised:
+            x.sum().item()
+        fetched = ledger.fetch({"x": x, "n": 1})
+    assert ledger.is_guard_error(raised.value)
+    assert fetched["x"].tolist() == [0.0, 1.0, 2.0, 3.0]
+    assert ledger.stats["explicit"] == 1
+    assert torch.cuda.get_sync_debug_mode() == 0    # the guard is lifted
+
+    module = __name__
+    body = {"version": 0, "name": "guard", "runtime": "torch",
+            "graph": ["(up item)"],
+            "parameters": {"transfer_guard": "disallow"},
+            "elements": [
+                {"name": name, "input": [{"name": "x"}],
+                 "output": [{"name": out}],
+                 "deploy": {"local": {"module": module,
+                                      "class_name": cls}}}
+                for name, cls, out in (("up", "Upload", "x"),
+                                       ("item", "ItemCall", "total"))]}
+    path = tmp_path / "guard.json"
+    path.write_text(json.dumps(body))
+    reset_broker()
+    runtime = init_process(transport="loopback")
+    runtime.initialize()
+    try:
+        responses = queue.Queue()
+        pipeline = create_pipeline(str(path), runtime=runtime)
+        stream = pipeline.create_stream_local("s", queue_response=responses)
+        pipeline.create_frame_local(stream, {"x": [1.0, 2.0]})
+        runtime.run(until=lambda: not responses.empty(), timeout=30.0)
+        *_, okay, diagnostic = responses.get()
+        assert not okay and "synchronizing" in diagnostic
+        assert pipeline.transfer_stats()["implicit"] == 1
+        pipeline.stop()
+    finally:
+        runtime.engine.terminate()
+        reset_process()
+        reset_broker()
+
+
+@pytest.mark.cuda
+def test_device_window_paces_on_card_events(cuda_device):
+    """``DeviceWindow`` notes a frame's card work with an event and
+    paces by waiting on the oldest events only."""
+    from aiko_services_tpu_torch.pipeline.overlap import DeviceWindow
+    window = DeviceWindow()
+    a = torch.randn((2048, 2048), device=cuda_device)
+    outputs = []
+    for frame_id in range(4):
+        for _ in range(8):
+            a = torch.tanh(a @ a * 1e-3)
+        outputs.append(a.clone())
+        window.note(frame_id, {"x": outputs[-1], "label": "frame"})
+    events = [entry[2][0] for entry in window._inflight]
+    assert window.noted == 4 and len(events) == 4
+    waited = window.pace(2)
+    assert window.synced == 3 and window.outstanding == 1 and waited >= 0
+    assert all(event.query() for event in events[:3])
+    window.drain()
+    assert window.outstanding == 0 and events[3].query()
+
+
+@pytest.mark.cuda
+def test_loop_capture_on_worker_thread_while_loop_thread_uses_card(
+        cuda_device):
+    """The LLM element's worker captures the decode loop's graph under
+    the ledger's process-wide guard while the event-loop thread keeps
+    using the card (fresh allocations, launches and events on its own
+    stream).  In ``thread_local`` capture mode neither fails, the capture
+    lifts the guard for its own synchronisation, and the replayed block
+    equals the eager one."""
+    import dataclasses
+    import threading
+
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.loop_graph import LoopRunner
+    from aiko_services_tpu_torch.pipeline.overlap import TransferLedger
+    config = dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab_size=512, max_seq=128), dim=256,
+        hidden_dim=512, decode_attention="flash")
+    params = llama.init_params(0, config, device=cuda_device)
+    b, ring = 4, 12
+    inputs = {
+        "tokens": torch.tensor([5, 9, 2, 7], dtype=torch.int32),
+        "lengths": torch.tensor([10, 50, 100, 0], dtype=torch.int32),
+        "active": torch.tensor([True, True, True, False]),
+        "budget": torch.tensor([12, 5, 12, 0], dtype=torch.int32),
+        "temperatures": torch.zeros(b),
+        "eos": torch.full((b, 1), -1, dtype=torch.int32),
+        "history": torch.full((b, 1), -1, dtype=torch.int32)}
+    options = dict(ring=ring, speculative="off", spec_tokens=3,
+                   spec_window=8, top_k=0)
+    eager_cache = llama.init_cache(config, b, device=cuda_device)
+    graph_cache = {name: tensor.clone()
+                   for name, tensor in eager_cache.items()}
+    dev = {name: value.to(cuda_device) for name, value in inputs.items()}
+    eager = llama.decode_loop(
+        params, config, dev["tokens"], eager_cache, dev["lengths"],
+        dev["active"], dev["budget"], dev["temperatures"], dev["eos"],
+        dev["history"], torch.Generator(device=cuda_device).manual_seed(0),
+        **options)
+    torch.cuda.synchronize()
+    runner = LoopRunner(params, config, batch=b, draft=None,
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(0), history_width=1,
+                        device=cuda_device, **options)
+    for name, value in inputs.items():
+        runner.upload(name, value.numpy())
+    ledger = TransferLedger("disallow")
+    result, failure = {}, []
+    done = threading.Event()
+
+    def worker():
+        try:
+            with ledger.guard():
+                result.update(runner.run(graph_cache))
+        except Exception as error:      # reported by the main thread
+            failure.append(error)
+        finally:
+            done.set()
+    thread = threading.Thread(target=worker)
+    side = torch.cuda.Stream(cuda_device)
+    busy = 0
+    thread.start()
+    while not done.is_set() or busy < 20:
+        with torch.cuda.stream(side):
+            fresh = torch.empty((1 << 20) + busy * 4096,
+                                device=cuda_device)
+            fresh.fill_(1.0).mul_(2.0)
+            event = torch.cuda.Event()
+            event.record(side)
+            event.query()
+        busy += 1
+    thread.join()
+    torch.cuda.synchronize()
+    assert not failure, failure
+    assert runner.captures == 1 and busy >= 20
+    names = ("emitted", "counts", "tokens", "lengths", "active", "budget",
+             "history", None, "accepted", "drafted", "steps")
+    want = {name: value for name, value in zip(names, eager) if name}
+    for row in range(b):
+        count = int(want["counts"][row])
+        assert torch.equal(result["emitted"][row, :count],
+                           want["emitted"][row, :count])
+    for name in ("counts", "tokens", "lengths", "active", "budget"):
+        assert torch.equal(result[name], want[name]), name

@@ -63,6 +63,63 @@ def test_import_leaves_no_jax_in_sys_modules():
     assert result.returncode == 0, result.stderr
 
 
+PIPELINE_RUN = """
+import json, queue, sys
+from aiko_services_tpu_torch.pipeline import create_pipeline
+from aiko_services_tpu_torch.runtime import init_process
+module = "aiko_services_tpu_torch.elements.llm"
+definition = {"version": 0, "name": "cap_llm", "graph": ["(CAP (LLM))"],
+              "parameters": {"transfer_guard": "disallow"},
+              "elements": [
+    {"name": "CAP", "input": [{"name": "detections"}],
+     "output": [{"name": "text"}],
+     "deploy": {"local": {"module": module,
+                          "class_name": "DetectionCaption"}}},
+    {"name": "LLM", "input": [{"name": "text"}],
+     "output": [{"name": "text"}],
+     "parameters": {"device": "cpu", "max_new_tokens": 4, "max_seq": 64,
+                    "decode_block_tokens": 4},
+     "deploy": {"local": {"module": module, "class_name": "LLM"}}}]}
+path = sys.argv[1]
+with open(path, "w") as handle:
+    json.dump(definition, handle)
+runtime = init_process(transport="loopback")
+runtime.initialize()
+pipeline = create_pipeline(path, runtime=runtime)
+responses = queue.Queue()
+stream = pipeline.create_stream_local("1", queue_response=responses)
+for detections in ([{"class": "cat"}], []):
+    pipeline.create_frame_local(stream, {"detections": detections})
+runtime.run(until=lambda: responses.qsize() >= 2, timeout=60.0)
+assert responses.qsize() == 2
+while not responses.empty():
+    *_, okay, diagnostic = responses.get()
+    assert okay, diagnostic
+pipeline.stop()
+pipeline.graph.get_node("LLM").element.close()
+runtime.engine.terminate()
+bad = [m for m in sys.modules if m in ("jax", "jaxlib", "ml_dtypes",
+                                       "aiko_services_tpu")
+       or m.startswith(("jax.", "jaxlib.", "ml_dtypes.",
+                        "aiko_services_tpu."))]
+assert not bad, bad
+print("frames ok")
+"""
+
+
+def test_port_pipeline_run_leaves_no_jax_in_sys_modules(tmp_path):
+    """A tiny ``(CAP (LLM))`` pipeline through the port's
+    ``create_pipeline`` on the CPU, in a fresh interpreter: the frames
+    complete and no jax, jaxlib, ml_dtypes or JAX package module was
+    loaded on the way."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    result = subprocess.run(
+        [sys.executable, "-c", PIPELINE_RUN, str(tmp_path / "cap.json")],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    assert "frames ok" in result.stdout
+
+
 def _tiny():
     return llama.LlamaConfig.tiny(vocab_size=64, max_seq=32)
 
