@@ -4,6 +4,8 @@ asks for the CPU by name.
 There is no silent fallback.  With no card present and no explicit
 ``device="cpu"``, :func:`resolve_device` raises, so a serving process
 that lost its GPU fails loudly instead of decoding on the host.
+:func:`local_devices` (the port's ``jax.devices()``: the pool stage
+placement carves) raises the same way.
 
 :func:`sync_guard` and :func:`sync_allowed` hold the process's CUDA
 synchronisation guard (``torch.cuda.set_sync_debug_mode``): a guard
@@ -21,7 +23,8 @@ import threading
 
 import torch
 
-__all__ = ["resolve_device", "sync_guard", "sync_allowed"]
+__all__ = ["resolve_device", "local_devices", "sync_guard",
+           "sync_allowed"]
 
 _SYNC_LEVELS = {"warn": 1, "error": 2}
 _sync_lock = threading.Lock()
@@ -39,6 +42,14 @@ def resolve_device(device: str | torch.device | None = None) \
             "aiko_services_tpu_torch: no CUDA device is available; pass "
             "device='cpu' explicitly to run the plain PyTorch path")
     return resolved
+
+
+def local_devices() -> list[torch.device]:
+    """Every card of this process, ``[cuda:0 ... cuda:n-1]``.  With no
+    card this raises, as :func:`resolve_device` does."""
+    resolve_device("cuda")
+    return [torch.device("cuda", index)
+            for index in range(torch.cuda.device_count())]
 
 
 def _apply_sync_mode() -> None:

@@ -5,4 +5,5 @@ slices."""
 from .common import Mock, NoOp, Identity, Increment, Terminate
 from .expression import Expression, AllOutputs, evaluate_expression
 from .control import Loop
+from .detect import Detector
 from .llm import LLM, LLMService, DetectionCaption, PROTOCOL_LLM

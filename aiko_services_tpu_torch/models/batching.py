@@ -44,11 +44,17 @@ same code:
   resumes every live request from its committed tokens;
   ``export_state()``/``import_state()`` hand live requests to another
   batcher at their committed prefix.
+
+:class:`MicroBatcher` and :class:`MicroBatchElement` (cross-stream
+micro-batching for async pipeline elements, the ``Detector``'s) are the
+JAX package's code unchanged: they hold no device work of their own.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 from collections import deque
 from typing import Callable
@@ -63,7 +69,8 @@ from .quant import draft_params
 from ..device import resolve_device
 from ..utils.misc import next_power_of_two
 
-__all__ = ["Request", "ContinuousBatcher", "pad_to_bucket"]
+__all__ = ["Request", "ContinuousBatcher", "MicroBatcher",
+           "MicroBatchElement", "pad_to_bucket"]
 
 # Batched admission advances at most this many slots per tick (buckets
 # stay {1, 2, 4, 8} whatever max_slots is).
@@ -1205,3 +1212,246 @@ class ContinuousBatcher:
             self.step()
             steps += 1
         return steps
+
+
+# ---------------------------------------------------------------------------
+# Cross-stream micro-batching for async pipeline elements.
+
+class MicroBatcher:
+    """Cross-stream micro-batching admission for async pipeline elements.
+
+    Generalizes the Detector's parked-frame admission (r5) so ANY async
+    element coalesces frames parked at its stage -- from every stream in
+    the process -- into one batched device call.  It shares the
+    ContinuousBatcher's admission discipline: frames submitted in one
+    event-loop burst flush together (``schedule_flush`` defers to the
+    engine's mailbox drain, so a lone frame pays no added latency),
+    groups form per signature key (stacking float16 with float32 frames
+    would silently promote; mixed shapes cannot stack at all), ragged
+    groups pad to power-of-two compile buckets (:func:`pad_to_bucket`),
+    and all device work runs on a single daemon worker thread -- the
+    event loop never blocks on a dispatch, a fetch, or a first-use jit
+    compile.
+
+    The element supplies three callables:
+
+    - ``run(context, key, payloads) -> result``: stack + dispatch ONE
+      batched device call for a same-key group (worker thread; raising
+      errors every frame of that group only);
+    - ``finish(context, key, entries, result)``: fetch + complete each
+      parked frame from its row (worker thread; ``entries`` is
+      ``[(complete, payload), ...]`` in submission order);
+    - ``context()``: model snapshot taken at flush time -- a queued
+      batch must dispatch against the weights it was built with (or
+      fail cleanly if their devices died), never a half-swapped model.
+
+    The worker dispatches EVERY group of a flush before fetching any
+    (device work pipelines across groups).  Submit/flush/stop run on
+    the event loop; only the queue crosses threads.
+
+    Scope note (found by the r07 bench attempt): a micro-batched
+    element on a REPLICATED placed stage is not yet supported -- the
+    replica hop lands each parked frame's inputs on ITS replica's
+    submesh, and a cross-replica group would stack arrays from
+    different device sets into one dispatch (XLA rejects the mix).
+    Replicate synchronous stages; async elements already spread load
+    through their own cross-stream batching.
+    """
+
+    def __init__(self, run: Callable, finish: Callable,
+                 context: Callable, schedule_flush: Callable,
+                 logger=None, name: str = "microbatch"):
+        self._run = run
+        self._finish = finish
+        self._context = context
+        self._schedule_flush = schedule_flush
+        self._logger = logger
+        self.name = name
+        self._pending: list[tuple] = []  # (rank, seq, key, payload, complete)
+        self._flush_scheduled = False
+        self._queue: queue.Queue | None = None
+        # perf counters (tests assert dispatches < frames)
+        self.submitted = 0
+        self.dispatches = 0
+        self.flushes = 0
+
+    def submit(self, key, payload, complete, max_batch: int = 8,
+               rank: int = 0):
+        """Park one frame's work.  Flushes immediately at ``max_batch``
+        pending, otherwise once the engine's mailboxes drain -- every
+        frame of the burst joins the same batched dispatch.  ``rank``
+        is the frame's QoS class rank (ISSUE 12): a flush dispatches
+        best-ranked groups first, so an interactive frame's batch hits
+        the device before a batch-class group parked in the same
+        burst; all-equal ranks keep submission order exactly."""
+        self._ensure_worker()
+        self._pending.append((int(rank), self.submitted, key, payload,
+                              complete))
+        self.submitted += 1
+        if len(self._pending) >= int(max_batch):
+            self.flush()
+        elif not self._flush_scheduled:
+            self._flush_scheduled = True
+            self._schedule_flush(self._flush_deferred)
+
+    def _ensure_worker(self):
+        if self._queue is None:
+            self._queue = queue.Queue()
+            threading.Thread(target=self._worker, args=(self._queue,),
+                             daemon=True,
+                             name=f"microbatch-{self.name}").start()
+
+    def _flush_deferred(self):
+        self._flush_scheduled = False
+        self.flush()
+
+    def flush(self):
+        """Group pending frames by key (submission order preserved
+        within a group) and hand the burst to the worker.  Groups
+        dispatch in best-(rank, submission) order -- the QoS plane;
+        with all-default ranks that IS first-submission order, the
+        pre-QoS behavior."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        if self._queue is None:             # stopped mid-burst
+            for _, _, _, _, complete in pending:
+                complete_error(complete, f"{self.name} stopped")
+            return
+        pending.sort(key=lambda entry: entry[:2])
+        groups: dict = {}
+        for _, _, key, payload, complete in pending:
+            groups.setdefault(key, []).append((complete, payload))
+        self.flushes += 1
+        self.dispatches += len(groups)
+        self._queue.put((self._context(), list(groups.items())))
+
+    def stop(self):
+        """Flush pending frames, then retire the worker (in-flight
+        batches drain first).  A later submit lazily starts a fresh
+        worker -- without this the thread would pin the element (and
+        its device weights) forever."""
+        self.flush()
+        work, self._queue = self._queue, None
+        if work is not None:
+            work.put(None)                  # drain-then-exit sentinel
+
+    # -- worker side -------------------------------------------------------
+
+    def _worker(self, work: "queue.Queue"):
+        while True:
+            item = work.get()
+            if item is None:
+                return
+            self._run_groups(*item)
+
+    def _run_groups(self, context, groups):
+        """Dispatch every group first, then fetch/complete each.  A
+        failing dispatch errors every frame of ITS group -- anything
+        not completed here would stay parked forever."""
+        dispatched = []
+        for key, entries in groups:
+            try:
+                result = self._run(context, key,
+                                   [payload for _, payload in entries])
+            except Exception as error:
+                if self._logger is not None:
+                    self._logger.exception(
+                        "%s: batched dispatch failed", self.name)
+                for complete, _ in entries:
+                    complete_error(complete,
+                                   f"{self.name} dispatch: {error}")
+                continue
+            dispatched.append((key, entries, result))
+        for key, entries, result in dispatched:
+            try:
+                self._finish(context, key, entries, result)
+            except Exception as error:      # pragma: no cover - defensive
+                if self._logger is not None:
+                    self._logger.exception(
+                        "%s: batch finish failed", self.name)
+                for complete, _ in entries:
+                    complete_error(complete, str(error))
+
+
+def complete_error(complete: Callable, diagnostic: str):
+    """Error one parked frame (import-cycle-free StreamEvent access)."""
+    from ..pipeline.stream import StreamEvent
+    complete(StreamEvent.ERROR, {"diagnostic": diagnostic})
+
+
+class MicroBatchElement:
+    """Mixin holding the one copy of the element-side MicroBatcher glue
+    (lazy creation against the engine's drain callback, key-failure
+    error path, ``max_batch`` resolution on the event loop, stop/teardown)
+    shared by the Detector, ImageResize, and AudioFFT.
+
+    Subclasses implement ``batch_key(payload)`` (grouping signature,
+    resolved on the event loop; raising errors ONLY that frame),
+    ``batch_run(context, key, payloads)`` and
+    ``batch_finish(context, key, entries, result)`` (worker thread),
+    and optionally ``batch_context()`` (model snapshot at flush time).
+    """
+
+    _batcher: MicroBatcher | None = None
+
+    def batch_context(self):
+        return None
+
+    def batch_key(self, payload):
+        raise NotImplementedError
+
+    def batch_run(self, context, key, payloads):
+        raise NotImplementedError
+
+    def batch_finish(self, context, key, entries, result):
+        raise NotImplementedError
+
+    def submit_microbatch(self, complete, payload,
+                          diagnostic: str = "bad input"):
+        if self._batcher is None:
+            self._batcher = MicroBatcher(
+                run=self.batch_run, finish=self.batch_finish,
+                context=self.batch_context,
+                schedule_flush=(self.pipeline.runtime.engine
+                                .post_when_drained),
+                logger=self.logger, name=self.name)
+        max_batch, _ = self.get_parameter("max_batch", 8)
+        try:
+            key = self.batch_key(payload)
+        except Exception as error:      # malformed frame: only ITS
+            complete_error(complete,     # complete errors
+                           f"{diagnostic}: {error}")
+            return
+        # Unified QoS admission (ISSUE 12): the parked frame's class
+        # rank orders the flush, so the batcher honors the same
+        # priority vocabulary as the stage credits.  Resolved on the
+        # event loop where the current-stream context is intact.
+        rank = 0
+        qos = getattr(self.pipeline, "qos", None)
+        if qos is not None:
+            stream = self.pipeline.current_stream()
+            if stream is not None:
+                rank = qos.class_rank(getattr(stream, "qos_class",
+                                              None))
+        self._batcher.submit(key, payload, complete,
+                             max_batch=int(max_batch), rank=rank)
+
+    def stop_microbatcher(self):
+        """Flush + retire (a later submit lazily starts a fresh one)."""
+        batcher, self._batcher = self._batcher, None
+        if batcher is not None:
+            batcher.stop()
+
+    def stop_stream(self, stream, stream_id):
+        if self._batcher is not None:
+            # The stopping stream's parked frames must not linger in a
+            # half-collected burst.  The batcher itself is SHARED
+            # across streams: retire the worker only when this was the
+            # last live stream (the engine pops the stream before
+            # stop_stream fires), so sibling streams keep their warm
+            # worker and the cross-stream batching counters.
+            self._batcher.flush()
+            if not self.pipeline.streams:
+                self.stop_microbatcher()
+        return super().stop_stream(stream, stream_id)

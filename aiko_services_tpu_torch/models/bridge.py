@@ -10,6 +10,9 @@ re-viewed, so the round trip is bit-exact.
 A quantized tree (``models/quant.py`` ``quantize_params`` on either
 side) bridges too: its ``{"int8", "scale"}`` leaves keep their own
 dtypes, int8 codes and float32 scales.
+:func:`detector_params_from_numpy` carries the detector's tree
+(``models/detector.py``): HWIO kernels become OIHW in ``channels_last``
+memory.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import detector
 from .llama import LlamaConfig, _dtype, param_shapes
 
-__all__ = ["params_from_numpy", "leaf_to_tensor"]
+__all__ = ["params_from_numpy", "detector_params_from_numpy",
+           "leaf_to_tensor"]
 
 _TAGGED = {"bfloat16": torch.bfloat16}
 
@@ -91,3 +96,45 @@ def params_from_numpy(tree: dict, config: LlamaConfig,
         return out
 
     return convert(param_shapes(config), tree, "")
+
+
+def detector_params_from_numpy(tree: dict, config: detector.DetectorConfig,
+                               device: str | torch.device | None = None) \
+        -> dict:
+    """The JAX package's detector tree (``{"w": HWIO, "b": [cout]}`` per
+    conv, leaves as numpy arrays or tagged bf16 views) -> the port's on
+    ``device`` (the card unless "cpu" is asked for), in the config's
+    dtype: kernels OIHW in ``channels_last`` memory.  Every conv must be
+    present with the layout's shape."""
+    device = resolve_device(device)
+    dtype = detector._dtype(config)
+
+    def convert(layout, subtree, path: str):
+        if isinstance(layout, dict):
+            if not isinstance(subtree, dict) or set(layout) != set(subtree):
+                raise ValueError(f"detector_params_from_numpy: "
+                                 f"{path or 'tree'} does not hold "
+                                 f"{sorted(layout)}")
+            return {name: convert(value, subtree[name], f"{path}{name}/")
+                    for name, value in layout.items()}
+        if isinstance(layout, list):
+            if len(layout) != len(subtree):
+                raise ValueError(f"detector_params_from_numpy: {path} has "
+                                 f"{len(subtree)} entries, expected "
+                                 f"{len(layout)}")
+            return [convert(value, subtree[index], f"{path}{index}/")
+                    for index, value in enumerate(layout)]
+        cout, cin, kernel = layout
+        weight = leaf_to_tensor(subtree["w"], dtype, device)
+        bias = leaf_to_tensor(subtree["b"], dtype, device)
+        if tuple(weight.shape) != (kernel, kernel, cin, cout) \
+                or tuple(bias.shape) != (cout,):
+            raise ValueError(
+                f"detector_params_from_numpy: {path} has w "
+                f"{tuple(weight.shape)} and b {tuple(bias.shape)}, expected "
+                f"{(kernel, kernel, cin, cout)} and {(cout,)}")
+        return {"w": weight.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last),
+                "b": bias}
+
+    return convert(detector.param_shapes(config), tree, "")

@@ -14,4 +14,5 @@ from .journal import (StreamJournal, JournalState, load_journal,
 from .overlap import TransferLedger, DeviceWindow, device_leaves
 from .fusion import (DeviceFn, FusedSegment, FusionError, FUSE_MODES,
                      setup_compilation_cache)
-from .tensor import ShapeBucketer, encode_array, decode_array
+from .tensor import (TPUElement, JitCache, ShapeBucketer, StagePlacement,
+                     encode_array, decode_array, tree_device_put)

@@ -6,11 +6,12 @@ a :class:`DeviceFn`) into ONE jitted XLA computation per frame.  The
 port keeps the partitioner and the element contract exactly
 (:data:`FUSE_MODES`, :class:`FusionError`, :class:`DeviceFn`,
 :func:`fusable`, :func:`qualified_reads`, :func:`partition`); its
-:class:`FusedSegment` -- one captured CUDA graph per segment -- lands
-with the first element that declares a ``device_fn`` (ROADMAP Queue 1
-item 6).  Until then forming a segment raises :class:`FusionError`, so
-a fusable chain is never run some other way in silence.  No element of
-the port declares a ``device_fn`` yet, so no chain forms.
+:class:`FusedSegment` -- one captured CUDA graph per segment -- is
+ROADMAP Queue 1 item 8.  Until then forming a segment raises
+:class:`FusionError`, so a fusable chain is never run some other way in
+silence.  The ``Detector`` is the one element of the port that declares
+a ``device_fn`` (with ``synchronous: true``), and a segment needs two
+fusable elements in a row, so no port pipeline forms one yet.
 
 :func:`setup_compilation_cache` keeps the JAX package's gate
 (``AIKO_COMPILE_CACHE_DIR``, else the ``compile_cache_dir`` pipeline
@@ -239,7 +240,7 @@ class FusedSegment:
                  stage=None):
         raise FusionError(str(not_ported(
             "fused segment " + "+".join(node.name for node in nodes),
-            "ROADMAP Queue 1 item 6")))
+            "ROADMAP Queue 1 item 8")))
 
 
 # ---------------------------------------------------------------------------

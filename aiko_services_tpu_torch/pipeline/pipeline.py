@@ -707,13 +707,6 @@ class Pipeline(Actor):
             block = element_def.placement
             if not block:
                 continue
-            # Stage placement is not ported yet: refuse the block, never
-            # run the element unplaced in silence.
-            from ..utils import not_ported
-            raise DefinitionError(
-                f"pipeline {self.definition.name!r}: "
-                f"{element_def.name}.placement: "
-                f"{not_ported('stage placement', 'ROADMAP Queue 1 item 6')}")
             # Same authority as the lint rule (definition.py), so a
             # 'preflight: off' definition cannot smuggle a malformed
             # block past create into the runtime placement paths.

@@ -82,7 +82,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the element's settings on the element's weights and prompts.  Each
    run prints frames/s, wall per frame, the first frame's latency, the
    model build, the host time in admission and decode, the engine's
-   inbound and return hops, and peak memory.
+   inbound and return hops, and peak memory;
+7. config 4: ``(DET (CAP (LLM)))`` through ``create_pipeline``, the
+   ``Detector`` at YOLO-n scale (width 32, depth 1, 80 classes) placed
+   on the card by a placement block, the ``LLM`` as in
+   ``pipeline-loop-16``; 8 frames of 640x640x3 uint8 from a numpy seed,
+   the first alone, then 7 at once.  Beside the pipeline runs' gates
+   (every frame OKAY and equal to the direct batcher, one ledger fetch
+   a retired block, no guard error, #2 + combine, #4 and #6 and no
+   other kernel): fewer detect dispatches than frames, LLM decode steps
+   below 0.6 x frames x new tokens, no failed card in the health probe,
+   and a captured batch-8 ``detect`` replay equal to the eager call
+   (``valid`` and ``classes`` exactly, boxes and scores within
+   DETECT_TOL).  It prints the detect replay's, its forward's and the
+   eager call's device ms (CUDA events) beside detect's bound, the
+   detect captures' seconds and the ``DET_time``/``LLM_time`` medians.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
@@ -1380,33 +1394,74 @@ PIPELINE_PLAN = (
      "flash_decode_attention_paged"))
 
 
-def _pipeline_definition(label: str, llm: dict, parameters: dict) -> dict:
+#: BASELINE config 4 on one card: the detector at YOLO-n scale (width
+#: 32, depth 1, 80 classes) on 640x640 frames in batches of up to 8,
+#: placed on the card by a placement block; the LLM as in
+#: ``pipeline-loop-16`` (no placement block: one card holds no two
+#: disjoint stages).
+COCO_CLASSES = (
+    "person bicycle car motorcycle airplane bus train truck boat "
+    "traffic_light fire_hydrant stop_sign parking_meter bench bird cat dog "
+    "horse sheep cow elephant bear zebra giraffe backpack umbrella handbag "
+    "tie suitcase frisbee skis snowboard sports_ball kite baseball_bat "
+    "baseball_glove skateboard surfboard tennis_racket bottle wine_glass "
+    "cup fork knife spoon bowl banana apple sandwich orange broccoli carrot "
+    "hot_dog pizza donut cake chair couch potted_plant bed dining_table "
+    "toilet tv laptop mouse remote keyboard cell_phone microwave oven "
+    "toaster sink refrigerator book clock vase scissors teddy_bear "
+    "hair_drier toothbrush").split()
+CONFIG4_DETECTOR = {"width": 32, "max_batch": 8,
+                    "class_names": [name.replace("_", " ")
+                                    for name in COCO_CLASSES]}
+CONFIG4_FRAMES = 8
+CONFIG4_SIZE = 640
+DETECT_TOL = 1e-3       # boxes and scores, captured replay vs eager call
+
+
+def _pipeline_definition(label: str, llm: dict, parameters: dict,
+                         detector: dict | None = None) -> dict:
+    """``(CAP (LLM))``, or ``(DET (CAP (LLM)))`` when the detector's
+    parameters are given (the detector placed on the card)."""
     module = "aiko_services_tpu_torch.elements.llm"
+    elements = [
+        {"name": "CAP", "input": [{"name": "detections"}],
+         "output": [{"name": "text"}],
+         "deploy": {"local": {"module": module,
+                              "class_name": "DetectionCaption"}}},
+        {"name": "LLM", "input": [{"name": "text"}],
+         "output": [{"name": "text"}],
+         "parameters": {**PIPELINE_LLM, **llm},
+         "deploy": {"local": {"module": module, "class_name": "LLM"}}}]
+    graph = "(CAP (LLM))"
+    if detector is not None:
+        graph = "(DET (CAP (LLM)))"
+        elements.insert(0, {
+            "name": "DET", "input": [{"name": "image"}],
+            "output": [{"name": "detections"}],
+            "parameters": detector, "placement": {"mesh": {"dp": 1}},
+            "deploy": {"local": {
+                "module": "aiko_services_tpu_torch.elements.detect",
+                "class_name": "Detector"}}})
     return {"version": 0, "name": label, "runtime": "torch",
-            "graph": ["(CAP (LLM))"], "parameters": parameters,
-            "elements": [
-                {"name": "CAP", "input": [{"name": "detections"}],
-                 "output": [{"name": "text"}],
-                 "deploy": {"local": {"module": module,
-                                      "class_name": "DetectionCaption"}}},
-                {"name": "LLM", "input": [{"name": "text"}],
-                 "output": [{"name": "text"}],
-                 "parameters": {**PIPELINE_LLM, **llm},
-                 "deploy": {"local": {"module": module,
-                                      "class_name": "LLM"}}}]}
+            "graph": [graph], "parameters": parameters,
+            "elements": elements}
 
 
 def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
-                 card: str) -> dict:
+                 card: str, detector: dict | None = None,
+                 frames_in: list | None = None, after=None) -> dict:
     """One run of the ``(CAP (LLM))`` pipeline over PIPELINE_DETECTIONS
-    (see the module docstring), then the same prompts through a
-    ``ContinuousBatcher`` built directly with the element's settings on
-    the element's weights.  The launch counters are zeroed just before
-    the frames and read as the last frame's response arrives; the direct
-    run is a comparison and counts nowhere.  The element's module is
-    instrumented for the run only: its batcher class records its
-    settings, submit times and host time in admission and decode, its
-    emit records token ids, its model build is timed."""
+    (see the module docstring) -- or of ``(DET (CAP (LLM)))`` over
+    ``frames_in`` when ``detector`` holds the detector's parameters --
+    then the same prompts through a ``ContinuousBatcher`` built
+    directly with the element's settings on the element's weights.  The
+    launch counters are zeroed just before the frames and read as the
+    last frame's response arrives; the direct run is a comparison and
+    counts nowhere.  The element's module is instrumented for the run
+    only: its batcher class records its settings, submit times and host
+    time in admission and decode, its emit records token ids, its model
+    build is timed.  ``after(pipeline, frame_metrics)`` runs before the
+    pipeline stops; its dict joins the result."""
     import queue
     import tempfile
 
@@ -1488,14 +1543,17 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             path = Path(workdir) / "cap.json"
-            path.write_text(json.dumps(_pipeline_definition(label, llm,
-                                                            parameters)))
+            path.write_text(json.dumps(_pipeline_definition(
+                label, llm, parameters, detector)))
             pipeline = create_pipeline(str(path), runtime=runtime)
         counters = launch_counters()
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         responses = Responses()
-        frames = len(PIPELINE_DETECTIONS)
+        if frames_in is None:
+            frames_in = [{"detections": detections}
+                         for detections in PIPELINE_DETECTIONS]
+        frames = len(frames_in)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         begin = time.perf_counter()
@@ -1503,12 +1561,11 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
         # The first frame alone (it pays the model build and, in the
         # loop, the capture), then the rest at once: their prompts find
         # the first one's pages in the prefix index.
-        pipeline.create_frame_local(stream,
-                                    {"detections": PIPELINE_DETECTIONS[0]})
+        pipeline.create_frame_local(stream, frames_in[0])
         runtime.run(until=lambda: responses.qsize() >= 1, timeout=300.0)
         burst = time.perf_counter()
-        for detections in PIPELINE_DETECTIONS[1:]:
-            pipeline.create_frame_local(stream, {"detections": detections})
+        for frame in frames_in[1:]:
+            pipeline.create_frame_local(stream, frame)
         runtime.run(until=lambda: responses.qsize() >= frames or failures,
                     timeout=300.0)
         counts = {name: getattr(fn, attr)
@@ -1521,9 +1578,10 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
                                  f"frames answered; failed: {failures}")
         element = pipeline.graph.get_node("LLM").element
         batcher = element._batcher
-        texts, captions = {}, {}
+        texts, captions, frame_metrics = {}, {}, {}
         while not responses.empty():
-            _, frame_id, swag, _, okay, diagnostic = responses.get()
+            _, frame_id, swag, frame_metrics[frame_id], okay, diagnostic = \
+                responses.get()
             if not okay:
                 raise AssertionError(f"{label}: frame {frame_id} failed: "
                                      f"{diagnostic}")
@@ -1604,10 +1662,11 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
         if agree != frames:
             raise AssertionError(f"{label}: {frames - agree} frames differ "
                                  f"from the direct batcher")
+        extra = after(pipeline, frame_metrics) if after is not None else {}
         del direct, batcher, loop
         pipeline.stop()
         element.close()
-        return {"metrics": metrics, "launches": counts}
+        return {"metrics": metrics, "launches": counts, **extra}
     finally:
         runtime.engine.terminate()
         reset_process()
@@ -1617,6 +1676,141 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
             setattr(port_llm, name, value)
         port_llm.LLM._ensure_model = ensure_model
         torch.cuda.empty_cache()
+
+
+def detector_work(config, batch: int, size: int) -> dict:
+    """One batched ``detect``'s convolution operations (2 a
+    multiply-add) and bytes: the function's own (uint8-normalised f32
+    images read, weights read, the slate written) and, for reference,
+    the activations' (each conv's bf16 input read and output written
+    once)."""
+    from aiko_services_tpu_torch.models.detector import param_shapes
+    layout = param_shapes(config)
+    ops, weights, activations = 0, 0, 0
+
+    def conv(shape, n_in, stride):
+        nonlocal ops, weights, activations
+        cout, cin, kernel = shape
+        n_out = -(-n_in // stride)
+        ops += 2 * batch * cout * cin * kernel * kernel * n_out * n_out
+        weights += (cout * cin * kernel * kernel + cout) * 2
+        activations += batch * (cin * n_in * n_in + cout * n_out * n_out) * 2
+        return n_out
+
+    n = conv(layout["stem"], size, 2)
+    sides = []
+    for name in ("stage1", "stage2", "stage3", "stage4"):
+        n = conv(layout[name]["down"], n, 2)
+        for block in layout[name]["blocks"]:
+            conv(block["c1"], n, 1)
+            conv(block["c2"], n, 1)
+        sides.append(n)
+    p3, p4, p5 = sides[1:]
+    conv(layout["lateral4"], p4, 1)
+    conv(layout["lateral3"], p3, 1)
+    for head, side in zip(layout["heads"], (p3, p4, p5)):
+        conv(head, side, 1)
+    slate = batch * config.max_detections * (4 * 4 + 4 + 8 + 1)
+    return {"ops": ops, "bytes": batch * size * size * 3 * 4 + weights
+            + slate, "activation_bytes": activations}
+
+
+def config4_run(card: str) -> dict:
+    """BASELINE config 4 on one card: ``(DET (CAP (LLM)))`` through the
+    port's ``create_pipeline``, the detector placed on the card by its
+    placement block, the LLM as in ``pipeline-loop-16``.  Eight
+    640x640x3 uint8 frames from a numpy seed, the first alone, then
+    seven at once.  Beside ``pipeline_run``'s gates: a captured batch-8
+    replay of ``detect`` equals an eager call on the same batch
+    (``valid`` and ``classes`` exactly, boxes and scores within
+    DETECT_TOL), detect dispatches number fewer than the frames, the
+    LLM's decode steps stay below 0.6 x frames x new tokens (the JAX
+    package's overlap test: steps are batched decode steps, the device
+    loop's counted on the device), and the device health probe finds
+    no failed card."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.models import detector
+    from aiko_services_tpu_torch.pipeline import JitCache
+
+    rng = np.random.default_rng(4)
+    images = [rng.integers(0, 256, (CONFIG4_SIZE, CONFIG4_SIZE, 3),
+                           dtype=np.uint8) for _ in range(CONFIG4_FRAMES)]
+
+    def after(pipeline, frame_metrics) -> dict:
+        det = pipeline.graph.get_node("DET").element
+        batcher = pipeline.graph.get_node("LLM").element._batcher
+        dispatches = det.jit_cache.hits + det.jit_cache.misses
+        steps_limit = 0.6 * CONFIG4_FRAMES * NEW_TOKENS
+        failed = pipeline.check_device_health()
+        plan = pipeline.stage_placement.plan("DET")
+        out = {"detect_dispatches": dispatches,
+               "detect_graphs": det.jit_cache.entries,
+               "detect_capture_s": det.jit_cache.capture_s,
+               "llm_steps": batcher.steps, "llm_steps_limit": steps_limit,
+               "health_failed": [str(device) for device in failed],
+               "det_mesh": dict(plan.mesh.shape),
+               "det_device": str(plan.device),
+               "det_time_ms_median": float(np.median(
+                   [m["DET_time"] for m in frame_metrics.values()])) * 1e3,
+               "llm_time_ms_median": float(np.median(
+                   [m["LLM_time"] for m in frame_metrics.values()])) * 1e3}
+        if dispatches >= CONFIG4_FRAMES or batcher.steps >= steps_limit \
+                or failed:
+            raise AssertionError(f"config4: {out}")
+
+        # A captured batch-8 replay against an eager call, same batch.
+        device = plan.device
+        batch = torch.from_numpy(np.stack(images)).to(device).float() / 255.0
+        replayed = det._detect(det._params, batch)
+        eager = detector.detect(det._params, det._config, batch)
+        torch.cuda.synchronize()
+        for name in ("valid", "classes"):
+            if not torch.equal(replayed[name], eager[name]):
+                raise AssertionError(f"config4: replay {name} differs from "
+                                     f"the eager call")
+        error = max((replayed[name] - eager[name]).abs().max().item()
+                    for name in ("boxes", "scores"))
+        out["replay_vs_eager_max_abs_err"] = error
+        out["detections_per_frame"] = replayed["valid"].sum(-1).tolist()
+        if error > DETECT_TOL:
+            raise AssertionError(f"config4: replay boxes/scores differ from "
+                                 f"the eager call by {error}")
+
+        def device_ms(fn, calls: int = 10) -> float:
+            times = []
+            for _ in range(calls):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            return float(np.median(times))
+        out["detect_replay_ms"] = device_ms(
+            lambda: det._detect(det._params, batch))
+        forward = JitCache()(
+            lambda params, x: detector.forward(params, det._config, x))
+        forward(det._params, batch)         # the capture, off the clock
+        out["detect_forward_replay_ms"] = device_ms(
+            lambda: forward(det._params, batch))
+        out["detect_eager_ms"] = device_ms(
+            lambda: detector.detect(det._params, det._config, batch))
+        work = detector_work(det._config, CONFIG4_FRAMES, CONFIG4_SIZE)
+        out["detect_bound_ms"], out["detect_bound_by"] = bound_ms(
+            work["bytes"], work["ops"], "bf16")
+        out.update({"detect_gflop": work["ops"] / 1e9,
+                    "detect_activation_mb": work["activation_bytes"] / 1e6,
+                    "card": card})
+        print(f"config4 {json.dumps(out)}", flush=True)
+        return {"config4": out}
+
+    return pipeline_run(
+        "config4-loop-16", {"decode_block_tokens": 16},
+        {"transfer_guard": "disallow"}, "flash_decode_attention_stacked",
+        card, detector=CONFIG4_DETECTOR,
+        frames_in=[{"image": image} for image in images], after=after)
 
 
 def _map(tree: dict, fn) -> dict:
@@ -1802,10 +1996,17 @@ def main() -> int:
         pipeline_launches[label] = pipeline_run(label, llm, parameters,
                                                 decode, card)["launches"]
 
+    # -- phase 7: BASELINE config 4, detect -> caption -> LLM ----------------
+    config4 = config4_run(card)
+    pipeline_launches["config4-loop-16"] = config4["launches"]
+
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)
                   for label, counts in pipeline_launches.items()}
         entry["pipeline_launches"] = by_run
+        if by_run["config4-loop-16"]:
+            entry["path"] = "config4"
+            entry["config4_launches"] = by_run["config4-loop-16"]
         if entry.get("path") != "kernel phase":
             entry["launches"] = launches[entry["name"]] \
                 + sum(by_run.values())

@@ -869,3 +869,149 @@ def test_loop_capture_on_worker_thread_while_loop_thread_uses_card(
                            want["emitted"][row, :count])
     for name in ("counts", "tokens", "lengths", "active", "budget"):
         assert torch.equal(result[name], want[name]), name
+
+
+# -- the compiled cache and the detector on the card --------------------------
+
+@pytest.mark.cuda
+def test_jit_cache_replay_equals_eager(cuda_device):
+    """``JitCache`` on the card: a miss captures the function as a CUDA
+    graph (here the detector's detect and a top-k launch), each hit
+    replays it on copies of the new inputs and returns outputs of its
+    own (a later replay leaves an earlier result as it was), the replay
+    equals the eager call, and the launch counter counts the top-k
+    launches that ran: the warm-up's, then one a replay (the capture's
+    own is taken back)."""
+    import dataclasses
+
+    from aiko_services_tpu_torch.models import detector
+    from aiko_services_tpu_torch.pipeline.tensor import JitCache
+    config = dataclasses.replace(detector.DetectorConfig.tiny(),
+                                 dtype="float32")
+    params = detector.init_params(0, config, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def fn(params, images):
+        out = detector.detect(params, config, images)
+        out["top"] = topk(images.reshape(images.shape[0], -1), 5)[1]
+        return out
+    cache = JitCache()
+    cached = cache(fn)
+    first_images = torch.rand((2, 64, 80, 3), generator=gen,
+                              device=cuda_device)
+    second_images = torch.rand((2, 64, 80, 3), generator=gen,
+                               device=cuda_device)
+    launches = topk.launches
+    first = cached(params, first_images)
+    second = cached(params, second_images)
+    torch.cuda.synchronize()
+    assert (cache.misses, cache.hits, cache.entries) == (1, 1, 1)
+    assert topk.launches == launches + 3
+    for images, got in ((first_images, first), (second_images, second)):
+        want = fn(params, images)
+        torch.cuda.synchronize()
+        for name in ("valid", "classes", "top"):
+            assert torch.equal(got[name], want[name]), name
+        for name in ("boxes", "scores"):
+            torch.testing.assert_close(got[name], want[name], **F32)
+    assert cache.capture_s > 0
+
+
+@pytest.mark.cuda
+def test_detector_captures_on_worker_thread_while_another_thread_uses_card(
+        cuda_device, tmp_path):
+    """The Detector's micro-batch worker captures detect on its own
+    stream while another thread -- standing in for the LLM worker --
+    keeps using the card under the process-wide ``disallow`` guard
+    (fresh allocations, launches and events on its own stream).  Neither
+    fails: the capture and the worker's one wait lift the guard, and
+    the upload goes through pinned memory.  Each frame's detections
+    equal the eager detect of the same padded batch."""
+    import json
+    import queue
+    import threading
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.device import sync_guard
+    from aiko_services_tpu_torch.models import detector
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    from aiko_services_tpu_torch.runtime import init_process, reset_process
+    from aiko_services_tpu_torch.transport import reset_broker
+    body = {"version": 0, "name": "det", "runtime": "torch",
+            "graph": ["(DET)"],
+            "elements": [{
+                "name": "DET", "input": [{"name": "image"}],
+                "output": [{"name": "detections"}],
+                "parameters": {"width": 8, "max_batch": 8},
+                "placement": {"mesh": {"dp": 1}},
+                "deploy": {"local": {
+                    "module": "aiko_services_tpu_torch.elements.detect",
+                    "class_name": "Detector"}}}]}
+    path = tmp_path / "det.json"
+    path.write_text(json.dumps(body))
+    rng = np.random.default_rng(7)
+    images = [rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+              for _ in range(3)]
+    stop, failure = threading.Event(), []
+
+    def busy():
+        side = torch.cuda.Stream(cuda_device)
+        try:
+            with sync_guard("error"):
+                count = 0
+                while not stop.is_set() or count < 20:
+                    with torch.cuda.stream(side):
+                        fresh = torch.empty((1 << 20) + count * 4096,
+                                            device=cuda_device)
+                        fresh.fill_(1.0).mul_(2.0)
+                        event = torch.cuda.Event()
+                        event.record(side)
+                        event.query()
+                    count += 1
+        except Exception as error:      # reported by the main thread
+            failure.append(error)
+    thread = threading.Thread(target=busy)
+    reset_broker()
+    runtime = init_process(transport="loopback")
+    runtime.initialize()
+    try:
+        pipeline = create_pipeline(str(path), runtime=runtime)
+        thread.start()
+        responses = queue.Queue()
+        stream = pipeline.create_stream_local("s", queue_response=responses)
+        for image in images:
+            pipeline.create_frame_local(stream, {"image": image})
+        runtime.run(until=lambda: responses.qsize() >= len(images),
+                    timeout=120.0)
+        stop.set()
+        thread.join()
+        assert not failure, failure
+        got = {}
+        while not responses.empty():
+            _, frame_id, swag, _, okay, diagnostic = responses.get()
+            assert okay, diagnostic
+            got[frame_id] = swag["detections"]
+        assert sorted(got) == [0, 1, 2]
+        det = pipeline.graph.get_node("DET").element
+        assert det.jit_cache.misses == 1 and det.jit_cache.capture_s > 0
+        padded = images + images[:1]
+        batch = torch.from_numpy(np.stack(padded)).to(cuda_device)
+        want = detector.detect(det._params, det._config,
+                               batch.float() / 255.0)
+        fetched = {name: value.cpu().numpy() for name, value in want.items()}
+        for row in range(len(images)):
+            expected = det._slate_outputs(fetched, row)["detections"]
+            assert [d["class"] for d in got[row]] \
+                == [d["class"] for d in expected]
+            for a, b in zip(got[row], expected):
+                assert abs(a["score"] - b["score"]) <= 1e-3
+                np.testing.assert_allclose(a["box"], b["box"], atol=1e-3)
+        pipeline.stop()
+    finally:
+        stop.set()
+        if thread.is_alive():
+            thread.join()
+        runtime.engine.terminate()
+        reset_process()
+        reset_broker()

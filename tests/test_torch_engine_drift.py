@@ -9,8 +9,9 @@ reason the port cannot keep them -- and every entry must still cover a
 difference (a fixed reference or a reverted port makes it stale).
 
 The rewritten modules (``pipeline/overlap.py``, ``pipeline/fusion.py``,
-``pipeline/tensor.py``) are ports, not copies; the definitions they
-keep verbatim are held to the reference one by one
+``pipeline/tensor.py``, ``models/batching.py``, ``models/detector.py``,
+``tpu/health.py``) are ports, not copies; the definitions they keep
+verbatim are held to the reference one by one
 (:data:`KEPT_DEFINITIONS`).  Copied imports that name what the port
 does not have yet are listed in :data:`UNRESOLVED_IMPORTS`, each with
 why the copy may keep it."""
@@ -73,42 +74,21 @@ ALLOWED = {
                    "translation of the jax test): a CUDA tensor would "
                    "pass the jax test, and the journal would copy every "
                    "device input to the host at ingest")],
-    "pipeline/pipeline.py": [
-        ((710, 710), "any placement block raises DefinitionError "
-                     "(not_ported, ROADMAP Queue 1 item 6) instead of "
-                     "placing the stage; the rest of _build_placement "
-                     "stays as copied and is unreachable until then")],
-    "pipeline/__init__.py": [
-        ((17, 18), "TPUElement, JitCache, StagePlacement and "
-                   "tree_device_put are not in the port's tensor.py "
-                   "yet (ROADMAP Queue 1 item 6)")],
-    "elements/common.py": [
-        ((6, 12), "StageWork (a TPUElement) and its imports wait for "
-                  "the port's placed element base (ROADMAP Queue 1 "
-                  "item 6)"),
-        ((46, 68), "StageWork itself, for the same reason")],
 }
 
 #: (module, imported module, name) -> why the copy keeps an import the
 #: port cannot resolve yet.
-UNRESOLVED_IMPORTS = {
-    ("pipeline/pipeline.py", "..tpu.health", "probe_devices"):
-        "the device-health probe runs only for a placed pipeline, and a "
-        "placement block raises first",
-    ("pipeline/pipeline.py", "..tpu.health", "default_prober"):
-        "the device-health probe runs only for a placed pipeline",
-    ("pipeline/pipeline.py", ".tensor", "StagePlacement"):
-        "reached only from a placement block, which raises first",
-    ("pipeline/pipeline.py", ".tensor", "TPUElement"):
-        "reached only by device replacement and replica paths of a "
-        "placed pipeline",
-}
+UNRESOLVED_IMPORTS = {}
 
 #: rewritten module -> definitions it keeps verbatim.
 KEPT_DEFINITIONS = {
     "pipeline/fusion.py": ("FusionError", "DeviceFn", "_Step", "fusable",
                            "qualified_reads", "partition"),
-    "pipeline/tensor.py": ("distributed_mesh_spec",),
+    "pipeline/tensor.py": ("distributed_mesh_spec", "device_sort_key"),
+    "models/batching.py": ("MicroBatcher", "complete_error",
+                           "MicroBatchElement"),
+    "models/detector.py": ("DetectorConfig", "_bottleneck", "_run_stage"),
+    "tpu/health.py": ("probe_devices",),
 }
 
 

@@ -1,7 +1,8 @@
 """The PyTorch port's pipeline engine: twins of ``tests/test_pipeline.py``
 (definitions, graph name mapping, stream events, loops, remote
 two-pipeline chaining) on ``aiko_services_tpu_torch.pipeline``, plus the
-port's refusals: a ``placement`` block and ``"runtime": "jax"``."""
+port's own: a ``placement`` block on the eight-CPU device pool, and its
+refusals: ``"runtime": "jax"`` and a stage over two CUDA cards."""
 
 import json
 import queue
@@ -9,6 +10,7 @@ import queue
 import pytest
 
 from conftest import run_until
+from torch_pipeline_elements import cpu_pool  # noqa: F401
 from aiko_services_tpu_torch.pipeline import (
     Pipeline, parse_pipeline_definition, DefinitionError, StreamState)
 
@@ -285,16 +287,41 @@ def test_runtime_jax_rejected_and_torch_is_the_default():
     assert parse_pipeline_definition(body).runtime == "torch"
 
 
-def test_placement_block_rejected(runtime):
-    """Stage placement is not ported: a ``placement`` block fails the
-    create instead of running the element unplaced."""
+def test_placement_block_places_stage(runtime, cpu_pool):
+    """A ``placement`` block places its stage on a group of the device
+    pool (the eight-CPU pool here), and frames hop onto it."""
     elements = [element("A", "ElementA", ["a"], ["a"]),
                 element("B", "ElementB", ["a"], ["b"])]
-    elements[1]["placement"] = {"devices": 1}
-    with pytest.raises(DefinitionError, match="B.placement.*not ported"):
-        Pipeline(definition(["(A B)"], elements,
+    elements[1]["placement"] = {"devices": 2}
+    p = Pipeline(definition(["(A B)"], elements), runtime=runtime)
+    plan = p.stage_placement.plan("B")
+    assert list(plan.mesh.devices.flat) == cpu_pool[:2]
+    assert plan.device == cpu_pool[0]
+    swag, okay, diagnostic = run_frame(runtime, p, {"a": 1})
+    assert okay, diagnostic
+    assert swag["b"] == 2
+    assert p.stage_placement.stats["stages"] == {"B": 2}
+
+
+def test_placement_block_rejected(runtime, monkeypatch):
+    """A placement block over two CUDA cards is refused where a tensor
+    would be put on it -- sharding a stage over cards waits for ROADMAP
+    Queue 1 item 7 -- before any CUDA call (so here, with no card, it
+    raises the same), never computing on one card in silence."""
+    import torch
+    from aiko_services_tpu_torch import device as device_rule
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    monkeypatch.setattr(device_rule, "local_devices", lambda: list(cards))
+    elements = [element("A", "ElementA", ["a"], ["a"]),
+                element("B", "ElementB", ["a"], ["b"])]
+    elements[1]["placement"] = {"devices": 2}
+    p = Pipeline(definition(["(A B)"], elements,
                             parameters={"preflight": "off"}),
                  runtime=runtime)
+    assert list(p.stage_placement.plan("B").mesh.devices.flat) == cards
+    with pytest.raises(NotImplementedError,
+                       match="2 CUDA cards.*not ported.*item 7"):
+        p.stage_placement.transfer({"a": torch.ones(2)}, "B")
 
 
 def test_multi_host_mesh_rejected(runtime):

@@ -1,8 +1,27 @@
 """Test PipelineElements of the PyTorch port's engine, loaded by module
-path: twins of ``tests/pipeline_elements.py`` (the tensor elements wait
-for the port's placed element base).  Imports only the port."""
+path: twins of ``tests/pipeline_elements.py``.  Imports only the port.
 
-from aiko_services_tpu_torch.pipeline import PipelineElement, StreamEvent
+Also the tests' device pool: :func:`cpu_pool` patches
+``device.local_devices`` (the port's ``jax.devices()``) to eight CPU
+descriptors, the counterpart of ``tests/conftest.py``'s eight virtual
+JAX devices; a test module imports the fixture by name."""
+
+import pytest
+import torch
+
+from aiko_services_tpu_torch import device as device_rule
+from aiko_services_tpu_torch.pipeline import (PipelineElement, StreamEvent,
+                                              TPUElement)
+
+CPU_POOL = tuple(torch.device("cpu", index) for index in range(8))
+
+
+@pytest.fixture
+def cpu_pool(monkeypatch):
+    """Eight CPU descriptors as the process's device pool."""
+    monkeypatch.setattr(device_rule, "local_devices",
+                        lambda: list(CPU_POOL))
+    return list(CPU_POOL)
 
 
 class ElementA(PipelineElement):
@@ -56,3 +75,27 @@ class Counter(PipelineElement):
 class Stopper(PipelineElement):
     def process_frame(self, stream, **inputs):
         return StreamEvent.STOP, {}
+
+
+class TensorScale(TPUElement):
+    """Placed element: x -> x * factor on the element's device,
+    jit-cached."""
+
+    def __init__(self, context):
+        super().__init__(context)
+        self._scale = self.jit(lambda x, f: x * f)
+
+    def process_frame(self, stream, x):
+        factor, _ = self.get_parameter("factor", 2.0)
+        return StreamEvent.OKAY, {"x": self._scale(x, float(factor))}
+
+
+class TensorSum(TPUElement):
+    """Reduce x to a scalar tensor."""
+
+    def __init__(self, context):
+        super().__init__(context)
+        self._sum = self.jit(lambda x: x.sum())
+
+    def process_frame(self, stream, x):
+        return StreamEvent.OKAY, {"total": self._sum(x)}
