@@ -350,6 +350,15 @@ ELEMENT_PARAMETERS: dict[tuple[str, str], dict[str, ParamSpec]] = {
             "where the element serves: the card (default; cuda or "
             "cuda:N) or cpu (the plain PyTorch path, no kernels)"),
     },
+    # The port's device rule for the speech and audio elements.
+    **{(module, name): {"device": ParamSpec(
+        "where the element computes: the card (default; cuda or cuda:N) "
+        "or cpu (the plain PyTorch path)")}
+       for module, names in (
+           ("aiko_services_tpu_torch.elements.speech", ("ASR", "TTS")),
+           ("aiko_services_tpu_torch.elements.audio",
+            ("AudioFraming", "AudioResampler", "AudioFFT")))
+       for name in names},
 }
 
 

@@ -12,7 +12,11 @@ side) bridges too: its ``{"int8", "scale"}`` leaves keep their own
 dtypes, int8 codes and float32 scales.
 :func:`detector_params_from_numpy` carries the detector's tree
 (``models/detector.py``): HWIO kernels become OIHW in ``channels_last``
-memory.
+memory.  :func:`asr_params_from_numpy` and :func:`tts_params_from_numpy`
+carry the speech models' trees (``models/asr.py``, ``models/tts.py``):
+the ASR's two conv weights go from WIO to ``F.conv1d``'s [out, in,
+width]; every other leaf keeps its layout, since ``x @ w`` reads the
+JAX package's [in, out] matrices as they are.
 """
 
 from __future__ import annotations
@@ -21,10 +25,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import detector
+from . import asr, detector, tts
 from .llama import LlamaConfig, _dtype, param_shapes
 
 __all__ = ["params_from_numpy", "detector_params_from_numpy",
+           "asr_params_from_numpy", "tts_params_from_numpy",
            "leaf_to_tensor"]
 
 _TAGGED = {"bfloat16": torch.bfloat16}
@@ -138,3 +143,55 @@ def detector_params_from_numpy(tree: dict, config: detector.DetectorConfig,
                 "b": bias}
 
     return convert(detector.param_shapes(config), tree, "")
+
+
+def _layout_from_numpy(tree: dict, layout: dict, dtype: torch.dtype,
+                       device: torch.device, what: str,
+                       permute: dict | None = None) -> dict:
+    """Every leaf of ``layout`` (name -> shape, nested) from ``tree`` in
+    ``dtype`` on ``device``; ``permute`` maps a leaf name to the axis
+    order that takes the JAX package's layout to the port's."""
+    permute = permute or {}
+
+    def convert(spec: dict, subtree, path: str) -> dict:
+        if not isinstance(subtree, dict) or set(spec) != set(subtree):
+            raise ValueError(f"{what}: {path or 'tree'} does not hold "
+                             f"{sorted(spec)}")
+        out = {}
+        for name, shape in spec.items():
+            if isinstance(shape, dict):
+                out[name] = convert(shape, subtree[name], f"{path}{name}/")
+                continue
+            tensor = leaf_to_tensor(subtree[name], dtype, device)
+            if name in permute:
+                tensor = tensor.permute(*permute[name]).contiguous()
+            if tuple(tensor.shape) != shape:
+                raise ValueError(f"{what}: {path}{name} has shape "
+                                 f"{tuple(tensor.shape)} after the layout "
+                                 f"change, expected {shape}")
+            out[name] = tensor
+        return out
+
+    return convert(layout, tree, "")
+
+
+def asr_params_from_numpy(tree: dict, config: asr.AsrConfig,
+                          device: str | torch.device | None = None) -> dict:
+    """The JAX package's ASR tree (leaves as numpy arrays or tagged bf16
+    views) -> the port's on ``device`` (the card unless "cpu" is asked
+    for), in the config's dtype.  The conv weights ``conv1/w`` and
+    ``conv2/w`` change layout, WIO [width, in, out] -> [out, in,
+    width]; every leaf must be present with the layout's shape."""
+    return _layout_from_numpy(tree, asr.param_shapes(config),
+                              asr._dtype(config), resolve_device(device),
+                              "asr_params_from_numpy",
+                              permute={"w": (2, 1, 0)})
+
+
+def tts_params_from_numpy(tree: dict, config: tts.TtsConfig,
+                          device: str | torch.device | None = None) -> dict:
+    """The JAX package's TTS tree -> the port's on ``device``, in the
+    config's dtype; no leaf changes layout."""
+    return _layout_from_numpy(tree, tts.param_shapes(config),
+                              tts._dtype(config), resolve_device(device),
+                              "tts_params_from_numpy")

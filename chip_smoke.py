@@ -26,10 +26,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    tolerance on random ones, at the decode and prefill unembed, the
    decode leaves wq/wo, wk, w_up and w_down (M 8, split over D), the
    admission chunk's w_up, w_down and wk (M 512) and the verify
-   forward's w_up (M 40) shapes, and its decode route's combine exactly
-   against the plain combine; prefill attention (#4) at offsets 0 and
-   1536; the chunk-verify kernel (speculative decoding's verify step,
-   S 5: the tensor-core body split over T, then its combine) stacked
+   forward's w_up (M 40) shapes and config 5's Llama-3.2-1B ones, and
+   its decode route's combine exactly against the plain combine;
+   prefill attention (#4) at offsets 0 and 1536; the chunk-verify
+   kernel (speculative decoding's verify step, S 5: the tensor-core
+   body split over T, then its combine) stacked
    and paged, bf16 and int8, f32 and bf16 queries, the paged form
    BITWISE against the stacked form on the gathered view at 64- and
    16-token pages, and the combine against the plain combine on the
@@ -96,19 +97,41 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``valid`` and ``classes`` exactly, boxes and scores within
    DETECT_TOL).  It prints the detect replay's, its forward's and the
    eager call's device ms (CUDA events) beside detect's bound, the
-   detect captures' seconds and the ``DET_time``/``LLM_time`` medians.
+   detect captures' seconds and the ``DET_time``/``LLM_time`` medians;
+8. config 5: ``(ASR (GATE (LLM)))`` through ``create_pipeline`` under
+   ``transfer_guard: disallow``, as ``bench.py`` drives it: the
+   streaming ``ASR`` at Whisper-base widths (1 s hops, a 0.5 s energy
+   endpoint), ``TextFilter`` on ``utterance_end``, the ``LLM`` at
+   Llama-3.2-1B widths with int8 weights (``max_seq`` 512,
+   ``decode_block`` 16, ``inflight`` 3); numpy seed 0, 1 s hops of
+   N(0, 0.3) speech or zeros: a warm-up utterance of 3 speech hops and a
+   silence hop, then 3 more.  Gates: one OKAY reply an utterance and no
+   other response, 4 LLM requests (12 speech hops drop at the gate), 12
+   partial decodes and 4 finalised chunks, every reply equal (text,
+   token ids) to the direct batcher, no guard error, ledger fetches =
+   blocks retired, #5's two routes and ``int8_combine`` and no other
+   kernel, a captured batch-1 ``transcribe`` replay equal to the eager
+   call's token ids, streaming push/flush joined equal to whole-chunk
+   transcription.  It prints the capture's seconds, the replay's and
+   the eager call's device ms (CUDA events) beside ``transcribe``'s
+   bound, the per-hop p50 through a gate-free ``(ASR)`` pipeline, the
+   utterance -> reply p50, the peak memory and one base-width TTS
+   ``synthesize`` of the first reply (finite, peak 1).
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
-the pipeline runs' own under ``pipeline_launches``), then
-``{"ok": true, "device": {...}}``.  It imports nothing of
-JAX or of the JAX package.
+the pipeline runs' own under ``pipeline_launches``; the entries on
+config 4's and config 5's paths carry ``"path"`` and their run's
+launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
+of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import queue
 import subprocess
 import sys
 import time
@@ -850,7 +873,10 @@ def check_int8_matmul(device) -> dict:
     14,336).  Admission route (M > 16): the prefill unembed (M 512), the
     layer leaves that dominate an int8 admission chunk at M 512 (w_up
     4,096 x 14,336, w_down 14,336 x 4,096, wk 4,096 x 1,024) and w_up at
-    the verify forward's M 40.  Exact against the plain version on grid
+    the verify forward's M 40.  Config 5's Llama-3.2-1B widths: the
+    decode unembed (2,048 x 128,256), w_down (8,192 x 2,048) and wk
+    (2,048 x 512) at M 8, w_up and w_down at the admission chunk's M
+    512.  Exact against the plain version on grid
     inputs (integer x, power-of-two scales: every product and sum is an
     exact float) at every shape; within INT8_MATMUL_TOL of max |out| on
     random bf16 inputs with quantizer-made weights.  Each shape is timed
@@ -871,7 +897,13 @@ def check_int8_matmul(device) -> dict:
               "prefill_w_up": (512, 4096, 14_336),
               "prefill_w_down": (512, 14_336, 4096),
               "prefill_wk": (512, 4096, 1024),
-              "verify_w_up": (40, 4096, 14_336)}
+              "verify_w_up": (40, 4096, 14_336),
+              # config 5's LLM, Llama-3.2-1B widths
+              "1b_decode_unembed": (8, 2048, 128_256),
+              "1b_decode_w_down": (8, 8192, 2048),
+              "1b_decode_wk": (8, 2048, 512),
+              "1b_prefill_w_up": (512, 2048, 8192),
+              "1b_prefill_w_down": (512, 8192, 2048)}
     weights = {}
     for d, f in sorted({(d, f) for _, d, f in shapes.values()}):
         w = torch.randint(-127, 128, (d, f), generator=gen, device=device,
@@ -935,23 +967,27 @@ def check_int8_matmul(device) -> dict:
 
 def check_int8_combine(device) -> dict:
     """int8_combine, the decode route's combine, at decode w_down's split
-    (D 14,336 in decode_splits' splits, M 8, F 4,096): exactly its plain
-    version (both add the splits in split order), timed beside it."""
+    (D 14,336 in decode_splits' splits, M 8, F 4,096; and config 5's D
+    8,192, F 2,048): exactly its plain version (both add the splits in
+    split order), timed beside it at Llama-3-8B's."""
     import torch
     from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops.int8_matmul import (
         decode_splits, int8_combine, int8_combine_reference)
     gen = torch.Generator(device=device).manual_seed(14)
-    m, d, f = 8, 14_336, 4096
-    splits = decode_splits(d, f)[0]
-    partial = torch.randn((splits, m, f), generator=gen, device=device) * 50
-    scale = torch.rand((1, f), generator=gen, device=device) / 64
-    exact = torch.equal(int8_combine(partial, scale),
-                        int8_combine_reference(partial, scale))
-    print(f"int8 combine [{splits}x{m}x{f}]: equal to the plain combine "
-          f"{exact}")
-    if not exact:
-        raise AssertionError("int8 combine disagrees with its plain version")
+    m = 8
+    for d, f in ((8192, 2048), (14_336, 4096)):
+        splits = decode_splits(d, f)[0]
+        partial = torch.randn((splits, m, f), generator=gen,
+                              device=device) * 50
+        scale = torch.rand((1, f), generator=gen, device=device) / 64
+        exact = torch.equal(int8_combine(partial, scale),
+                            int8_combine_reference(partial, scale))
+        print(f"int8 combine [{splits}x{m}x{f}]: equal to the plain combine "
+              f"{exact}")
+        if not exact:
+            raise AssertionError("int8 combine disagrees with its plain "
+                                 "version")
     ms = graph_ms(lambda: int8_combine(partial, scale))
     plain = graph_ms(lambda: int8_combine_reference(partial, scale), iters=5)
     n_bytes = partial.numel() * 4 + f * 4 + m * f * 2
@@ -1447,37 +1483,35 @@ def _pipeline_definition(label: str, llm: dict, parameters: dict,
             "elements": elements}
 
 
-def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
-                 card: str, detector: dict | None = None,
-                 frames_in: list | None = None, after=None) -> dict:
-    """One run of the ``(CAP (LLM))`` pipeline over PIPELINE_DETECTIONS
-    (see the module docstring) -- or of ``(DET (CAP (LLM)))`` over
-    ``frames_in`` when ``detector`` holds the detector's parameters --
-    then the same prompts through a ``ContinuousBatcher`` built
-    directly with the element's settings on the element's weights.  The
-    launch counters are zeroed just before the frames and read as the
-    last frame's response arrives; the direct run is a comparison and
-    counts nowhere.  The element's module is instrumented for the run
-    only: its batcher class records its settings, submit times and host
-    time in admission and decode, its emit records token ids, its model
-    build is timed.  ``after(pipeline, frame_metrics)`` runs before the
-    pipeline stops; its dict joins the result."""
-    import queue
-    import tempfile
+class Responses(queue.Queue):
+    """A pipeline's response queue that stamps each arrival and notes
+    each failed frame (an ERROR ends the stream: the run stops)."""
 
+    def __init__(self):
+        super().__init__()
+        self.arrivals, self.failures = {}, []
+
+    def put(self, item, *args, **kwargs):
+        self.arrivals[item[1]] = time.perf_counter()
+        if not item[4]:
+            self.failures.append(f"frame {item[1]}: {item[5]}")
+        super().put(item, *args, **kwargs)
+
+
+@contextlib.contextmanager
+def recording_llm():
+    """Instrument the ``LLM`` element's module for one pipeline run and
+    yield what it records: its batcher class keeps its settings
+    (``made``), submit times and prompt tokens and its host time in
+    admission and decode; its emit keeps token ids and finish times; its
+    model build is timed.  The module is restored on exit."""
     import torch
     from aiko_services_tpu_torch.elements import llm as port_llm
-    from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
-                                                         Request)
-    from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
-    from aiko_services_tpu_torch.ops import launch_counters
-    from aiko_services_tpu_torch.pipeline import create_pipeline
-    from aiko_services_tpu_torch.runtime import init_process, reset_process
-    from aiko_services_tpu_torch.services.share import reset_services_cache
-    from aiko_services_tpu_torch.transport import reset_broker
+    from aiko_services_tpu_torch.models.batching import ContinuousBatcher
 
     timers = {"build_s": 0.0, "admission_s": 0.0, "decode_s": 0.0}
-    made, prompts, tokens, submitted, finished = [], {}, {}, {}, {}
+    record = {"timers": timers, "made": [], "prompts": {}, "tokens": {},
+              "submitted": {}, "finished": {}}
 
     def timed(fn, key):
         def wrapper(*args, **kwargs):
@@ -1490,12 +1524,13 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
 
     class Batcher(ContinuousBatcher):
         def __init__(self, params, config, **kwargs):
-            made.append((config, kwargs))
+            record["made"].append((config, kwargs))
             super().__init__(params, config, **kwargs)
 
         def submit(self, request):
-            submitted[request.request_id] = time.perf_counter()
-            prompts[request.request_id] = list(request.prompt_tokens)
+            record["submitted"][request.request_id] = time.perf_counter()
+            record["prompts"][request.request_id] = \
+                list(request.prompt_tokens)
             super().submit(request)
     Batcher._prefill_tick = timed(ContinuousBatcher._prefill_tick,
                                   "admission_s")
@@ -1509,25 +1544,15 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
         inner = collector(tokenizer, collected)
 
         def emit(request_id, token, done):
-            tokens.setdefault(request_id, []).append(int(token))
+            record["tokens"].setdefault(request_id, []).append(int(token))
             if done:
-                finished[request_id] = time.perf_counter()
+                record["finished"][request_id] = time.perf_counter()
             inner(request_id, token, done)
         return emit
-    arrivals, failures = {}, []
-
-    class Responses(queue.Queue):
-        def put(self, item, *args, **kwargs):
-            arrivals[item[1]] = time.perf_counter()
-            if not item[4]:             # an ERROR ends the stream: stop
-                failures.append(f"frame {item[1]}: {item[5]}")
-            super().put(item, *args, **kwargs)
     patched = {"ContinuousBatcher": Batcher,
                "_collector": recording_collector}
     saved = {name: getattr(port_llm, name) for name in patched}
     ensure_model = port_llm.LLM._ensure_model
-    for name, value in patched.items():
-        setattr(port_llm, name, value)
 
     def build(self, settings=None):
         if self._batcher is None:
@@ -1535,21 +1560,140 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
             ensure_model(self, settings)
             torch.cuda.synchronize()    # the weights' draw is asynchronous
             timers["build_s"] += time.perf_counter() - begin
+    for name, value in patched.items():
+        setattr(port_llm, name, value)
     port_llm.LLM._ensure_model = build
+    try:
+        yield record
+    finally:
+        for name, value in saved.items():
+            setattr(port_llm, name, value)
+        port_llm.LLM._ensure_model = ensure_model
+
+
+@contextlib.contextmanager
+def loopback_runtime():
+    """A fresh process runtime of the port on its in-memory loopback
+    broker, torn down on exit (the card's cache emptied)."""
+    import torch
+    from aiko_services_tpu_torch.runtime import init_process, reset_process
+    from aiko_services_tpu_torch.services.share import reset_services_cache
+    from aiko_services_tpu_torch.transport import reset_broker
     reset_broker()
     reset_services_cache()
     runtime = init_process(transport="loopback")
     runtime.initialize()
     try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-            path = Path(workdir) / "cap.json"
-            path.write_text(json.dumps(_pipeline_definition(
-                label, llm, parameters, detector)))
-            pipeline = create_pipeline(str(path), runtime=runtime)
-        counters = launch_counters()
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
+        yield runtime
+    finally:
+        runtime.engine.terminate()
+        reset_process()
+        reset_services_cache()
+        reset_broker()
+        torch.cuda.empty_cache()
+
+
+def load_pipeline(definition: dict, runtime):
+    """``create_pipeline`` on the definition, written to a JSON file as
+    a user would give it."""
+    import tempfile
+    from aiko_services_tpu_torch.pipeline import create_pipeline
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        path = Path(workdir) / f"{definition['name']}.json"
+        path.write_text(json.dumps(definition))
+        return create_pipeline(str(path), runtime=runtime)
+
+
+def zero_launches() -> dict:
+    """Every launch counter of the port set to 0; returns the counters."""
+    from aiko_services_tpu_torch.ops import launch_counters
+    counters = launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    return counters
+
+
+def read_launches(counters: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+
+def check_launches(label: str, counts: dict, wanted: set) -> None:
+    """Every kernel of ``wanted`` launched in the run, no other one did."""
+    for name, count in counts.items():
+        if (count > 0) != (name in wanted):
+            raise AssertionError(
+                f"{label}: {name} launched {count} times; the run's "
+                f"path is {sorted(wanted)}")
+
+
+def direct_streams(batcher, record: dict, alone) -> dict:
+    """The run's prompts through a ``ContinuousBatcher`` built directly
+    with the element's settings on the element's weights, greedy, in
+    submission order; a request id in ``alone`` is drained before the
+    next is submitted.  A comparison: it counts nowhere."""
+    from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
+                                                         Request)
+    from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
+    config, kwargs = record["made"][0]
+    direct = ContinuousBatcher(batcher.params, config, **{
+        name: value for name, value in kwargs.items()
+        if name not in ("fetch", "fault_probe", "on_block")})
+    eos = ByteTokenizer().eos_tokens
+    streams = {rid: [] for rid in record["prompts"]}
+    for rid, prompt in record["prompts"].items():
+        direct.submit(Request(
+            rid, prompt, max_new_tokens=NEW_TOKENS, temperature=0.0,
+            eos_tokens=eos,
+            emit=lambda r, token, done: streams[r].append(int(token))))
+        if rid in alone:
+            direct.run_until_drained()
+    direct.run_until_drained()
+    return streams
+
+
+def agree_with_direct(label: str, streams: dict, record: dict,
+                      request_of: dict, texts: dict, ledger: dict) -> None:
+    """Each frame's text and token ids against the direct batcher's."""
+    from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
+    tokenizer = ByteTokenizer()
+    agree = 0
+    for frame_id, rid in request_of.items():
+        direct_text = tokenizer.decode(
+            [t for t in streams[rid] if t not in tokenizer.eos_tokens])
+        agree += streams[rid] == record["tokens"][rid] \
+            and direct_text == texts[frame_id]
+    print(f"{label}: frames equal to the direct batcher (text and "
+          f"token ids): {agree}/{len(request_of)}; ledger "
+          f"{json.dumps(ledger)}", flush=True)
+    if agree != len(request_of):
+        raise AssertionError(f"{label}: {len(request_of) - agree} frames "
+                             f"differ from the direct batcher")
+
+
+def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
+                 card: str, detector: dict | None = None,
+                 frames_in: list | None = None, after=None) -> dict:
+    """One run of the ``(CAP (LLM))`` pipeline over PIPELINE_DETECTIONS
+    (see the module docstring) -- or of ``(DET (CAP (LLM)))`` over
+    ``frames_in`` when ``detector`` holds the detector's parameters --
+    then the same prompts through a ``ContinuousBatcher`` built
+    directly with the element's settings on the element's weights.  The
+    launch counters are zeroed just before the frames and read as the
+    last frame's response arrives; the direct run is a comparison and
+    counts nowhere.  The element's module is instrumented for the run
+    only (``recording_llm``).  ``after(pipeline, frame_metrics)`` runs
+    before the pipeline stops; its dict joins the result."""
+    import torch
+    from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
+
+    with recording_llm() as record, loopback_runtime() as runtime:
+        timers, prompts = record["timers"], record["prompts"]
+        submitted, finished = record["submitted"], record["finished"]
+        pipeline = load_pipeline(_pipeline_definition(
+            label, llm, parameters, detector), runtime)
+        counters = zero_launches()
         responses = Responses()
+        arrivals, failures = responses.arrivals, responses.failures
         if frames_in is None:
             frames_in = [{"detections": detections}
                          for detections in PIPELINE_DETECTIONS]
@@ -1568,8 +1712,7 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
             pipeline.create_frame_local(stream, frame)
         runtime.run(until=lambda: responses.qsize() >= frames or failures,
                     timeout=300.0)
-        counts = {name: getattr(fn, attr)
-                  for name, (fn, attr) in counters.items()}
+        counts = read_launches(counters)
         torch.cuda.synchronize()
         wall = time.perf_counter() - begin
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1618,12 +1761,8 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
             "peak_memory_gib": peak, "card": card}
         print(f"pipeline {json.dumps(metrics)} launches "
               f"{json.dumps(counts)}", flush=True)
-        wanted = {decode, "decode_combine", "flash_attention", "topk"}
-        for name, count in counts.items():
-            if (count > 0) != (name in wanted):
-                raise AssertionError(
-                    f"{label}: {name} launched {count} times; the run's "
-                    f"path is {sorted(wanted)}")
+        check_launches(label, counts, {decode, "decode_combine",
+                                       "flash_attention", "topk"})
         if batcher.device_loop and (
                 ledger["explicit_by_label"].get("llm_block", 0)
                 != batcher.blocks_retired or ledger["implicit"]
@@ -1635,47 +1774,13 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
                                  and batcher.prefix_hits <= 0):
             raise AssertionError(f"{label}: {metrics['leaked']} leaked pages,"
                                  f" {batcher.prefix_hits} prefix hits")
-
-        # The same prompts, directly, on the element's weights.
-        config, kwargs = made[0]
-        direct = ContinuousBatcher(batcher.params, config, **{
-            name: value for name, value in kwargs.items()
-            if name not in ("fetch", "fault_probe", "on_block")})
-        streams = {rid: [] for rid in prompts}
-        for rid, prompt in prompts.items():
-            direct.submit(Request(
-                rid, prompt, max_new_tokens=NEW_TOKENS, temperature=0.0,
-                eos_tokens=tokenizer.eos_tokens,
-                emit=lambda r, token, done: streams[r].append(int(token))))
-            if rid == first_rid:
-                direct.run_until_drained()
-        direct.run_until_drained()
-        agree = 0
-        for frame_id, rid in request_of.items():
-            direct_text = tokenizer.decode(
-                [t for t in streams[rid] if t not in tokenizer.eos_tokens])
-            agree += streams[rid] == tokens[rid] \
-                and direct_text == texts[frame_id]
-        print(f"{label}: frames equal to the direct batcher (text and "
-              f"token ids): {agree}/{frames}; ledger {json.dumps(ledger)}",
-              flush=True)
-        if agree != frames:
-            raise AssertionError(f"{label}: {frames - agree} frames differ "
-                                 f"from the direct batcher")
+        streams = direct_streams(batcher, record, alone={first_rid})
+        agree_with_direct(label, streams, record, request_of, texts, ledger)
         extra = after(pipeline, frame_metrics) if after is not None else {}
-        del direct, batcher, loop
+        del batcher, loop
         pipeline.stop()
         element.close()
         return {"metrics": metrics, "launches": counts, **extra}
-    finally:
-        runtime.engine.terminate()
-        reset_process()
-        reset_services_cache()
-        reset_broker()
-        for name, value in saved.items():
-            setattr(port_llm, name, value)
-        port_llm.LLM._ensure_model = ensure_model
-        torch.cuda.empty_cache()
 
 
 def detector_work(config, batch: int, size: int) -> dict:
@@ -1713,6 +1818,22 @@ def detector_work(config, batch: int, size: int) -> dict:
     slate = batch * config.max_detections * (4 * 4 + 4 + 8 + 1)
     return {"ops": ops, "bytes": batch * size * size * 3 * 4 + weights
             + slate, "activation_bytes": activations}
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """The median of ``calls`` calls' device time (CUDA events)."""
+    import numpy as np
+    import torch
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def config4_run(card: str) -> dict:
@@ -1777,17 +1898,6 @@ def config4_run(card: str) -> dict:
             raise AssertionError(f"config4: replay boxes/scores differ from "
                                  f"the eager call by {error}")
 
-        def device_ms(fn, calls: int = 10) -> float:
-            times = []
-            for _ in range(calls):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end))
-            return float(np.median(times))
         out["detect_replay_ms"] = device_ms(
             lambda: det._detect(det._params, batch))
         forward = JitCache()(
@@ -1811,6 +1921,294 @@ def config4_run(card: str) -> dict:
         {"transfer_guard": "disallow"}, "flash_decode_attention_stacked",
         card, detector=CONFIG4_DETECTOR,
         frames_in=[{"image": image} for image in images], after=after)
+
+
+# -- phase 8: BASELINE config 5, streaming ASR -> gate -> int8 LLM ---------
+
+#: BASELINE config 5 (``BASELINE.md:31``) as ``bench.py``'s
+#: ``bench_speech_e2e`` drives it: the ASR at Whisper-base widths (dim
+#: 384, 6 heads, 4 + 4 layers, 80 mels, 10 s chunks, a 128-token
+#: budget) on streaming 1 s hops with a 0.5 s energy endpoint, the gate
+#: on ``utterance_end``, the LLM at Llama-3.2-1B widths with int8
+#: weights (dense attention at max_seq 512: no attention kernel).
+CONFIG5_ASR = {"model_size": "base", "streaming": True,
+               "hop_seconds": 1.0, "endpoint_silence": 0.5}
+CONFIG5_LLM = {"model": "llama3-1b", "max_seq": 512, "quantize": "int8",
+               "decode_block": 16, "inflight": 3,
+               "max_new_tokens": NEW_TOKENS}
+CONFIG5_RATE = 16_000
+CONFIG5_UTTERANCES = 3      # after a warm-up utterance
+CONFIG5_SPEECH_HOPS = 3     # then one silence hop, an utterance
+CONFIG5_SOLO_HOPS = 6       # the gate-free (ASR) pipeline's hops
+#: config 5's path: #5's two routes and the decode route's combine.
+CONFIG5_KERNELS = {"int8_matmul", "int8_matmul[M>16]", "int8_combine"}
+
+
+def _config5_definition(name: str, with_llm: bool = True) -> dict:
+    """bench.py's ``(ASR (GATE (LLM)))`` under ``transfer_guard:
+    disallow``, or the gate-free ``(ASR)``."""
+    module = "aiko_services_tpu_torch.elements"
+
+    def entry(name, cls, inputs, outputs, parameters, source):
+        return {"name": name, "input": [{"name": n} for n in inputs],
+                "output": [{"name": n} for n in outputs],
+                "parameters": parameters,
+                "deploy": {"local": {"module": f"{module}.{source}",
+                                     "class_name": cls}}}
+    asr = entry("ASR", "ASR", ["audio", "sample_rate"],
+                ["text", "partial_text", "utterance_end"], CONFIG5_ASR,
+                "speech")
+    if not with_llm:
+        return {"version": 0, "name": name, "runtime": "torch",
+                "graph": ["(ASR)"], "parameters": {}, "elements": [asr]}
+    return {"version": 0, "name": name, "runtime": "torch",
+            "graph": ["(ASR (GATE (LLM)))"],
+            "parameters": {"transfer_guard": "disallow"},
+            "elements": [
+                asr,
+                entry("GATE", "TextFilter", ["text", "utterance_end"],
+                      ["text"], {"gate": "utterance_end"}, "text"),
+                entry("LLM", "LLM", ["text"], ["text"], CONFIG5_LLM,
+                      "llm")]}
+
+
+def asr_work(config, batch: int) -> dict:
+    """One batched ``transcribe``'s operations (2 a multiply-add: the mel
+    projection, both convolutions, every weight product, the attention
+    products of the encoder, the cross-attention projections and all
+    ``max_text`` decode steps, which run whether or not a row has
+    ended; the FFT's few are left out) and bytes (the waveform read, the
+    weights read once, the token ids written)."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.models.asr import _dtype, param_shapes
+    c = config
+    d, proj, hidden = c.dim, c.n_heads * c.head_dim, c.hidden_dim
+    frames, t = c.n_frames, c.n_audio_positions
+    ops = 2 * frames * (c.n_fft // 2 + 1) * c.n_mels
+    ops += 2 * (frames // 2) * d * c.n_mels * 3 + 2 * t * d * d * 3
+    ops += c.n_encoder_layers * (8 * t * d * proj + 4 * t * t * proj
+                                 + 6 * t * d * hidden)
+    ops += c.n_decoder_layers * 4 * t * d * proj        # cross K and V
+    for step in range(c.max_text):
+        ops += c.n_decoder_layers * (
+            12 * d * proj + 4 * (step + 1) * proj + 4 * t * proj
+            + 6 * d * hidden) + 2 * d * c.vocab_size
+
+    def count(layout):
+        return sum(count(v) if isinstance(v, dict) else
+                   int(np.prod(v)) for v in layout.values())
+    width = torch.empty((), dtype=_dtype(c)).element_size()
+    weights = count(param_shapes(c)) * width
+    chunk = int(c.sample_rate * c.chunk_seconds)
+    return {"ops": batch * ops,
+            "bytes": batch * chunk * 4 + weights + batch * c.max_text * 4,
+            "weight_bytes": weights}
+
+
+def config5_run(card: str) -> dict:
+    """BASELINE config 5 on one card: ``(ASR (GATE (LLM)))`` through the
+    port's ``create_pipeline`` as ``bench.py`` drives it -- numpy seed
+    0, 1 s hops of N(0, 0.3) speech or zeros, a warm-up utterance of 3
+    speech hops and a silence hop, then 3 such utterances -- and a
+    gate-free ``(ASR)`` pipeline for the per-hop time.  The launch
+    counters are zeroed just before the first hop and read after the
+    last reply.  Gates: one OKAY reply an utterance and no other
+    response; the LLM sees the 4 utterance-end frames (12 speech hops
+    drop at the gate); the ASR counts 12 partial decodes and 4
+    finalised chunks; each reply's text and token ids equal the direct
+    batcher's on the element's weights and the transcript prompt; no
+    guard error and ledger fetches = blocks retired; #5's two routes and
+    its combine launch, no other kernel; a captured batch-1
+    ``transcribe`` replay equals the eager call's token ids; streaming
+    push/flush joined equals the whole-chunk transcription of the same
+    audio.  Prints the capture's seconds, the replay's and the eager
+    call's device ms (CUDA events) beside the bound, the hop and
+    utterance -> reply p50s, the peak memory and one base-width TTS
+    ``synthesize`` of the first reply."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.models import asr, tts
+    from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
+
+    label = "config5-speech"
+    rng = np.random.default_rng(0)
+    speech = (rng.standard_normal(CONFIG5_RATE) * 0.3).astype(np.float32)
+    silence = np.zeros(CONFIG5_RATE, dtype=np.float32)
+    hops = ([speech] * CONFIG5_SPEECH_HOPS + [silence]) \
+        * (1 + CONFIG5_UTTERANCES)
+    utterances = 1 + CONFIG5_UTTERANCES
+    with recording_llm() as record, loopback_runtime() as runtime:
+        pipeline = load_pipeline(_config5_definition(label), runtime)
+        responses = Responses()
+
+        def replies(count: int, timeout: float) -> None:
+            runtime.run(until=lambda: responses.qsize() >= count
+                        or responses.failures, timeout=timeout)
+            if responses.failures or responses.qsize() < count:
+                raise AssertionError(
+                    f"{label}: {responses.qsize()} of {count} replies; "
+                    f"failed: {responses.failures}")
+        counters = zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        begin = time.perf_counter()
+        reply_ms = []
+        per_utterance = CONFIG5_SPEECH_HOPS + 1
+        for index, samples in enumerate(hops):
+            pushed = time.perf_counter()
+            pipeline.process_frame_local(
+                {"audio": samples, "sample_rate": CONFIG5_RATE},
+                stream_id="speech", queue_response=responses)
+            if index % per_utterance == per_utterance - 1:
+                utterance = index // per_utterance
+                replies(utterance + 1, 600.0 if utterance == 0 else 300.0)
+                if utterance:           # the warm-up pays the builds
+                    reply_ms.append((max(responses.arrivals.values())
+                                     - pushed) * 1e3)
+        first_reply_ms = (min(responses.arrivals.values()) - begin) * 1e3
+        runtime.run(until=lambda: responses.qsize() > utterances,
+                    timeout=1.0)
+        counts = read_launches(counters)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        asr_element = pipeline.graph.get_node("ASR").element
+        streamer = asr_element._streamers["speech"]
+        llm_element = pipeline.graph.get_node("LLM").element
+        batcher = llm_element._batcher
+        ledger = pipeline.transfer_ledger.stats
+        tokenizer = ByteTokenizer()
+        texts, transcripts = {}, {}
+        while not responses.empty():
+            _, frame_id, swag, _, okay, diagnostic = responses.get()
+            if not okay:
+                raise AssertionError(f"{label}: frame {frame_id} failed: "
+                                     f"{diagnostic}")
+            texts[frame_id], transcripts[frame_id] = swag["text"], \
+                swag["GATE.text"]
+        by_prompt = {tuple(prompt): rid
+                     for rid, prompt in record["prompts"].items()}
+        request_of = {frame_id: by_prompt[tuple(tokenizer.encode(text))]
+                      for frame_id, text in transcripts.items()}
+        ends = [index for index in range(len(hops))
+                if index % per_utterance == per_utterance - 1]
+        out = {"run": label, "hops": len(hops),
+               "replies": sorted(texts), "llm_requests":
+               len(record["prompts"]),
+               "partial_decodes": streamer.partial_decodes,
+               "chunks_transcribed": streamer.chunks_transcribed,
+               "transcripts_bytes": [len(transcripts[f]) for f in
+                                     sorted(transcripts)],
+               "ledger": ledger, "blocks_retired": batcher.blocks_retired,
+               "llm_steps": batcher.steps,
+               "first_reply_ms": first_reply_ms,
+               "utterance_to_reply_ms": reply_ms,
+               "utterance_to_reply_p50_ms": float(np.median(reply_ms)),
+               **record["timers"], "peak_memory_gib": peak, "card": card}
+        print(f"config5 pipeline {json.dumps(out)} launches "
+              f"{json.dumps(counts)}", flush=True)
+        if sorted(texts) != ends or len(record["prompts"]) != utterances:
+            raise AssertionError(f"{label}: replies to frames "
+                                 f"{sorted(texts)}, LLM requests "
+                                 f"{len(record['prompts'])}; expected the "
+                                 f"utterance ends {ends}")
+        if (streamer.partial_decodes, streamer.chunks_transcribed) != (
+                CONFIG5_SPEECH_HOPS * utterances, utterances):
+            raise AssertionError(f"{label}: {streamer.partial_decodes} "
+                                 f"partial decodes, "
+                                 f"{streamer.chunks_transcribed} chunks")
+        if ledger["implicit"] or ledger["explicit_by_label"].get(
+                "llm_block", 0) != batcher.blocks_retired:
+            raise AssertionError(f"{label}: ledger {ledger} against "
+                                 f"{batcher.blocks_retired} blocks retired")
+        check_launches(label, counts, CONFIG5_KERNELS)
+        streams = direct_streams(batcher, record,
+                                 alone=set(record["prompts"]))
+        agree_with_direct(label, streams, record, request_of, texts, ledger)
+
+        # A captured batch-1 transcribe against the eager call.
+        config, params = asr_element._config, asr_element._params
+        device = params["embed"].device
+        window = asr.upload(asr.pad_audio(config, np.concatenate(
+            [speech] * CONFIG5_SPEECH_HOPS))[None], device)
+        replayed = asr_element._transcribe(window)
+        eager = asr.transcribe(params, config, window)
+        if not torch.equal(replayed, eager):
+            raise AssertionError(f"{label}: the captured transcribe's "
+                                 f"tokens differ from the eager call's")
+        work = asr_work(config, 1)
+        bound, bound_by = bound_ms(work["bytes"], work["ops"], "bf16")
+        out = {"transcribe_graphs": asr_element.jit_cache.entries,
+               "transcribe_capture_s": asr_element.jit_cache.capture_s,
+               "transcribe_replay_ms": device_ms(
+                   lambda: asr_element._transcribe(window)),
+               "transcribe_eager_ms": device_ms(
+                   lambda: asr.transcribe(params, config, window), calls=3),
+               "transcribe_bound_ms": bound,
+               "transcribe_bound_by": bound_by,
+               "transcribe_gflop": work["ops"] / 1e9,
+               "asr_weight_mb": work["weight_bytes"] / 1e6}
+
+        # Streaming push/flush joined against whole-chunk transcription:
+        # 12 s of new speech fills one 10 s chunk, the flush takes 2 s.
+        audio = (rng.standard_normal(12 * CONFIG5_RATE) * 0.3).astype(
+            np.float32)
+        live = asr.StreamingAsr(params, config, hop_seconds=1.0,
+                                transcribe_fn=asr_element._transcribe)
+        joined = "".join(live.push(piece) for piece in
+                         np.split(audio, 12)) + live.flush()
+        chunk = int(config.sample_rate * config.chunk_seconds)
+        whole = "".join(asr.decode_text(config, asr.transcribe(
+            params, config, asr.upload(asr.pad_audio(config, part)[None],
+                                       device))[0].cpu().numpy())
+            for part in (audio[:chunk], audio[chunk:]))
+        out["streaming_equals_whole"] = joined == whole
+        if joined != whole:
+            raise AssertionError(f"{label}: streaming gave {joined!r}, the "
+                                 f"whole chunks {whole!r}")
+
+        # The per-hop time through a gate-free (ASR) pipeline.
+        solo = load_pipeline(_config5_definition("config5-solo", False),
+                             runtime)
+        solo_responses = Responses()
+        hop_ms = []
+        for index in range(CONFIG5_SOLO_HOPS):
+            start = time.perf_counter()
+            solo.process_frame_local(
+                {"audio": speech, "sample_rate": CONFIG5_RATE},
+                stream_id="solo", queue_response=solo_responses)
+            runtime.run(until=lambda: solo_responses.qsize() > index,
+                        timeout=300.0)
+            if solo_responses.failures or solo_responses.qsize() <= index:
+                raise AssertionError(f"{label}: solo hop {index} failed: "
+                                     f"{solo_responses.failures}")
+            if index:                   # the first hop pays the build
+                hop_ms.append((time.perf_counter() - start) * 1e3)
+        out.update({"hop_ms": hop_ms, "hop_p50_ms": float(np.median(hop_ms))})
+
+        # One base-width TTS synthesize of the first reply.
+        tts_config = tts.TtsConfig()
+        tts_params = tts.init_params(0, tts_config, device)
+        reply = texts[ends[0]]
+        tts.synthesize(tts_params, tts_config, reply)     # plans, warm-up
+        start = time.perf_counter()
+        waveform = tts.synthesize(tts_params, tts_config, reply)
+        out["tts_synthesize_ms"] = (time.perf_counter() - start) * 1e3
+        peak_abs = float(np.abs(waveform).max())
+        out.update({"tts_samples": int(waveform.shape[0]),
+                    "tts_finite": bool(np.isfinite(waveform).all()),
+                    "tts_peak": peak_abs, "card": card})
+        print(f"config5 {json.dumps(out)}", flush=True)
+        if not out["tts_finite"] or abs(peak_abs - 1.0) > 1e-5 \
+                or waveform.shape != (tts_config.n_frames * tts_config.hop,):
+            raise AssertionError(f"{label}: TTS waveform {waveform.shape}, "
+                                 f"finite {out['tts_finite']}, peak "
+                                 f"{peak_abs}")
+        del batcher, tts_params
+        solo.stop()
+        pipeline.stop()
+        llm_element.close()
+        return {"launches": counts, "config5": out}
 
 
 def _map(tree: dict, fn) -> dict:
@@ -2000,20 +2398,31 @@ def main() -> int:
     config4 = config4_run(card)
     pipeline_launches["config4-loop-16"] = config4["launches"]
 
+    # -- phase 8: BASELINE config 5, streaming ASR -> gate -> int8 LLM ------
+    config5 = config5_run(card)
+    pipeline_launches["config5-speech"] = config5["launches"]
+
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)
                   for label, counts in pipeline_launches.items()}
         entry["pipeline_launches"] = by_run
-        if by_run["config4-loop-16"]:
-            entry["path"] = "config4"
-            entry["config4_launches"] = by_run["config4-loop-16"]
+        for run, path in (("config4-loop-16", "config4"),
+                          ("config5-speech", "config5")):
+            if by_run[run]:
+                entry["path"] = path
+                entry[f"{path}_launches"] = by_run[run]
         if entry.get("path") != "kernel phase":
             entry["launches"] = launches[entry["name"]] \
                 + sum(by_run.values())
         if entry["name"] == "int8_matmul":
-            wide = launches["int8_matmul[M>16]"]
+            wide = launches["int8_matmul[M>16]"] + sum(
+                counts.get("int8_matmul[M>16]", 0)
+                for counts in pipeline_launches.values())
             entry["launches_by_route"] = {"m<=16": entry["launches"],
                                           "m>16": wide}
+            entry["pipeline_launches_m>16"] = {
+                label: counts.get("int8_matmul[M>16]", 0)
+                for label, counts in pipeline_launches.items()}
             entry["launches"] += wide
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,9 @@ difference (a fixed reference or a reverted port makes it stale).
 
 The rewritten modules (``pipeline/overlap.py``, ``pipeline/fusion.py``,
 ``pipeline/tensor.py``, ``models/batching.py``, ``models/detector.py``,
-``tpu/health.py``) are ports, not copies; the definitions they keep
-verbatim are held to the reference one by one
+``tpu/health.py``, ``models/asr.py``, ``models/tts.py``,
+``elements/audio.py``, ``elements/speech.py``) are ports, not copies;
+the definitions they keep verbatim are held to the reference one by one
 (:data:`KEPT_DEFINITIONS`).  Copied imports that name what the port
 does not have yet are listed in :data:`UNRESOLVED_IMPORTS`, each with
 why the copy may keep it."""
@@ -36,7 +37,11 @@ COPIED_FILES = (
     "pipeline/scheme.py", "pipeline/stages.py", "pipeline/stream.py",
     "pipeline/pipeline.py", "elements/common.py", "elements/control.py",
     # control.py's Loop evaluates its condition here:
-    "elements/expression.py")
+    "elements/expression.py",
+    # the speech path's gate, its file scheme and the live audio
+    # endpoints:
+    "elements/text.py", "elements/scheme_file.py",
+    "elements/audio_live.py")
 
 #: module -> [((first, last) reference lines, reason)].  An insertion
 #: sits at the reference line it precedes.
@@ -49,7 +54,19 @@ ALLOWED = {
         ((19, 30), "adds not_ported (see utils/__init__.py)")],
     "analysis/params.py": [
         ((348, 348), "ELEMENT_PARAMETERS gains the port LLM's `device` "
-                     "parameter (the port's device rule, device.py)")],
+                     "parameter (the port's device rule, device.py)"),
+        ((349, 349), "ELEMENT_PARAMETERS gains `device` rows for the "
+                     "port's ASR, TTS, AudioFraming, AudioResampler and "
+                     "AudioFFT (the same rule)")],
+    "elements/text.py": [
+        ((89, 89), "TextFilter counts an array gate's elements from its "
+                   "shape: a torch tensor's `size` is a method, so "
+                   "`int(value.size)` raises on one")],
+    "elements/audio_live.py": [
+        ((24, 25), "the port imports no jax"),
+        ((225, 225), "a microphone block stays the host array it was "
+                     "captured as (host values stay on the host; an "
+                     "element that computes on it uploads it)")],
     "analysis/residency.py": [
         ((36, 36), "the host-force rule learns torch's host copies "
                    "(.cpu(), .numpy(), .tolist(), .to('cpu')) beside "
@@ -89,6 +106,12 @@ KEPT_DEFINITIONS = {
                            "MicroBatchElement"),
     "models/detector.py": ("DetectorConfig", "_bottleneck", "_run_stage"),
     "tpu/health.py": ("probe_devices",),
+    "elements/audio.py": ("read_wav", "write_wav", "AudioWriteFile",
+                          "AudioGraphXY", "AudioOutput"),
+    "elements/speech.py": ("_chunk_rows",),
+    "models/asr.py": ("AsrConfig", "_mel_filterbank", "pad_audio",
+                      "_sinusoid", "decode_text", "encode_text"),
+    "models/tts.py": ("TtsConfig", "encode_text", "_mel_filterbank_for"),
 }
 
 
