@@ -357,7 +357,8 @@ ELEMENT_PARAMETERS: dict[tuple[str, str], dict[str, ParamSpec]] = {
        for module, names in (
            ("aiko_services_tpu_torch.elements.speech", ("ASR", "TTS")),
            ("aiko_services_tpu_torch.elements.audio",
-            ("AudioFraming", "AudioResampler", "AudioFFT")))
+            ("AudioFraming", "AudioResampler", "AudioFFT")),
+           ("aiko_services_tpu_torch.elements.image", ("ImageResize",)))
        for name in names},
 }
 

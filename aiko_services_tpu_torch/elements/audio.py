@@ -14,9 +14,8 @@ the element's device.  The port's differences:
 - ``AudioResampler`` keeps ``jax.image.resize(method="linear")``'s
   numbers: a triangle kernel, widened by the downsampling factor
   (antialiasing) and renormalised at the edges
-  (:func:`resize_linear`) -- ``F.interpolate`` does not antialias;
-- ``AudioFFT``'s ``device_fn`` returns the port's ``DeviceFn``, but
-  forming a fused segment still raises (``pipeline/fusion.py``).
+  (:func:`resize_linear`, along any axis: ``ImageResize`` applies it
+  along H and W) -- ``F.interpolate`` does not antialias.
 """
 
 from __future__ import annotations
@@ -62,15 +61,22 @@ def _to_device(value, device: torch.device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
-def resize_linear(samples: torch.Tensor, length: int) -> torch.Tensor:
-    """``jax.image.resize(samples, (length, C), "linear")`` for
-    samples [N, C] float32: sample j reads input position
+def resize_linear(samples: torch.Tensor, length: int,
+                  dim: int = 0) -> torch.Tensor:
+    """``jax.image.resize(samples, ..., "linear")`` along ``dim`` for
+    float32 samples: output j reads input position
     ``(j + 0.5) * N / length - 0.5`` through a triangle kernel of half
     width ``max(N / length, 1)`` (antialiasing when downsampling), the
     taps inside [0, N) renormalised to sum to one, as JAX's
     scale-and-translate computes them -- here from the few taps in
-    reach rather than a dense [N, length] weight matrix."""
-    n = samples.shape[0]
+    reach rather than a dense [N, length] weight matrix.  The weights
+    are built with device ops, so a call can be captured in a CUDA
+    graph.  JAX resizes every axis whose size changes in turn; a caller
+    does the same with one call per axis (``ImageResize``: H, then
+    W)."""
+    moved = samples.movedim(dim, 0)
+    n = moved.shape[0]
+    flat = moved.reshape(n, -1)
     device = samples.device
     inv_scale = n / length
     kernel_scale = max(inv_scale, 1.0)
@@ -88,8 +94,9 @@ def resize_linear(samples: torch.Tensor, length: int) -> torch.Tensor:
         weights / torch.where(total != 0, total, 1.0), 0.0)
     inside = (position >= -0.5) & (position <= n - 0.5)
     weights = torch.where(inside[:, None], weights, 0.0)
-    gathered = samples[taps.clamp(0, n - 1)]                # [length, T, C]
-    return torch.einsum("lt,ltc->lc", weights, gathered)
+    gathered = flat[taps.clamp(0, n - 1)]                   # [length, T, C]
+    resized = torch.einsum("lt,ltc->lc", weights, gathered)
+    return resized.reshape((length,) + moved.shape[1:]).movedim(0, dim)
 
 
 def read_wav(path) -> tuple[np.ndarray, int]:
@@ -227,9 +234,7 @@ class AudioFFT(MicroBatchElement, PipelineElement):
     def device_fn(self, stream):
         """Fused-segment contract: the FFT is pure device math;
         ``sample_rate`` is not consumed by the trace, so the engine
-        passes it through host-side unchanged (type preserved).
-        Segments are not ported yet (``pipeline/fusion.py``): forming
-        one raises ``FusionError``."""
+        passes it through host-side unchanged (type preserved)."""
         from ..pipeline import DeviceFn
         device = _element_device(self)
         return DeviceFn(

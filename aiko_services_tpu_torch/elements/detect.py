@@ -162,8 +162,9 @@ class Detector(MicroBatchElement, TPUElement):
         captured args (never baked-in constants); the overlay/detections
         postprocess is the host ``finalize`` step, fed by ONE
         engine-counted fetch of the slate at the segment boundary.
-        Segments are not ported yet (``pipeline/fusion.py``): forming
-        one raises ``FusionError``."""
+        ``detector.detect`` runs eagerly here: the segment's own graph
+        capture takes it in (a capture cannot nest inside another, so
+        never the element's ``JitCache``-wrapped ``_detect``)."""
         from ..pipeline import DeviceFn
         self._ensure_model()
         config = self._config

@@ -292,6 +292,14 @@ class LLM(PipelineElement):
         # process_frame path (a per-stream ``synchronous: true`` can
         # run while another stream uses the async worker).
         self._device_lock = threading.RLock()
+        # Set while no synchronous frame is stepping the batcher: the
+        # worker waits on it before each tick, so a synchronous frame
+        # takes the lock at the worker's next tick boundary (a lock is
+        # not fair -- the worker would re-acquire it first).
+        self._no_sync_frame = threading.Event()
+        self._no_sync_frame.set()
+        self._sync_frames = 0
+        self._sync_count_lock = threading.Lock()
         # Device-loss recovery bookkeeping: consecutive failed decode
         # ticks before the worker gives up replaying (reset by any
         # successful tick), and the telemetry counters' published
@@ -748,17 +756,25 @@ class LLM(PipelineElement):
         the decode loop, retire fetches.  Blocks on the queue while
         idle; while decoding, new queue items (requests from frames
         resumed meanwhile, stream cancels) are drained BETWEEN ticks so
-        they join the live device batch."""
+        they join the live device batch.  The device lock is held one
+        tick at a time (and for each queue item), never for a whole
+        drain, and the worker waits at each tick boundary while a
+        synchronous frame (``process_frame``) is stepping the shared
+        batcher: that frame waits for at most the tick in progress."""
         while not self._closing:
             item = work.get()
-            with self._device_lock:
-                try:
+            try:
+                with self._device_lock:
                     self._handle(item)
                     self._drain_work(work)
-                    batcher = self._batcher
-                    while batcher is not None and (
-                            batcher.active_count or batcher.queue_depth
-                            or batcher.blocks_in_flight):
+                while True:
+                    self._no_sync_frame.wait()
+                    with self._device_lock:
+                        batcher = self._batcher
+                        if batcher is None or not (
+                                batcher.active_count or batcher.queue_depth
+                                or batcher.blocks_in_flight):
+                            break
                         try:
                             self._tick(batcher)
                         except Exception as error:
@@ -769,7 +785,8 @@ class LLM(PipelineElement):
                             if not self._recover(batcher, error):
                                 raise
                         self._drain_work(work)
-                except Exception as error:
+            except Exception as error:
+                with self._device_lock:
                     # A failing decode tick must FAIL the parked frames,
                     # not leave them parked forever -- the async
                     # analogue of the engine's per-element try/except.
@@ -803,13 +820,46 @@ class LLM(PipelineElement):
 
     def process_frame(self, stream, text=None, **inputs):
         """Blocking path (``synchronous: true`` or direct invocation):
-        drains the batcher inline, serialized against the async worker
-        through the device lock."""
+        submits the frame's request to the shared batcher and steps it,
+        one tick per hold of the device lock, until THIS request has
+        finished -- the async worker's live requests advance in the same
+        batch (their completions fire from whichever thread steps), and
+        the frame never waits for their drain.  Blocks left in flight
+        behind the request are retired here when no other request is
+        live (the worker only steps while it has work)."""
+        with self._sync_count_lock:
+            self._sync_frames += 1
+            self._no_sync_frame.clear()
+        try:
+            return self._process_frame_sync(stream, text)
+        finally:
+            with self._sync_count_lock:
+                self._sync_frames -= 1
+                if not self._sync_frames:
+                    self._no_sync_frame.set()
+
+    def _process_frame_sync(self, stream, text):
         with self._device_lock:
             self._ensure_model()
             request, collected = self._make_request(
                 str(stream.stream_id), text, self._resolve_request_params())
-            self._batcher.submit(request)
-            self._batcher.run_until_drained()
-            return StreamEvent.OKAY, {
-                "text": self._tokenizer.decode(collected)}
+            done = []
+            emit = request.emit
+
+            def finish(request_id, token, finished):
+                emit(request_id, token, finished)
+                if finished:
+                    done.append(True)
+            request.emit = finish
+            batcher = self._batcher
+            batcher.submit(request)
+        while True:
+            with self._device_lock:
+                idle = not (batcher.active_count or batcher.queue_depth)
+                if done and not (idle and batcher.blocks_in_flight):
+                    break
+                if not done and idle and not batcher.blocks_in_flight:
+                    raise RuntimeError(f"llm: request {request.request_id} "
+                                       f"left the batcher unfinished")
+                batcher.step()
+        return StreamEvent.OKAY, {"text": self._tokenizer.decode(collected)}

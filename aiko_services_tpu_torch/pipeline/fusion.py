@@ -1,17 +1,31 @@
-"""Fused device segments: the planning half.
+"""Fused device-segment execution: one captured CUDA graph per pipeline
+segment.
 
-Counterpart of ``aiko_services_tpu/pipeline/fusion.py``.  The JAX
-package traces a maximal chain of device-pure elements (each declaring
-a :class:`DeviceFn`) into ONE jitted XLA computation per frame.  The
-port keeps the partitioner and the element contract exactly
+Counterpart of ``aiko_services_tpu/pipeline/fusion.py``, which traces a
+maximal chain of device-pure elements (each declaring a
+:class:`DeviceFn`) into ONE jitted XLA computation per frame.  The port
+keeps the partitioner and the element contract exactly
 (:data:`FUSE_MODES`, :class:`FusionError`, :class:`DeviceFn`,
-:func:`fusable`, :func:`qualified_reads`, :func:`partition`); its
-:class:`FusedSegment` -- one captured CUDA graph per segment -- is
-ROADMAP Queue 1 item 8.  Until then forming a segment raises
-:class:`FusionError`, so a fusable chain is never run some other way in
-silence.  The ``Detector`` is the one element of the port that declares
-a ``device_fn`` (with ``synchronous: true``), and a segment needs two
-fusable elements in a row, so no port pipeline forms one yet.
+:func:`fusable`, :func:`qualified_reads`, :func:`partition`).  Its
+:class:`FusedSegment` runs every member's ``device_fn`` in ONE function
+cached per input signature by :class:`~.tensor.JitCache`: on the card
+the first frame of a signature captures the whole chain as one CUDA
+graph and every later frame replays it -- one launch per frame -- and
+on the CPU the chain runs eagerly.  The differences:
+
+- a segment runs on ONE device: its stage plan's when the chain lies in
+  a placed stage, else the one device its members resolve to (a
+  ``TPUElement``'s plan, any other element's ``device`` parameter under
+  the port's device rule); members on different devices raise
+  :class:`FusionError` at build;
+- a host read (the frame's numpy image) is uploaded to that device
+  through pinned memory before the call, as ``jax.jit`` moves its
+  arguments; ``would_compile`` keys the call as it will be made, after
+  the upload;
+- nothing is donated (``donation`` is False on every device): a replay
+  copies its inputs into the graph's own static buffers, so no input
+  buffer is ever handed to the segment's outputs.  ``donate_keys``
+  keeps the JAX package's planning for a segment that sets it.
 
 :func:`setup_compilation_cache` keeps the JAX package's gate
 (``AIKO_COMPILE_CACHE_DIR``, else the ``compile_cache_dir`` pipeline
@@ -26,12 +40,22 @@ The ``fuse`` pipeline/stream parameter gates the whole path:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import threading
+import time
 from pathlib import Path
 from typing import Callable
 
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
 from .element import PipelineElement, PipelineElementLoop
-from ..utils import get_logger, not_ported
+from .tensor import JitCache, LeafSignature, TPUElement, _upload, resident
+from ..device import resolve_device
+from ..observability import LogHistogram
+from ..utils import get_logger
 
 __all__ = ["DeviceFn", "FusedSegment", "FusionError", "partition",
            "fusable", "qualified_reads", "setup_compilation_cache",
@@ -231,16 +255,303 @@ def partition(pipeline, nodes, stream) -> list:
     return entries
 
 
+@functools.lru_cache(maxsize=None)
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+def _normal(device: torch.device) -> torch.device:
+    """One spelling per device: a CPU descriptor's index is dropped (a
+    CPU tensor carries none) and a card gets its index."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return torch.device("cpu")
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _member_device(node) -> torch.device:
+    """Where a member's ``device_fn`` computes: a placed element's plan,
+    else its ``device`` parameter under the port's device rule."""
+    element = node.element
+    if isinstance(element, TPUElement):
+        return _normal(element.plan.device)
+    device, _ = element.get_parameter("device", None)
+    return _normal(resolve_device(device))
+
+
 class FusedSegment:
     """A maximal chain of device-pure elements run as ONE captured CUDA
-    graph per frame -- not ported yet: constructing one raises
-    :class:`FusionError` (see the module docstring)."""
+    graph per frame (eagerly on the CPU)."""
 
     def __init__(self, pipeline, nodes, device_fns, stream_id=None,
                  stage=None):
-        raise FusionError(str(not_ported(
-            "fused segment " + "+".join(node.name for node in nodes),
-            "ROADMAP Queue 1 item 8")))
+        self.nodes = list(nodes)
+        self.name = "+".join(node.name for node in nodes)
+        # Segments resolve element parameters per stream (shapes,
+        # width/height, synchronous) so they are stream-owned; the
+        # pipeline registry prunes them when the stream dies.
+        self.stream_id = stream_id
+        # The placed stage whose submesh this segment's chain executes
+        # on (None when the chain precedes any placed head): segments
+        # are always stage-local, and a stage-tagged segment may run on
+        # that stage's worker thread under stage-parallel execution.
+        self.stage_context = stage
+        self._placement = getattr(pipeline, "stage_placement", None) \
+            if stage is not None else None
+        self.device = self._resolve_device()
+        self.steps: list[_Step] = []
+        self.broken = False           # build/capture failed: run unfused
+        self.calls = 0
+        # No donation on any device: a replay copies its inputs into the
+        # graph's static buffers, so there is no input buffer to hand to
+        # an output (the reference donates off-CPU to save HBM).
+        self.donation = False
+        self.jit_cache = JitCache()
+        # Qualified aliases any graph node's mapping may read: their
+        # referents must never be donated (the consumer would see a
+        # dead buffer after the stale-alias pop).
+        self._qualified_reads = qualified_reads(pipeline.graph)
+        self._reads: dict[str, dict] = {}     # swag key -> io spec
+        self._traced_keys: set[str] = set()   # reads fed into the trace
+        self._captures: dict[str, object] = {}
+        self.overwritten: set[str] = set()    # bare swag keys we rewrite
+        self._plan(device_fns)
+        # One pinned binding: the JitCache keys on id(fn), and a fresh
+        # bound-method object per access would never probe as a hit.
+        self._traced_fn = self._traced
+        self._call = self.jit_cache(self._traced_fn)
+        # Per-dispatch wall time (telemetry plane): dispatch-cost
+        # percentiles per segment.  LogHistogram itself is not
+        # thread-safe (it normally sits behind MetricsRegistry's
+        # lock); calls may come from the event loop OR a stage worker
+        # while jit_stats() reads from the loop, so guard it here.
+        self.dispatch_ms = LogHistogram()
+        self._dispatch_lock = threading.Lock()
+
+    def _resolve_device(self) -> torch.device:
+        if self._placement is not None \
+                and self.stage_context in self._placement.plans:
+            return _normal(self._placement.plan(self.stage_context).device)
+        devices = {node.name: _member_device(node) for node in self.nodes}
+        if len(set(devices.values())) > 1:
+            named = ", ".join(f"{name} on {device}"
+                              for name, device in devices.items())
+            raise FusionError(f"segment {self.name}: members on different "
+                              f"devices ({named}); a segment runs on one "
+                              f"device")
+        return next(iter(devices.values()))
+
+    def _device_for(self, replica: int | None) -> torch.device:
+        """A replicated stage's replica runs on its own submesh."""
+        if replica is None or self._placement is None:
+            return self.device
+        return _normal(self._placement.replica_plan(
+            self.stage_context, replica).device)
+
+    # -- planning ----------------------------------------------------------
+
+    def _plan(self, device_fns):
+        # name -> ("trace", key) | ("ext", swag key) | ("host",) for
+        # every value a later in-segment consumer could resolve.
+        internal: dict[str, tuple] = {}
+        for node, dfn in zip(self.nodes, device_fns):
+            step = _Step(node, dfn)
+            mapping = node.properties or {}
+            declared_in = {io["name"]: io for io in
+                           node.element.definition.input}
+            for name in dfn.inputs:
+                key = mapping.get(name, name)
+                known = internal.get(key)
+                if known is None:
+                    step.in_keys[name] = key
+                    self._reads.setdefault(key, declared_in[name])
+                    self._traced_keys.add(key)
+                elif known[0] == "trace":
+                    step.in_keys[name] = known[1]
+                elif known[0] == "ext":
+                    step.in_keys[name] = known[1]
+                    self._traced_keys.add(known[1])
+                else:                 # host: partition() prevents this
+                    raise FusionError(
+                        f"{node.name}: input {name!r} is a host "
+                        f"finalize product")
+            for cap_name, value in dfn.captures.items():
+                self._captures[f"{node.name}.__{cap_name}"] = value
+            for name in dfn.outputs:
+                trace_key = f"{node.name}.{name}"
+                internal[name] = ("trace", trace_key)
+                internal[trace_key] = ("trace", trace_key)
+                self.overwritten.add(name)
+            for name in dfn.finalize_outputs:
+                internal[name] = ("host",)
+                internal[f"{node.name}.{name}"] = ("host",)
+                self.overwritten.add(name)
+            for io in node.element.definition.output:
+                name = io["name"]
+                if name in dfn.outputs or name in dfn.finalize_outputs:
+                    continue
+                key = mapping.get(name, name)   # passthrough source
+                known = internal.get(key)
+                if known is not None and known[0] == "trace":
+                    step.pass_map[name] = ("trace", known[1])
+                    internal[name] = known
+                else:
+                    step.pass_map[name] = ("ext", key)
+                    self._reads.setdefault(key, declared_in.get(
+                        name, {"name": name, "type": "any?"}))
+                    internal[name] = ("ext", key)
+                self.overwritten.add(name)
+            self.steps.append(step)
+
+    # -- the fused computation ---------------------------------------------
+
+    def _traced(self, keep, donate, captures):
+        values = dict(keep)
+        values.update(donate)
+        values.update(captures)
+        out = {}
+        for step in self.steps:
+            inputs = {name: values[key]
+                      for name, key in step.in_keys.items()}
+            inputs.update({name: values[f"{step.node.name}.__{name}"]
+                           for name in step.dfn.captures})
+            result = step.dfn.fn(**inputs)
+            for name in step.dfn.outputs:
+                value = result[name]
+                trace_key = f"{step.node.name}.{name}"
+                values[name] = value
+                values[trace_key] = value
+                out[trace_key] = value
+            for name in step.dfn.finalize_inputs:
+                out[f"{step.node.name}.{name}"] = result[name]
+        return out
+
+    # -- per-frame execution -----------------------------------------------
+
+    def resolve(self, swag: dict) -> tuple[dict, list]:
+        """(resolved external reads, missing non-optional keys)."""
+        resolved, missing = {}, []
+        for key, io in self._reads.items():
+            if key in swag:
+                resolved[key] = swag[key]
+            elif str(io.get("type", "")).endswith("?") or "default" in io:
+                resolved[key] = io.get("default")
+            else:
+                missing.append(key)
+        return resolved, missing
+
+    def donate_keys(self, resolved: dict, swag: dict,
+                    produced: dict) -> set:
+        """Traced inputs safe to donate: produced by an earlier element
+        of THIS frame (never user/ingest data), overwritten by this
+        segment (the swag key points at a fresh buffer afterwards), not
+        aliased by any other swag entry, and whose producer-qualified
+        alias no graph mapping can read after the segment.  Empty
+        unless ``donation`` is set (never by the port itself)."""
+        if not self.donation:
+            return set()
+        keys = set()
+        for key in self._traced_keys:
+            if key not in resolved or key not in produced \
+                    or key not in self.overwritten:
+                continue
+            value = resolved[key]
+            if not isinstance(value, torch.Tensor):
+                continue
+            alias = f"{produced[key]}.{key}"
+            if alias in self._qualified_reads:
+                continue            # a downstream mapping reads it
+            if any(entry is value for name, entry in swag.items()
+                   if name not in (key, alias)):
+                continue
+            keys.add(key)
+        return keys
+
+    def _split(self, resolved: dict, donated: set) -> tuple[dict, dict]:
+        keep = {key: resolved[key] for key in self._traced_keys
+                if key not in donated}
+        donate = {key: resolved[key] for key in donated}
+        return keep, donate
+
+    @staticmethod
+    def _staged(tree, device: torch.device, probe: bool = False):
+        """Every array leaf as the call sees it: a host array uploaded
+        to ``device`` (through pinned memory on the card), a tensor
+        elsewhere moved there.  ``probe`` gives the leaves' signatures
+        instead and moves nothing."""
+        def leaf(value):
+            if isinstance(value, np.ndarray):
+                if probe:
+                    return LeafSignature(value.shape,
+                                         _torch_dtype(value.dtype), device)
+                return _upload(value, device)
+            if isinstance(value, torch.Tensor) \
+                    and not resident(value, device):
+                if probe:
+                    return LeafSignature(value.shape, value.dtype, device)
+                return value.to(device, non_blocking=True)
+            return value
+        return pytree.tree_map(leaf, tree)
+
+    def would_compile(self, resolved: dict, donated: set,
+                      replica: int | None = None) -> bool:
+        device = self._device_for(replica)
+        keep, donate = self._split(resolved, donated)
+        return self.jit_cache.probe(
+            self._traced_fn, (self._staged(keep, device, probe=True),
+                              self._staged(donate, device, probe=True),
+                              self._captures),
+            context=replica)
+
+    def poison(self, reason: str) -> None:
+        """Mark this segment broken: the cached plan splices its members
+        back in on the next walk and every later frame runs per-element
+        (capture failure, injected segment fault)."""
+        self.broken = True
+        _logger.warning("segment %s poisoned: %s", self.name, reason)
+
+    def call(self, resolved: dict, donated: set,
+             replica: int | None = None) -> dict:
+        """ONE device dispatch for the whole segment (one graph replay
+        on the card, after the upload of its host reads).  Returns the
+        trace outputs dict keyed ``element.name``.
+
+        ``replica`` keys the segment's JitCache per replica submesh of
+        a replicated stage: each replica's graph reads its own
+        device's buffers, so replica A's warm signature is still a
+        cold capture on replica B -- the cache context keeps hit/miss
+        and the compile probe honest per replica."""
+        device = self._device_for(replica)
+        keep, donate = self._split(resolved, donated)
+        self.calls += 1
+        start = time.perf_counter()
+        try:
+            return self._call(self._staged(keep, device),
+                              self._staged(donate, device),
+                              self._captures, _cache_context=replica)
+        finally:
+            elapsed_ms = (time.perf_counter() - start) * 1000.0
+            with self._dispatch_lock:
+                self.dispatch_ms.observe(elapsed_ms)
+
+    @property
+    def stats(self) -> dict:
+        with self._dispatch_lock:
+            dispatch_p50 = self.dispatch_ms.quantile(0.5,
+                                                     windowed=False)
+            dispatch_p99 = self.dispatch_ms.quantile(0.99,
+                                                     windowed=False)
+        return {"elements": [node.name for node in self.nodes],
+                "calls": self.calls, "broken": self.broken,
+                "donation": self.donation, "stage": self.stage_context,
+                "dispatch_p50_ms": dispatch_p50,
+                "dispatch_p99_ms": dispatch_p99,
+                "jit": self.jit_cache.stats}
+
+    def __repr__(self):
+        return f"<FusedSegment {self.name}>"
 
 
 # ---------------------------------------------------------------------------

@@ -46,8 +46,8 @@ from ..parallel.mesh import MeshPlan, make_mesh
 from ..utils import not_ported
 from .element import PipelineElement
 
-__all__ = ["ShapeBucketer", "JitCache", "StagePlacement", "TPUElement",
-           "encode_array", "decode_array", "tree_device_put",
+__all__ = ["ShapeBucketer", "JitCache", "LeafSignature", "StagePlacement",
+           "TPUElement", "encode_array", "decode_array", "tree_device_put",
            "device_sort_key", "distributed_mesh_spec",
            "ensure_distributed"]
 
@@ -159,7 +159,19 @@ class ShapeBucketer:
 # Per-element compiled-function cache.
 
 def _is_array(leaf) -> bool:
-    return isinstance(leaf, (torch.Tensor, np.ndarray))
+    return isinstance(leaf, (torch.Tensor, np.ndarray, LeafSignature))
+
+
+class LeafSignature:
+    """The cache signature of a tensor that does not exist yet: what a
+    host array keys as once it is uploaded to ``device``
+    (``FusedSegment.would_compile`` probes the call it is about to make
+    without making the upload)."""
+
+    __slots__ = ("shape", "dtype", "device")
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        self.shape, self.dtype, self.device = tuple(shape), dtype, device
 
 
 class _Captured:
@@ -215,8 +227,8 @@ class JitCache:
         leaves, treedef = pytree.tree_flatten((args, kwargs))
         sig = tuple(
             (tuple(leaf.shape), str(leaf.dtype),
-             str(leaf.device) if isinstance(leaf, torch.Tensor)
-             else "host") if _is_array(leaf)
+             "host" if isinstance(leaf, np.ndarray)
+             else str(leaf.device)) if _is_array(leaf)
             else repr(leaf) for leaf in leaves)
         return (id(fn), str(treedef), sig, context)
 
@@ -331,8 +343,9 @@ def device_sort_key(device):
     """ICI-topology order for carving contiguous stage chunks: TPU chip
     ``coords`` (x, y, z) then core, so consecutive devices in the sorted
     pool are ICI neighbours and adjacent stages' chunks touch.  Devices
-    without coords (CPU/GPU virtual devices) fall back to id order,
-    which is the enumeration order of the virtual mesh."""
+    without coords fall back to id order -- a ``torch.device``'s id is
+    its index (a card's ordinal, a CPU descriptor's number), the order
+    ``device.local_devices()`` enumerates."""
     coords = getattr(device, "coords", None)
     if coords is not None:
         try:
@@ -340,6 +353,8 @@ def device_sort_key(device):
                     int(getattr(device, "core_on_chip", 0) or 0))
         except (TypeError, ValueError):
             pass
+    if isinstance(device, torch.device):
+        return (1, (), device.index or 0)
     return (1, (), int(getattr(device, "id", 0)))
 
 

@@ -116,13 +116,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the eager call's device ms (CUDA events) beside ``transcribe``'s
    bound, the per-hop p50 through a gate-free ``(ASR)`` pipeline, the
    utterance -> reply p50, the peak memory and one base-width TTS
-   ``synthesize`` of the first reply (finite, peak 1).
+   ``synthesize`` of the first reply (finite, peak 1);
+9. the fusion chain: ``bench.py``'s ``bench_pipeline_fusion``,
+   ``(R1 (R2 (DET)))`` through ``create_pipeline`` -- two synchronous
+   ``ImageResize`` elements (512, then 640) and a synchronous ``Detector`` at
+   phase 7's YOLO-n scale -- under ``transfer_guard: disallow`` and
+   ``device_inflight: 3``, 24 frames cycling through 4 frames of
+   576x576x3 uint8 (numpy seed 0), with ``fuse: auto`` and then ``fuse:
+   off``.  Gates: every frame OKAY; with ``auto`` one segment, none
+   broken (a capture that failed would have fallen back to per-element
+   execution with equal outputs), one segment and one dispatch every
+   frame and the segment's cache at 1 miss and 23 hits; with ``off``
+   three dispatches every frame; 24 explicit transfers (the detector's
+   finalize fetch) and no implicit one with ``auto``; every frame's
+   image bitwise equal and its detections and overlay equal between the
+   modes; no launch of any kernel of the port (none is on this path).
+   Then 8 frames from two streams at once through one ``ImageResize``
+   on its async path: fewer dispatches than frames, every row equal to
+   the synchronous resize.  It prints both modes' steady frames/s, the
+   dispatch overhead a frame under bench.py's key names, the segment's
+   capture seconds, dispatch p50/p99 and one call's device ms (with the
+   share of a fused frame's wall it covers), and the peak memory above
+   what the card held before each mode.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
-the pipeline runs' own under ``pipeline_launches``; the entries on
-config 4's and config 5's paths carry ``"path"`` and their run's
-launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
+the pipeline runs' own under ``pipeline_launches``, phase 9's zero
+under ``fusion-chain``; the entries on config 4's and config 5's paths
+carry ``"path"`` and their run's launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
 of JAX or of the JAX package.
 """
 
@@ -2211,6 +2232,241 @@ def config5_run(card: str) -> dict:
         return {"launches": counts, "config5": out}
 
 
+# -- phase 9: bench.py's fusion chain, fused on the card -------------------
+
+#: ``bench.py``'s ``bench_pipeline_fusion``: ``(R1 (R2 (DET)))``, two
+#: synchronous ImageResizes (512 then 640) and a synchronous Detector,
+#: here at phase 7's YOLO-n scale (width 32, depth 1, 80 classes, bf16,
+#: seed 0; bench.py leaves the element's width of 8), under
+#: ``transfer_guard: disallow`` and ``device_inflight: 3``; 24 frames
+#: cycling through 4 frames of 576x576x3 uint8 (numpy seed 0).
+FUSION_FRAMES = 24
+FUSION_SOURCES = 4
+FUSION_SOURCE_SIZE = 576
+FUSION_SIZES = (("R1", 512), ("R2", 640))
+FUSION_DETECTOR = {"width": 32, "seed": 0, "synchronous": True,
+                   "class_names": [name.replace(" ", "_")
+                                   for name in COCO_CLASSES]}
+FUSION_BURST = 8            # the async resize burst, from two streams
+
+
+def _fusion_definition(mode: str) -> dict:
+    image = "aiko_services_tpu_torch.elements.image"
+    elements = [
+        {"name": name, "input": [{"name": "image"}],
+         "output": [{"name": "image"}],
+         "parameters": {"width": size, "height": size,
+                        "synchronous": True},
+         "deploy": {"local": {"module": image,
+                              "class_name": "ImageResize"}}}
+        for name, size in FUSION_SIZES]
+    elements.append(
+        {"name": "DET", "input": [{"name": "image"}],
+         "output": [{"name": "image"}, {"name": "overlay"},
+                    {"name": "detections"}],
+         "parameters": FUSION_DETECTOR,
+         "deploy": {"local": {
+             "module": "aiko_services_tpu_torch.elements.detect",
+             "class_name": "Detector"}}})
+    return {"version": 0, "name": f"fusion-{mode}", "runtime": "torch",
+            "graph": ["(R1 (R2 (DET)))"],
+            "parameters": {"transfer_guard": "disallow",
+                           "device_inflight": 3, "fuse": mode},
+            "elements": elements}
+
+
+def fusion_mode_run(mode: str, sources: list) -> dict:
+    """FUSION_FRAMES frames through one stream of the chain: each
+    frame's image (on the host), detections, overlay and metrics, the
+    launch counts, the steady frames/s (the frames after the first
+    response, whose capture is off the clock), the transfer and fusion
+    stats, the peak memory above what the card held before the run
+    and, fused, one segment call's device time (CUDA events: the
+    upload, the replay and its output copies)."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.device import sync_allowed
+
+    with loopback_runtime() as runtime:
+        pipeline = load_pipeline(_fusion_definition(mode), runtime)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        counters = zero_launches()
+        responses = Responses()
+        for index in range(FUSION_FRAMES):
+            pipeline.process_frame_local(
+                {"image": sources[index % len(sources)]}, stream_id=mode,
+                queue_response=responses)
+        runtime.run(until=lambda: responses.qsize() >= FUSION_FRAMES
+                    or responses.failures, timeout=600.0)
+        torch.cuda.synchronize()
+        counts = read_launches(counters)
+        if responses.failures or responses.qsize() < FUSION_FRAMES:
+            raise AssertionError(f"fusion-{mode}: {responses.qsize()} of "
+                                 f"{FUSION_FRAMES} frames, failures "
+                                 f"{responses.failures}")
+        frames = {}
+        while not responses.empty():
+            _, frame_id, swag, metrics, okay, diagnostic = responses.get()
+            image = swag["image"]
+            with sync_allowed():
+                image = image.cpu().numpy() if isinstance(
+                    image, torch.Tensor) else np.asarray(image)
+            frames[int(frame_id)] = {
+                "image": image, "detections": swag["detections"],
+                "overlay": swag["overlay"], "metrics": metrics}
+        arrivals = sorted(responses.arrivals.values())
+        out = {"frames": frames, "launches": counts,
+               "fps": (FUSION_FRAMES - 1) / (arrivals[-1] - arrivals[0]),
+               "transfer": pipeline.transfer_stats(),
+               "fusion": pipeline.fusion_stats(),
+               "segments": [segment.stats for segment
+                            in pipeline.fused_segments],
+               "capture_s": [segment.jit_cache.capture_s for segment
+                             in pipeline.fused_segments],
+               "peak_mb": (torch.cuda.max_memory_allocated() - held)
+               / 2**20}
+        if pipeline.fused_segments:
+            segment = pipeline.fused_segments[0]
+            out["segment_device_ms"] = device_ms(
+                lambda: segment.call({"image": sources[0]}, set()))
+        pipeline.stop()
+        return out
+
+
+def resize_burst_run() -> dict:
+    """FUSION_BURST frames parked at one ``ImageResize`` on its default
+    async path, from two streams at once: fewer micro-batch dispatches
+    than frames, and every row equal to the synchronous path's resize of
+    the same frame."""
+    import numpy as np
+    import torch
+
+    definition = {
+        "version": 0, "name": "resize-burst", "runtime": "torch",
+        "graph": ["(R1)"], "parameters": {},
+        "elements": [{
+            "name": "R1", "input": [{"name": "image"}],
+            "output": [{"name": "image"}],
+            "parameters": {"width": FUSION_SIZES[0][1],
+                           "height": FUSION_SIZES[0][1]},
+            "deploy": {"local": {
+                "module": "aiko_services_tpu_torch.elements.image",
+                "class_name": "ImageResize"}}}]}
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 256, (FUSION_SOURCE_SIZE,
+                                    FUSION_SOURCE_SIZE, 3), dtype=np.uint8)
+              for _ in range(FUSION_BURST)]
+    with loopback_runtime() as runtime:
+        pipeline = load_pipeline(definition, runtime)
+        streams = {f"s{index}": Responses() for index in range(2)}
+        for index, image in enumerate(images):
+            stream_id = f"s{index % 2}"
+            pipeline.process_frame_local(
+                {"image": image, "index": index}, stream_id=stream_id,
+                queue_response=streams[stream_id])
+        runtime.run(until=lambda: sum(q.qsize() for q in streams.values())
+                    >= FUSION_BURST, timeout=300.0)
+        element = pipeline.graph.get_node("R1").element
+        failures = [f for q in streams.values() for f in q.failures]
+        if failures or sum(q.qsize() for q in streams.values()) \
+                < FUSION_BURST:
+            raise AssertionError(f"resize burst: {failures}")
+        dispatches = element._batcher.dispatches
+        equal = 0
+        for responses in streams.values():
+            while not responses.empty():
+                *_, swag, _, _, _ = responses.get()
+                _, sync_out = element.process_frame(
+                    None, image=images[swag["index"]])
+                equal += bool(torch.equal(swag["image"], sync_out["image"]))
+        pipeline.stop()
+    out = {"frames": FUSION_BURST, "dispatches": dispatches,
+           "rows_equal_sync": equal}
+    if dispatches >= FUSION_BURST or equal != FUSION_BURST:
+        raise AssertionError(f"resize burst: {out}")
+    return out
+
+
+def fusion_run(card: str) -> dict:
+    """Phase 9 (module docstring): the chain under ``fuse: auto``, then
+    ``fuse: off``, on the same frames, then the async resize burst.  The
+    launch counters are zeroed before each mode; no kernel of the port
+    may launch on this path."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    sources = [rng.integers(0, 256, (FUSION_SOURCE_SIZE, FUSION_SOURCE_SIZE,
+                                     3), dtype=np.uint8)
+               for _ in range(FUSION_SOURCES)]
+    auto = fusion_mode_run("auto", sources)
+    off = fusion_mode_run("off", sources)
+    label = "fusion-chain"
+    fusion, segments = auto["fusion"], auto["segments"]
+    if fusion["segments"] != 1 or fusion["broken"] != 0:
+        raise AssertionError(f"{label}: fusion stats {fusion}")
+    jit = segments[0]["jit"]
+    if (jit["misses"], jit["hits"]) != (1, FUSION_FRAMES - 1):
+        raise AssertionError(f"{label}: segment cache {jit}")
+    for mode, run, want in (("auto", auto, 1), ("off", off, 3)):
+        for frame_id, frame in run["frames"].items():
+            metrics = frame["metrics"]
+            if metrics.get("device_dispatches") != want or (
+                    mode == "auto"
+                    and metrics.get("fused_segments") != 1):
+                raise AssertionError(
+                    f"{label}: {mode} frame {frame_id}: "
+                    f"{metrics.get('device_dispatches')} dispatches, "
+                    f"{metrics.get('fused_segments')} segments")
+        for name, count in run["launches"].items():
+            if count:
+                raise AssertionError(f"{label}: {mode} launched {name} "
+                                     f"{count} times; the path has no "
+                                     f"kernel of the port")
+    transfer = auto["transfer"]
+    if transfer["explicit"] != FUSION_FRAMES or transfer["implicit"]:
+        raise AssertionError(f"{label}: transfers {transfer}")
+    if sorted(auto["frames"]) != sorted(off["frames"]):
+        raise AssertionError(f"{label}: frame ids differ between modes")
+    detections = 0
+    for frame_id, frame in auto["frames"].items():
+        other = off["frames"][frame_id]
+        if not np.array_equal(frame["image"], other["image"]):
+            raise AssertionError(f"{label}: frame {frame_id}: the fused "
+                                 f"image differs from fuse: off")
+        if frame["detections"] != other["detections"] \
+                or frame["overlay"] != other["overlay"]:
+            raise AssertionError(f"{label}: frame {frame_id}: detections "
+                                 f"differ between the modes")
+        size = FUSION_SIZES[-1][1]
+        if frame["image"].shape != (size, size, 3):
+            raise AssertionError(f"{label}: image {frame['image'].shape}")
+        detections += len(frame["detections"])
+    burst = resize_burst_run()
+    out = {"pipeline_e2e_fused_fps": auto["fps"],
+           "pipeline_e2e_fuse_off_fps": off["fps"],
+           "pipeline_e2e_dispatch_overhead_ms":
+               (1.0 / off["fps"] - 1.0 / auto["fps"]) * 1e3,
+           "fused_segments": fusion["segments"],
+           "fused_dispatches_per_frame": 1,
+           "fuse_off_dispatches_per_frame": 3,
+           "jit_cache_hits": jit["hits"], "jit_cache_misses": jit["misses"],
+           "segment_capture_s": auto["capture_s"][0],
+           "segment_device_ms": auto["segment_device_ms"],
+           "device_busy_share_fused":
+               auto["segment_device_ms"] * auto["fps"] / 1e3,
+           "dispatch_p50_ms": segments[0]["dispatch_p50_ms"],
+           "dispatch_p99_ms": segments[0]["dispatch_p99_ms"],
+           "transfers_explicit": transfer["explicit"],
+           "transfers_implicit": transfer["implicit"],
+           "detections": detections,
+           "peak_mb_fused": auto["peak_mb"], "peak_mb_off": off["peak_mb"],
+           "resize_burst": burst, "card": card}
+    print(f"fusion {json.dumps(out)}", flush=True)
+    return {"launches": auto["launches"], "fusion": out}
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -2401,6 +2657,10 @@ def main() -> int:
     # -- phase 8: BASELINE config 5, streaming ASR -> gate -> int8 LLM ------
     config5 = config5_run(card)
     pipeline_launches["config5-speech"] = config5["launches"]
+
+    # -- phase 9: bench.py's fusion chain (R1 (R2 (DET))), fused -----------
+    fusion = fusion_run(card)
+    pipeline_launches["fusion-chain"] = fusion["launches"]
 
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)

@@ -11,7 +11,8 @@ difference (a fixed reference or a reverted port makes it stale).
 The rewritten modules (``pipeline/overlap.py``, ``pipeline/fusion.py``,
 ``pipeline/tensor.py``, ``models/batching.py``, ``models/detector.py``,
 ``tpu/health.py``, ``models/asr.py``, ``models/tts.py``,
-``elements/audio.py``, ``elements/speech.py``) are ports, not copies;
+``elements/audio.py``, ``elements/speech.py``, ``elements/image.py``)
+are ports, not copies;
 the definitions they keep verbatim are held to the reference one by one
 (:data:`KEPT_DEFINITIONS`).  Copied imports that name what the port
 does not have yet are listed in :data:`UNRESOLVED_IMPORTS`, each with
@@ -41,7 +42,12 @@ COPIED_FILES = (
     # the speech path's gate, its file scheme and the live audio
     # endpoints:
     "elements/text.py", "elements/scheme_file.py",
-    "elements/audio_live.py")
+    "elements/audio_live.py",
+    # the rest of the element library and the media conversions:
+    "elements/observe.py", "elements/scheme_tty.py", "elements/vision.py",
+    "elements/video.py", "elements/scheme_zmq.py",
+    "elements/scheme_tensor.py", "elements/scheme_rtsp.py",
+    "media_convert.py")
 
 #: module -> [((first, last) reference lines, reason)].  An insertion
 #: sits at the reference line it precedes.
@@ -56,8 +62,8 @@ ALLOWED = {
         ((348, 348), "ELEMENT_PARAMETERS gains the port LLM's `device` "
                      "parameter (the port's device rule, device.py)"),
         ((349, 349), "ELEMENT_PARAMETERS gains `device` rows for the "
-                     "port's ASR, TTS, AudioFraming, AudioResampler and "
-                     "AudioFFT (the same rule)")],
+                     "port's ASR, TTS, AudioFraming, AudioResampler, "
+                     "AudioFFT and ImageResize (the same rule)")],
     "elements/text.py": [
         ((89, 89), "TextFilter counts an array gate's elements from its "
                    "shape: a torch tensor's `size` is a method, so "
@@ -86,6 +92,33 @@ ALLOWED = {
                    "refused and the message names torch (ROADMAP "
                    "Queue 3)"),
         ((218, 218), "torch is the default runtime")],
+    "elements/video.py": [
+        ((5, 6), "decoded frames are numpy arrays in the port"),
+        ((18, 19), "the port imports no jax"),
+        ((58, 58), "a decoded file frame stays the host array it was "
+                   "decoded as (host values stay on the host until an "
+                   "element computes on them)"),
+        ((163, 163), "the same for a webcam frame")],
+    "elements/scheme_zmq.py": [
+        ((9, 9), "arrays arrive as numpy in the port"),
+        ((22, 23), "the port imports no jax"),
+        ((53, 53), "a received array stays on the host (numpy), where "
+                   "the reference puts it on the device")],
+    "elements/scheme_tensor.py": [
+        ((9, 9), "arrays arrive as numpy in the port"),
+        ((13, 14), "the port imports no jax"),
+        ((65, 65), "a received array stays on the host (numpy), where "
+                   "the reference puts it on the device")],
+    "elements/scheme_rtsp.py": [
+        ((10, 10), "decoded frames are numpy arrays in the port"),
+        ((30, 31), "the port imports no jax"),
+        ((205, 205), "a decoded network frame stays on the host "
+                     "(numpy)")],
+    "media_convert.py": [
+        ((9, 10), "the port has no command line (no cli.py)"),
+        ((65, 65), "the conversion pipelines run on the torch runtime; "
+                   "the port refuses 'jax'"),
+        ((90, 90), "the same for video_to_images")],
     "pipeline/journal.py": [
         ((83, 87), "_encodable skips torch-typed leaves (the exact "
                    "translation of the jax test): a CUDA tensor would "
@@ -101,13 +134,14 @@ UNRESOLVED_IMPORTS = {}
 KEPT_DEFINITIONS = {
     "pipeline/fusion.py": ("FusionError", "DeviceFn", "_Step", "fusable",
                            "qualified_reads", "partition"),
-    "pipeline/tensor.py": ("distributed_mesh_spec", "device_sort_key"),
+    "pipeline/tensor.py": ("distributed_mesh_spec",),
     "models/batching.py": ("MicroBatcher", "complete_error",
                            "MicroBatchElement"),
     "models/detector.py": ("DetectorConfig", "_bottleneck", "_run_stage"),
     "tpu/health.py": ("probe_devices",),
     "elements/audio.py": ("read_wav", "write_wav", "AudioWriteFile",
                           "AudioGraphXY", "AudioOutput"),
+    "elements/image.py": ("image_to_array", "ImageOutput"),
     "elements/speech.py": ("_chunk_rows",),
     "models/asr.py": ("AsrConfig", "_mel_filterbank", "pad_audio",
                       "_sinusoid", "decode_text", "encode_text"),

@@ -8,6 +8,7 @@ import json
 import queue
 
 import pytest
+import torch
 
 from conftest import run_until
 from torch_pipeline_elements import cpu_pool  # noqa: F401
@@ -343,10 +344,12 @@ def test_multi_host_mesh_rejected(runtime):
 
 def test_fused_segment_raises_until_ported(runtime):
     """A chain of two elements that declare a ``device_fn`` forms a
-    segment, and forming one raises ``FusionError``: the chain never
-    runs some other way in silence."""
+    segment on the one device its members name (ported: one captured
+    CUDA graph a signature on the card, eager on the CPU).  With no card
+    and no ``device: cpu``, forming it raises by the device rule: the
+    chain never runs on the host in silence."""
     from aiko_services_tpu_torch.pipeline.fusion import (
-        DeviceFn, FusionError, partition)
+        DeviceFn, FusedSegment, partition)
     p = Pipeline(definition(
         ["(A B)"], [element("A", "ElementA", ["a"], ["a"]),
                     element("B", "ElementB", ["a"], ["b"])]),
@@ -357,8 +360,15 @@ def test_fused_segment_raises_until_ported(runtime):
         node.element.device_fn = lambda stream, out=out: DeviceFn(
             fn=lambda a: {out: a}, inputs=("a",), outputs=(out,))
     stream = p.create_stream_local("s")
-    with pytest.raises(FusionError, match="A\\+B.*not ported"):
-        partition(p, nodes, stream)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            partition(p, nodes, stream)
+    for node in nodes:
+        node.element.set_parameter("device", "cpu")
+    stream = p.create_stream_local("s2")
+    segment, = partition(p, nodes, stream)
+    assert isinstance(segment, FusedSegment) and segment.name == "A+B"
+    assert segment.device == torch.device("cpu")
     assert partition(p, nodes[:1], stream) == nodes[:1]
 
 

@@ -4,8 +4,11 @@ path: twins of ``tests/pipeline_elements.py``.  Imports only the port.
 Also the tests' device pool: :func:`cpu_pool` patches
 ``device.local_devices`` (the port's ``jax.devices()``) to eight CPU
 descriptors, the counterpart of ``tests/conftest.py``'s eight virtual
-JAX devices; a test module imports the fixture by name."""
+JAX devices; a test module imports the fixture by name.  The media
+collectors at the end are the twins of ``tests/tests_media_helpers.py``
+(a test swaps ``SINK``)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -99,3 +102,27 @@ class TensorSum(TPUElement):
 
     def process_frame(self, stream, x):
         return StreamEvent.OKAY, {"total": self._sum(x)}
+
+
+# -- media collectors (twins of tests/tests_media_helpers.py); SINK is
+# swapped per test.
+
+SINK: list = []
+
+
+class Collect(PipelineElement):
+    def process_frame(self, stream, image=None, **inputs):
+        SINK.append(np.asarray(image))
+        return StreamEvent.OKAY, {}
+
+
+class CollectSpectrum(PipelineElement):
+    def process_frame(self, stream, spectrum=None, **inputs):
+        SINK.append(np.asarray(spectrum))
+        return StreamEvent.OKAY, {}
+
+
+class CollectText(PipelineElement):
+    def process_frame(self, stream, text=None, **inputs):
+        SINK.append(text)
+        return StreamEvent.OKAY, {}
