@@ -19,6 +19,7 @@ and any ``allowed`` scope lifts it for every thread until it exits.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 
 import torch
@@ -46,7 +47,14 @@ def resolve_device(device: str | torch.device | None = None) \
 
 def local_devices() -> list[torch.device]:
     """Every card of this process, ``[cuda:0 ... cuda:n-1]``.  With no
-    card this raises, as :func:`resolve_device` does."""
+    card this raises, as :func:`resolve_device` does -- unless the
+    environment asks for CPU descriptors by name: ``AIKO_CPU_DEVICES=N``
+    gives ``[cpu:0 ... cpu:N-1]`` (the counterpart of the JAX package's
+    forced host device count, which the multi-process chaos driver sets
+    for the pipelines it spawns)."""
+    count = os.environ.get("AIKO_CPU_DEVICES")
+    if count:
+        return [torch.device("cpu", index) for index in range(int(count))]
     resolve_device("cuda")
     return [torch.device("cuda", index)
             for index in range(torch.cuda.device_count())]

@@ -10,7 +10,10 @@ forward+decode+NMS captured once per input signature as a CUDA graph
 as the same overlay dict the reference's elements feed ImageOverlay
 (yolo.py:80-92).  The port's differences:
 
-- ``checkpoint`` raises until ROADMAP Queue 1 item 7 (no orbax reader);
+- ``checkpoint`` names a port checkpoint (``models/checkpoint.py``,
+  ``python -m aiko_services_tpu_torch convert detector``), restored onto
+  the placed device against the tree's shapes; after
+  ``on_replacement`` the weights rebuild from it, not from random init;
 - the device is the placement's (``TPUElement.plan.device``): the card
   by default, a CPU descriptor of the tests' device pool on the CPU;
 - the micro-batch worker runs its uploads, detect and host copies on a
@@ -35,8 +38,8 @@ import torch
 from ..device import sync_allowed
 from ..models import detector
 from ..models.batching import MicroBatchElement, _HostTree, pad_to_bucket
+from ..models.checkpoint import restore_or_init
 from ..pipeline import StreamEvent, TPUElement
-from ..utils import not_ported
 
 __all__ = ["Detector"]
 
@@ -49,7 +52,7 @@ class Detector(MicroBatchElement, TPUElement):
 
     Parameters: ``num_classes``, ``class_names``, ``score_threshold``,
     ``width``, ``seed``, ``max_batch``, ``synchronous``, ``checkpoint``
-    (raises in the port until ROADMAP Queue 1 item 7).
+    (a port checkpoint directory with {"params": ...}).
 
     ASYNC by default: each frame parks and joins a cross-stream
     MICRO-BATCH (models/batching.py MicroBatcher) -- all frames
@@ -108,13 +111,10 @@ class Detector(MicroBatchElement, TPUElement):
             num_classes=num_classes, width=int(width),
             score_threshold=float(threshold), max_detections=32)
         checkpoint, found = self.get_parameter("checkpoint", None)
-        if found and checkpoint:
-            raise not_ported(f"checkpoint={checkpoint!r} (orbax restore)",
-                             "ROADMAP Queue 1 item 7")
         seed, _ = self.get_parameter("seed", 0)
-        device = self.plan.device
-        self._params = self.put(detector.init_params(int(seed),
-                                                     self._config, device))
+        self._params = self.put(restore_or_init(
+            detector, self._config, int(seed),
+            checkpoint if found else None, self.plan.device))
         config = self._config
         self._detect = self.jit(
             lambda params, images: detector.detect(params, config, images))

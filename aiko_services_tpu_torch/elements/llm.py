@@ -9,9 +9,14 @@ the same text.  The port's differences:
 - element parameter ``device`` (the port's device rule, ``device.py``):
   the card by default, ``cpu`` for the plain PyTorch path; with no card
   and no ``device: cpu`` the first request fails its frame;
-- ``checkpoint`` and ``tokenizer`` (orbax and HuggingFace directories)
-  and ``model: tiny-moe`` raise until ROADMAP Queue 1 item 7; a given
-  tokenizer path never turns into ``ByteTokenizer`` in silence;
+- ``checkpoint`` names a port checkpoint (``models/checkpoint.py``,
+  written by ``python -m aiko_services_tpu_torch convert llama``): the
+  model is built from shapes alone and each restored leaf goes to the
+  card once, through pinned memory, so a build never holds two trees;
+- ``tokenizer`` names a local HuggingFace directory; a path given is
+  loaded or the frame fails (it never turns into ``ByteTokenizer`` in
+  silence);
+- ``model: tiny-moe`` raises until ROADMAP Queue 1 item 7;
 - decode ticks run under the pipeline TransferLedger's guard, which on
   the card is process-wide (``pipeline/overlap.py``); the device loop's
   one graph capture lifts it (``models/loop_graph.py``);
@@ -57,7 +62,8 @@ import time
 from ..device import resolve_device
 from ..models import llama
 from ..models.batching import ContinuousBatcher, Request
-from ..models.tokenizer import ByteTokenizer
+from ..models.checkpoint import restore_or_init
+from ..models.tokenizer import ByteTokenizer, load_tokenizer
 from ..pipeline import PipelineElement, StreamEvent
 from ..services import Actor
 from ..utils import (generate, get_logger, not_ported, parse_bool,
@@ -71,16 +77,6 @@ PROTOCOL_LLM = "llm:0"
 
 # Options of the JAX package that wait for ROADMAP Queue 1 item 7.
 _LATER = "ROADMAP Queue 1 item 7"
-
-
-def _restore(params, checkpoint):
-    """The JAX package's ``models.checkpoint.maybe_restore``: no
-    checkpoint keeps the random weights; a checkpoint raises until the
-    port reads one."""
-    if checkpoint:
-        raise not_ported(f"checkpoint={checkpoint!r} (orbax restore)",
-                         _LATER)
-    return params
 
 
 def _collector(tokenizer, collected: list):
@@ -108,8 +104,8 @@ class LLMService(Actor):
             config = llama.LlamaConfig.tiny()
         device = resolve_device(device)
         if params is None:
-            params = _restore(llama.init_params(seed, config, device),
-                              checkpoint)
+            params = restore_or_init(llama, config, seed, checkpoint,
+                                     device)
         self.tokenizer = tokenizer or ByteTokenizer()
         # decode_block > 1 with inflight > 1 is the pipelined serving
         # path (fused multi-step blocks chained device-side) -- the same
@@ -231,8 +227,8 @@ class LLM(PipelineElement):
 
     Parameters: ``max_new_tokens``, ``temperature``, ``system_prompt``,
     ``device`` (the card by default, or ``cpu``),
-    ``tokenizer`` (HF directory), ``checkpoint`` (orbax dir; both raise
-    in the port until ROADMAP Queue 1 item 7),
+    ``tokenizer`` (HF directory), ``checkpoint`` (port checkpoint
+    directory, ``models/checkpoint.py``),
     ``vocab_size``/``max_seq``/``seed`` (local tiny config),
     ``attention`` (``dense`` | ``flash`` -- chunked admission through
     the prefill attention kernel), ``quantize`` (weight-only
@@ -346,11 +342,9 @@ class LLM(PipelineElement):
         if settings is None:
             settings = self._resolve_model_params()
         tokenizer_path = settings.get("tokenizer")
-        if tokenizer_path:
-            raise not_ported(f"tokenizer={tokenizer_path!r} (HuggingFace "
-                             f"directory)", _LATER)
         device = resolve_device(settings.get("device"))
-        self._tokenizer = ByteTokenizer()
+        self._tokenizer = load_tokenizer(tokenizer_path) \
+            if tokenizer_path else ByteTokenizer()
         vocab = settings.get("vocab_size")
         # "flash" routes chunked admission through the prefill
         # attention kernel (ops/flash_attention.py).
@@ -395,10 +389,9 @@ class LLM(PipelineElement):
             config = dataclasses.replace(
                 config,
                 decode_attention=kernel_to_attention[decode_kernel])
-        params = _restore(
-            llama.init_params(int(settings.get("seed", 0)), config,
-                              device),
-            settings.get("checkpoint"))
+        params = restore_or_init(llama, config,
+                                 int(settings.get("seed", 0)),
+                                 settings.get("checkpoint"), device)
         quantize = settings.get("quantize", False)
         normalized = str(quantize).strip().lower()
         if parse_bool(quantize) or normalized == "int8":

@@ -12,9 +12,9 @@ Counterpart of ``aiko_services_tpu/elements/speech.py`` on the port's
 - element parameter ``device`` (the port's device rule, ``device.py``):
   the card by default, ``cpu`` for the plain PyTorch path; with no card
   and no ``device: cpu`` a frame fails;
-- ``checkpoint`` fails the frame with the ``not_ported`` text until
-  ROADMAP Queue 1 item 7 (no orbax reader); without one the weights
-  come from ``init_params`` on the ``seed``;
+- ``checkpoint`` names a port checkpoint (``models/checkpoint.py``),
+  restored onto the element's device against the model's shapes;
+  without one the weights come from ``init_params`` on the ``seed``;
 - X (``JitCache``: on
   the card one CUDA graph a batch bucket, shared by every stream's
   :class:`~aiko_services_tpu_torch.models.asr.StreamingAsr`); its rows
@@ -33,12 +33,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..device import resolve_device, sync_allowed
+from ..device import sync_allowed
 from ..models import asr as asr_model
 from ..models import tts as tts_model
+from ..models.checkpoint import restore_or_init
 from ..pipeline import PipelineElement, StreamEvent
 from ..pipeline.tensor import JitCache, ShapeBucketer
-from .llm import _restore
 
 __all__ = ["ASR", "TTS"]
 
@@ -60,8 +60,8 @@ def _chunk_rows(samples: np.ndarray, chunk: int,
 class _Hosted(PipelineElement):
     """A speech model hosted by the element: ``_SIZES`` names its
     configs, ``_MODEL`` its module.  The weights are drawn at first use
-    from ``seed`` at ``model_size`` on ``device``; a bad size raises
-    ValueError, a ``checkpoint`` raises ``not_ported``."""
+    from ``seed`` at ``model_size`` on ``device``, or restored from
+    ``checkpoint``; a bad size raises ValueError."""
 
     _SIZES: dict = {}
     _MODEL = None
@@ -82,16 +82,16 @@ class _Hosted(PipelineElement):
         seed, _ = self.get_parameter("seed", 0)
         device, _ = self.get_parameter("device", None)
         config = self._SIZES[str(size)]()
-        self._params = _restore(self._MODEL.init_params(
-            int(seed), config, resolve_device(device)), checkpoint)
+        self._params = restore_or_init(self._MODEL, config, int(seed),
+                                       checkpoint, device)
         self._config = config
 
 
 class ASR(_Hosted):
     """``audio`` [N] or [N, C] + ``sample_rate`` -> transcript ``text``.
 
-    Parameters: ``checkpoint`` (fails the frame until the port reads
-    one), ``model_size`` (``tiny``/``base``), ``seed``, ``device``,
+    Parameters: ``checkpoint`` (a port checkpoint directory of fitted
+    weights), ``model_size`` (``tiny``/``base``), ``seed``, ``device``,
     ``sample_rate`` (model rate, default 16000), ``streaming`` (true:
     incremental live mode -- each frame's audio feeds a per-stream
     :class:`StreamingAsr`, the frame emits whatever text completed
@@ -193,8 +193,8 @@ class TTS(_Hosted):
     """``text`` -> ``audio`` waveform [N] (host float32) +
     ``sample_rate``.
 
-    Parameters: ``checkpoint`` (fails the frame until the port reads
-    one), ``model_size`` (``tiny``/``base``), ``seed``, ``device``.
+    Parameters: ``checkpoint`` (a port checkpoint directory of fitted
+    weights), ``model_size`` (``tiny``/``base``), ``seed``, ``device``.
     """
 
     _SIZES = {"tiny": tts_model.TtsConfig.tiny, "base": tts_model.TtsConfig}

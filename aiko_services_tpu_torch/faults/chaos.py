@@ -71,7 +71,7 @@ def _definition(name: str, journal_dir: str, busy_ms: float) -> dict:
                 "placement": {"devices": 2},
                 "deploy": {"local": {"module": _STAGE_MODULE,
                                      "class_name": "StageWork"}}}
-    return {"version": 0, "name": name, "runtime": "jax",
+    return {"version": 0, "name": name, "runtime": "torch",
             "graph": ["(work finish)"],
             "parameters": {"journal": "on", "journal_dir": journal_dir,
                            "drain_timeout_ms": 2000},
@@ -158,6 +158,7 @@ def run_chaos(pipelines: int = 2, frames: int = 12,
         env.setdefault(
             "XLA_FLAGS",
             "--xla_force_host_platform_device_count=8")
+        env.setdefault("AIKO_CPU_DEVICES", "8")
         echo(f"broker :{broker.port}; journals in {journal_dir}")
 
         registrar_log = open(os.path.join(workdir, "registrar.log"),

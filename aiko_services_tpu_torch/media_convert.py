@@ -6,8 +6,8 @@ Reference equivalents:
 ``video_to_images.py:1-42`` -- tiny scripts wiring
 ImageReadFile -> VideoWriteFile / VideoReadFile -> ImageWriteFile
 pipeline definitions.  Here the same conversions are library functions
-built on this framework's element library and file scheme (the
-port has no command line yet).
+(and ``python -m aiko_services_tpu_torch media ...`` commands, cli.py) built
+on this framework's element library and file scheme.
 """
 
 from __future__ import annotations

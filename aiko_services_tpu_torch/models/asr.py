@@ -41,8 +41,8 @@ import torch.nn.functional as F
 from ..device import resolve_device, sync_allowed
 from ..ops.layers import attention_decode_append, rms_norm, swiglu
 
-__all__ = ["AsrConfig", "init_params", "param_shapes", "log_mel",
-           "pad_audio", "encode", "transcribe", "transcriber",
+__all__ = ["AsrConfig", "init_params", "abstract_params", "param_shapes",
+           "log_mel", "pad_audio", "encode", "transcribe", "transcriber",
            "decode_text", "encode_text", "asr_loss", "StreamingAsr"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -252,6 +252,19 @@ def _fan_in(name: str, shape: tuple) -> int | None:
     if name == "embed":
         return shape[-1]
     return shape[-2]
+
+
+def abstract_params(config: AsrConfig) -> dict:
+    """The parameter tree as meta tensors: its shapes and dtype, no
+    storage and nothing drawn (a checkpoint restore's template)."""
+    dtype = _dtype(config)
+
+    def meta(layout: dict) -> dict:
+        return {name: meta(shape) if isinstance(shape, dict)
+                else torch.empty(shape, dtype=dtype, device="meta")
+                for name, shape in layout.items()}
+
+    return meta(param_shapes(config))
 
 
 def init_params(seed: int, config: AsrConfig,

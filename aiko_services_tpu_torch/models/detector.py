@@ -43,8 +43,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 
-__all__ = ["DetectorConfig", "init_params", "forward", "decode",
-           "nms", "detect"]
+__all__ = ["DetectorConfig", "init_params", "abstract_params", "forward",
+           "decode", "nms", "detect"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -155,6 +155,21 @@ def init_params(seed: int, config: DetectorConfig,
         w = (w * (cin * kernel * kernel) ** -0.5).to(dtype)
         return {"w": w.contiguous(memory_format=torch.channels_last),
                 "b": torch.zeros((cout,), dtype=dtype, device=device)}
+
+    return map_layout(param_shapes(config), conv)
+
+
+def abstract_params(config: DetectorConfig) -> dict:
+    """The parameter tree as meta tensors (OIHW kernels in
+    ``channels_last`` memory, as :func:`init_params` lays them out): a
+    checkpoint restore's template."""
+    dtype = _dtype(config)
+
+    def conv(cout, cin, kernel):
+        w = torch.empty((cout, cin, kernel, kernel), dtype=dtype,
+                        device="meta")
+        return {"w": w.contiguous(memory_format=torch.channels_last),
+                "b": torch.empty((cout,), dtype=dtype, device="meta")}
 
     return map_layout(param_shapes(config), conv)
 

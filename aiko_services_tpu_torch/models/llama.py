@@ -71,9 +71,10 @@ from .paged import (gather_layer, gather_slot, is_paged, paged_extent,
                     pool_page_tokens, scatter_pages)
 from .quant import dequantize_kv, is_quantized, map_leaf, quantize_kv
 
-__all__ = ["LlamaConfig", "init_params", "param_shapes", "init_cache",
-           "cache_array", "cache_extent", "prefill", "prefill_into_slot",
-           "prefill_into_slots", "decode_step", "decode_block",
+__all__ = ["LlamaConfig", "init_params", "abstract_params", "param_shapes",
+           "init_cache", "cache_array", "cache_extent", "prefill",
+           "prefill_into_slot", "prefill_into_slots", "decode_step",
+           "decode_block",
            "decode_loop", "greedy_sample", "temperature_sample",
            "select_tokens"]
 
@@ -217,6 +218,14 @@ def init_params(seed: int, config: LlamaConfig,
         return out
 
     return _map_layout(param_shapes(config), lambda spec: leaf(*spec))
+
+
+def abstract_params(config: LlamaConfig) -> dict:
+    """The parameter dict as meta tensors: its shapes and dtype, no
+    storage and nothing drawn (a checkpoint restore's template)."""
+    dtype = _dtype(config)
+    return _map_layout(param_shapes(config), lambda spec: torch.empty(
+        spec[0], dtype=dtype, device="meta"))
 
 
 def _map_layout(layout: dict, fn) -> dict:

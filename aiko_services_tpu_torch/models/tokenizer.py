@@ -1,10 +1,20 @@
-"""Byte-level tokenizer for the serving path (counterpart of
-``ByteTokenizer`` in ``aiko_services_tpu/models/tokenizer.py``; the
-HuggingFace loader waits for real checkpoints in the repository)."""
+"""Tokenizers for the serving elements (counterpart of
+``aiko_services_tpu/models/tokenizer.py``).
+
+``ByteTokenizer`` is the dependency-free default (byte-level, 256 +
+specials).  ``load_tokenizer`` loads a local HuggingFace tokenizer
+directory or file through ``transformers.AutoTokenizer``.  One
+deliberate difference: the JAX package's ``load_tokenizer`` returns a
+``ByteTokenizer`` in silence when the path is missing or fails to load;
+the port's raises, so a path given is loaded or the frame that asked
+for it fails.
+"""
 
 from __future__ import annotations
 
-__all__ = ["ByteTokenizer"]
+import os
+
+__all__ = ["ByteTokenizer", "load_tokenizer"]
 
 
 class ByteTokenizer:
@@ -27,3 +37,32 @@ class ByteTokenizer:
     @property
     def eos_tokens(self) -> tuple:
         return (self.EOS,)
+
+
+class _HFTokenizer:
+    def __init__(self, tokenizer):
+        self._tok = tokenizer
+        self.vocab_size = tokenizer.vocab_size
+
+    def encode(self, text: str, add_bos: bool = True) -> list[int]:
+        return self._tok.encode(text, add_special_tokens=add_bos)
+
+    def decode(self, tokens) -> str:
+        return self._tok.decode(list(map(int, tokens)),
+                                skip_special_tokens=True)
+
+    @property
+    def eos_tokens(self) -> tuple:
+        eos = self._tok.eos_token_id
+        return (eos,) if eos is not None else ()
+
+
+def load_tokenizer(path: str | None = None):
+    """Local tokenizer directory/file -> HF tokenizer; no path -> bytes.
+    A path that does not exist or does not load raises."""
+    if not path:
+        return ByteTokenizer()
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"tokenizer {path!r} does not exist")
+    from transformers import AutoTokenizer
+    return _HFTokenizer(AutoTokenizer.from_pretrained(path))

@@ -35,8 +35,8 @@ from ..ops.layers import rms_norm, swiglu
 from .asr import (_DTYPES, _attention, _fan_in, _layer, _mel_filterbank,
                   device_constant, hann_window, sinusoid)
 
-__all__ = ["TtsConfig", "init_params", "param_shapes", "encode_text",
-           "synthesize_mel", "vocode", "synthesize", "tts_loss"]
+__all__ = ["TtsConfig", "init_params", "abstract_params", "param_shapes",
+           "encode_text", "synthesize_mel", "vocode", "synthesize", "tts_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +92,19 @@ def param_shapes(config: TtsConfig) -> dict:
         "final_norm": (c.dim,),
         "mel_head": (c.dim, c.n_mels),
     }
+
+
+def abstract_params(config: TtsConfig) -> dict:
+    """The parameter tree as meta tensors: its shapes and dtype, no
+    storage and nothing drawn (a checkpoint restore's template)."""
+    dtype = _dtype(config)
+
+    def meta(layout: dict) -> dict:
+        return {name: meta(shape) if isinstance(shape, dict)
+                else torch.empty(shape, dtype=dtype, device="meta")
+                for name, shape in layout.items()}
+
+    return meta(param_shapes(config))
 
 
 def init_params(seed: int, config: TtsConfig,

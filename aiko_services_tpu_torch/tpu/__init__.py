@@ -1,3 +1,4 @@
-"""Device health of the port: ``health.probe_devices`` and
-``health.default_prober`` (the JAX package's ``tpu.profiling`` is not
-ported)."""
+"""The port's device tooling: ``profiling.Profiler`` /
+``profiling.profile_trace`` (torch.profiler traces with per-element
+spans) and ``health.probe_devices`` / ``health.default_prober``."""
+from .profiling import Profiler, profile_trace

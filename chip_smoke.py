@@ -137,12 +137,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    dispatch overhead a frame under bench.py's key names, the segment's
    capture seconds, dispatch p50/p99 and one call's device ms (with the
    share of a fused frame's wall it covers), and the peak memory above
-   what the card held before each mode.
+   what the card held before each mode;
+10. checkpoints and the command line (``checkpoint-cli``): a Hugging
+    Face snapshot of Llama-3.2-1B at its published widths (dim 2048, 16
+    layers, 32/8 heads, FFN 8192, vocab 128,256: 1.50 B parameters,
+    3.0 GB) written from ``init_params(0)`` as ``config.json`` and two
+    bf16 shards by the port's safetensors writer, each projection
+    transposed back to [out, in]; ``python3 -m aiko_services_tpu_torch
+    convert llama SRC DST --max-seq 512`` as a subprocess (exit 0, the
+    inferred config equal to ``llama3_1b`` at max_seq 512); a restore
+    onto the card, every leaf ``torch.equal`` to the source; ``(LLM)``
+    through ``create_pipeline`` under ``transfer_guard: disallow`` with
+    ``CONFIG5_LLM`` plus ``checkpoint``, then without it (seed 0): every
+    reply's token ids and text equal, #5's two routes and
+    ``int8_combine`` launched and no other kernel, no implicit
+    transfer, the build's peak above what the card held at most 1.1 x
+    the seed-0 build's; the seed-0 pipeline under ``Profiler.attach``
+    for 3 frames, one at a time: one ``element:LLM`` span a frame in
+    the Chrome trace, each holding #5's kernel events; the Detector at
+    phase 9's scale from a checkpoint of its own ``init_params(0)``:
+    detections of 4 frames bitwise equal to a seed-0 Detector's.  It
+    prints the snapshot, conversion and restore seconds, the build
+    seconds and peaks and the trace's size.  The temporary directory
+    (6 GB) is removed at the end, also on a failure.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
 the pipeline runs' own under ``pipeline_launches``, phase 9's zero
-under ``fusion-chain``; the entries on config 4's and config 5's paths
+under ``fusion-chain``, phase 10's under ``checkpoint-cli``; the entries on config 4's and config 5's paths
 carry ``"path"`` and their run's launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
 of JAX or of the JAX package.
 """
@@ -2467,6 +2489,373 @@ def fusion_run(card: str) -> dict:
     return {"launches": auto["launches"], "fusion": out}
 
 
+# -- phase 10: checkpoints, HF conversion, the profiler and the CLI -------
+
+#: Phase 10 serves config 5's LLM (``CONFIG5_LLM``: Llama-3.2-1B widths,
+#: int8 weights, dense attention at max_seq 512) from a checkpoint that
+#: ``python3 -m aiko_services_tpu_torch convert llama`` made of a Hugging
+#: Face snapshot written here from seed 0.
+CHECKPOINT_PROMPTS = ("Describe the scene in one sentence. ",
+                      "Three cars wait at a red light. ",
+                      "A dog runs across the empty street. ",
+                      "Count the people near the bus stop. ")
+PROFILE_FRAMES = 3
+#: the published ``config.json`` of Llama-3.2-1B, but for the tied
+#: embeddings: the snapshot carries ``lm_head.weight``, so the round trip
+#: is exact.  ``rope_scaling`` is read by neither package's conversion.
+HF_CONFIG = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+             "torch_dtype": "bfloat16", "rms_norm_eps": 1e-05,
+             "max_position_embeddings": 131072, "bos_token_id": 128000,
+             "eos_token_id": 128001, "tie_word_embeddings": False,
+             "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0,
+                              "low_freq_factor": 1.0,
+                              "original_max_position_embeddings": 8192,
+                              "rope_type": "llama3"}}
+INT8_KERNEL_NAMES = ("int8_gemv_kernel", "int8_matmul_kernel",
+                     "int8_combine_kernel")
+
+
+def checkpoint_config():
+    """The config the ``LLM`` element builds for ``CONFIG5_LLM``."""
+    from aiko_services_tpu_torch.models import llama
+    return dataclasses.replace(llama.LlamaConfig.llama3_1b(),
+                               max_seq=CONFIG5_LLM["max_seq"])
+
+
+def write_hf_snapshot(directory: Path, params: dict, config) -> dict:
+    """``params`` (the port's layer-stacked tree) as a Hugging Face
+    snapshot: ``config.json`` and two bf16 shards written by the port's
+    writer, each projection transposed back to ``[out, in]`` one layer at
+    a time."""
+    from aiko_services_tpu_torch.models._safetensors import write_file
+    hf = dict(HF_CONFIG, vocab_size=config.vocab_size,
+              hidden_size=config.dim, intermediate_size=config.hidden_dim,
+              num_hidden_layers=config.n_layers,
+              num_attention_heads=config.n_heads,
+              num_key_value_heads=config.n_kv_heads,
+              rope_theta=config.rope_theta)
+    (directory / "config.json").write_text(json.dumps(hf, indent=2))
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    half = config.n_layers // 2
+    shards = ({"model.embed_tokens.weight": params["embed"].cpu()}, {})
+    layers = params["layers"]
+    for index in range(config.n_layers):
+        shard = shards[index >= half]
+        prefix = f"model.layers.{index}"
+        for leaf, name in names.items():
+            shard[f"{prefix}.{name}.weight"] = \
+                layers[leaf][index].T.contiguous().cpu()
+        shard[f"{prefix}.input_layernorm.weight"] = \
+            layers["attn_norm"][index].cpu()
+        shard[f"{prefix}.post_attention_layernorm.weight"] = \
+            layers["mlp_norm"][index].cpu()
+    shards[1]["model.norm.weight"] = params["final_norm"].cpu()
+    shards[1]["lm_head.weight"] = params["unembed"].T.contiguous().cpu()
+    sizes = {}
+    for number, shard in enumerate(shards, 1):
+        path = directory / f"model-0000{number}-of-00002.safetensors"
+        write_file(path, shard, metadata={"format": "pt"})
+        sizes[path.name] = path.stat().st_size
+    return sizes
+
+
+def convert_cli(source: Path, destination: Path) -> tuple[dict, float]:
+    """``python3 -m aiko_services_tpu_torch convert llama SRC DST
+    --max-seq N`` as a user runs it; (its JSON report, seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    begin = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, "-m", "aiko_services_tpu_torch", "convert",
+         "llama", str(source), str(destination), "--max-seq",
+         str(CONFIG5_LLM["max_seq"])], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - begin
+    if result.returncode != 0:
+        raise AssertionError(f"convert llama exited {result.returncode}: "
+                             f"{result.stderr[-2000:]}")
+    return json.loads(result.stdout.strip().splitlines()[-1]), seconds
+
+
+def _checkpoint_definition(name: str, llm: dict) -> dict:
+    return {"version": 0, "name": name, "runtime": "torch",
+            "graph": ["(LLM)"],
+            "parameters": {"transfer_guard": "disallow"},
+            "elements": [{
+                "name": "LLM", "input": [{"name": "text"}],
+                "output": [{"name": "text"}], "parameters": llm,
+                "deploy": {"local": {
+                    "module": "aiko_services_tpu_torch.elements.llm",
+                    "class_name": "LLM"}}}]}
+
+
+@contextlib.contextmanager
+def build_peak():
+    """The card's peak allocation above what it held when the ``LLM``
+    element's model build began, over that build (GiB, in ``peak``)."""
+    import torch
+    from aiko_services_tpu_torch.elements import llm as port_llm
+    ensure_model = port_llm.LLM._ensure_model
+    peak = {}
+
+    def build(self, settings=None):
+        if self._batcher is not None or peak:
+            return ensure_model(self, settings)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ensure_model(self, settings)
+        torch.cuda.synchronize()
+        peak.update(gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                    held_gib=held / 2**30)
+    port_llm.LLM._ensure_model = build
+    try:
+        yield peak
+    finally:
+        port_llm.LLM._ensure_model = ensure_model
+
+
+def serve_prompts(label: str, llm: dict, runtime, keep: bool = False):
+    """CHECKPOINT_PROMPTS through one ``(LLM)`` pipeline: the replies'
+    texts and token ids (in prompt order), the launches, the build peak
+    and the build seconds; the pipeline is returned open when
+    ``keep``."""
+    import torch
+    from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
+    with recording_llm() as record, build_peak() as peak:
+        pipeline = load_pipeline(_checkpoint_definition(label, llm),
+                                 runtime)
+        counters = zero_launches()
+        responses = Responses()
+        for prompt in CHECKPOINT_PROMPTS:
+            pipeline.process_frame_local({"text": prompt}, stream_id=label,
+                                         queue_response=responses)
+        runtime.run(until=lambda: responses.qsize()
+                    >= len(CHECKPOINT_PROMPTS) or responses.failures,
+                    timeout=600.0)
+        counts = read_launches(counters)
+        torch.cuda.synchronize()
+        if responses.failures or responses.qsize() < len(CHECKPOINT_PROMPTS):
+            raise AssertionError(f"{label}: {responses.qsize()} replies, "
+                                 f"failed: {responses.failures}")
+        texts = {}
+        while not responses.empty():
+            _, frame_id, swag, _, okay, _ = responses.get()
+            texts[int(frame_id)] = swag["text"]
+        ledger = pipeline.transfer_ledger.stats
+        if ledger["implicit"]:
+            raise AssertionError(f"{label}: implicit transfers {ledger}")
+        element = pipeline.graph.get_node("LLM").element
+        by_prompt = {tuple(record["prompts"][rid]): ids
+                     for rid, ids in record["tokens"].items()}
+        tokenizer = ByteTokenizer()
+        out = {"texts": [texts[index] for index in sorted(texts)],
+               "tokens": [by_prompt[tuple(tokenizer.encode(prompt))]
+                          for prompt in CHECKPOINT_PROMPTS],
+               "launches": counts, "peak": dict(peak),
+               "build_s": record["timers"]["build_s"], "ledger": ledger}
+    if keep:
+        return out, pipeline, element
+    pipeline.stop()
+    element.close()
+    return out
+
+
+def kernels_in_spans(trace_path: str, span: str) -> dict:
+    """From a Chrome trace: the ``span`` user spans, and the #5 kernel
+    events (``INT8_KERNEL_NAMES``) that start and end inside each."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = [(event["ts"], event["ts"] + event["dur"]) for event in events
+             if event.get("cat") == "user_annotation"
+             and event.get("name") == span]
+    kernels = [(event["ts"], event["ts"] + event.get("dur", 0),
+                event["name"]) for event in events
+               if event.get("cat") == "kernel"]
+    int8 = [kernel for kernel in kernels
+            if any(name in kernel[2] for name in INT8_KERNEL_NAMES)]
+    inside = [sum(begin <= start and stop <= end
+                  for start, stop, _ in int8) for begin, end in spans]
+    return {"spans": len(spans), "kernel_events": len(kernels),
+            "int8_kernel_events": len(int8),
+            "int8_kernels_inside_each_span": inside}
+
+
+def detector_checkpoint_run(workdir: Path, runtime) -> dict:
+    """The Detector at phase 9's scale from a checkpoint of its own
+    ``init_params(0)`` against one built from ``init_params(0)``: the
+    detections of 4 frames (numpy seed 0) must be bitwise equal."""
+    import numpy as np
+    from aiko_services_tpu_torch.device import resolve_device
+    from aiko_services_tpu_torch.models import detector
+    from aiko_services_tpu_torch.models.checkpoint import save_pytree
+    names = FUSION_DETECTOR["class_names"]
+    config = detector.DetectorConfig(
+        num_classes=len(names), width=FUSION_DETECTOR["width"],
+        score_threshold=0.25, max_detections=32)
+    save_pytree(workdir / "detector", {"params": detector.init_params(
+        0, config, resolve_device(None))})
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (CONFIG4_SIZE, CONFIG4_SIZE, 3),
+                           dtype=np.uint8) for _ in range(4)]
+    found = {}
+    for label, parameters in (
+            ("seed", dict(FUSION_DETECTOR)),
+            ("checkpoint", dict(FUSION_DETECTOR, seed=7,
+                                checkpoint=str(workdir / "detector")))):
+        definition = {
+            "version": 0, "name": f"detector-{label}", "runtime": "torch",
+            "graph": ["(DET)"], "parameters": {},
+            "elements": [{
+                "name": "DET", "input": [{"name": "image"}],
+                "output": [{"name": "detections"}],
+                "parameters": parameters,
+                "deploy": {"local": {
+                    "module": "aiko_services_tpu_torch.elements.detect",
+                    "class_name": "Detector"}}}]}
+        pipeline = load_pipeline(definition, runtime)
+        responses = Responses()
+        for image in images:
+            pipeline.process_frame_local({"image": image}, stream_id=label,
+                                         queue_response=responses)
+        runtime.run(until=lambda: responses.qsize() >= len(images)
+                    or responses.failures, timeout=300.0)
+        if responses.failures or responses.qsize() < len(images):
+            raise AssertionError(f"detector-{label}: {responses.failures}")
+        found[label] = {}
+        while not responses.empty():
+            _, frame_id, swag, _, _, _ = responses.get()
+            found[label][int(frame_id)] = swag["detections"]
+        pipeline.stop()
+    detections = sum(len(frame) for frame in found["seed"].values())
+    equal = found["seed"] == found["checkpoint"]
+    out = {"frames": len(images), "detections": detections,
+           "checkpoint_equals_init": equal}
+    if not equal or not detections:
+        raise AssertionError(f"detector checkpoint: {out}")
+    return out
+
+
+def checkpoint_run(card: str) -> dict:
+    """Phase 10 (module docstring).  The launch counters are zeroed just
+    before the checkpoint pipeline's first frame and read after its last
+    reply."""
+    import shutil
+    import tempfile
+    import torch
+    from aiko_services_tpu_torch.device import resolve_device
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.checkpoint import (flatten,
+                                                           restore_pytree)
+    from aiko_services_tpu_torch.tpu import Profiler
+
+    label = "checkpoint-cli"
+    device = resolve_device(None)
+    config = checkpoint_config()
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    out = {"card": card}
+    try:
+        source, converted = workdir / "hf", workdir / "converted"
+        source.mkdir()
+        begin = time.perf_counter()
+        params = llama.init_params(0, config, device)
+        sizes = write_hf_snapshot(source, params, config)
+        out["snapshot_s"] = time.perf_counter() - begin
+        out["snapshot_gb"] = sum(sizes.values()) / 1e9
+        out["snapshot_params_b"] = sum(
+            leaf.numel() for leaf in _leaves(params)) / 1e9
+        report, out["convert_s"] = convert_cli(source, converted)
+        inferred = llama.LlamaConfig(**report["config"])
+        out["converted_config_equal"] = inferred == config
+        print(f"{label}: snapshot {out['snapshot_gb']:.3f} GB "
+              f"({out['snapshot_params_b']:.3f} B params) in "
+              f"{out['snapshot_s']:.1f} s; convert llama exit 0 in "
+              f"{out['convert_s']:.1f} s, config "
+              f"{'equal to' if inferred == config else 'DIFFERS from'} "
+              f"llama3_1b at max_seq {config.max_seq}", flush=True)
+        if inferred != config:
+            raise AssertionError(f"{label}: converted config {inferred}")
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        restored = restore_pytree(
+            converted, template={"params": llama.abstract_params(config)},
+            device=device)["params"]
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - begin
+        theirs = flatten(params)
+        unequal = [name for name, ours in flatten(restored).items()
+                   if not torch.equal(ours, theirs.pop(name))] + list(theirs)
+        out["restored_leaves_equal"] = not unequal
+        if unequal:
+            raise AssertionError(f"{label}: restored leaves differ: "
+                                 f"{unequal}")
+        del params, restored
+        torch.cuda.empty_cache()
+
+        with loopback_runtime() as runtime:
+            ckpt = serve_prompts(label, dict(CONFIG5_LLM,
+                                             checkpoint=str(converted)),
+                                 runtime)
+            torch.cuda.empty_cache()
+            seeded, pipeline, element = serve_prompts(
+                "seed-0", dict(CONFIG5_LLM, seed=0), runtime, keep=True)
+            out.update({
+                "replies": len(ckpt["tokens"]),
+                "replies_equal_to_seed_0": ckpt["tokens"]
+                == seeded["tokens"] and ckpt["texts"] == seeded["texts"],
+                "tokens": sum(map(len, ckpt["tokens"])),
+                "build_s_checkpoint": ckpt["build_s"],
+                "build_s_seed_0": seeded["build_s"],
+                "build_peak_gib_checkpoint": ckpt["peak"]["gib"],
+                "build_peak_gib_seed_0": seeded["peak"]["gib"]})
+            print(f"{label}: {json.dumps(out)} launches "
+                  f"{json.dumps(ckpt['launches'])}", flush=True)
+            check_launches(label, ckpt["launches"], CONFIG5_KERNELS)
+            if not out["replies_equal_to_seed_0"]:
+                raise AssertionError(f"{label}: replies differ from the "
+                                     f"seed-0 pipeline's")
+            if ckpt["peak"]["gib"] > 1.1 * seeded["peak"]["gib"]:
+                raise AssertionError(f"{label}: build peak "
+                                     f"{ckpt['peak']} above 1.1 x "
+                                     f"{seeded['peak']}")
+
+            # The same pipeline under the profiler, one frame at a time.
+            profiler = Profiler()
+            profiler.start(str(workdir / "trace"))
+            profiler.attach(pipeline)
+            responses = Responses()
+            for index in range(PROFILE_FRAMES):
+                pipeline.process_frame_local(
+                    {"text": CHECKPOINT_PROMPTS[index]}, stream_id="traced",
+                    queue_response=responses)
+                runtime.run(until=lambda: responses.qsize() > index
+                            or responses.failures, timeout=300.0)
+            profiler.detach()
+            trace = profiler.stop()
+            if responses.failures or responses.qsize() < PROFILE_FRAMES:
+                raise AssertionError(f"{label}: profiled frames failed: "
+                                     f"{responses.failures}")
+            spans = kernels_in_spans(trace, "element:LLM")
+            spans["trace_mb"] = Path(trace).stat().st_size / 1e6
+            out["profile"] = spans
+            print(f"{label}: profile {json.dumps(spans)}", flush=True)
+            if spans["spans"] != PROFILE_FRAMES or not all(
+                    spans["int8_kernels_inside_each_span"]):
+                raise AssertionError(f"{label}: the trace holds {spans}")
+            pipeline.stop()
+            element.close()
+            del element
+            torch.cuda.empty_cache()
+            out["detector"] = detector_checkpoint_run(workdir, runtime)
+        print(f"checkpoint {json.dumps(out)}", flush=True)
+        return {"launches": ckpt["launches"], "checkpoint": out}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -2661,6 +3050,10 @@ def main() -> int:
     # -- phase 9: bench.py's fusion chain (R1 (R2 (DET))), fused -----------
     fusion = fusion_run(card)
     pipeline_launches["fusion-chain"] = fusion["launches"]
+
+    # -- phase 10: checkpoints, HF conversion, the profiler, the CLI ------
+    checkpoint = checkpoint_run(card)
+    pipeline_launches["checkpoint-cli"] = checkpoint["launches"]
 
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)

@@ -202,8 +202,8 @@ def test_detector_mixed_dtype_burst_normalizes_each_group(
 
 
 def test_detector_checkpoint_not_ported(tmp_path, runtime, cpu_pool):
-    """A ``checkpoint`` parameter fails the frame: the port reads no
-    orbax directory yet, and never runs random weights in its place."""
+    """A ``checkpoint`` parameter naming no checkpoint fails the frame:
+    the port never runs random weights in its place."""
     responses = queue.Queue()
     pipeline = create_pipeline(
         _detector(tmp_path, outputs=("detections",), synchronous=True,
@@ -213,7 +213,7 @@ def test_detector_checkpoint_not_ported(tmp_path, runtime, cpu_pool):
         "image": np.zeros((64, 64, 3), dtype=np.uint8)})
     assert run_until(runtime, lambda: not responses.empty(), timeout=60.0)
     *_, okay, diagnostic = responses.get()
-    assert not okay and "not ported" in diagnostic
+    assert not okay and "no checkpoint directory /no/such/dir" in diagnostic
     pipeline.stop()
 
 

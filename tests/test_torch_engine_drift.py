@@ -47,7 +47,9 @@ COPIED_FILES = (
     "elements/observe.py", "elements/scheme_tty.py", "elements/vision.py",
     "elements/video.py", "elements/scheme_zmq.py",
     "elements/scheme_tensor.py", "elements/scheme_rtsp.py",
-    "media_convert.py")
+    "media_convert.py",
+    # the command line and the terminal dashboard (stdlib curses):
+    "cli.py", "__main__.py", "dashboard.py")
 
 #: module -> [((first, last) reference lines, reason)].  An insertion
 #: sits at the reference line it precedes.
@@ -115,10 +117,26 @@ ALLOWED = {
         ((205, 205), "a decoded network frame stays on the host "
                      "(numpy)")],
     "media_convert.py": [
-        ((9, 10), "the port has no command line (no cli.py)"),
         ((65, 65), "the conversion pipelines run on the torch runtime; "
                    "the port refuses 'jax'"),
         ((90, 90), "the same for video_to_images")],
+    "faults/chaos.py": [
+        ((74, 74), "the chaos fleet's pipelines run on the torch runtime; "
+                   "the port refuses 'jax'"),
+        ((161, 161), "the spawned pipelines carve their placements from "
+                     "eight CPU descriptors (AIKO_CPU_DEVICES, device.py), "
+                     "as the JAX package's force eight host devices")],
+    "cli.py": [
+        ((127, 128), "--profile writes a torch.profiler Chrome trace "
+                     "with per-element spans (tpu/profiling.py), not a "
+                     "jax.profiler trace for TensorBoard/xprof"),
+        ((535, 535), "the loadgen pipeline runs on the torch runtime; "
+                     "the port refuses 'jax'"),
+        ((792, 792), "convert writes the port's safetensors checkpoints "
+                     "(models/checkpoint.py): the port has no orbax"),
+        ((800, 800), "convert llama: the same (the command calls the "
+                     "port's models/convert.py)"),
+        ((816, 816), "convert detector: the same")],
     "pipeline/journal.py": [
         ((83, 87), "_encodable skips torch-typed leaves (the exact "
                    "translation of the jax test): a CUDA tensor would "

@@ -11,9 +11,8 @@ per-service LWT, the registrar reaps it, the gateway re-binds the live
 WebSocket sessions to the survivor, the survivor ADOPTS the dead
 pipeline's journal, and results resume in order with no duplicates.
 The multi-process variant (real SIGKILL over the native MQTT broker)
-is the reference's ``slow``-marked chaos driver test, not twinned: it
-spawns ``python -m aiko_services_tpu registrar`` and pipelines, and the
-port has no command line yet.  Placements
+is twinned as the reference's is, ``slow``-marked: it spawns ``python
+-m aiko_services_tpu_torch registrar`` and pipelines.  Placements
 carve the eight-CPU device pool (``torch_pipeline_elements.cpu_pool``);
 the ``LLM`` element and the batchers run with ``device: cpu``.
 """
@@ -751,6 +750,28 @@ def test_unclean_shutdown_replay_no_drop_no_dup(runtime, tmp_path):
 
 
 # -- gateway idle-session reaping -------------------------------------------
+
+@pytest.mark.slow
+def test_multi_process_chaos_driver_kill():
+    """Full-fidelity chaos walk: real processes of the port's command
+    line, a real SIGKILL, the native TCP MQTT broker -- the
+    LWT/adoption path with no loopback shortcuts."""
+    from aiko_services_tpu_torch.faults.chaos import run_chaos
+    result = run_chaos(frames=8, busy_ms=40.0,
+                       echo=lambda *_args: None)
+    assert result["ok"], result
+    assert result["failovers"] >= 1
+    assert result["dropped"] == 0
+
+
+@pytest.mark.slow
+def test_multi_process_chaos_driver_rolling():
+    from aiko_services_tpu_torch.faults.chaos import run_chaos
+    result = run_chaos(frames=12, mode="rolling", busy_ms=40.0,
+                       echo=lambda *_args: None)
+    assert result["ok"], result
+    assert result["dropped"] == 0
+
 
 def test_idle_session_reaped_frees_stream_and_budget(runtime):
     """A client that vanishes without a FIN (no frames, no pongs) is

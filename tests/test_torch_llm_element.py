@@ -205,16 +205,19 @@ def _first_response(runtime, path):
 
 
 @pytest.mark.parametrize("parameters, message", [
-    ({"checkpoint": "weights/orbax"}, "checkpoint.*not ported"),
-    ({"tokenizer": "weights/hf"}, "tokenizer.*not ported"),
+    ({"checkpoint": "weights/orbax"},
+     "no checkpoint directory weights/orbax"),
+    ({"tokenizer": "weights/hf"}, "tokenizer 'weights/hf' does not exist"),
     ({"model": "tiny-moe"}, "mixture-of-experts.*not ported"),
     ({"quantize": "int4"}, "quantize='int4'"),
 ], ids=["checkpoint", "tokenizer", "tiny-moe", "quantize-typo"])
 def test_llm_unported_options_fail_the_frame(runtime, tmp_path, parameters,
                                               message):
     """An option of the JAX package the port cannot serve yet, or a
-    malformed one, fails the frame that would use it; none is ignored
-    (a tokenizer path never turns into the byte tokenizer)."""
+    malformed one (a checkpoint or tokenizer path that does not exist),
+    fails the frame that would use it; none is ignored (a tokenizer path
+    never turns into the byte tokenizer, a checkpoint path never into
+    random weights)."""
     path = _llm_definition(tmp_path, "llm_refuse",
                            {"max_new_tokens": 2, "max_seq": 64,
                             "device": "cpu", **parameters})
