@@ -24,7 +24,7 @@ import threading
 
 import torch
 
-__all__ = ["resolve_device", "local_devices", "sync_guard",
+__all__ = ["resolve_device", "local_devices", "upload", "sync_guard",
            "sync_allowed"]
 
 _SYNC_LEVELS = {"warn": 1, "error": 2}
@@ -58,6 +58,16 @@ def local_devices() -> list[torch.device]:
     resolve_device("cuda")
     return [torch.device("cuda", index)
             for index in range(torch.cuda.device_count())]
+
+
+def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without waiting for the card: through
+    pinned staging and an asynchronous copy on a CUDA device (a pageable
+    upload waits for the card and trips the sync guard).  On the CPU it
+    is a copy the caller owns (``host`` may share a numpy buffer)."""
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.clone()
 
 
 def _apply_sync_mode() -> None:

@@ -16,7 +16,6 @@ the same text.  The port's differences:
 - ``tokenizer`` names a local HuggingFace directory; a path given is
   loaded or the frame fails (it never turns into ``ByteTokenizer`` in
   silence);
-- ``model: tiny-moe`` raises until ROADMAP Queue 1 item 7;
 - decode ticks run under the pipeline TransferLedger's guard, which on
   the card is process-wide (``pipeline/overlap.py``); the device loop's
   one graph capture lifts it (``models/loop_graph.py``);
@@ -66,17 +65,13 @@ from ..models.checkpoint import restore_or_init
 from ..models.tokenizer import ByteTokenizer, load_tokenizer
 from ..pipeline import PipelineElement, StreamEvent
 from ..services import Actor
-from ..utils import (generate, get_logger, not_ported, parse_bool,
-                     parse_number)
+from ..utils import generate, get_logger, parse_bool, parse_number
 
 __all__ = ["LLMService", "LLM", "DetectionCaption", "PROTOCOL_LLM"]
 
 _logger = get_logger("aiko.llm")
 
 PROTOCOL_LLM = "llm:0"
-
-# Options of the JAX package that wait for ROADMAP Queue 1 item 7.
-_LATER = "ROADMAP Queue 1 item 7"
 
 
 def _collector(tokenizer, collected: list):
@@ -350,11 +345,9 @@ class LLM(PipelineElement):
         # attention kernel (ops/flash_attention.py).
         model = settings.get("model", "tiny")
         bases = {"tiny": llama.LlamaConfig.tiny,
+                 "tiny-moe": llama.LlamaConfig.tiny_moe,
                  "llama3-1b": llama.LlamaConfig.llama3_1b,
                  "llama3-8b": llama.LlamaConfig.llama3_8b}
-        if str(model) == "tiny-moe":
-            raise not_ported("model='tiny-moe' (mixture-of-experts)",
-                             _LATER)
         if str(model) not in bases:
             raise ValueError(f"model={model!r}: one of {sorted(bases)}")
         base = bases[str(model)]()

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device, sync_allowed
+from ..device import resolve_device, sync_allowed, upload as _upload
 from ..ops.layers import attention_decode_append, rms_norm, swiglu
 
 __all__ = ["AsrConfig", "init_params", "abstract_params", "param_shapes",
@@ -119,20 +119,15 @@ def device_constant(key: tuple, device: torch.device, build) -> torch.Tensor:
     with _constants_lock:
         tensor = _constants.get(cache_key)
         if tensor is None:
-            host = torch.from_numpy(np.ascontiguousarray(build()))
-            if device.type == "cuda":
-                host = host.pin_memory()
-            tensor = _constants[cache_key] = host.to(device,
-                                                     non_blocking=True)
+            tensor = _constants[cache_key] = _upload(
+                torch.from_numpy(np.ascontiguousarray(build())), device)
     return tensor
 
 
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host float32 array on ``device`` (pinned memory on the card)."""
-    host = torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32))
-    if device.type == "cuda":
-        return host.pin_memory().to(device, non_blocking=True)
-    return host.to(device)
+    return _upload(torch.from_numpy(
+        np.ascontiguousarray(array, dtype=np.float32)), device)
 
 
 # ---------------------------------------------------------------------------
@@ -625,8 +620,9 @@ class StreamingAsr:
 def asr_loss(params: dict, config: AsrConfig, samples: torch.Tensor,
              targets: torch.Tensor) -> torch.Tensor:
     """Teacher-forced cross-entropy; targets [B, S] padded with PAD=259
-    (ignored).  The forward of the JAX package's fitting objective (the
-    optimiser waits for ``models/train.py``)."""
+    (ignored).  The JAX package's fitting objective, differentiable:
+    ``torch.autograd`` gives ``jax.grad``'s gradients (held by
+    ``tests/test_torch_speech_fit.py``)."""
     c = config
     encoded = encode(params, c, log_mel(c, samples))
     targets = targets.long()

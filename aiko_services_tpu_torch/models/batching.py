@@ -66,7 +66,7 @@ from . import llama
 from .loop_graph import LoopRunner
 from .paged import PageAllocator, init_paged_cache, pages_per_slot
 from .quant import draft_params
-from ..device import resolve_device
+from ..device import resolve_device, upload
 from ..utils.misc import next_power_of_two
 
 __all__ = ["Request", "ContinuousBatcher", "MicroBatcher",
@@ -360,10 +360,8 @@ class ContinuousBatcher:
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without waiting for the stream
         (pinned staging, asynchronous copy)."""
-        tensor = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return tensor.pin_memory().to(self.device, non_blocking=True)
-        return tensor.clone()
+        return upload(torch.from_numpy(np.ascontiguousarray(array)),
+                      self.device)
 
     # -- admission ---------------------------------------------------------
 

@@ -43,8 +43,19 @@ CUDA graph; the speculative verify step reads the cache once for all
 draft positions through the chunk-verify kernel
 (``flash_verify_append``).
 
-Not yet ported (raises ``NotImplementedError`` naming its ROADMAP item):
-mixture-of-experts.
+A mixture-of-experts config (``n_experts > 0``) replaces every block's
+FFN with :func:`_moe_ffn`, the JAX package's GShard einsum dispatch in
+static shapes: one-hot masks, a ``cumsum`` for the slot positions and a
+per-call capacity from the static row count, so it runs inside the loop
+graph's capture and under the sync guard.  Every entry point routes the
+rows the JAX package's counterpart routes (inactive and padded rows
+included, which compete for capacity as they do there).
+
+Training (``models/train.py``) differentiates :func:`prefill_with_aux`.
+It attends each layer's k/v through an out-of-place update of the cache
+layer and writes the cache detached, so no tensor autograd saved is
+written in place; ``config.remat`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -55,8 +66,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
+from ..device import resolve_device, upload
 from ..ops import decode_backend, matmul_backend, topk as ops_topk
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import (_split_paged, _split_stacked,
@@ -66,15 +78,14 @@ from ..ops.flash_decode import (_split_paged, _split_stacked,
 from ..ops.int8_matmul import int8_matmul
 from ..ops.layers import (apply_rope, attention_decode_append,
                           attention_prefill, rms_norm, rope_frequencies)
-from ..utils.misc import not_ported
 from .paged import (gather_layer, gather_slot, is_paged, paged_extent,
                     pool_page_tokens, scatter_pages)
 from .quant import dequantize_kv, is_quantized, map_leaf, quantize_kv
 
 __all__ = ["LlamaConfig", "init_params", "abstract_params", "param_shapes",
            "init_cache", "cache_array", "cache_extent", "prefill",
-           "prefill_into_slot", "prefill_into_slots", "decode_step",
-           "decode_block",
+           "prefill_with_aux", "prefill_into_slot", "prefill_into_slots",
+           "decode_step", "decode_block",
            "decode_loop", "greedy_sample", "temperature_sample",
            "select_tokens"]
 
@@ -163,6 +174,14 @@ class LlamaConfig:
                    n_kv_heads=2, hidden_dim=128, max_seq=max_seq,
                    rope_theta=10_000.0)
 
+    @classmethod
+    def tiny_moe(cls, vocab_size: int = 512, max_seq: int = 256,
+                 n_experts: int = 4) -> "LlamaConfig":
+        """Test-size MoE config (4 experts, top-2 routing)."""
+        return cls(vocab_size=vocab_size, dim=64, n_layers=2, n_heads=4,
+                   n_kv_heads=2, hidden_dim=128, max_seq=max_seq,
+                   rope_theta=10_000.0, n_experts=n_experts)
+
 
 def _dtype(config: LlamaConfig) -> torch.dtype:
     if config.dtype not in _DTYPES:
@@ -172,12 +191,25 @@ def _dtype(config: LlamaConfig) -> torch.dtype:
 
 def param_shapes(config: LlamaConfig) -> dict:
     """The parameter dict's layout: leaf -> (shape, fan_in or None for
-    the norm weights, which start at one)."""
+    the norm weights, which start at one).  A mixture-of-experts config
+    stacks its experts on axis 1: ``w_router`` [L, D, E], ``w_gate`` /
+    ``w_up`` [L, E, D, F], ``w_down`` [L, E, F, D]."""
     c = config
-    if c.n_experts:
-        raise not_ported("mixture-of-experts (n_experts > 0)",
-                         "ROADMAP Queue 1 item 7")
     hd = c.head_dim
+    if c.n_experts:
+        e = c.n_experts
+        ffn = {
+            "w_router": ((c.n_layers, c.dim, e), c.dim),
+            "w_gate": ((c.n_layers, e, c.dim, c.hidden_dim), c.dim),
+            "w_up": ((c.n_layers, e, c.dim, c.hidden_dim), c.dim),
+            "w_down": ((c.n_layers, e, c.hidden_dim, c.dim), c.hidden_dim),
+        }
+    else:
+        ffn = {
+            "w_gate": ((c.n_layers, c.dim, c.hidden_dim), c.dim),
+            "w_up": ((c.n_layers, c.dim, c.hidden_dim), c.dim),
+            "w_down": ((c.n_layers, c.hidden_dim, c.dim), c.hidden_dim),
+        }
     return {
         "embed": ((c.vocab_size, c.dim), c.dim),
         "layers": {
@@ -185,9 +217,7 @@ def param_shapes(config: LlamaConfig) -> dict:
             "wk": ((c.n_layers, c.dim, c.n_kv_heads * hd), c.dim),
             "wv": ((c.n_layers, c.dim, c.n_kv_heads * hd), c.dim),
             "wo": ((c.n_layers, c.n_heads * hd, c.dim), c.n_heads * hd),
-            "w_gate": ((c.n_layers, c.dim, c.hidden_dim), c.dim),
-            "w_up": ((c.n_layers, c.dim, c.hidden_dim), c.dim),
-            "w_down": ((c.n_layers, c.hidden_dim, c.dim), c.hidden_dim),
+            **ffn,
             "attn_norm": ((c.n_layers, c.dim), None),
             "mlp_norm": ((c.n_layers, c.dim), None),
         },
@@ -211,7 +241,7 @@ def init_params(seed: int, config: LlamaConfig,
         if fan_in is None:
             return torch.ones(shape, dtype=dtype, device=device)
         out = torch.empty(shape, dtype=dtype, device=device)
-        for part in (out if len(shape) == 3 else [out]):
+        for part in (out if len(shape) >= 3 else [out]):
             part.copy_(torch.randn(part.shape, generator=generator,
                                    device=device, dtype=torch.float32)
                        .mul_(fan_in ** -0.5))
@@ -372,11 +402,78 @@ def _layer(params: dict, index: int) -> dict:
             for name, leaf in params["layers"].items()}
 
 
+def _expert_matmul(t: torch.Tensor, w, pattern: str) -> torch.Tensor:
+    """Batched-over-experts einsum for raw or weight-only int8 expert
+    leaves; the [E, 1, F] per-channel scale applies after the product.
+    An int8 leaf takes the plain cast product (kernel #5 takes 2-D
+    leaves), the JAX package's arithmetic."""
+    if is_quantized(w):
+        return torch.einsum(pattern, t, w["int8"].to(t.dtype)) \
+            * w["scale"].to(t.dtype)
+    return torch.einsum(pattern, t, w)
+
+
+def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict):
+    """Top-k routed mixture-of-experts SwiGLU FFN, the JAX package's
+    GShard einsum dispatch.  x: [B, S, D] normed activations.  Returns
+    (ffn_out [B, S, D], the load-balance aux scalar, float32).
+
+    Every shape is static: each expert takes a ``moe_capacity(B * S)``
+    token buffer, and a (token, expert) route past a full buffer is
+    dropped (the token keeps its residual stream).  The router's top-k
+    is a stable descending sort, so equal probabilities pick the lowest
+    expert first, as ``lax.top_k`` does; the gates are gathered from the
+    probabilities, so they carry the router's gradient."""
+    c = config
+    b, s, d = x.shape
+    n = b * s
+    e, k = c.n_experts, c.n_experts_per_token
+    cap = c.moe_capacity(n)
+    xf = x.reshape(n, d)
+
+    probs = torch.softmax(xf.float() @ layer["w_router"].float(), dim=-1)
+    choices = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).indices[:, :k]            # [n, k]
+    gates = probs.gather(1, choices)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    experts = torch.arange(e, device=x.device)
+    onehot = (choices[..., None] == experts).float()            # [n, k, E]
+    flat = onehot.reshape(n * k, e)
+    # Each (token, choice)'s slot in its expert's buffer: how many
+    # earlier rows picked the same expert (token-major order, so a
+    # token's k distinct choices never collide).
+    positions = ((torch.cumsum(flat, dim=0) - flat) * flat).sum(-1)
+    slots = torch.arange(cap, device=x.device)
+    pos_onehot = (positions.long()[:, None] == slots).float() \
+        * (positions < cap).float()[:, None]                    # [n*k, C]
+    # The k choices pre-summed into one [n, E, C] dispatch/combine mask
+    # (lossless: a token's choices hit distinct experts).
+    mask = torch.einsum("nke,nkc->nec", onehot,
+                        pos_onehot.reshape(n, k, cap)).to(x.dtype)
+    dispatch = torch.einsum("nec,nd->ecd", mask, xf)
+    gate_h = F.silu(_expert_matmul(dispatch, layer["w_gate"],
+                                   "ecd,edf->ecf"))
+    up_h = _expert_matmul(dispatch, layer["w_up"], "ecd,edf->ecf")
+    out_e = _expert_matmul(gate_h * up_h, layer["w_down"],
+                           "ecf,efd->ecd")                      # [E, C, D]
+    gates_e = torch.einsum("nke,nk->ne", onehot, gates)         # [n, E]
+    combine = mask * gates_e.to(x.dtype)[:, :, None]            # [n, E, C]
+    out = torch.einsum("nec,ecd->nd", combine, out_e)
+
+    # GShard load-balance aux: E * sum_e(fraction routed * mean prob),
+    # the fraction over the n*k choices -- 1.0 at perfect balance.
+    fraction = flat.reshape(n, k, e).sum(1).mean(0) / k
+    aux = e * torch.sum(fraction * probs.mean(0))
+    return out.reshape(b, s, d), aux
+
+
 def _block(config: LlamaConfig, hidden, layer: dict, attend,
            kernel: bool = False):
     """One transformer block.  ``attend(q, k, v) -> attn_out`` does RoPE,
     the cache write and attention (prefill and decode differ there);
-    ``kernel`` routes int8 weight leaves through kernel #5."""
+    ``kernel`` routes 2-D int8 weight leaves through kernel #5.  Returns
+    (hidden, the MoE aux scalar -- the float 0.0 for a dense FFN, so a
+    dense step launches nothing for it)."""
     c = config
     b, s, _ = hidden.shape
     hd = c.head_dim
@@ -391,20 +488,32 @@ def _block(config: LlamaConfig, hidden, layer: dict, attend,
     hidden = hidden + mm(attn_out.reshape(b, s, c.n_heads * hd),
                          layer["wo"])
     x = rms_norm(hidden, layer["mlp_norm"], c.norm_eps)
+    if c.n_experts:
+        ffn_out, aux = _moe_ffn(c, x, layer)
+        return hidden + ffn_out, aux
     gate = F.silu(mm(x, layer["w_gate"]))
-    return hidden + mm(gate * mm(x, layer["w_up"]), layer["w_down"])
+    return hidden + mm(gate * mm(x, layer["w_up"]), layer["w_down"]), 0.0
 
 
 def _forward(params: dict, config: LlamaConfig, tokens: torch.Tensor,
-             attend_factory) -> torch.Tensor:
+             attend_factory, remat: bool = False):
     """Embed, run every layer with ``attend_factory(layer_index)``,
-    final-norm and unembed -> logits [B, S, vocab]."""
+    final-norm and unembed -> (logits [B, S, vocab], the MoE aux summed
+    over layers).  ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``
+    around the scanned block)."""
     kernel = _matmul_kernel(config, tokens.device)
     hidden = params["embed"][tokens]
+    aux = 0.0
     for index in range(config.n_layers):
-        hidden = _block(config, hidden, _layer(params, index),
-                        attend_factory(index), kernel)
-    return _finish(params, config, hidden, kernel)
+        args = (config, hidden, _layer(params, index), attend_factory(index),
+                kernel)
+        if remat:
+            hidden, layer_aux = checkpoint(_block, *args, use_reentrant=False)
+        else:
+            hidden, layer_aux = _block(*args)
+        aux = aux + layer_aux
+    return _finish(params, config, hidden, kernel), aux
 
 
 def _finish(params: dict, config: LlamaConfig, hidden,
@@ -413,14 +522,31 @@ def _finish(params: dict, config: LlamaConfig, hidden,
     return matmul(hidden, params["unembed"], kernel)
 
 
-def prefill(params: dict, config: LlamaConfig, tokens: torch.Tensor,
-            cache: dict, start_positions: torch.Tensor) \
-        -> tuple[torch.Tensor, dict]:
+def _kv_put(leaf, new, rows, cols):
+    """Out-of-place :func:`_kv_write`: ``leaf`` (a cache layer) with
+    ``new`` at ``[rows, cols]``, as new tensors autograd can track."""
+    if is_quantized(leaf):
+        return {name: leaf[name].index_put((rows, cols), new[name])
+                for name in ("int8", "scale")}
+    return leaf.index_put((rows, cols), new)
+
+
+def prefill_with_aux(params: dict, config: LlamaConfig,
+                     tokens: torch.Tensor, cache: dict,
+                     start_positions: torch.Tensor) \
+        -> tuple[torch.Tensor, dict, torch.Tensor]:
     """Whole-batch prompt prefill.  tokens: [B, S] (right padding
     allowed); start_positions: [B] cache offset each row begins at.
     Writes each row's k/v at [b, start + i] and returns (logits
-    [B, S, vocab], cache).  Dense caches only: paged serving admission
-    goes through ``prefill_into_slot(s)``."""
+    [B, S, vocab], cache, the MoE load-balance aux summed over layers --
+    a float32 scalar, 0 for a dense FFN).  Dense caches only: paged
+    serving admission goes through ``prefill_into_slot(s)``.
+
+    Differentiable (the training path): each layer attends through
+    :func:`_kv_put`'s out-of-place copy of its cache layer, and the cache
+    takes the detached k/v in place, so autograd saves no tensor that a
+    later write changes.  ``config.remat`` recomputes each layer in the
+    backward pass."""
     if is_paged(cache):
         raise ValueError(
             "prefill works on dense caches (training / whole-batch "
@@ -440,15 +566,30 @@ def prefill(params: dict, config: LlamaConfig, tokens: torch.Tensor,
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
             k = apply_rope(k, rope, positions)
+            layers = []
             for side, new in (("k", k), ("v", v)):
-                _kv_write(cache[side], _kv_stored(cache[side], new), write)
-            return attention_prefill(
-                q, _grouped(_at_layer(cache["k"], index), c.n_kv_heads),
-                _grouped(_at_layer(cache["v"], index), c.n_kv_heads),
-                positions)
+                stored = _kv_stored(cache[side], new)
+                layers.append(_kv_put(_at_layer(cache[side], index), stored,
+                                      rows, positions))
+                _kv_write(cache[side], map_leaf(stored, torch.Tensor.detach),
+                          write)
+            return attention_prefill(q, _grouped(layers[0], c.n_kv_heads),
+                                     _grouped(layers[1], c.n_kv_heads),
+                                     positions)
         return attend
 
-    return _forward(params, c, tokens, factory), cache
+    logits, aux = _forward(params, c, tokens, factory, remat=c.remat)
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, cache, aux
+
+
+def prefill(params: dict, config: LlamaConfig, tokens: torch.Tensor,
+            cache: dict, start_positions: torch.Tensor) \
+        -> tuple[torch.Tensor, dict]:
+    """:func:`prefill_with_aux` without the aux: (logits, cache)."""
+    return prefill_with_aux(params, config, tokens, cache,
+                            start_positions)[:2]
 
 
 def prefill_into_slot(params: dict, config: LlamaConfig,
@@ -515,7 +656,7 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
             return attention_prefill(q, k_row, v_row, positions)
         return attend
 
-    return _forward(params, c, tokens, factory), cache
+    return _forward(params, c, tokens, factory)[0], cache
 
 
 def prefill_into_slots(params: dict, config: LlamaConfig,
@@ -543,9 +684,9 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
     if paged:
         _require_whole_pages(cache, starts, s)
     rope = _rope(c, tokens.device)
-    positions = torch.tensor(starts, device=tokens.device)[:, None] \
+    positions = upload(torch.tensor(starts), tokens.device)[:, None] \
         + torch.arange(s, device=tokens.device)[None, :]
-    slot_index = torch.tensor(slots, device=tokens.device)
+    slot_index = upload(torch.tensor(slots), tokens.device)
 
     def factory(index):
         def write_rows(arr, value):
@@ -578,7 +719,7 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
                                      positions)
         return attend
 
-    return _forward(params, c, tokens, factory), cache
+    return _forward(params, c, tokens, factory)[0], cache
 
 
 def _resolve_decode_flash(c: LlamaConfig, cache: dict) -> bool:
@@ -651,7 +792,7 @@ def _decode_step_impl(params: dict, config: LlamaConfig,
             return out
         return attend
 
-    logits = _forward(params, c, tokens[:, None], factory)
+    logits, _ = _forward(params, c, tokens[:, None], factory)
     return logits[:, 0, :], cache
 
 
@@ -849,7 +990,8 @@ def _draft_window(draft: dict, config: LlamaConfig, tokens, cache: dict,
                 scratch_k[index, :, step] = kk[:, 0].to(dtype)
                 scratch_v[index, :, step] = vv[:, 0].to(dtype)
                 return out
-            hidden = _block(c, hidden, _layer(draft, index), attend, kernel)
+            hidden, _ = _block(c, hidden, _layer(draft, index), attend,
+                               kernel)
         logits = _finish(draft, c, hidden, kernel)           # [B, 1, V]
         current = logits[:, 0, :].argmax(-1).to(torch.int32)
         drafts.append(current)
@@ -937,7 +1079,7 @@ def _chunk_verify(params: dict, config: LlamaConfig, chunk, cache: dict,
             return out
         return attend
 
-    return _forward(params, c, chunk, factory), cache
+    return _forward(params, c, chunk, factory)[0], cache
 
 
 _LOOP_MODES = ("off", "ngram", "draft")

@@ -2,7 +2,9 @@
 
 Counterpart of ``aiko_services_tpu/models/quant.py`` (all of it but
 ``quantize_specs``, which maps the JAX mesh's partition specs and waits
-for the parallel port, ROADMAP Queue 1 item 7).
+for multi-card meshes, ROADMAP Queue 1 item 7).  A mixture-of-experts
+tree's 4-D expert leaves quantize per expert and output channel
+(``{"int8" [L, E, D, F], "scale" [L, E, 1, F]}``).
 
 Decode streams every weight byte and every cached k/v byte each step.
 Symmetric int8 halves both streams: weights per output channel

@@ -270,7 +270,7 @@ def synthesize(params: dict, config: TtsConfig, text: str) -> np.ndarray:
 
 def tts_loss(params: dict, config: TtsConfig, tokens: torch.Tensor,
              mel_target: torch.Tensor) -> torch.Tensor:
-    """L1 mel regression -- the forward of the JAX package's fitting
-    objective for (text, mel) pairs."""
+    """L1 mel regression -- the JAX package's fitting objective for
+    (text, mel) pairs, differentiable as ``asr_loss`` is."""
     mel = synthesize_mel(params, config, tokens)
     return (mel - mel_target.to(mel.dtype)).abs().mean()

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..device import resolve_device, upload
 
 __all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu",
            "repeat_kv", "attention_prefill", "attention_decode",
@@ -48,11 +48,7 @@ def rope_frequencies(head_dim: int, max_positions: int,
     angles = np.outer(positions, inv_freq)
     table = torch.from_numpy(
         np.stack([np.cos(angles), np.sin(angles)]).astype(np.float32))
-    if device.type == "cuda":
-        # Through pinned memory: a pageable upload waits for the card
-        # (and trips a transfer guard around the first admission).
-        return table.pin_memory().to(device, non_blocking=True)
-    return table
+    return upload(table, device)
 
 
 def apply_rope(x: torch.Tensor, rope_table: torch.Tensor,

@@ -159,12 +159,46 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     detections of 4 frames bitwise equal to a seed-0 Detector's.  It
     prints the snapshot, conversion and restore seconds, the build
     seconds and peaks and the trace's size.  The temporary directory
-    (6 GB) is removed at the end, also on a failure.
+    (6 GB) is removed at the end, also on a failure;
+11. training and the mixture-of-experts (``train-moe``), every launch
+    counter zeroed before each part.  (a) ``models/train.py`` on
+    Llama-3.2-1B at its published widths (``max_seq`` 512, bf16,
+    ``init_train_state(0)``, AdamW at 3e-4): 5 steps on one 4 x 512
+    batch (numpy seed 0); every loss finite, the 5th below the 1st, the
+    1st within 2e-2 (relative) of the cross-entropy of the serving
+    path's logits (``prefill_into_slot``, row by row) on the same
+    tokens; then ``remat=True``
+    and ``accumulate_steps=2`` from the same init, 2 steps each: first
+    losses within 1e-2 and 5e-2 of the plain one and the remat peak
+    below the plain peak; no kernel launch.  (b) a 4-expert MoE at
+    those widths (``tiny_moe``'s top-2 routing and capacity factor 2.0,
+    ``max_seq`` 2048, flash prefill and decode, seed 0) serving phase
+    3's 8 requests at ``sample_top_k=50``: dense at decode_block 4, the
+    captured loop (``decode_block_tokens=16``), paged (64-token pages)
+    at decode_block 1 and the ngram device loop over pages, each run
+    launching its path's kernels and no other (``run_plan``); every
+    request finishes, no page leaks, greedy streams equal across the
+    first three, kernel-path logits within LOGITS_TOL of the dense path
+    (``check_dense_agreement``); then ``(CAP (LLM))`` with ``model:
+    tiny-moe`` through ``create_pipeline`` under ``transfer_guard:
+    disallow`` on the device loop: every frame OKAY and equal to the
+    direct batcher, one ledger fetch a retired block, top-k alone
+    launched.  (c) the MoE at ``max_seq`` 512 with ``remat=True``, 3
+    steps on 2 x 512 tokens: losses (CE + 0.01 aux) finite, the last
+    below the first, the aux at init printed; no kernel launch.  (d)
+    config 5's ASR (Whisper-base widths, bf16) on ``test_asr_fit.py``'s
+    tone corpus (numpy seed 7), 5 ``Adam(3e-3)`` steps, and the base
+    TTS, 3 steps on ``tts_loss``: losses finite, the last below the
+    first; no kernel launch.  It prints each mode's step ms (CUDA
+    events, steps 2 on), tokens/s, peak above what the card held and,
+    for 11a, 6 N tokens / step time as a share of 989 TF/s; 11b's runs
+    as phase 3's and the MoE decode step's ms.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
 the pipeline runs' own under ``pipeline_launches``, phase 9's zero
-under ``fusion-chain``, phase 10's under ``checkpoint-cli``; the entries on config 4's and config 5's paths
+under ``fusion-chain``, phase 10's under ``checkpoint-cli``, phase 11's
+(11b's, with 11a's, 11c's and 11d's zeros) under ``train-moe``; the entries on config 4's and config 5's paths
 carry ``"path"`` and their run's launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
 of JAX or of the JAX package.
 """
@@ -174,6 +208,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import queue
 import subprocess
 import sys
@@ -1715,7 +1750,8 @@ def agree_with_direct(label: str, streams: dict, record: dict,
 
 def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
                  card: str, detector: dict | None = None,
-                 frames_in: list | None = None, after=None) -> dict:
+                 frames_in: list | None = None, after=None,
+                 kernels: set | None = None) -> dict:
     """One run of the ``(CAP (LLM))`` pipeline over PIPELINE_DETECTIONS
     (see the module docstring) -- or of ``(DET (CAP (LLM)))`` over
     ``frames_in`` when ``detector`` holds the detector's parameters --
@@ -1725,7 +1761,9 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
     last frame's response arrives; the direct run is a comparison and
     counts nowhere.  The element's module is instrumented for the run
     only (``recording_llm``).  ``after(pipeline, frame_metrics)`` runs
-    before the pipeline stops; its dict joins the result."""
+    before the pipeline stops; its dict joins the result.  ``kernels``
+    names the run's path when it is not ``decode`` with its combine, #4
+    and #6."""
     import torch
     from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
 
@@ -1804,8 +1842,8 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
             "peak_memory_gib": peak, "card": card}
         print(f"pipeline {json.dumps(metrics)} launches "
               f"{json.dumps(counts)}", flush=True)
-        check_launches(label, counts, {decode, "decode_combine",
-                                       "flash_attention", "topk"})
+        check_launches(label, counts, kernels if kernels is not None else {
+            decode, "decode_combine", "flash_attention", "topk"})
         if batcher.device_loop and (
                 ledger["explicit_by_label"].get("llm_block", 0)
                 != batcher.blocks_retired or ledger["implicit"]
@@ -2856,6 +2894,385 @@ def checkpoint_run(card: str) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# -- phase 11: training and the mixture-of-experts ---------------------------
+
+TRAIN_BATCH = (4, 512)      # 11a: Llama-3.2-1B, 4 x 512 tokens
+TRAIN_STEPS = 5
+MOE_TRAIN_BATCH = (2, 512)  # 11c: the 4-expert MoE, remat
+MOE_TRAIN_STEPS = 3
+MOE_EXPERTS = 4
+ASR_FIT_STEPS = 5           # 11d: config 5's ASR on the tone corpus
+TTS_FIT_STEPS = 3
+#: test_asr_fit.py's corpus: four "words", each a pure tone (Hz).
+TONES = {"a": 400.0, "b": 800.0, "c": 1600.0, "d": 3000.0}
+#: 11b's ``(LLM)`` at tiny-moe widths (head_dim 16: no attention kernel
+#: takes it, so dense attention; greedy rows still go through top-k).
+MOE_PIPELINE_LLM = {"model": "tiny-moe", "attention": "dense",
+                    "decode_kernel": "reference", "decode_block_tokens": 16}
+
+
+def train_config(**overrides):
+    """Llama-3.2-1B at its published widths (dim 2048, 16 layers, 32/8
+    heads, FFN 8192, vocab 128,256), max_seq 512, bf16."""
+    from aiko_services_tpu_torch.models import llama
+    return dataclasses.replace(llama.LlamaConfig.llama3_1b(),
+                               **{"max_seq": 512, **overrides})
+
+
+def moe_config(**overrides):
+    """``tiny_moe``'s routing (top-2, capacity factor 2.0) at Llama-3.2-1B
+    widths with MOE_EXPERTS experts, flash prefill and decode, bf16."""
+    from aiko_services_tpu_torch.models import llama
+    settings = dict(n_experts=MOE_EXPERTS, max_seq=2048, attention="flash",
+                    decode_attention="flash")
+    return dataclasses.replace(llama.LlamaConfig.llama3_1b(),
+                               **{**settings, **overrides})
+
+
+def token_batch(config, shape, device, seed: int = 0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, config.vocab_size, shape)) \
+        .to(device)
+
+
+def free_card() -> float:
+    """Collect, empty the cache, reset the peak; GiB the card still
+    holds."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def serving_cross_entropy(params, config, tokens) -> float:
+    """The next-token cross-entropy of the SERVING path's logits on
+    ``tokens``: ``llama.prefill_into_slot`` (the batcher's admission
+    forward, which writes its cache in place), one row a call.  The
+    yardstick of the differentiable forward's first loss."""
+    import torch
+    import torch.nn.functional as F
+    from aiko_services_tpu_torch.models import llama
+    b, s = tokens.shape
+    with torch.no_grad():
+        cache = llama.init_cache(config, b, s, device=tokens.device)
+        logits = torch.cat([
+            llama.prefill_into_slot(params, config, tokens[row:row + 1],
+                                    cache, row, 0)[0] for row in range(b)])
+        loss = F.cross_entropy(
+            logits[:, :-1].float().reshape(-1, logits.shape[-1]),
+            tokens[:, 1:].reshape(-1))
+    return float(loss)
+
+
+def train_steps(label: str, config, tokens, steps: int, card: str, *,
+                accumulate: int = 1, reference: bool = False) -> dict:
+    """``init_train_state(0)`` on the card, then ``steps`` AdamW steps of
+    ``make_train_step`` on one batch.  Step times are CUDA events around
+    each step, steps 2 on (the first allocates the moments); the peak is
+    ``max_memory_allocated`` over the steps above what the card held
+    before the init.  ``reference`` adds the serving path's cross-entropy
+    on the initial weights."""
+    import torch
+    from aiko_services_tpu_torch.models import llama, train
+    from aiko_services_tpu_torch.parallel.mesh import MeshPlan
+    held = free_card()
+    plan = MeshPlan.build({"dp": 1}, devices=[tokens.device])
+    params, opt_state, optimizer = train.init_train_state(0, config, plan)
+    out = {"run": label, "steps": steps, "accumulate_steps": accumulate,
+           "remat": config.remat, "batch": list(tokens.shape),
+           "params_b": sum(leaf.numel() for leaf in _leaves(params)) / 1e9,
+           "card": card}
+    if reference:
+        out["serving_cross_entropy"] = serving_cross_entropy(params, config,
+                                                             tokens)
+    if config.n_experts:
+        with torch.no_grad():
+            _, _, aux = llama.prefill_with_aux(
+                params, config, tokens,
+                llama.init_cache(config, *tokens.shape, device=tokens.device),
+                torch.zeros(tokens.shape[0], dtype=torch.int32,
+                            device=tokens.device))
+        out["aux_at_init"] = float(aux)
+        out["aux_at_init_per_layer"] = float(aux) / config.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = train.make_train_step(config, plan, optimizer=optimizer,
+                                 accumulate_steps=accumulate)
+    losses, events = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, loss = step(params, opt_state, tokens)
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    out["losses"] = [float(loss) for loss in losses]
+    times = [start.elapsed_time(end) for start, end in events]
+    out["step_ms"] = times
+    timed = times[1:] or times
+    out["step_ms_mean"] = sum(timed) / len(timed)
+    out["tokens_per_s"] = tokens.numel() / (out["step_ms_mean"] / 1e3)
+    out["peak_gib_above_held"] = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        - held
+    if not config.n_experts:
+        # 6 N operations a token, N the matmul parameters (the embedding
+        # is a gather): the model-flops share of the bf16 peak.
+        matmul_params = out["params_b"] * 1e9 - params["embed"].numel()
+        out["model_flops_share_of_989_tf"] = (
+            6 * matmul_params * tokens.numel()
+            / (out["step_ms_mean"] / 1e3) / PEAK_FLOPS["bf16"])
+    del params, opt_state, step, losses
+    free_card()
+    print(f"train {json.dumps(out)}", flush=True)
+    if not all(math.isfinite(loss) for loss in out["losses"]):
+        raise AssertionError(f"{label}: a loss is not finite: "
+                             f"{out['losses']}")
+    return out
+
+
+def dense_training(device, card: str) -> dict:
+    """11a (module docstring)."""
+    config = train_config()
+    tokens = token_batch(config, TRAIN_BATCH, device)
+    plain = train_steps("train-1b", config, tokens, TRAIN_STEPS, card,
+                        reference=True)
+    remat = train_steps("train-1b-remat", train_config(remat=True), tokens,
+                        2, card)
+    accumulated = train_steps("train-1b-accumulate-2", config, tokens, 2,
+                              card, accumulate=2)
+    first = plain["losses"][0]
+    gaps = {"serving": abs(first - plain["serving_cross_entropy"]) / first,
+            "remat": abs(remat["losses"][0] - first),
+            "accumulate": abs(accumulated["losses"][0] - first)}
+    print(f"train-1b: first loss {first:.6f}, serving path's cross-entropy "
+          f"{plain['serving_cross_entropy']:.6f} (rel gap "
+          f"{gaps['serving']:.3e}, tol 2e-2); remat first loss gap "
+          f"{gaps['remat']:.3e} (tol 1e-2), accumulate-2 {gaps['accumulate']:.3e}"
+          f" (tol 5e-2); peaks above held: plain "
+          f"{plain['peak_gib_above_held']:.3f} GiB, remat "
+          f"{remat['peak_gib_above_held']:.3f}, accumulate-2 "
+          f"{accumulated['peak_gib_above_held']:.3f}", flush=True)
+    if not plain["losses"][-1] < first:
+        raise AssertionError(f"train-1b: the loss did not fall: "
+                             f"{plain['losses']}")
+    if not (gaps["serving"] <= 2e-2 and gaps["remat"] <= 1e-2
+            and gaps["accumulate"] <= 5e-2):
+        raise AssertionError(f"train-1b: first losses disagree: {gaps}")
+    if not remat["peak_gib_above_held"] < plain["peak_gib_above_held"]:
+        raise AssertionError("train-1b: the remat peak is not below the "
+                             "plain peak")
+    return {"plain": plain, "remat": remat, "accumulate": accumulated,
+            "gaps": gaps}
+
+
+def moe_decode_ms(params, config, device, steps: int = 10) -> float:
+    """Mean device-timeline ms of one eager ``decode_step`` of 8 rows at
+    1,000 cached positions (CUDA events around ``steps`` steps)."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    cache = llama.init_cache(config, 8, device=device)
+    tokens = torch.arange(8, device=device) * 7 + 3
+    lengths = torch.full((8,), 1000, dtype=torch.int32, device=device)
+    llama.decode_step(params, config, tokens, cache, lengths)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        logits, cache = llama.decode_step(params, config, tokens, cache,
+                                          lengths)
+    end.record()
+    torch.cuda.synchronize()
+    del cache
+    return start.elapsed_time(end) / steps
+
+
+def moe_serving(device, card: str) -> tuple[dict, dict]:
+    """11b (module docstring) -> (results, launches of its runs)."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    config = moe_config()
+    free_card()
+    begin = time.perf_counter()
+    params = llama.init_params(0, config, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    print(f"moe: {MOE_EXPERTS} experts at Llama-3.2-1B widths, random init "
+          f"{time.perf_counter() - begin:.2f} s, {n_params / 1e9:.3f} B "
+          f"params, capacity {config.moe_capacity(8)} of 8 decode rows, "
+          f"{config.moe_capacity(512)} of a 512-token chunk", flush=True)
+    mixed = mixed_requests(config)
+    paged = dict(kv_page_tokens=64)
+    plan = [("moe-dense-4", mixed, dict(decode_block=4)),
+            ("moe-loop-16", mixed, dict(decode_block_tokens=16),
+             {"flash_decode_attention_stacked"}),
+            ("moe-paged-1", mixed, dict(decode_block=1, **paged)),
+            ("moe-loop-ngram-paged-16", mixed,
+             dict(speculative="ngram", spec_tokens=4, decode_block_tokens=16,
+                  **paged), {"flash_verify_attention_paged"})]
+    runs, launches = {}, {}
+    run_plan(plan, params, config, device, card, runs, launches)
+    greedy = [f"r{index}" for index in range(0, len(mixed), 2)]
+    for other in ("moe-loop-16", "moe-paged-1"):
+        agree = sum(runs["moe-dense-4"]["streams"][rid]
+                    == runs[other]["streams"][rid] for rid in greedy)
+        print(f"moe: greedy streams equal, moe-dense-4 and {other}: "
+              f"{agree}/{len(greedy)}", flush=True)
+        if agree != len(greedy):
+            raise AssertionError(f"moe: {other} emitted other greedy tokens "
+                                 f"than moe-dense-4")
+    for label in ("moe-paged-1", "moe-loop-ngram-paged-16"):
+        if runs[label]["leaked"]:
+            raise AssertionError(f"{label}: leaked pages")
+    if runs["moe-loop-ngram-paged-16"]["metrics"]["draft_tokens"] <= 0:
+        raise AssertionError("moe-loop-ngram-paged-16: no draft tokens")
+    agreement = check_dense_agreement(params, config, device)
+    decode_ms = moe_decode_ms(params, config, device)
+    print(f"moe: decode_step of 8 rows at 1,000 positions {decode_ms:.3f} ms "
+          f"(CUDA events, eager) on {card}", flush=True)
+    del params
+    free_card()
+    pipeline = pipeline_run("moe-pipeline-loop-16", MOE_PIPELINE_LLM,
+                            {"transfer_guard": "disallow"}, None, card,
+                            kernels={"topk"})
+    return ({"runs": {label: run["metrics"] for label, run in runs.items()},
+             "params_b": n_params / 1e9, "agreement": agreement,
+             "decode_step_ms": decode_ms,
+             "pipeline": pipeline["metrics"]},
+            {"moe-serving": launches,
+             "moe-pipeline-loop-16": pipeline["launches"]})
+
+
+def moe_training(device, card: str) -> dict:
+    """11c (module docstring)."""
+    config = moe_config(max_seq=512, remat=True)
+    tokens = token_batch(config, MOE_TRAIN_BATCH, device)
+    out = train_steps("train-moe-remat", config, tokens, MOE_TRAIN_STEPS,
+                      card)
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"train-moe-remat: the loss did not fall: "
+                             f"{out['losses']}")
+    return out
+
+
+def tone_chunk(config, freq: float, rng):
+    """One chunk of a tone with random phase and noise (test_asr_fit.py's
+    corpus)."""
+    import numpy as np
+    t = np.arange(int(config.sample_rate * config.chunk_seconds),
+                  dtype=np.float32) / config.sample_rate
+    wave = 0.5 * np.sin(2 * np.pi * freq * t + rng.uniform(0, 2 * np.pi))
+    return (wave + rng.normal(0, 0.01, wave.shape)).astype(np.float32)
+
+
+def fit_steps(label: str, loss_fn, params: dict, batches, card: str) -> dict:
+    """``torch.optim.Adam(3e-3)`` steps of ``loss_fn(params, batch)``, one
+    a batch; CUDA-event step times, steps 2 on."""
+    import torch
+    leaves = list(_leaves(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    optimizer = torch.optim.Adam(leaves, lr=3e-3)
+    losses, events = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = loss_fn(params, batch)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        end.record()
+        losses.append(loss.detach())
+        events.append((start, end))
+    torch.cuda.synchronize()
+    times = [start.elapsed_time(end) for start, end in events]
+    out = {"run": label, "losses": [float(loss) for loss in losses],
+           "step_ms": times, "step_ms_mean": sum(times[1:]) / (len(times) - 1),
+           "card": card}
+    print(f"fit {json.dumps(out)}", flush=True)
+    if not all(math.isfinite(loss) for loss in out["losses"]) \
+            or not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"{label}: losses {out['losses']}")
+    return out
+
+
+def speech_fits(device, card: str) -> dict:
+    """11d (module docstring)."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.models import asr, tts
+    free_card()
+    config = asr.AsrConfig.base()
+    params = asr.init_params(0, config, device=device)
+    rng = np.random.default_rng(7)
+    letters = list(TONES)
+    targets = np.full((len(letters), config.max_text), 259, dtype=np.int32)
+    for row, letter in enumerate(letters):
+        ids = asr.encode_text(config, letter) + [config.eos_token]
+        targets[row, :len(ids)] = ids
+    targets = torch.from_numpy(targets).to(device)
+    batches = [torch.from_numpy(np.stack(
+        [tone_chunk(config, TONES[letter], rng) for letter in letters]))
+        .to(device) for _ in range(ASR_FIT_STEPS)]
+    asr_fit = fit_steps("asr-base-tones", lambda p, audio: asr.asr_loss(
+        p, config, audio, targets), params, batches, card)
+    del params, batches
+    free_card()
+    tts_config = tts.TtsConfig()
+    params = tts.init_params(0, tts_config, device=device)
+    texts = ["aa", "bb", "cc", "dd"]
+    tokens = torch.from_numpy(np.stack(
+        [tts.encode_text(tts_config, text) for text in texts])).to(device)
+    frames, mels = tts_config.n_frames, tts_config.n_mels
+    grid_f = np.arange(frames)[:, None] / frames
+    grid_m = np.arange(mels)[None, :] / mels
+    mel_targets = torch.from_numpy(np.stack(
+        [np.sin(2 * np.pi * ((i + 1) * grid_f + i * grid_m))
+         for i in range(len(texts))]).astype(np.float32)).to(device)
+    tts_fit = fit_steps("tts-base", lambda p, _: tts.tts_loss(
+        p, tts_config, tokens, mel_targets), params,
+        [None] * TTS_FIT_STEPS, card)
+    del params
+    free_card()
+    return {"asr": asr_fit, "tts": tts_fit}
+
+
+def train_moe_run(card: str) -> dict:
+    """Phase 11 (module docstring): 11a, 11c and 11d must launch no
+    kernel of the port; 11b's runs launch their paths' kernels (each run
+    checks its own).  Returns the phase's summed launches."""
+    from aiko_services_tpu_torch.device import resolve_device
+    device = resolve_device(None)
+    held = free_card()
+    print(f"train-moe: the card holds {held:.3f} GiB before the phase",
+          flush=True)
+    counters = zero_launches()
+    dense = dense_training(device, card)
+    counts = read_launches(counters)
+    check_launches("train-1b", counts, set())
+    serving, serving_launches = moe_serving(device, card)
+    counters = zero_launches()
+    moe = moe_training(device, card)
+    fits = speech_fits(device, card)
+    counts = read_launches(counters)
+    check_launches("train-moe-remat and the speech fits", counts, set())
+    total = {}
+    for run_counts in serving_launches.values():
+        for name, count in run_counts.items():
+            total[name] = total.get(name, 0) + count
+    out = {"dense": dense, "moe_serving": serving, "moe_training": moe,
+           "speech_fits": fits, "launches_by_run": serving_launches}
+    print(f"train-moe {json.dumps(out)}", flush=True)
+    return {"launches": total, "train_moe": out}
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -3054,6 +3471,10 @@ def main() -> int:
     # -- phase 10: checkpoints, HF conversion, the profiler, the CLI ------
     checkpoint = checkpoint_run(card)
     pipeline_launches["checkpoint-cli"] = checkpoint["launches"]
+
+    # -- phase 11: training and the mixture-of-experts ---------------------
+    train_moe = train_moe_run(card)
+    pipeline_launches["train-moe"] = train_moe["launches"]
 
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)

@@ -1,8 +1,8 @@
 """Port parity for ``models/llama.py``: the same weights (bridged from
 the JAX pytree through numpy) and the same inputs through both packages
 on ``LlamaConfig.tiny`` at float32, logits within 1e-4 and greedy tokens
-identical; plus the bf16 bridge, config parity and the option that
-raises until its ROADMAP item lands."""
+identical; plus the bf16 bridge, config parity and the MoE settings
+the config refuses."""
 
 import dataclasses
 
@@ -238,8 +238,14 @@ def test_select_tokens_samples_within_top_k():
 
 @pytest.mark.parametrize("case", ["moe"])
 def test_unported_options_raise(case):
+    """Mixture-of-experts was the last option here that raised; it is
+    ported, so the case holds what still raises -- more experts a token
+    than experts -- and that ``n_experts`` now builds its expert layout
+    (``tests/test_torch_moe.py`` holds it to the JAX package)."""
     _, tc = _configs()
-    call = lambda: tl.init_params(0, dataclasses.replace(
-        tc, n_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+    with pytest.raises(ValueError, match="exceeds n_experts"):
+        dataclasses.replace(tc, n_experts=1, n_experts_per_token=2)
+    params = tl.init_params(0, dataclasses.replace(tc, n_experts=4),
+                            device="cpu")
+    assert params["layers"]["w_gate"].shape == (tc.n_layers, 4, tc.dim,
+                                                tc.hidden_dim)

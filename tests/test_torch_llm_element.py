@@ -208,9 +208,8 @@ def _first_response(runtime, path):
     ({"checkpoint": "weights/orbax"},
      "no checkpoint directory weights/orbax"),
     ({"tokenizer": "weights/hf"}, "tokenizer 'weights/hf' does not exist"),
-    ({"model": "tiny-moe"}, "mixture-of-experts.*not ported"),
     ({"quantize": "int4"}, "quantize='int4'"),
-], ids=["checkpoint", "tokenizer", "tiny-moe", "quantize-typo"])
+], ids=["checkpoint", "tokenizer", "quantize-typo"])
 def test_llm_unported_options_fail_the_frame(runtime, tmp_path, parameters,
                                               message):
     """An option of the JAX package the port cannot serve yet, or a
@@ -290,8 +289,8 @@ def _cap_llm_definition(tmp_path, module_root, runtime, parameters):
     return str(path)
 
 
-def _float32_tiny(module):
-    tiny = module.LlamaConfig.tiny
+def _float32_tiny(module, preset="tiny"):
+    tiny = getattr(module.LlamaConfig, preset)
 
     def factory(*args, **kwargs):
         return dataclasses.replace(tiny(*args, **kwargs), dtype="float32")
@@ -331,10 +330,10 @@ def _run_frames(rt, path, create):
     return pipeline, texts
 
 
-@pytest.fixture(scope="module")
-def jax_reference(tmp_path_factory):
-    """The JAX package's pipeline on the frames, once for the module:
-    its texts, its emitted ids, and its element's weights as numpy."""
+def _jax_pipeline(directory, preset: str, parameters: dict):
+    """The JAX package's ``(CAP (LLM))`` on the frames with the
+    ``preset`` config in float32: its texts, its emitted ids, and its
+    element's weights as numpy."""
     from aiko_services_tpu.elements import llm as jax_llm
     from aiko_services_tpu.models import llama as jax_llama
     from aiko_services_tpu.pipeline import create_pipeline as jax_create
@@ -344,7 +343,8 @@ def jax_reference(tmp_path_factory):
 
     patch = pytest.MonkeyPatch()
     tokens: dict = {}
-    patch.setattr(jax_llama.LlamaConfig, "tiny", _float32_tiny(jax_llama))
+    patch.setattr(jax_llama.LlamaConfig, preset,
+                  _float32_tiny(jax_llama, preset))
     patch.setattr(jax_llm, "_collector",
                   _recording_collector(jax_llm, tokens))
     reset_broker()
@@ -352,9 +352,8 @@ def jax_reference(tmp_path_factory):
     rt = init_process(transport="loopback")
     rt.initialize()
     try:
-        path = _cap_llm_definition(
-            tmp_path_factory.mktemp("jax"), "aiko_services_tpu", "jax",
-            dict(LLM_PARAMETERS, decode_block=1))
+        path = _cap_llm_definition(directory, "aiko_services_tpu", "jax",
+                                   parameters)
         pipeline, texts = _run_frames(rt, path, jax_create)
         element = pipeline.graph.get_node("LLM").element
         weights = jax.tree_util.tree_map(np.asarray,
@@ -369,12 +368,21 @@ def jax_reference(tmp_path_factory):
     return texts, tokens, weights
 
 
-@pytest.mark.parametrize("mode", sorted(PORT_MODES))
-def test_cap_llm_matches_jax_pipeline(mode, jax_reference, tmp_path,
-                                      monkeypatch):
-    theirs, their_tokens, weights = jax_reference
+@pytest.fixture(scope="module")
+def jax_reference(tmp_path_factory):
+    """The JAX package's pipeline on the frames, once for the module."""
+    return _jax_pipeline(tmp_path_factory.mktemp("jax"), "tiny",
+                         dict(LLM_PARAMETERS, decode_block=1))
+
+
+def _port_pipeline(tmp_path, monkeypatch, preset: str, weights,
+                   parameters: dict):
+    """The port's ``(CAP (LLM))`` on the frames with the ``preset``
+    config in float32 and the JAX element's weights: (texts, emitted
+    ids, the pipeline, its batcher)."""
     ours_tokens: dict = {}
-    monkeypatch.setattr(llama.LlamaConfig, "tiny", _float32_tiny(llama))
+    monkeypatch.setattr(llama.LlamaConfig, preset,
+                        _float32_tiny(llama, preset))
     monkeypatch.setattr(port_llm, "_collector",
                         _recording_collector(port_llm, ours_tokens))
     monkeypatch.setattr(
@@ -383,9 +391,8 @@ def test_cap_llm_matches_jax_pipeline(mode, jax_reference, tmp_path,
             weights, config, device=device))
     rt = _port_runtime()
     try:
-        path = _cap_llm_definition(
-            tmp_path, "aiko_services_tpu_torch", "torch",
-            dict(LLM_PARAMETERS, device="cpu", **PORT_MODES[mode]))
+        path = _cap_llm_definition(tmp_path, "aiko_services_tpu_torch",
+                                   "torch", dict(parameters, device="cpu"))
         pipeline, ours = _run_frames(rt, path, create_pipeline)
         element = pipeline.graph.get_node("LLM").element
         batcher = element._batcher
@@ -393,6 +400,16 @@ def test_cap_llm_matches_jax_pipeline(mode, jax_reference, tmp_path,
         element.close()
     finally:
         _port_teardown(rt)
+    return ours, ours_tokens, pipeline, batcher
+
+
+@pytest.mark.parametrize("mode", sorted(PORT_MODES))
+def test_cap_llm_matches_jax_pipeline(mode, jax_reference, tmp_path,
+                                      monkeypatch):
+    theirs, their_tokens, weights = jax_reference
+    ours, ours_tokens, pipeline, batcher = _port_pipeline(
+        tmp_path, monkeypatch, "tiny", weights,
+        dict(LLM_PARAMETERS, **PORT_MODES[mode]))
     assert len(ours) == len(DETECTIONS)
     assert ours == theirs
     assert ours_tokens == their_tokens
@@ -404,3 +421,23 @@ def test_cap_llm_matches_jax_pipeline(mode, jax_reference, tmp_path,
         ledger = pipeline.transfer_ledger
         assert ledger.explicit_by_label["llm_block"] \
             == batcher.blocks_retired > 0
+
+
+@pytest.mark.parametrize("mode", ["decode_block_1", "decode_block_tokens_8"])
+def test_tiny_moe_matches_jax_pipeline(mode, tmp_path, monkeypatch):
+    """``model: tiny-moe`` serves frames through the port's
+    ``create_pipeline`` with the JAX element's greedy text and ids on
+    the same (bridged) weights; the JAX side runs its synchronous loop
+    (ROADMAP Queue 3), and at tiny-moe's capacity factor no route drops,
+    so the port's device loop emits the same stream."""
+    parameters = dict(LLM_PARAMETERS, model="tiny-moe")
+    theirs, their_tokens, weights = _jax_pipeline(
+        tmp_path, "tiny_moe", dict(parameters, decode_block=1))
+    assert weights["layers"]["w_gate"].ndim == 4
+    ours, ours_tokens, _, batcher = _port_pipeline(
+        tmp_path, monkeypatch, "tiny_moe", weights,
+        dict(parameters, **PORT_MODES[mode]))
+    assert batcher.config.n_experts == 4
+    assert len(ours) == len(DETECTIONS)
+    assert ours == theirs
+    assert ours_tokens == their_tokens
