@@ -56,6 +56,11 @@ It attends each layer's k/v through an out-of-place update of the cache
 layer and writes the cache detached, so no tensor autograd saved is
 written in place; ``config.remat`` recomputes each layer in the
 backward pass (``torch.utils.checkpoint``).
+
+``partition_specs`` and ``cache_specs`` are the JAX package's layouts
+on the port's ``P``.  ``models/long_context.py`` lays the parameters
+out by them over a mesh and runs :func:`_block` as one Megatron shard
+of a tensor-parallel block (:class:`TensorShard`).
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -78,12 +84,14 @@ from ..ops.flash_decode import (_split_paged, _split_stacked,
 from ..ops.int8_matmul import int8_matmul
 from ..ops.layers import (apply_rope, attention_decode_append,
                           attention_prefill, rms_norm, rope_frequencies)
+from ..parallel.mesh import P
 from .paged import (gather_layer, gather_slot, is_paged, paged_extent,
                     pool_page_tokens, scatter_pages)
 from .quant import dequantize_kv, is_quantized, map_leaf, quantize_kv
 
 __all__ = ["LlamaConfig", "init_params", "abstract_params", "param_shapes",
-           "init_cache", "cache_array", "cache_extent", "prefill",
+           "partition_specs", "cache_specs", "TensorShard", "init_cache",
+           "cache_array", "cache_extent", "prefill",
            "prefill_with_aux", "prefill_into_slot", "prefill_into_slots",
            "decode_step", "decode_block",
            "decode_loop", "greedy_sample", "temperature_sample",
@@ -248,6 +256,52 @@ def init_params(seed: int, config: LlamaConfig,
         return out
 
     return _map_layout(param_shapes(config), lambda spec: leaf(*spec))
+
+
+def partition_specs(config: LlamaConfig) -> dict:
+    """Megatron TP + fsdp layout, layer axis unsharded (it is scanned).
+    MoE expert weights add the ``ep`` axis on their expert dimension
+    (each ep shard owns n_experts/ep experts); the router is small and
+    replicated over ep.  The JAX package's specs, on the port's ``P``."""
+    if config.n_experts:
+        ffn = {
+            "w_router": P(None, "fsdp", None),
+            "w_gate": P(None, "ep", "fsdp", "tp"),
+            "w_up": P(None, "ep", "fsdp", "tp"),
+            "w_down": P(None, "ep", "tp", "fsdp"),
+        }
+    else:
+        ffn = {
+            "w_gate": P(None, "fsdp", "tp"),
+            "w_up": P(None, "fsdp", "tp"),
+            "w_down": P(None, "tp", "fsdp"),
+        }
+    return {
+        "embed": P("fsdp", None),
+        "layers": {
+            "wq": P(None, "fsdp", "tp"),
+            "wk": P(None, "fsdp", "tp"),
+            "wv": P(None, "fsdp", "tp"),
+            "wo": P(None, "tp", "fsdp"),
+            **ffn,
+            "attn_norm": P(None, None),
+            "mlp_norm": P(None, None),
+        },
+        "final_norm": P(None),
+        "unembed": P("fsdp", "tp"),
+    }
+
+
+def cache_specs(config: LlamaConfig | None = None) -> dict:
+    """KV cache: batch over dp, kv heads over tp.  The FLAT payload
+    ([L, B, T, K*hd]) shards its fused head axis over tp (tp divides K,
+    so contiguous blocks map to whole kv heads); an int8 cache's scale
+    ([L, B, T, K, 1]) shards its kv-head axis on the same positions."""
+    spec = P(None, "dp", None, "tp")
+    if config is not None and config.kv_dtype == "int8":
+        leaf = {"int8": spec, "scale": P(None, "dp", None, "tp", None)}
+        return {"k": leaf, "v": leaf}
+    return {"k": spec, "v": spec}
 
 
 def abstract_params(config: LlamaConfig) -> dict:
@@ -467,32 +521,52 @@ def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict):
     return out.reshape(b, s, d), aux
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorShard:
+    """A block run as one of ``size`` Megatron shards: the position holds
+    1/size of the heads, kv heads and FFN width (columns of wq, wk, wv,
+    w_gate and w_up; rows of wo and w_down, as ``partition_specs`` lays
+    them over ``tp``), and ``reduce`` sums a row-parallel product over
+    the shards (``psum`` over ``tp``)."""
+    size: int
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+
+
 def _block(config: LlamaConfig, hidden, layer: dict, attend,
-           kernel: bool = False):
+           kernel: bool = False, shard: TensorShard | None = None):
     """One transformer block.  ``attend(q, k, v) -> attn_out`` does RoPE,
     the cache write and attention (prefill and decode differ there);
-    ``kernel`` routes 2-D int8 weight leaves through kernel #5.  Returns
-    (hidden, the MoE aux scalar -- the float 0.0 for a dense FFN, so a
-    dense step launches nothing for it)."""
+    ``kernel`` routes 2-D int8 weight leaves through kernel #5; ``shard``
+    runs it as a Megatron shard, its local heads and kv heads divided by
+    ``shard.size`` and the wo and FFN products summed over the shards
+    before each residual add.  Returns (hidden, the MoE aux scalar --
+    the float 0.0 for a dense FFN, so a dense step launches nothing for
+    it)."""
     c = config
     b, s, _ = hidden.shape
     hd = c.head_dim
+    shards = 1 if shard is None else shard.size
+    heads, kv_heads = c.n_heads // shards, c.n_kv_heads // shards
 
     def mm(x, w):
         return matmul(x, w, kernel)
+
+    def reduced(partial_sum):
+        return partial_sum if shard is None else shard.reduce(partial_sum)
     x = rms_norm(hidden, layer["attn_norm"], c.norm_eps)
-    q = mm(x, layer["wq"]).reshape(b, s, c.n_heads, hd)
-    k = mm(x, layer["wk"]).reshape(b, s, c.n_kv_heads, hd)
-    v = mm(x, layer["wv"]).reshape(b, s, c.n_kv_heads, hd)
+    q = mm(x, layer["wq"]).reshape(b, s, heads, hd)
+    k = mm(x, layer["wk"]).reshape(b, s, kv_heads, hd)
+    v = mm(x, layer["wv"]).reshape(b, s, kv_heads, hd)
     attn_out = attend(q, k, v)
-    hidden = hidden + mm(attn_out.reshape(b, s, c.n_heads * hd),
-                         layer["wo"])
+    hidden = hidden + reduced(mm(attn_out.reshape(b, s, heads * hd),
+                                 layer["wo"]))
     x = rms_norm(hidden, layer["mlp_norm"], c.norm_eps)
     if c.n_experts:
         ffn_out, aux = _moe_ffn(c, x, layer)
-        return hidden + ffn_out, aux
+        return hidden + reduced(ffn_out), aux
     gate = F.silu(mm(x, layer["w_gate"]))
-    return hidden + mm(gate * mm(x, layer["w_up"]), layer["w_down"]), 0.0
+    return hidden + reduced(mm(gate * mm(x, layer["w_up"]),
+                               layer["w_down"])), 0.0
 
 
 def _forward(params: dict, config: LlamaConfig, tokens: torch.Tensor,

@@ -192,13 +192,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     first; no kernel launch.  It prints each mode's step ms (CUDA
     events, steps 2 on), tokens/s, peak above what the card held and,
     for 11a, 6 N tokens / step time as a share of 989 TF/s; 11b's runs
-    as phase 3's and the MoE decode step's ms.
+    as phase 3's and the MoE decode step's ms;
+12. context parallelism (``context-parallel``): ONE card stands for
+    every position of a mesh (``make_mesh`` lists it once a position),
+    so every hop, mask and reduction runs at full width and no copy
+    between cards is measured.  (a) ``make_long_context_forward`` on
+    Llama-3-8B (its published widths and 8,192-token context, bf16,
+    ``init_params(0)``), tokens from numpy seed 0: ring and Ulysses
+    over ``{"sp": 4}`` at B 1, S 8,192, and ring over ``{"dp": 2, "sp":
+    2, "tp": 2}`` at B 2, S 4,096 (Megatron blocks, a ``psum`` over tp);
+    each forward's logits finite, whole, on the card and within
+    LOGITS_TOL of ``llama.prefill`` of the same tokens (plain attention:
+    it launches no kernel either).  (b) one backward of
+    ``make_long_context_loss`` (ring, ``{"sp": 4}``) on Llama-3.2-1B at
+    its published widths, B 1, S 2,048: the loss within CP_LOSS_TOL of
+    ``train.language_model_loss`` on the same tokens and the whole
+    gradient's relative L2 to that loss's gradient within CP_GRAD_TOL.
+    No kernel of the port is on this path (the JAX package computes its
+    blocks with einsums): every counter, zeroed before each sharded run,
+    must read 0 after it.  It prints each run's CUDA-event ms (a first
+    and a second call) and peak above what the card held, the dense
+    reference's, and the errors.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
 the pipeline runs' own under ``pipeline_launches``, phase 9's zero
 under ``fusion-chain``, phase 10's under ``checkpoint-cli``, phase 11's
-(11b's, with 11a's, 11c's and 11d's zeros) under ``train-moe``; the entries on config 4's and config 5's paths
+(11b's, with 11a's, 11c's and 11d's zeros) under ``train-moe``, phase
+12's zeros under ``context-parallel``; the entries on config 4's and config 5's paths
 carry ``"path"`` and their run's launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
 of JAX or of the JAX package.
 """
@@ -3273,6 +3294,203 @@ def train_moe_run(card: str) -> dict:
     return {"launches": total, "train_moe": out}
 
 
+# -- phase 12: context parallelism on a mesh --------------------------------
+
+#: (label, mesh axes, attention, batch, sequence): Llama-3-8B forwards.
+CP_FORWARDS = (("cp-ring-sp4", {"sp": 4}, "ring", 1, 8192),
+               ("cp-ulysses-sp4", {"sp": 4}, "ulysses", 1, 8192),
+               ("cp-ring-dp2-sp2-tp2", {"dp": 2, "sp": 2, "tp": 2}, "ring",
+                2, 4096))
+CP_TRAIN_BATCH = (1, 2048)  # 12b: Llama-3.2-1B, one backward over {"sp": 4}
+CP_LOSS_TOL = 1e-2          # |CP loss - dense loss|, both float32 from bf16
+# Relative L2 of the whole gradient, CP against dense, in bf16: every
+# product rounds to bf16 (2^-8 relative) on both sides, in two attention
+# schedules (a float32 online softmax against the dense one's bf16
+# weights), through 16 layers' backward: about 3 % at 16 narrow layers
+# on the CPU.  A ring that drops the rotated blocks' gradients reads 54 %
+# there; 10 % keeps the two apart.
+CP_GRAD_TOL = 0.10
+
+
+def cp_mesh_plan(axes: dict, device):
+    """A plan whose mesh lists ``device`` once a position."""
+    from aiko_services_tpu_torch.parallel import MeshPlan, make_mesh
+    count = math.prod(axes.values())
+    return MeshPlan(make_mesh(axes, [device] * count))
+
+
+def relative_error(got, want) -> float:
+    """max |got - want| / max |want| over [B, S, V] logits, a sequence
+    chunk at a time (a whole float32 copy would be 4 GiB)."""
+    top, worst = 0.0, 0.0
+    for start in range(0, want.shape[1], 1024):
+        a = got[:, start:start + 1024].float()
+        b = want[:, start:start + 1024].float()
+        top = max(top, b.abs().max().item())
+        worst = max(worst, (a - b).abs().max().item())
+    return worst / top
+
+
+def timed(fn):
+    """(fn's result, its CUDA-event ms, the peak GiB above what the card
+    held before)."""
+    import torch
+    held = free_card()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+    return result, start.elapsed_time(end), peak
+
+
+def dense_logits(params, config, tokens):
+    """``llama.prefill`` of ``tokens`` on a fresh cache at start 0."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    b, s = tokens.shape
+    cache = llama.init_cache(config, b, s, device=tokens.device)
+    return llama.prefill(params, config, tokens, cache,
+                         torch.zeros(b, dtype=torch.int32,
+                                     device=tokens.device))[0]
+
+
+def cp_forwards(device, card: str) -> tuple[list, dict]:
+    """12a: each of CP_FORWARDS on Llama-3-8B (seed 0) against the dense
+    prefill of the same tokens; every launch counter zeroed before each
+    sharded forward and read after it."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.long_context import \
+        make_long_context_forward
+    config = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(0, config, device=device)
+    runs, total, references = [], {}, {}
+    with torch.no_grad():
+        for label, axes, attention, batch, seq in CP_FORWARDS:
+            tokens = token_batch(config, (batch, seq), device)
+            if (batch, seq) not in references:
+                counters = zero_launches()
+                logits, ms, peak = timed(
+                    lambda: dense_logits(params, config, tokens))
+                references[(batch, seq)] = {
+                    "logits": logits, "ms": ms, "peak_gib": peak,
+                    "launches": {k: v for k, v in read_launches(
+                        counters).items() if v}}
+                print(f"context-parallel: dense prefill [{batch}, {seq}] "
+                      f"{ms:.2f} ms, peak {peak:.3f} GiB above held, "
+                      f"launches {references[(batch, seq)]['launches']} "
+                      f"on {card}", flush=True)
+            reference = references[(batch, seq)]
+            forward = make_long_context_forward(
+                config, cp_mesh_plan(axes, device), attention)
+            counters = zero_launches()
+            logits, first_ms, _ = timed(lambda: forward(params, tokens))
+            counts = read_launches(counters)
+            check_launches(label, counts, set())
+            for name, count in counts.items():
+                total[name] = total.get(name, 0) + count
+            error = relative_error(logits, reference["logits"])
+            finite = bool(torch.isfinite(logits).all())
+            shape_ok = tuple(logits.shape) == (batch, seq, config.vocab_size)
+            on_card = logits.device.type == device.type
+            del logits
+            _, ms, peak = timed(lambda: forward(params, tokens))
+            run = {"run": label, "mesh": axes, "attention": attention,
+                   "batch": batch, "seq": seq, "first_ms": first_ms,
+                   "ms": ms, "peak_gib_above_held": peak,
+                   "dense_ms": reference["ms"],
+                   "dense_peak_gib_above_held": reference["peak_gib"],
+                   "max_err_rel": error, "tol": LOGITS_TOL,
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "card": card}
+            runs.append(run)
+            print(f"context-parallel {json.dumps(run)}", flush=True)
+            if not (finite and shape_ok and on_card) \
+                    or error > LOGITS_TOL:
+                raise AssertionError(
+                    f"{label}: logits finite {finite}, shape ok {shape_ok}, "
+                    f"on the card {on_card}, error {error:.4f} of max "
+                    f"|logit| (tol {LOGITS_TOL})")
+    del params, references
+    free_card()
+    return runs, total
+
+
+def cp_backward(device, card: str) -> tuple[dict, dict]:
+    """12b: one backward of ``make_long_context_loss`` (ring, {"sp": 4})
+    on Llama-3.2-1B (seed 0) against ``train.language_model_loss``'s on
+    the same tokens: the losses within CP_LOSS_TOL, the whole gradient's
+    relative L2 within CP_GRAD_TOL."""
+    import torch
+    from aiko_services_tpu_torch.models import llama, train
+    from aiko_services_tpu_torch.models.long_context import \
+        make_long_context_loss
+    config = llama.LlamaConfig.llama3_1b()
+    params = llama.init_params(0, config, device=device)
+    leaves = list(_leaves(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    tokens = token_batch(config, CP_TRAIN_BATCH, device)
+
+    def backward(loss_fn):
+        loss = loss_fn(params, tokens)
+        loss.backward()
+        return float(loss.detach())
+    dense_loss, dense_ms, dense_peak = timed(
+        lambda: backward(lambda p, t: train.language_model_loss(p, config,
+                                                                t)))
+    dense_grads = [leaf.grad for leaf in leaves]
+    for leaf in leaves:
+        leaf.grad = None
+    loss_fn = make_long_context_loss(config,
+                                     cp_mesh_plan({"sp": 4}, device), "ring")
+    counters = zero_launches()
+    loss, ms, peak = timed(lambda: backward(loss_fn))
+    counts = read_launches(counters)
+    check_launches("cp-loss-backward", counts, set())
+    diff = norm = 0.0
+    for leaf, want in zip(leaves, dense_grads):
+        diff += (leaf.grad.float() - want.float()).square().sum().item()
+        norm += want.float().square().sum().item()
+    grad_rel = math.sqrt(diff / norm)
+    out = {"run": "cp-loss-backward", "mesh": {"sp": 4}, "attention": "ring",
+           "batch": CP_TRAIN_BATCH[0], "seq": CP_TRAIN_BATCH[1],
+           "loss": loss, "dense_loss": dense_loss,
+           "loss_gap": abs(loss - dense_loss), "loss_tol": CP_LOSS_TOL,
+           "grad_rel_l2": grad_rel, "grad_tol": CP_GRAD_TOL,
+           "ms": ms, "dense_ms": dense_ms, "peak_gib_above_held": peak,
+           "dense_peak_gib_above_held": dense_peak,
+           "launches": {k: v for k, v in counts.items() if v}, "card": card}
+    del params, leaves, dense_grads
+    free_card()
+    print(f"context-parallel {json.dumps(out)}", flush=True)
+    if not (math.isfinite(loss) and out["loss_gap"] <= CP_LOSS_TOL
+            and grad_rel <= CP_GRAD_TOL):
+        raise AssertionError(f"cp-loss-backward: loss {loss} against "
+                             f"{dense_loss} (tol {CP_LOSS_TOL}), gradient "
+                             f"relative L2 {grad_rel:.4f} (tol "
+                             f"{CP_GRAD_TOL})")
+    return out, counts
+
+
+def context_parallel_run(card: str) -> dict:
+    """Phase 12 (module docstring): no kernel of the port may launch in
+    a sharded run.  Returns the phase's summed launches (all 0)."""
+    from aiko_services_tpu_torch.device import resolve_device
+    device = resolve_device(None)
+    held = free_card()
+    print(f"context-parallel: the card holds {held:.3f} GiB before the "
+          f"phase", flush=True)
+    forwards, total = cp_forwards(device, card)
+    backward, counts = cp_backward(device, card)
+    for name, count in counts.items():
+        total[name] = total.get(name, 0) + count
+    return {"launches": total, "forwards": forwards, "backward": backward}
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -3475,6 +3693,10 @@ def main() -> int:
     # -- phase 11: training and the mixture-of-experts ---------------------
     train_moe = train_moe_run(card)
     pipeline_launches["train-moe"] = train_moe["launches"]
+
+    # -- phase 12: context parallelism on a mesh of positions ------------
+    context = context_parallel_run(card)
+    pipeline_launches["context-parallel"] = context["launches"]
 
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)
