@@ -22,8 +22,13 @@ safetensors format itself (``models/_safetensors.py``):
   no storage) is enough.  Every leaf's shape and dtype must match the
   template's, and the template's memory format is kept
   (``channels_last`` detector kernels);
-- a ``plan`` (``parallel.MeshPlan``) restores onto its device; a plan
-  over several cards raises ``not_ported``, as the plan itself does.
+- a ``plan`` (``parallel.MeshPlan``) restores onto its device; with
+  ``specs`` (a tree of ``P`` matching the template's, None where a
+  subtree stays whole) each placed subtree comes back a
+  ``parallel.Placed`` tree, every position reading its own slice of
+  each leaf from the mapped file (``plan.put`` of the saved tree);
+- ``save`` of a tree holding placed subtrees writes their gathered
+  leaves.
 
 The port cannot read the orbax checkpoints the JAX package writes
 (orbax needs jax).  The way across is conversion from the HF source
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, sync_allowed
-from ..parallel.mesh import MeshPlan
+from ..parallel.mesh import MeshPlan, P, Placed, _placed
 from ._safetensors import SafetensorsFile, write_file
 
 __all__ = ["Checkpointer", "save_pytree", "restore_pytree",
@@ -191,6 +196,7 @@ class Checkpointer:
         meta.setdefault("step", step)
         meta.setdefault("saved_unix_time", time.time())
         meta = json.loads(json.dumps(meta, default=str))
+        state = _gathered(state)
         leaves = {name: _host_tensor(leaf, name)
                   for name, leaf in flatten(state).items()}
         args = (self.directory, int(step), leaves, _skeleton(state), meta,
@@ -248,15 +254,18 @@ class Checkpointer:
 
         ``template``: a tree of tensors (meta tensors suffice) giving the
         structure, shapes and dtypes; a difference raises and names the
-        leaf.  The device is the ``plan``'s (``specs`` is accepted for
-        the JAX package's call sites and places nothing apart), else
-        ``device``, else a template leaf's own device when it has
-        storage, else the card.  Without a template the saved tree comes
-        back as saved."""
+        leaf.  The device is the ``plan``'s, else ``device``, else a
+        template leaf's own device when it has storage, else the card.
+        With ``plan`` and ``specs`` (a tree of ``P`` matching the
+        template's, None where a subtree stays whole on ``plan.device``;
+        a single ``P`` broadcasts) each placed subtree comes back placed
+        (``plan.put``), each position reading its own slice of every
+        leaf from the mapped file.  Without a template the saved tree
+        comes back as saved."""
         path = self._step_directory(step)
         source = SafetensorsFile(path / STATE_FILE)
         if plan is not None:
-            target = plan.replicated()
+            target = _placed(plan.device)
         elif device is not None:
             target = resolve_device(device)
         else:
@@ -274,6 +283,9 @@ class Checkpointer:
                     f"checkpoint {path}: the template's leaves differ from "
                     f"the saved ones (missing {missing[:5]}, not in the "
                     f"template {extra[:5]})")
+        if plan is not None and specs is not None:
+            return _restore_placed(source, skeleton, wanted, plan, specs,
+                                   target)
         restored = _load_leaves(source, wanted, target)
         return unflatten(skeleton, restored)
 
@@ -292,6 +304,68 @@ class Checkpointer:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _gathered(tree):
+    """``tree`` with every placed subtree gathered whole."""
+    if isinstance(tree, Placed):
+        return tree.gather(tree.mesh.devices.flat[0])
+    if isinstance(tree, dict):
+        return {key: _gathered(value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_gathered(value) for value in tree)
+    return tree
+
+
+def _spec_tree(specs) -> bool:
+    """Whether ``specs`` is a ``P`` or a tree of nothing but ``P``."""
+    if isinstance(specs, P):
+        return True
+    if isinstance(specs, dict):
+        return all(map(_spec_tree, specs.values()))
+    if isinstance(specs, (list, tuple)):
+        return all(map(_spec_tree, specs))
+    return False
+
+
+def _restore_placed(source, skeleton, wanted: dict, plan: MeshPlan, specs,
+                    target):
+    """The saved tree (a dict: a checkpoint's state) with each subtree
+    below its root that ``specs`` lays out (a tree of ``P`` alone)
+    placed by it as one placed tree: ``plan.put`` of the mapped leaves
+    (each position copies its own slice); the subtrees under None loaded
+    whole onto ``target``."""
+    def within(prefix):
+        return {key: like for key, like in wanted.items()
+                if not prefix or key == prefix
+                or key.startswith(prefix + ".")}
+
+    def walk(skeleton, specs, prefix):
+        if specs is None:
+            return unflatten(skeleton, _load_leaves(
+                source, within(prefix), target), prefix)
+        if _spec_tree(specs) and prefix:
+            host = {}
+            for key, like in within(prefix).items():
+                host[key] = source.get_tensor(key)
+                if like is not None and (
+                        tuple(like.shape) != tuple(host[key].shape)
+                        or like.dtype != host[key].dtype):
+                    raise ValueError(
+                        f"checkpoint leaf {key!r}: saved {host[key].dtype} "
+                        f"{list(host[key].shape)}, the template holds "
+                        f"{like.dtype} {list(like.shape)}")
+            with sync_allowed():
+                return plan.put(unflatten(skeleton, host, prefix), specs)
+        keys = skeleton if isinstance(skeleton, dict) \
+            else range(len(skeleton))
+        parts = {key: walk(skeleton[key], specs if isinstance(specs, P)
+                           else specs[key] if isinstance(specs, (list, tuple))
+                           else specs.get(key),
+                           f"{prefix}.{key}" if prefix else str(key))
+                 for key in keys}
+        return parts if isinstance(skeleton, dict) else list(parts.values())
+    return walk(skeleton, specs, "")
 
 
 def _load_leaves(source: SafetensorsFile, wanted: dict, target) -> dict:

@@ -58,17 +58,24 @@ written in place; ``config.remat`` recomputes each layer in the
 backward pass (``torch.utils.checkpoint``).
 
 ``partition_specs`` and ``cache_specs`` are the JAX package's layouts
-on the port's ``P``.  ``models/long_context.py`` lays the parameters
-out by them over a mesh and runs :func:`_block` as one Megatron shard
-of a tensor-parallel block (:class:`TensorShard`).
+on the port's ``P``.  A tree placed by them (``plan.put``, a
+``parallel.Placed`` tree) runs through ``prefill``,
+``prefill_with_aux``, ``prefill_into_slot`` and ``decode_step`` as the
+JAX package's sharded arrays run through its jitted entry points: every
+position of the mesh runs the one forward, :func:`_forward`, on its
+shards (:class:`TensorShard`: tp Megatron blocks, fsdp gathers a layer
+at its use, experts over ep), the kernels at each position on its own
+heads and leaf shards, and the logits come back whole, the cache
+placed (:func:`_on_mesh`).  ``models/long_context.py`` and the sharded
+training step use the same forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -84,7 +91,9 @@ from ..ops.flash_decode import (_split_paged, _split_stacked,
 from ..ops.int8_matmul import int8_matmul
 from ..ops.layers import (apply_rope, attention_decode_append,
                           attention_prefill, rms_norm, rope_frequencies)
-from ..parallel.mesh import P
+from ..parallel.mesh import (Keep, P, Placed, all_gather, axis_index,
+                             filter_spec, psum, shard_map)
+from ..parallel.mesh import remat as mesh_remat
 from .paged import (gather_layer, gather_slot, is_paged, paged_extent,
                     pool_page_tokens, scatter_pages)
 from .quant import dequantize_kv, is_quantized, map_leaf, quantize_kv
@@ -323,16 +332,22 @@ def init_cache(config: LlamaConfig, batch: int, max_seq: int | None = None,
     contiguous view the decode kernel reads (``cache[layer]`` is a view,
     never a copy).  With ``kv_dtype="int8"`` each side is
     ``{"int8": [L, B, T, K*hd] int8, "scale": [L, B, T, K, 1] float32}``
-    (the scales keep the JAX package's grouped shape)."""
+    (the scales keep the JAX package's grouped shape).  For a mesh,
+    ``plan.put(init_cache(...), cache_specs(config))`` places it."""
+    return _init_cache(config, batch, max_seq or config.max_seq,
+                       resolve_device(device), config.n_kv_heads)
+
+
+def _init_cache(config: LlamaConfig, batch: int, t: int,
+                device: torch.device, kv_heads: int) -> dict:
+    """:func:`init_cache` of ``kv_heads`` heads (a tp position's)."""
     c = config
-    device = resolve_device(device)
-    t = max_seq or c.max_seq
-    shape = (c.n_layers, batch, t, c.n_kv_heads * c.head_dim)
+    shape = (c.n_layers, batch, t, kv_heads * c.head_dim)
     if c.kv_dtype == "int8":
         def side():
             return {"int8": torch.zeros(shape, dtype=torch.int8,
                                         device=device),
-                    "scale": torch.zeros(shape[:-1] + (c.n_kv_heads, 1),
+                    "scale": torch.zeros(shape[:-1] + (kv_heads, 1),
                                          dtype=torch.float32,
                                          device=device)}
         return {"k": side(), "v": side()}
@@ -427,11 +442,12 @@ def _matmul_kernel(config: LlamaConfig, device: torch.device) -> bool:
     return matmul_backend(config.matmul_kernel, device) != "reference"
 
 
-def _grouped(layer, kv: int):
+def _grouped(layer, head_dim: int):
     """Flat [.., T, K*hd] -> grouped [.., T, K, hd] view (the payload of
-    an int8 layer; its [.., T, K, 1] scales are grouped already)."""
+    an int8 layer; its [.., T, K, 1] scales are grouped already).  K is
+    read from the payload: a position of a tp mesh holds K/tp heads."""
     def regroup(arr):
-        return arr.reshape(*arr.shape[:-1], kv, arr.shape[-1] // kv)
+        return arr.reshape(*arr.shape[:-1], -1, head_dim)
     if is_quantized(layer):
         return {"int8": regroup(layer["int8"]), "scale": layer["scale"]}
     return regroup(layer)
@@ -467,22 +483,58 @@ def _expert_matmul(t: torch.Tensor, w, pattern: str) -> torch.Tensor:
     return torch.einsum(pattern, t, w)
 
 
-def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict):
+#: Set by :func:`record_route_drops`: the dropped-route counts of every
+#: MoE FFN call made inside it (0-d device tensors).
+_route_drops: list | None = None
+
+
+@contextlib.contextmanager
+def record_route_drops():
+    """Count the (token, expert) routes the MoE FFN drops at capacity:
+    inside the block every ``_moe_ffn`` call appends its count (a 0-d
+    tensor on the device, no host read) to the yielded list.  On a mesh
+    each routed row is counted once (by the positions at coordinate 0 on
+    every axis that does not split the rows).  Use it around a forward
+    without grad: a remat backward would route again."""
+    global _route_drops
+    found: list = []
+    _route_drops = found
+    try:
+        yield found
+    finally:
+        _route_drops = None
+
+
+def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict,
+             shard: "TensorShard | None" = None):
     """Top-k routed mixture-of-experts SwiGLU FFN, the JAX package's
     GShard einsum dispatch.  x: [B, S, D] normed activations.  Returns
     (ffn_out [B, S, D], the load-balance aux scalar, float32).
 
-    Every shape is static: each expert takes a ``moe_capacity(B * S)``
-    token buffer, and a (token, expert) route past a full buffer is
-    dropped (the token keeps its residual stream).  The router's top-k
-    is a stable descending sort, so equal probabilities pick the lowest
+    Every shape is static: each expert takes a ``moe_capacity`` token
+    buffer, and a (token, expert) route past a full buffer is dropped
+    (the token keeps its residual stream).  The router's top-k is a
+    stable descending sort, so equal probabilities pick the lowest
     expert first, as ``lax.top_k`` does; the gates are gathered from the
-    probabilities, so they carry the router's gradient."""
+    probabilities, so they carry the router's gradient.
+
+    On a mesh (``shard``) the result is the GLOBAL batch's, as GSPMD
+    keeps it: the capacity follows the global row count, a route's slot
+    counts every earlier route in global token-major order (the routes
+    of the rows and sequence chunks before this position's, from
+    ``shard.route_prefix``), and the aux takes its means over all rows.
+    Expert parallelism keeps the batch whole over ``ep``: each ep
+    position routes every row of its batch shard and runs only its E/ep
+    experts on their slice of the [E, C, D] dispatch buffer; the
+    caller's ``shard.reduce_experts`` sums the combine over ep (and
+    tp).  No all-to-all is needed: that form moves tokens only for a
+    layout that splits the batch over ep."""
     c = config
     b, s, d = x.shape
     n = b * s
     e, k = c.n_experts, c.n_experts_per_token
-    cap = c.moe_capacity(n)
+    rows = n if shard is None else n * shard.row_shards
+    cap = c.moe_capacity(rows)
     xf = x.reshape(n, d)
 
     probs = torch.softmax(xf.float() @ layer["w_router"].float(), dim=-1)
@@ -496,13 +548,25 @@ def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict):
     # Each (token, choice)'s slot in its expert's buffer: how many
     # earlier rows picked the same expert (token-major order, so a
     # token's k distinct choices never collide).
-    positions = ((torch.cumsum(flat, dim=0) - flat) * flat).sum(-1)
+    if shard is None:
+        positions = ((torch.cumsum(flat, dim=0) - flat) * flat).sum(-1)
+    else:
+        per_row = flat.reshape(b, s * k, e)
+        before = torch.cumsum(per_row, dim=1) - per_row \
+            + shard.route_prefix(per_row.sum(1))[:, None, :]
+        positions = (before * per_row).sum(-1).reshape(n * k)
+    if _route_drops is not None and (shard is None or shard.counts_routes):
+        _route_drops.append((positions >= cap).sum())
     slots = torch.arange(cap, device=x.device)
     pos_onehot = (positions.long()[:, None] == slots).float() \
         * (positions < cap).float()[:, None]                    # [n*k, C]
+    local = onehot
+    if shard is not None and shard.ep > 1:
+        first, count = shard.experts(e)
+        local = onehot[..., first:first + count]                # [n, k, E/ep]
     # The k choices pre-summed into one [n, E, C] dispatch/combine mask
     # (lossless: a token's choices hit distinct experts).
-    mask = torch.einsum("nke,nkc->nec", onehot,
+    mask = torch.einsum("nke,nkc->nec", local,
                         pos_onehot.reshape(n, k, cap)).to(x.dtype)
     dispatch = torch.einsum("nec,nd->ecd", mask, xf)
     gate_h = F.silu(_expert_matmul(dispatch, layer["w_gate"],
@@ -510,26 +574,123 @@ def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict):
     up_h = _expert_matmul(dispatch, layer["w_up"], "ecd,edf->ecf")
     out_e = _expert_matmul(gate_h * up_h, layer["w_down"],
                            "ecf,efd->ecd")                      # [E, C, D]
-    gates_e = torch.einsum("nke,nk->ne", onehot, gates)         # [n, E]
+    gates_e = torch.einsum("nke,nk->ne", local, gates)          # [n, E]
     combine = mask * gates_e.to(x.dtype)[:, :, None]            # [n, E, C]
     out = torch.einsum("nec,ecd->nd", combine, out_e)
 
     # GShard load-balance aux: E * sum_e(fraction routed * mean prob),
     # the fraction over the n*k choices -- 1.0 at perfect balance.
-    fraction = flat.reshape(n, k, e).sum(1).mean(0) / k
-    aux = e * torch.sum(fraction * probs.mean(0))
+    if shard is None:
+        fraction = flat.reshape(n, k, e).sum(1).mean(0) / k
+        aux = e * torch.sum(fraction * probs.mean(0))
+    else:
+        fraction = shard.route_sum(flat.reshape(n, k, e).sum((0, 1))) \
+            / (rows * k)
+        aux = e * torch.sum(fraction * shard.route_sum(probs.sum(0)) / rows)
     return out.reshape(b, s, d), aux
 
 
-@dataclasses.dataclass(frozen=True)
+def _without_layer_axis(spec):
+    """A stacked leaf's spec for one layer's view (int8 leaves' too)."""
+    if isinstance(spec, dict):
+        return {name: _without_layer_axis(part) for name, part in spec.items()}
+    return P(*spec[1:])
+
+
 class TensorShard:
-    """A block run as one of ``size`` Megatron shards: the position holds
-    1/size of the heads, kv heads and FFN width (columns of wq, wk, wv,
-    w_gate and w_up; rows of wo and w_down, as ``partition_specs`` lays
-    them over ``tp``), and ``reduce`` sums a row-parallel product over
-    the shards (``psum`` over ``tp``)."""
-    size: int
-    reduce: Callable[[torch.Tensor], torch.Tensor]
+    """One mesh position's part of the model: what GSPMD derives from
+    ``partition_specs`` in the JAX package, written out.  Built inside a
+    function mapped by ``parallel.shard_map`` over ``mesh``, for a tree
+    placed by ``specs`` (filtered to the mesh), with the batch split over
+    ``batch_axes`` and the sequence over ``seq_axis`` (context
+    parallelism; None for none).
+
+    - tp: the position holds 1/``size`` of the heads, kv heads and FFN
+      width (columns of wq, wk, wv, w_gate and w_up; rows of wo and
+      w_down), and :meth:`reduce` sums a row-parallel product over tp;
+    - fsdp: :meth:`whole` gathers a leaf's fsdp shards; the forward
+      gathers each layer's leaves at their use (:meth:`gathered`), so at
+      most one layer stands whole at a position;
+    - ep: the position runs experts :meth:`experts` of E, and
+      :meth:`reduce_experts` sums the MoE FFN's output over ep and tp;
+    - the routed rows: ``row_shards`` positions split them (batch and
+      sequence axes), :meth:`route_prefix` and :meth:`route_sum` make
+      the MoE capacity, slots and aux those of the global batch."""
+
+    def __init__(self, mesh, specs: dict, batch_axes=("dp", "fsdp"),
+                 seq_axis: str | None = None):
+        def present(axes):
+            return tuple(axis for axis in axes
+                         if mesh.shape.get(axis, 1) > 1)
+        self.specs = specs
+        self.size = mesh.shape.get("tp", 1)
+        self.ep = mesh.shape.get("ep", 1)
+        self._fsdp = bool(present(("fsdp",)))
+        self._rows = present(batch_axes)
+        self._seq = present((seq_axis,) if seq_axis else ())
+        self.row_shards = math.prod(mesh.shape[axis]
+                                    for axis in self._rows + self._seq)
+        self._layer_specs = {name: _without_layer_axis(spec)
+                             for name, spec in specs["layers"].items()}
+        self.counts_routes = all(
+            axis_index(axis) == 0 for axis in mesh.axis_names
+            if axis not in self._rows + self._seq
+            and mesh.shape[axis] > 1)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return psum(x, "tp") if self.size > 1 else x
+
+    def reduce_experts(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(axis for axis, size in (("ep", self.ep),
+                                             ("tp", self.size)) if size > 1)
+        return psum(x, axes) if axes else x
+
+    def experts(self, n_experts: int) -> tuple[int, int]:
+        """(first, count) of this position's experts."""
+        count = n_experts // self.ep
+        return axis_index("ep") * count, count
+
+    def whole(self, leaf, spec):
+        """``leaf`` gathered over fsdp (an int8 leaf's arrays each)."""
+        if is_quantized(leaf):
+            return {name: self.whole(leaf[name], spec[name])
+                    for name in ("int8", "scale")}
+        if self._fsdp:
+            for dim, entry in enumerate(spec):
+                if entry == "fsdp":
+                    leaf = all_gather(leaf, "fsdp", axis=dim)
+        return leaf
+
+    def gathered(self, layer: dict) -> dict:
+        """One layer's leaves (``_layer`` views) whole over fsdp."""
+        return {name: self.whole(leaf, self._layer_specs[name])
+                for name, leaf in layer.items()}
+
+    def route_prefix(self, counts: torch.Tensor) -> torch.Tensor:
+        """counts [b, E]: the routes each local row's chunk sends to each
+        expert -> the routes that precede the chunk in global
+        token-major order (rows of the batch shards before this one,
+        then this row's sequence chunks before this one), [b, E]."""
+        b, e = counts.shape
+        table = counts[:, None, :]
+        seq_rank = row_rank = 0
+        if self._seq:
+            table = all_gather(table, self._seq, axis=1)
+            seq_rank = axis_index(self._seq)
+        if self._rows:
+            table = all_gather(table, self._rows, axis=0)
+            row_rank = axis_index(self._rows)
+        chunks = table.shape[1]
+        flat = table.reshape(-1, e)
+        before = torch.cumsum(flat, dim=0) - flat
+        index = (row_rank * b + torch.arange(b, device=counts.device)) \
+            * chunks + seq_rank
+        return before[index]
+
+    def route_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the positions that split the routed rows."""
+        axes = self._rows + self._seq
+        return psum(x, axes) if axes else x
 
 
 def _block(config: LlamaConfig, hidden, layer: dict, attend,
@@ -537,11 +698,11 @@ def _block(config: LlamaConfig, hidden, layer: dict, attend,
     """One transformer block.  ``attend(q, k, v) -> attn_out`` does RoPE,
     the cache write and attention (prefill and decode differ there);
     ``kernel`` routes 2-D int8 weight leaves through kernel #5; ``shard``
-    runs it as a Megatron shard, its local heads and kv heads divided by
-    ``shard.size`` and the wo and FFN products summed over the shards
-    before each residual add.  Returns (hidden, the MoE aux scalar --
-    the float 0.0 for a dense FFN, so a dense step launches nothing for
-    it)."""
+    runs it as one position's shard (:class:`TensorShard`): its local
+    heads and kv heads divided by ``shard.size``, the wo and FFN
+    products summed over the shards before each residual add.  Returns
+    (hidden, the MoE aux scalar -- the float 0.0 for a dense FFN, so a
+    dense step launches nothing for it)."""
     c = config
     b, s, _ = hidden.shape
     hd = c.head_dim
@@ -562,38 +723,63 @@ def _block(config: LlamaConfig, hidden, layer: dict, attend,
                                  layer["wo"]))
     x = rms_norm(hidden, layer["mlp_norm"], c.norm_eps)
     if c.n_experts:
-        ffn_out, aux = _moe_ffn(c, x, layer)
-        return hidden + reduced(ffn_out), aux
+        ffn_out, aux = _moe_ffn(c, x, layer, shard)
+        if shard is not None:
+            ffn_out = shard.reduce_experts(ffn_out)
+        return hidden + ffn_out, aux
     gate = F.silu(mm(x, layer["w_gate"]))
     return hidden + reduced(mm(gate * mm(x, layer["w_up"]),
                                layer["w_down"])), 0.0
 
 
 def _forward(params: dict, config: LlamaConfig, tokens: torch.Tensor,
-             attend_factory, remat: bool = False):
+             attend_factory, remat: bool = False,
+             shard: TensorShard | None = None):
     """Embed, run every layer with ``attend_factory(layer_index)``,
     final-norm and unembed -> (logits [B, S, vocab], the MoE aux summed
     over layers).  ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``
-    around the scanned block)."""
+    around the scanned block).
+
+    This is the ONE forward of every entry point, on one device and at
+    each position of a mesh: with ``shard`` the tree is the position's
+    shards, each layer's leaves are gathered over fsdp at their use (and
+    again in the backward pass under remat: ``parallel.remat`` recomputes
+    every position's layer together, its collectives included) and the
+    blocks run as Megatron shards."""
     kernel = _matmul_kernel(config, tokens.device)
-    hidden = params["embed"][tokens]
+    embed = params["embed"] if shard is None \
+        else shard.whole(params["embed"], shard.specs["embed"])
+    hidden = embed[tokens]
+    del embed
     aux = 0.0
     for index in range(config.n_layers):
-        args = (config, hidden, _layer(params, index), attend_factory(index),
-                kernel)
-        if remat:
-            hidden, layer_aux = checkpoint(_block, *args, use_reentrant=False)
+        attend = attend_factory(index)
+        layer = _layer(params, index)
+        if shard is None:
+            args = (config, hidden, layer, attend, kernel)
+            if remat:
+                hidden, layer_aux = checkpoint(_block, *args,
+                                               use_reentrant=False)
+            else:
+                hidden, layer_aux = _block(*args)
         else:
-            hidden, layer_aux = _block(*args)
+            def run(hidden, layer, attend=attend):
+                return _block(config, hidden, shard.gathered(layer), attend,
+                              kernel, shard)
+            hidden, layer_aux = (mesh_remat(run, hidden, layer) if remat
+                                 else run(hidden, layer))
         aux = aux + layer_aux
-    return _finish(params, config, hidden, kernel), aux
+    return _finish(params, config, hidden, kernel, shard), aux
 
 
 def _finish(params: dict, config: LlamaConfig, hidden,
-            kernel: bool = False) -> torch.Tensor:
+            kernel: bool = False, shard: TensorShard | None = None) \
+        -> torch.Tensor:
     hidden = rms_norm(hidden, params["final_norm"], config.norm_eps)
-    return matmul(hidden, params["unembed"], kernel)
+    unembed = params["unembed"] if shard is None \
+        else shard.whole(params["unembed"], shard.specs["unembed"])
+    return matmul(hidden, unembed, kernel)
 
 
 def _kv_put(leaf, new, rows, cols):
@@ -620,14 +806,37 @@ def prefill_with_aux(params: dict, config: LlamaConfig,
     :func:`_kv_put`'s out-of-place copy of its cache layer, and the cache
     takes the detached k/v in place, so autograd saves no tensor that a
     later write changes.  ``config.remat`` recomputes each layer in the
-    backward pass."""
+    backward pass.
+
+    ``params`` may be a placed tree (``plan.put(params,
+    partition_specs(config))``, :func:`_on_mesh`): the cache is then
+    placed by :func:`cache_specs`, tokens and start positions are split
+    with the batch over dp (or as the tokens' placement says), and the
+    logits come back whole, the cache placed."""
+    if isinstance(params, Placed):
+        return _on_mesh(_prefill_core, params, config, tokens, cache,
+                        (start_positions,), logits_dims=2, aux=True)
+    return _prefill_core(params, config, tokens, cache, start_positions)
+
+
+def _prefill_core(params: dict, config: LlamaConfig, tokens: torch.Tensor,
+                  cache: dict | None, start_positions: torch.Tensor | None,
+                  shard: TensorShard | None = None):
+    """:func:`prefill_with_aux` on one device or at one position of a
+    mesh (``shard``).  ``cache=None`` writes a fresh cache of S positions
+    at start 0 (the training loss's)."""
+    c = config
+    b, s = tokens.shape
+    if cache is None:
+        cache = _init_cache(c, b, s, tokens.device,
+                            c.n_kv_heads // (shard.size if shard else 1))
+        start_positions = torch.zeros(b, dtype=torch.int32,
+                                      device=tokens.device)
     if is_paged(cache):
         raise ValueError(
             "prefill works on dense caches (training / whole-batch "
             "path); paged serving admission goes through "
             "prefill_into_slot(s)")
-    c = config
-    b, s = tokens.shape
     rope = _rope(c, tokens.device)
     positions = start_positions.to(tokens.device).long()[:, None] \
         + torch.arange(s, device=tokens.device)[None, :]
@@ -647,12 +856,13 @@ def prefill_with_aux(params: dict, config: LlamaConfig,
                                       rows, positions))
                 _kv_write(cache[side], map_leaf(stored, torch.Tensor.detach),
                           write)
-            return attention_prefill(q, _grouped(layers[0], c.n_kv_heads),
-                                     _grouped(layers[1], c.n_kv_heads),
+            return attention_prefill(q, _grouped(layers[0], c.head_dim),
+                                     _grouped(layers[1], c.head_dim),
                                      positions)
         return attend
 
-    logits, aux = _forward(params, c, tokens, factory, remat=c.remat)
+    logits, aux = _forward(params, c, tokens, factory, remat=c.remat,
+                           shard=shard)
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, cache, aux
@@ -679,7 +889,32 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
     A PAGED cache is written through its page table: the chunk start
     must be page-aligned and S a whole number of pages (the batcher's
     chunk discipline guarantees both), and the attention row is the
-    slot's gathered page view."""
+    slot's gathered page view.
+
+    On a placed tree (:func:`_on_mesh`) the cache is placed by
+    :func:`cache_specs` with its batch whole (no dp axis): every
+    position writes its kv heads of the slot's row."""
+    if isinstance(params, Placed):
+        if _batch_spec(cache)[0] is not None:
+            raise ValueError(f"prefill_into_slot on a mesh needs the "
+                             f"cache's batch whole, not split over "
+                             f"{_batch_spec(cache)[0]}")
+        return _on_mesh(functools.partial(_prefill_slot_at, int(slot),
+                                          int(start)),
+                        params, config, tokens, cache, (), logits_dims=2)
+    return _prefill_into_slot_impl(params, config, tokens, cache, slot,
+                                   start)
+
+
+def _prefill_slot_at(slot, start, params, config, tokens, cache,
+                     shard=None):
+    return _prefill_into_slot_impl(params, config, tokens, cache, slot,
+                                   start, shard)
+
+
+def _prefill_into_slot_impl(params: dict, config: LlamaConfig,
+                            tokens: torch.Tensor, cache: dict, slot: int,
+                            start: int, shard: TensorShard | None = None):
     c = config
     slot, start = int(slot), int(start)
     s = tokens.shape[1]
@@ -717,8 +952,8 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
                 k_row, v_row = (map_leaf(cache[side],
                                         lambda arr: arr[index, slot:slot + 1])
                                 for side in ("k", "v"))
-            k_row = _grouped(k_row, c.n_kv_heads)
-            v_row = _grouped(v_row, c.n_kv_heads)
+            k_row = _grouped(k_row, c.head_dim)
+            v_row = _grouped(v_row, c.head_dim)
             if c.attention == "flash":
                 # The kernel reads the model dtype: an int8 row is
                 # dequantized here (admission is compute-bound; decode,
@@ -730,7 +965,7 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
             return attention_prefill(q, k_row, v_row, positions)
         return attend
 
-    return _forward(params, c, tokens, factory)[0], cache
+    return _forward(params, c, tokens, factory, shard=shard)[0], cache
 
 
 def prefill_into_slots(params: dict, config: LlamaConfig,
@@ -788,8 +1023,8 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
                 k_rows, v_rows = (map_leaf(cache[side],
                                           lambda arr: arr[index][slot_index])
                                   for side in ("k", "v"))
-            return attention_prefill(q, _grouped(k_rows, c.n_kv_heads),
-                                     _grouped(v_rows, c.n_kv_heads),
+            return attention_prefill(q, _grouped(k_rows, c.head_dim),
+                                     _grouped(v_rows, c.head_dim),
                                      positions)
         return attend
 
@@ -812,7 +1047,8 @@ def _resolve_decode_flash(c: LlamaConfig, cache: dict) -> bool:
 
 def _decode_step_impl(params: dict, config: LlamaConfig,
                       tokens: torch.Tensor, cache: dict,
-                      lengths: torch.Tensor, use_flash: bool) \
+                      lengths: torch.Tensor, use_flash: bool,
+                      shard: TensorShard | None = None) \
         -> tuple[torch.Tensor, dict]:
     """One token per row.  tokens: [B]; lengths: [B] write positions
     (= current sequence lengths).  No host synchronisation: every index
@@ -859,14 +1095,14 @@ def _decode_step_impl(params: dict, config: LlamaConfig,
                     k_layer = gather_layer(k_layer, table)
                     v_layer = gather_layer(v_layer, table)
                 out = attention_decode_append(
-                    q, _grouped(k_layer, c.n_kv_heads),
-                    _grouped(v_layer, c.n_kv_heads), k, v, lengths)
+                    q, _grouped(k_layer, c.head_dim),
+                    _grouped(v_layer, c.head_dim), k, v, lengths)
             for side, new in (("k", k), ("v", v)):
                 _kv_write(cache[side], _kv_stored(cache[side], new), write)
             return out
         return attend
 
-    logits, _ = _forward(params, c, tokens[:, None], factory)
+    logits, _ = _forward(params, c, tokens[:, None], factory, shard=shard)
     return logits[:, 0, :], cache
 
 
@@ -874,9 +1110,70 @@ def decode_step(params: dict, config: LlamaConfig, tokens: torch.Tensor,
                 cache: dict, lengths: torch.Tensor) \
         -> tuple[torch.Tensor, dict]:
     """One decode token per row (see _decode_step_impl); the flash
-    versus dense choice resolves here, on the cache's structure."""
+    versus dense choice resolves here, on the cache's structure -- at
+    each position of a mesh on its own cache shard, for a placed tree
+    and cache (:func:`_on_mesh`: the kernels run per position)."""
+    if isinstance(params, Placed):
+        return _on_mesh(_decode_step_local, params, config, tokens, cache,
+                        (lengths,), logits_dims=1)
+    return _decode_step_local(params, config, tokens, cache, lengths)
+
+
+def _decode_step_local(params, config, tokens, cache, lengths, shard=None):
     return _decode_step_impl(params, config, tokens, cache, lengths,
-                             use_flash=_resolve_decode_flash(config, cache))
+                             _resolve_decode_flash(config, cache), shard)
+
+
+def _batch_spec(cache) -> P:
+    """The batch entry of a placed cache's layout (its payload's dim 1)."""
+    spec = cache.specs["k"]
+    return P((spec["int8"] if isinstance(spec, dict) else spec)[1])
+
+
+def _on_mesh(body, params: Placed, config: LlamaConfig, tokens, cache,
+             per_row: tuple, logits_dims: int, aux: bool = False,
+             batch_axes=("dp",)):
+    """Run an entry point's ``body(params, config, tokens, cache,
+    *per_row, shard=...)`` at every position of ``params``' mesh
+    (``parallel.shard_map``): the placed tree and a placed cache as they
+    stand, tokens and the [B] ``per_row`` tensors split with the batch
+    (over ``batch_axes``, or as a placed cache or placed tokens lay it
+    out).  Returns (the logits whole -- vocabulary reassembled over tp --,
+    the cache placed[, the aux]); ``cache=None`` makes a fresh local
+    cache a position and returns None for it."""
+    mesh = params.mesh
+    tp = mesh.shape.get("tp", 1)
+    if config.n_kv_heads % tp:
+        raise ValueError(f"tp ({tp}) must divide n_kv_heads "
+                         f"({config.n_kv_heads})")
+    batch = filter_spec(mesh, P(batch_axes))
+    if isinstance(tokens, Placed):
+        batch = P(tokens.specs[0])
+    if isinstance(cache, Placed):
+        if isinstance(tokens, Placed) and _batch_spec(cache) != batch:
+            raise ValueError(f"tokens placed with the batch over "
+                             f"{batch[0]}, the cache over "
+                             f"{_batch_spec(cache)[0]}")
+        batch = _batch_spec(cache)
+    row_axes = tuple(axis for axis in (batch[0] if isinstance(
+        batch[0], tuple) else (batch[0],)) if axis)
+    cache_spec = None if cache is None else cache_specs(config)
+    token_spec = None if isinstance(tokens, Placed) \
+        else P(batch[0], *([None] * (tokens.ndim - 1)))
+    specs = params.specs
+
+    def local(p, t, c, *rows):
+        shard = TensorShard(mesh, specs, row_axes)
+        return body(p, config, t, c, *rows, shard=shard)
+    vocab = filter_spec(mesh, P("tp"))[0]
+    out_specs = (P(batch[0], *([None] * (logits_dims - 1)), vocab),
+                 None if cache is None else Keep(cache_spec))
+    if aux:
+        out_specs += (P(),)
+    return shard_map(local, mesh,
+                     in_specs=(None, token_spec, cache_spec,
+                               *[batch] * len(per_row)),
+                     out_specs=out_specs)(params, tokens, cache, *per_row)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -1025,7 +1322,7 @@ def _draft_window(draft: dict, config: LlamaConfig, tokens, cache: dict,
     def gather_window(side):
         """One cache side -> the window [L, B, W, K, hd] in the model
         dtype: the only read of the cache."""
-        win = _grouped(map_leaf(side, take), c.n_kv_heads)
+        win = _grouped(map_leaf(side, take), c.head_dim)
         if is_quantized(win):
             win = dequantize_kv(win, dtype)
         return win.to(dtype)
@@ -1138,8 +1435,8 @@ def _chunk_verify(params: dict, config: LlamaConfig, chunk, cache: dict,
                 if paged:
                     k_layer = gather_layer(k_layer, table)
                     v_layer = gather_layer(v_layer, table)
-                k_rows = _grouped(k_layer, c.n_kv_heads)
-                v_rows = _grouped(v_layer, c.n_kv_heads)
+                k_rows = _grouped(k_layer, c.head_dim)
+                v_rows = _grouped(v_layer, c.head_dim)
                 if is_quantized(k_rows):
                     k_rows = dequantize_kv(k_rows, q.dtype)
                     v_rows = dequantize_kv(v_rows, q.dtype)

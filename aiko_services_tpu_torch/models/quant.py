@@ -1,10 +1,12 @@
 """Weight-only int8 and int8 KV-cache quantization for serving.
 
-Counterpart of ``aiko_services_tpu/models/quant.py`` (all of it but
-``quantize_specs``, which maps the JAX mesh's partition specs and waits
-for multi-card meshes, ROADMAP Queue 1 item 7).  A mixture-of-experts
-tree's 4-D expert leaves quantize per expert and output channel
-(``{"int8" [L, E, D, F], "scale" [L, E, 1, F]}``).
+Counterpart of ``aiko_services_tpu/models/quant.py``, all of it:
+``quantize_specs`` maps ``llama.partition_specs`` onto a quantized
+tree, so ``plan.put(quantize_params(params), quantize_specs(specs))``
+places it on a mesh (each position multiplies its column or row shard
+of every int8 leaf, through kernel #5 on the card).  A
+mixture-of-experts tree's 4-D expert leaves quantize per expert and
+output channel (``{"int8" [L, E, D, F], "scale" [L, E, 1, F]}``).
 
 Decode streams every weight byte and every cached k/v byte each step.
 Symmetric int8 halves both streams: weights per output channel
@@ -31,8 +33,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["QUANTIZED_LAYER_KEYS", "quantize_weight", "quantize_params",
-           "quantize_kv", "dequantize_kv", "is_quantized", "map_leaf",
-           "draft_params"]
+           "quantize_specs", "quantize_kv", "dequantize_kv", "is_quantized",
+           "map_leaf", "draft_params"]
 
 # The layer-stacked matmul weights + the unembed projection; embeddings
 # (gather, not matmul) and norm vectors stay in the model dtype.
@@ -119,3 +121,32 @@ def draft_params(params: dict) -> dict:
     if is_quantized(params.get("unembed")):
         return params
     return quantize_params(params)
+
+
+def quantize_specs(specs: dict) -> dict:
+    """Map a ``llama.partition_specs`` tree onto the structure of a
+    :func:`quantize_params` tree: each quantized leaf becomes
+    ``{"int8": <weight's spec>, "scale": <spec with the contraction
+    axis unsharded>}``.
+
+    The int8 tensor has the weight's exact shape, so it inherits the
+    weight's spec unchanged; the scale is ``[..., 1, F]`` -- size 1 on
+    the contraction axis (it cannot shard there) and the weight's own
+    layout on the output axis, so per-output-channel scales land on the
+    same positions as the output channels they rescale and tp needs no
+    scale collectives.  2-D, 3-D (stacked) and 4-D (expert) leaves
+    alike."""
+    def scale_spec(spec):
+        entries = list(spec)
+        entries[-2] = None
+        return type(spec)(*entries)
+
+    layers = dict(specs["layers"])
+    for key in QUANTIZED_LAYER_KEYS:
+        layers[key] = {"int8": layers[key],
+                       "scale": scale_spec(layers[key])}
+    quantized = dict(specs)
+    quantized["layers"] = layers
+    quantized["unembed"] = {"int8": specs["unembed"],
+                            "scale": scale_spec(specs["unembed"])}
+    return quantized

@@ -125,3 +125,13 @@ def check(status: int, name: str) -> None:
                          ctypes.c_char_p)
         raise RuntimeError(f"{name}: CUDA error {status} "
                            f"({describe(status).decode()}) at launch")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """One more launch on ``wrapper``'s counter.  The positions of a
+    mesh launch from threads at once, so the add holds a lock."""
+    with _count_lock:
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)

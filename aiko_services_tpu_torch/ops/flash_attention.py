@@ -121,7 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(causal), scale, q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2), stream)
     _build.check(status, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

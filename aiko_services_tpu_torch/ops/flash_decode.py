@@ -436,9 +436,9 @@ _COMBINE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
 def _count(wrapper, k_scale) -> None:
     """One more launch on the wrapper's bf16 or int8 counter."""
     if k_scale is None:
-        wrapper.launches += 1
+        _build.count_launch(wrapper)
     else:
-        wrapper.int8_launches += 1
+        _build.count_launch(wrapper, "int8_launches")
 
 
 def _check_rows(entry: str, k_view, v_view) -> None:
@@ -562,7 +562,7 @@ def decode_combine(part_acc: torch.Tensor, part_m: torch.Tensor,
     if part_acc.device.type == "cpu":
         return decode_combine_reference(part_acc, part_m, part_l)
     acc, m, l = _combine("decode_combine", part_acc, part_m, part_l, 1)
-    decode_combine.launches += 1
+    _build.count_launch(decode_combine)
     return acc[:, 0], m[:, 0], l[:, 0]
 
 
@@ -843,7 +843,7 @@ def verify_combine(part_acc: torch.Tensor, part_m: torch.Tensor,
     if part_acc.device.type == "cpu":
         return verify_combine_reference(part_acc, part_m, part_l, s)
     out = _combine("verify_combine", part_acc, part_m, part_l, s)
-    verify_combine.launches += 1
+    _build.count_launch(verify_combine)
     return out
 
 

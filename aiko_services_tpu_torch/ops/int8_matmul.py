@@ -136,9 +136,9 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor,
         stream)
     _build.check(status, "int8_matmul")
     if m > DECODE_ROWS:
-        int8_matmul.wide_launches += 1
+        _build.count_launch(int8_matmul, "wide_launches")
         return out
-    int8_matmul.launches += 1
+    _build.count_launch(int8_matmul)
     if partial is None:
         return out
     return int8_combine(partial, scale, out)
@@ -173,7 +173,7 @@ def int8_combine(partial: torch.Tensor, scale: torch.Tensor,
         partial.data_ptr(), scale.data_ptr(), out.data_ptr(), m, f, splits,
         torch.cuda.current_stream(partial.device).cuda_stream)
     _build.check(status, "int8_combine")
-    int8_combine.launches += 1
+    _build.count_launch(int8_combine)
     return out
 
 

@@ -188,7 +188,7 @@ def topk(x: torch.Tensor, k: int):
         cand_key.data_ptr(), cand_idx.data_ptr(), values.data_ptr(),
         indices.data_ptr(), stream)
     _build.check(status, "topk")
-    topk.launches += 1
+    _build.count_launch(topk)
     return values, indices
 
 

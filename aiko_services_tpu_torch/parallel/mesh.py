@@ -1,6 +1,6 @@
-"""Named-axis device meshes and the SPMD runner of the port: the JAX
-package's ``parallel/mesh.py`` (``make_mesh``, ``MeshPlan``, ``P``,
-``shard_map``) with ``jax.lax``'s collectives.
+"""Named-axis device meshes, placed trees and the SPMD runner of the
+port: the JAX package's ``parallel/mesh.py`` (``make_mesh``,
+``MeshPlan``, ``P``, ``shard_map``) with ``jax.lax``'s collectives.
 
 A :class:`Mesh` names the axes of a grid of ``torch.device``\\ s:
 ``mesh.shape`` is a dict of axis sizes and ``mesh.devices`` a numpy
@@ -12,25 +12,40 @@ shard, and runs every hop, mask and reduction a four-card mesh runs
 descriptors (``torch.device("cpu", i)``) stand for cards in the tests;
 a tensor put on any of them lies on the CPU.
 
-:func:`shard_map` is how a value is sharded: it splits global tensors
-by :class:`P` specs onto the mesh's positions, runs the function once a
-position -- one thread each, from ONE process, as the JAX package
-drives every local chip from one process -- and reassembles the
-outputs.  Inside, :func:`ppermute`, :func:`all_to_all`,
+``MeshPlan.put(tree, specs)`` places a tree, the counterpart of
+``jax.device_put`` with ``NamedSharding``\\ s: it returns a
+:class:`Placed` tree (no JAX counterpart: the port's sharded array), in
+which every position holds its own shard of every leaf, laid out by the
+filtered spec, and which lives across calls.  Positions that list the
+SAME device descriptor and hold the same shard share one tensor: a
+replica is stored once a device and updated once (one card standing for
+eight positions holds a replicated leaf once, as the JAX package's
+sharded array holds it once a chip); positions on distinct descriptors
+each hold their own copy.  ``MeshPlan.gather(placed)`` (no JAX
+counterpart) returns the whole tree on ``plan.device``.
+``MeshPlan.shard(*spec)`` returns a :class:`NamedSharding` whose
+``.spec`` is the filtered spec; its ``.device`` is where the port's
+stage code puts a stage's tensors (ONE device: placing stages over card
+groups is ROADMAP Queue 1 item 7, so a stage over several cards raises
+``not_ported`` there, before it computes on one card in silence).
+
+:func:`shard_map` runs a function once a position -- one thread each,
+from ONE process, as the JAX package drives every local chip from one
+process.  It splits global tensor arguments by :class:`P` specs, takes
+:class:`Placed` arguments as they stand (each position its own shard),
+and reassembles the outputs by their specs, or keeps them placed where
+an out spec is :class:`Keep` (as ``out_shardings`` keeps parameters and
+caches sharded).  Inside, :func:`ppermute`, :func:`all_to_all`,
 :func:`all_gather`, :func:`psum` and :func:`axis_index` exchange
 tensors between the positions by device copies (peer to peer between
 cards), through the :class:`Collectives` of the calling position;
 every one is a differentiable tensor expression of the other
-positions' tensors, so gradients flow back through it.  A
-``torch.distributed`` backend for meshes across hosts implements the
-same interface (ROADMAP).
-
-A :class:`MeshPlan` still resolves its stage-placement requests to ONE
-device, ``plan.device`` (the mesh's first): ``shard(*spec)`` and
-``replicated()`` place a stage's tensors whole on one card, and a plan
-over more than one CUDA card raises when a tensor is put on it
-(placing stages over cards is ROADMAP Queue 1 item 7), so it never
-computes on one card in silence.
+positions' tensors, so the positions' work forms ONE autograd graph and
+gradients flow back through it.  :func:`remat` is ``jax.checkpoint``
+inside a mapped function: a function's activations dropped and
+recomputed in the backward pass by every position together, its
+collectives included.  A ``torch.distributed`` backend for meshes
+across hosts implements the same interface (ROADMAP).
 """
 
 from __future__ import annotations
@@ -45,9 +60,10 @@ import torch
 from .. import device as device_rule
 from ..utils import not_ported
 
-__all__ = ["AXIS_ORDER", "Mesh", "MeshPlan", "make_mesh", "P",
-           "filter_spec", "shard_map", "Collectives", "MeshAborted",
-           "ppermute", "all_to_all", "all_gather", "psum", "axis_index"]
+__all__ = ["AXIS_ORDER", "Mesh", "MeshPlan", "NamedSharding", "Placed",
+           "Keep", "make_mesh", "P", "filter_spec", "filter_specs",
+           "shard_map", "Collectives", "MeshAborted", "ppermute",
+           "all_to_all", "all_gather", "psum", "axis_index", "remat"]
 
 AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
@@ -105,9 +121,10 @@ def make_mesh(axes: dict[str, int] | None = None,
 
 
 class MeshPlan:
-    """A mesh and where its tensors go.  ``shard(*spec)`` and
-    ``replicated()`` both name ``plan.device``: the spec is accepted
-    for the JAX package's call sites and places nothing apart."""
+    """A mesh plus the sharding vocabulary models use: ``shard(*spec)``
+    (a :class:`NamedSharding`, axis names absent from the mesh dropped),
+    ``put`` and ``gather`` (placed trees), and ``replicated()``, the one
+    device a pipeline stage's tensors go to."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -128,6 +145,8 @@ class MeshPlan:
         return filter_spec(self.mesh, spec)
 
     def replicated(self) -> torch.device:
+        """The device a stage's tensors go to: ``plan.device``, for a
+        stage on one card; a stage over several cards raises."""
         cards = {device.index or 0 for device in self.mesh.devices.flat
                  if device.type == "cuda"}
         if len(cards) > 1:
@@ -136,8 +155,152 @@ class MeshPlan:
                 f"({self.mesh.shape})", "ROADMAP Queue 1 item 7")
         return self.device
 
-    def shard(self, *spec) -> torch.device:
-        return self.replicated()
+    def shard(self, *spec) -> "NamedSharding":
+        if len(spec) == 1 and isinstance(spec[0], P):
+            spec = spec[0]
+        else:
+            spec = P(*spec)
+        return NamedSharding(self, self._filter_spec(spec))
+
+    def put(self, tree, specs) -> "Placed":
+        """``tree`` (a tensor, or dicts / lists / tuples of tensors)
+        placed on the mesh by ``specs`` (a matching tree of :class:`P`;
+        a single spec broadcasts to every leaf): each position's shard
+        of each leaf, copied onto its device, one tensor a device
+        descriptor and shard."""
+        if isinstance(specs, P):
+            specs = _broadcast(specs, tree)
+        specs = filter_specs(self.mesh, specs)
+        descriptors = list(self.mesh.devices.flat)
+
+        def place(spec, leaf):
+            leaf = torch.as_tensor(leaf)
+            made, shards = {}, []
+            for position, descriptor in enumerate(descriptors):
+                key = (descriptor, _shard_key(self.mesh, position, spec,
+                                              leaf.ndim))
+                if key not in made:
+                    made[key] = _split(self.mesh, position,
+                                       _placed(descriptor), spec,
+                                       leaf.detach(), copy=True)
+                shards.append(made[key])
+            return shards
+        with torch.no_grad():
+            per_leaf = _map_specs(place, specs, tree)
+        return Placed(self.mesh, specs, [
+            _map_specs(lambda spec, shards: shards[position], specs,
+                       per_leaf) for position in range(self.mesh.size)])
+
+    def gather(self, placed: "Placed"):
+        """The whole tree of ``placed`` on ``plan.device``: new tensors,
+        detached (for tests, checkpoints and comparisons)."""
+        return placed.gather(self.device)
+
+    def __repr__(self) -> str:
+        return f"MeshPlan({dict(self.mesh.shape)})"
+
+
+class NamedSharding:
+    """``plan.shard(*spec)``: the mesh and the filtered spec (``.spec``),
+    as the JAX ``NamedSharding`` carries them.  ``.device`` is the one
+    device a pipeline stage's tensors go to (``plan.replicated()``)."""
+
+    def __init__(self, plan: MeshPlan, spec: "P"):
+        self.plan = plan
+        self.mesh = plan.mesh
+        self.spec = spec
+
+    @property
+    def device(self) -> torch.device:
+        return self.plan.replicated()
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({dict(self.mesh.shape)}, {self.spec})"
+
+
+class Placed:
+    """A tree placed on a mesh (``MeshPlan.put``, or a :class:`Keep`
+    output of :func:`shard_map`): ``shards[position]`` is that position's
+    tree of local tensors, laid out by ``specs`` (filtered).  Positions
+    that list one device descriptor and hold the same shard of a leaf
+    hold the same tensor.  No JAX counterpart: the port's sharded
+    array."""
+
+    def __init__(self, mesh: Mesh, specs, shards: list):
+        self.mesh = mesh
+        self.specs = specs
+        self.shards = shards
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every distinct tensor, in position order, each once."""
+        return [tensor for mine in self.owned() for tensor in mine]
+
+    def owned(self) -> list[list[torch.Tensor]]:
+        """Per position, the distinct tensors it holds first (a tensor
+        shared by several positions belongs to the first)."""
+        seen, out = set(), []
+        for shard in self.shards:
+            mine = []
+            for tensor in _leaf_list(self.specs, shard):
+                if id(tensor) not in seen:
+                    seen.add(id(tensor))
+                    mine.append(tensor)
+            out.append(mine)
+        return out
+
+    def replicas(self) -> list[list[torch.Tensor]]:
+        """Groups of two or more distinct tensors that hold the same
+        shard of one leaf (on distinct device descriptors), each group in
+        position order: what must stay equal."""
+        groups: dict = {}
+        columns = [_leaf_list(self.specs, shard) for shard in self.shards]
+        for index, spec in enumerate(_leaf_list(self.specs, self.specs)):
+            for position, column in enumerate(columns):
+                tensor = column[index]
+                key = (index, _shard_key(self.mesh, position, spec,
+                                         tensor.ndim))
+                group = groups.setdefault(key, [])
+                if all(member is not tensor for member in group):
+                    group.append(tensor)
+        return [group for group in groups.values() if len(group) > 1]
+
+    def map(self, fn) -> "Placed":
+        """A placed tree of the same layout with ``fn`` applied to every
+        distinct tensor (shared tensors stay shared)."""
+        made: dict = {}
+
+        def apply(_, tensor):
+            if id(tensor) not in made:
+                made[id(tensor)] = fn(tensor)
+            return made[id(tensor)]
+        return Placed(self.mesh, self.specs,
+                      [_map_specs(apply, self.specs, shard)
+                       for shard in self.shards])
+
+    def gather(self, device):
+        """The whole tree on ``device``: new tensors, detached."""
+        device = _placed(device)
+        columns = [_leaf_list(self.specs, shard) for shard in self.shards]
+        with torch.no_grad():
+            wholes = iter([
+                _assemble(self.mesh, spec, [column[index]
+                                            for column in columns],
+                          device).detach().clone()
+                for index, spec in enumerate(_leaf_list(self.specs,
+                                                        self.specs))])
+        return _map_specs(lambda spec, _: next(wholes), self.specs,
+                          self.specs)
+
+    def __repr__(self) -> str:
+        return f"Placed({dict(self.mesh.shape)}, {self.specs})"
+
+
+class Keep:
+    """An out spec of :func:`shard_map` that keeps the positions' outputs
+    placed: a :class:`Placed` tree laid out by ``specs``."""
+
+    def __init__(self, specs):
+        self.specs = specs
 
 
 class P(tuple):
@@ -191,7 +354,7 @@ class Collectives:
     calls the same collectives in the same order.  :func:`shard_map`
     runs each position under an instance of :class:`_LocalCollectives`
     (positions as threads of this process); a backend over processes
-    implements the same five methods."""
+    implements the same six methods."""
 
     def axis_index(self, axis_name) -> int:
         raise NotImplementedError
@@ -208,30 +371,40 @@ class Collectives:
     def psum(self, x, axis_name):
         raise NotImplementedError
 
+    def remat(self, fn, args):
+        raise NotImplementedError
+
 
 class _Exchange:
     """The meeting point of one :func:`shard_map` call's positions.
 
     ``gather`` hands each member of a group every member's value (the
-    objects, no copy), in group order.  A failure at any position
+    objects, no copy), in group order.  Each meeting has its own
+    condition, notified once, by the member that completes it, so a
+    collective wakes its own members only.  A failure at any position
     (``abort``) wakes every waiter with :class:`MeshAborted`, and a
     position that returned (``finish``) while a member of its group
     waits for it fails that wait, so no call hangs."""
 
     def __init__(self, count: int):
-        self._cond = threading.Condition()
+        self._lock = threading.Lock()
         self._calls = [0] * count
         self._slots: dict = {}
         self._finished: set = set()
         self._failed: int | None = None
 
     def gather(self, position: int, members: tuple, index: int, value):
-        with self._cond:
+        with self._lock:
             key = (self._calls[position], members)
             self._calls[position] += 1
-            slot = self._slots.setdefault(key, {"values": {}, "read": 0})
+            slot = self._slots.get(key)
+            if slot is None:
+                slot = self._slots[key] = {
+                    "values": {}, "read": 0,
+                    "cond": threading.Condition(self._lock)}
             slot["values"][index] = value
-            self._cond.notify_all()
+            if len(slot["values"]) == len(members):
+                slot["cond"].notify_all()
             while len(slot["values"]) < len(members):
                 if self._failed is not None:
                     raise MeshAborted(
@@ -244,22 +417,26 @@ class _Exchange:
                     raise RuntimeError(
                         f"position {position} waits in a collective that "
                         f"position {gone[0]} returned without joining")
-                self._cond.wait()
+                slot["cond"].wait()
             slot["read"] += 1
             if slot["read"] == len(members):
                 del self._slots[key]
             return [slot["values"][rank] for rank in range(len(members))]
 
+    def _wake_all(self) -> None:
+        for slot in self._slots.values():
+            slot["cond"].notify_all()
+
     def abort(self, position: int) -> None:
-        with self._cond:
+        with self._lock:
             if self._failed is None:
                 self._failed = position
-            self._cond.notify_all()
+            self._wake_all()
 
     def finish(self, position: int) -> None:
-        with self._cond:
+        with self._lock:
             self._finished.add(position)
-            self._cond.notify_all()
+            self._wake_all()
 
 
 class _LocalCollectives(Collectives):
@@ -332,6 +509,33 @@ class _LocalCollectives(Collectives):
             total = total + self._here(value)
         return total
 
+    def remat(self, fn, args):
+        with torch.no_grad():
+            out = fn(*args)
+        if not torch.is_grad_enabled():
+            return out
+        everyone = tuple(range(self._mesh.size))
+        tensors, rebuild = _flat(args)
+        entries = self._exchange.gather(self._position, everyone,
+                                        self._position,
+                                        (fn, tensors, rebuild, out))
+        built = None
+        if self._position == 0:
+            outputs = [_flat(entry[3]) for entry in entries]
+            node = {"mesh": self._mesh,
+                    "fns": [entry[0] for entry in entries],
+                    "arguments": [(entry[2], len(entry[1]))
+                                  for entry in entries],
+                    "outputs": [t for flat, _ in outputs for t in flat],
+                    "streams": _streams(self._mesh)}
+            produced = iter(_MeshRemat.apply(
+                node, *[t for entry in entries for t in entry[1]]))
+            built = [remake([next(produced) for _ in flat])
+                     for flat, remake in outputs]
+        shared = self._exchange.gather(self._position, everyone,
+                                       self._position, built)
+        return shared[0][self._position]
+
 
 def _placed(device: torch.device) -> torch.device:
     """Where a tensor of position ``device`` lives (a CPU descriptor's
@@ -388,16 +592,124 @@ def psum(x, axis_name):
     return _collectives().psum(x, axis_name)
 
 
+def remat(fn: Callable, *args):
+    """``jax.checkpoint`` inside a mapped function: ``fn(*args)`` with its
+    activations dropped and recomputed in the backward pass.  Every
+    position of the mesh calls it at the same point.  ``args`` may hold
+    dicts, lists and tuples of tensors; gradients reach every tensor of
+    them that requires grad (pass the parameters ``fn`` reads, so their
+    fsdp gathers are redone in the backward pass too).
+
+    The forward runs ``fn`` without grad at each position, then the
+    positions meet and ONE autograd node stands for all of them; its
+    backward runs every position's ``fn`` again, one thread each with
+    fresh collectives, and differentiates them together.  Outside a
+    grad-enabled call it is ``fn(*args)``."""
+    return _collectives().remat(fn, args)
+
+
+def _flat(tree) -> tuple[list, Callable]:
+    """(the tensors of ``tree`` -- dicts, lists and tuples -- in order,
+    a function that rebuilds the tree from such a list)."""
+    tensors = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = list(node)
+            parts = [walk(node[key]) for key in keys]
+            return lambda take: {key: part(take)
+                                 for key, part in zip(keys, parts)}
+        if isinstance(node, (list, tuple)):
+            parts = [walk(item) for item in node]
+            kind = type(node)
+            return lambda take: kind(part(take) for part in parts)
+        if torch.is_tensor(node):
+            tensors.append(node)
+            return lambda take: next(take)
+        return lambda take: node
+    build = walk(tree)
+    return tensors, lambda values: build(iter(values))
+
+
+class _MeshRemat(torch.autograd.Function):
+    """One autograd node for a :func:`remat` call at every position:
+    its inputs are every position's argument tensors, its outputs every
+    position's (precomputed) result tensors."""
+
+    @staticmethod
+    def forward(ctx, plan, *inputs):
+        ctx.plan = plan
+        ctx.save_for_backward(*inputs)
+        return tuple(plan["outputs"])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        inputs = [x.detach().requires_grad_(x.requires_grad)
+                  for x in ctx.saved_tensors]
+        args, begin = [], 0
+        for rebuild, count in plan["arguments"]:
+            args.append(rebuild(inputs[begin:begin + count]))
+            begin += count
+        mesh, fns = plan["mesh"], plan["fns"]
+        with torch.enable_grad():
+            results = _run_positions(
+                mesh, [lambda fn=fn, a=a: fn(*a) for fn, a in zip(fns, args)],
+                (False, True), plan["streams"])
+        outputs = [tensor for result in results
+                   for tensor in _flat(result)[0]]
+        pairs = [(out, grad) for out, grad in zip(outputs, grads)
+                 if grad is not None and out.requires_grad]
+        wanted = [x for x in inputs if x.requires_grad]
+        found = torch.autograd.grad([out for out, _ in pairs],
+                                    wanted, [grad for _, grad in pairs],
+                                    allow_unused=True) if pairs else \
+            [None] * len(wanted)
+        found = iter(found)
+        return (None, *[next(found) if x.requires_grad else None
+                        for x in inputs])
+
+
 def _map_specs(fn, specs, tree):
     """``fn(spec, leaf)`` over a tree of dicts, tuples and lists whose
     leaves are tensors, against a tree of :class:`P` of the same
-    structure."""
+    structure (dict keys must match)."""
     if isinstance(specs, P):
         return fn(specs, tree)
     if isinstance(specs, dict):
+        if not isinstance(tree, dict) or set(tree) != set(specs):
+            found = sorted(tree) if isinstance(tree, dict) else tree
+            raise ValueError(f"a tree of {found} where its specs have "
+                             f"the keys {sorted(specs)}")
         return {key: _map_specs(fn, specs[key], tree[key]) for key in specs}
     return type(specs)(_map_specs(fn, spec, leaf)
                        for spec, leaf in zip(specs, tree, strict=True))
+
+
+def _leaf_list(specs, tree) -> list:
+    """``tree``'s leaves in the order ``specs`` walks them."""
+    out = []
+    _map_specs(lambda spec, leaf: out.append(leaf), specs, tree)
+    return out
+
+
+def _broadcast(spec: P, tree):
+    """One spec for every tensor of ``tree``."""
+    if isinstance(tree, dict):
+        return {key: _broadcast(spec, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_broadcast(spec, value) for value in tree)
+    return spec
+
+
+def filter_specs(mesh: Mesh, specs):
+    """Every spec of a tree filtered to ``mesh``'s axes
+    (:func:`filter_spec` over a tree of :class:`P`)."""
+    if isinstance(specs, P):
+        return filter_spec(mesh, specs)
+    if isinstance(specs, dict):
+        return {key: filter_specs(mesh, value) for key, value in specs.items()}
+    return type(specs)(filter_specs(mesh, value) for value in specs)
 
 
 def _layout(mesh: Mesh, spec: P, ndim: int) -> list[tuple]:
@@ -427,9 +739,19 @@ def _shard_index(mesh: Mesh, coords, axes) -> int:
     return index
 
 
-def _split(mesh: Mesh, position: int, device, spec: P, tensor):
+def _shard_key(mesh: Mesh, position: int, spec: P, ndim: int) -> tuple:
+    """Which shard of a leaf under ``spec`` ``position`` holds: one
+    index a split dimension (positions with equal keys hold replicas)."""
+    coords = np.unravel_index(position, mesh.devices.shape)
+    return tuple(_shard_index(mesh, coords, axes)
+                 for _, axes, _ in _layout(mesh, spec, ndim))
+
+
+def _split(mesh: Mesh, position: int, device, spec: P, tensor,
+           copy: bool = False):
     """``position``'s shard of a global tensor under ``spec``, on its
-    device (a view where the device is the tensor's own)."""
+    device (a view where the device is the tensor's own, unless
+    ``copy``: then a contiguous tensor of its own)."""
     coords = np.unravel_index(position, mesh.devices.shape)
     for dim, axes, count in _layout(mesh, spec, tensor.ndim):
         if tensor.shape[dim] % count:
@@ -438,6 +760,9 @@ def _split(mesh: Mesh, position: int, device, spec: P, tensor):
         size = tensor.shape[dim] // count
         tensor = tensor.narrow(dim, _shard_index(mesh, coords, axes) * size,
                                size)
+    if copy:
+        return tensor.to(device, copy=True,
+                         memory_format=torch.contiguous_format)
     return tensor.to(device)
 
 
@@ -466,9 +791,9 @@ def _assemble(mesh: Mesh, spec: P, outputs: list, device):
     return build(())
 
 
-def _run_position(fn, args, exchange, mesh, position, errors, results,
+def _run_position(fn, exchange, mesh, position, errors, results,
                   modes, stream):
-    """One position's thread: ``fn`` under the caller's grad and
+    """One position's thread: ``fn()`` under the caller's grad and
     inference modes and CUDA stream.  Any failure is kept for the
     caller to raise and aborts the other positions' waits."""
     _current.collectives = _LocalCollectives(exchange, mesh, position)
@@ -477,8 +802,8 @@ def _run_position(fn, args, exchange, mesh, position, errors, results,
         with torch.inference_mode(inference), torch.set_grad_enabled(grad), \
                 (torch.cuda.stream(stream) if stream is not None
                  else contextlib.nullcontext()):
-            results[position] = fn(*args)
-    except BaseException as error:     # re-raised by shard_map's caller
+            results[position] = fn()
+    except BaseException as error:     # re-raised by the caller
         errors[position] = error
         exchange.abort(position)
     finally:
@@ -486,51 +811,107 @@ def _run_position(fn, args, exchange, mesh, position, errors, results,
         _current.collectives = None
 
 
+def _streams(mesh: Mesh) -> list:
+    """Each position's CUDA stream: the calling thread's current stream
+    on the position's card (None for a CPU position)."""
+    return [torch.cuda.current_stream(device) if device.type == "cuda"
+            else None for device in map(_placed, mesh.devices.flat)]
+
+
+def _run_positions(mesh: Mesh, calls: list, modes: tuple,
+                   streams: list) -> list:
+    """``calls[position]()`` at every position, one thread each with the
+    position's collectives -> the results in position order.  A position
+    that raises aborts the call: the positions waiting in a collective
+    raise :class:`MeshAborted`, and the first failure in position order
+    that is not an abort is re-raised."""
+    count = mesh.size
+    exchange = _Exchange(count)
+    results, errors = [None] * count, [None] * count
+    threads = [threading.Thread(
+        target=_run_position, name=f"shard_map-{position}",
+        args=(call, exchange, mesh, position, errors, results, modes,
+              stream), daemon=True)
+        for position, (call, stream) in enumerate(zip(calls, streams))]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    failures = [error for error in errors if error is not None]
+    if failures:
+        raise next((error for error in failures
+                    if not isinstance(error, MeshAborted)), failures[0])
+    return results
+
+
+def _same_mesh(a: Mesh, b: Mesh) -> bool:
+    return a is b or (a.axis_names == b.axis_names
+                      and a.devices.shape == b.devices.shape
+                      and list(a.devices.flat) == list(b.devices.flat))
+
+
+def _local_args(mesh: Mesh, in_specs, args, position: int, device) -> list:
+    """``position``'s arguments: a :class:`Placed` argument's own shard,
+    a global tree's split by its spec."""
+    local = []
+    for spec, arg in zip(in_specs, args, strict=True):
+        if arg is None:
+            local.append(None)
+        elif isinstance(arg, Placed):
+            if not _same_mesh(arg.mesh, mesh):
+                raise ValueError(f"a tree placed on {arg.mesh} passed to "
+                                 f"a function mapped over {mesh}")
+            if spec is not None \
+                    and filter_specs(mesh, spec) != arg.specs:
+                raise ValueError(f"a tree placed by {arg.specs} passed "
+                                 f"where {spec} is expected")
+            local.append(arg.shards[position])
+        elif spec is None:
+            raise ValueError("a global argument of a mapped function needs "
+                             "its spec (None is for placed trees)")
+        else:
+            local.append(_map_specs(
+                lambda leaf_spec, leaf: _split(mesh, position, device,
+                                               leaf_spec, leaf),
+                spec, arg))
+    return local
+
+
 def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
-    """``jax.shard_map``: the returned function splits its positional
-    arguments (trees of tensors) by ``in_specs`` onto ``mesh``'s
-    positions, runs ``fn`` on each position's shards -- one thread a
-    position, each on its position's device, under the caller's grad
-    mode and current CUDA stream -- and reassembles the outputs by
-    ``out_specs`` on the mesh's first device.  The outputs stay attached
-    to the inputs' autograd graph.
+    """``jax.shard_map``: the returned function hands each position its
+    arguments -- global trees of tensors split by ``in_specs``,
+    :class:`Placed` trees as they stand (their spec may be given as
+    None), None as None -- runs ``fn`` on them, one thread a position, each on its
+    position's device, under the caller's grad mode and current CUDA
+    stream, and reassembles the outputs by ``out_specs`` on the mesh's
+    first device, or keeps them placed where an out spec is
+    :class:`Keep`.  The outputs stay attached to the inputs' autograd
+    graph.
 
     A position that raises aborts the call: the positions waiting in a
     collective raise :class:`MeshAborted`, and the call re-raises the
     first failure in position order that is not an abort."""
     def run(*args):
-        count = mesh.size
         devices = [_placed(device) for device in mesh.devices.flat]
-        exchange = _Exchange(count)
-        results, errors = [None] * count, [None] * count
-        modes = (torch.is_inference_mode_enabled(), torch.is_grad_enabled())
-        threads = []
+        calls = []
         for position, device in enumerate(devices):
-            local = _map_specs(
-                lambda spec, leaf: _split(mesh, position, device, spec,
-                                          leaf), tuple(in_specs), args)
-            stream = (torch.cuda.current_stream(device)
-                      if device.type == "cuda" else None)
-            threads.append(threading.Thread(
-                target=_run_position, name=f"shard_map-{position}",
-                args=(fn, local, exchange, mesh, position, errors,
-                      results, modes, stream), daemon=True))
-        for thread in threads:
-            thread.start()
-        for thread in threads:
-            thread.join()
-        failures = [error for error in errors if error is not None]
-        if failures:
-            first = next((error for error in failures
-                          if not isinstance(error, MeshAborted)),
-                         failures[0])
-            raise first
+            local = _local_args(mesh, tuple(in_specs), args, position,
+                                device)
+            calls.append(lambda local=local: fn(*local))
+        modes = (torch.is_inference_mode_enabled(), torch.is_grad_enabled())
+        results = _run_positions(mesh, calls, modes, _streams(mesh))
         return _gather_outputs(mesh, out_specs, results, devices[0])
     return run
 
 
 def _gather_outputs(mesh: Mesh, out_specs, results: list, device):
-    """Every position's output tree -> one tree of global tensors."""
+    """Every position's output tree -> one tree of global tensors (a
+    :class:`Placed` tree under a :class:`Keep` spec; None where the
+    spec is None)."""
+    if out_specs is None:
+        return None
+    if isinstance(out_specs, Keep):
+        return Placed(mesh, filter_specs(mesh, out_specs.specs), results)
     if isinstance(out_specs, P):
         return _assemble(mesh, out_specs, results, device)
     if isinstance(out_specs, dict):

@@ -860,7 +860,8 @@ class StagePlacement:
         if sharding is None:
             plan = self.plans[stage] if replica is None \
                 else self.replica_plan(stage, replica)
-            sharding = plan.shard(*spec) if spec else plan.replicated()
+            sharding = plan.shard(*spec).device if spec \
+                else plan.replicated()
             self._shardings[key] = sharding
         return sharding
 
@@ -937,7 +938,8 @@ def _upload(leaf, device: torch.device):
 
 def tree_device_put(tree, plan: MeshPlan, spec=None):
     """Put every array leaf of a swag/pytree on ``plan``'s device."""
-    device = plan.shard(spec) if spec is not None else plan.replicated()
+    device = plan.shard(spec).device if spec is not None \
+        else plan.replicated()
     return pytree.tree_map(lambda leaf: _upload(leaf, device), tree)
 
 
@@ -1088,7 +1090,7 @@ class TPUElement(PipelineElement):
         """Place a tensor, host array (or pytree of them) on this
         element's device; a host array goes through pinned memory on
         the card."""
-        device = (self.plan.shard(*spec) if spec
+        device = (self.plan.shard(*spec).device if spec
                   else self.plan.replicated())
         return pytree.tree_map(lambda leaf: _upload(leaf, device), value)
 

@@ -212,14 +212,49 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     blocks with einsums): every counter, zeroed before each sharded run,
     must read 0 after it.  It prints each run's CUDA-event ms (a first
     and a second call) and peak above what the card held, the dense
-    reference's, and the errors.
+    reference's, and the errors;
+13. the sharded model step on placed trees (``sharded-step``): ONE card
+    stands for every position of each mesh, so a replica is stored
+    once and no copy between cards is measured; each one-position
+    reference runs first and is freed before its sharded run.  (a)
+    ``models/train.py`` on Llama-3.2-1B at its published widths
+    (``max_seq`` 512, bf16, seed 0) over SHARDED_MESH, ``{"dp": 1,
+    "fsdp": 2, "tp": 4}`` (``_factor_axes(8)``), on phase 11a's 4 x 512
+    batch: the first loss within SHARDED_LOSS_TOL of the one-position
+    step's, each gradient leaf's relative L2 to the one-position
+    gradient within SHARDED_GRAD_TOL, the placed tree holding the
+    parameter count exactly (each replica stored, and stepped, once)
+    with every replica group equal, losses finite and falling over 3
+    steps; then ``remat=True`` and ``accumulate_steps=2``, 2 steps each
+    (first losses within 1e-2 and 5e-2); one more step of the plain
+    sharded and one-position runs profiled for the device's busy share,
+    and one forward and its backward timed apart.  (b) phase 11c's MoE (4
+    experts, top-2, capacity factor 2.0, remat, 2 x 512) over
+    ``{"dp": 2, "ep": 2, "tp": 2}``: the first loss within
+    SHARDED_LOSS_TOL of the one-position step's, the routes dropped
+    (``llama.record_route_drops``) equal to the one-position path's,
+    losses falling.  (a) and (b) launch no kernel.  (c) Llama-3-8B
+    (published widths, seed 0) through ``quantize_params`` with
+    ``kv_dtype="int8"``, ``max_seq`` 2048, flash attention, placed by
+    ``quantize_specs`` over ``{"tp": 2}``: phase 3's 8 prompts through
+    ``prefill_into_slot`` one at a time into one 8-row cache placed by
+    ``cache_specs``, then 8 ``decode_step`` calls of every row, fed the
+    one-position path's greedy tokens: logits within LOGITS_TOL of the
+    one-position int8 path's at each prefill and each step, the steps
+    whose argmax agrees printed; #2 (int8), ``decode_combine``, #4 and
+    both routes of #5 launched exactly twice the one-position run's
+    counts (``int8_combine`` printed) and no other kernel.  It prints
+    each run's step ms (CUDA events, steps 2 on), peak above what the
+    card held, the one-position run's beside it, and 13c's prefill and
+    decode-step ms.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
 the pipeline runs' own under ``pipeline_launches``, phase 9's zero
 under ``fusion-chain``, phase 10's under ``checkpoint-cli``, phase 11's
 (11b's, with 11a's, 11c's and 11d's zeros) under ``train-moe``, phase
-12's zeros under ``context-parallel``; the entries on config 4's and config 5's paths
+12's zeros under ``context-parallel``, phase 13's (13c's placed run)
+under ``sharded-step``; the entries on config 4's and config 5's paths
 carry ``"path"`` and their run's launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
 of JAX or of the JAX package.
 """
@@ -3491,6 +3526,389 @@ def context_parallel_run(card: str) -> dict:
     return {"launches": total, "forwards": forwards, "backward": backward}
 
 
+# -- phase 13: the sharded model step ---------------------------------------
+
+#: 13a: Llama-3.2-1B on ``_factor_axes(8)`` -- dp x fsdp x tp.
+SHARDED_MESH = {"dp": 1, "fsdp": 2, "tp": 4}
+SHARDED_STEPS = 3
+#: 13b: the 4-expert MoE, remat, on dp x ep x tp.
+SHARDED_MOE_MESH = {"dp": 2, "ep": 2, "tp": 2}
+#: 13c: Llama-3-8B int8, prefill and decode on a tree placed over tp.
+SHARDED_DECODE_MESH = {"tp": 2}
+SHARDED_DECODE_STEPS = 8
+SHARDED_LOSS_TOL = 1e-2     # |first loss - the one-position step's|
+# Relative L2 of each gradient leaf against the one-position step's, in
+# bf16: both round every product to bf16, in another order (tp's partial
+# sums, fsdp's gathers); CP_GRAD_TOL's bound.
+SHARDED_GRAD_TOL = 0.10
+
+
+def timed_steps(step, params, state, tokens, steps: int, held: float):
+    """``steps`` calls of a train step -> (params, state, losses, CUDA-
+    event ms of each step, peak GiB above ``held`` over the steps)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, events = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, loss = step(params, state, tokens)
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    times = [start.elapsed_time(end) for start, end in events]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+    return params, state, [float(loss) for loss in losses], times, peak
+
+
+def profiled_step(step, params, state, tokens):
+    """One more step under ``torch.profiler`` (device activity only) ->
+    (params, state, {the step's wall ms on the host clock ending in a
+    synchronise, the device's busy ms -- the sum of its kernel times --,
+    the busy share, the kernels launched})."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        begin = time.perf_counter()
+        params, state, _ = step(params, state, tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - begin) * 1e3
+    busy, kernels = 0.0, 0
+    for event in prof.key_averages():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            busy += getattr(event, "device_time_total",
+                            getattr(event, "cuda_time_total", 0)) / 1e3
+            kernels += event.count
+    return params, state, {"wall_ms": wall, "device_busy_ms": busy,
+                           "device_busy_share": busy / wall,
+                           "device_kernels": kernels}
+
+
+def forward_backward_ms(params, config, tokens) -> dict:
+    """One forward of the training loss and its backward, apart: host
+    clock, each ending in a synchronise (where a step's time goes: the
+    positions' threads run the forward, one autograd thread the
+    backward)."""
+    import torch
+    from aiko_services_tpu_torch.models import train
+    leaves = train._leaves(params)
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    loss = train.language_model_loss(params, config, tokens)
+    torch.cuda.synchronize()
+    middle = time.perf_counter()
+    torch.autograd.grad(loss, leaves, allow_unused=True,
+                        materialize_grads=True)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    return {"forward_ms": (middle - begin) * 1e3,
+            "backward_ms": (end - middle) * 1e3}
+
+
+def step_summary(label: str, losses, times, peak, card: str, **extra):
+    timed = times[1:] or times
+    out = {"run": label, "losses": losses, "step_ms": times,
+           "step_ms_mean": sum(timed) / len(timed),
+           "peak_gib_above_held": peak, "card": card, **extra}
+    print(f"sharded {json.dumps(out)}", flush=True)
+    if not all(math.isfinite(loss) for loss in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses not finite or not falling: "
+                             f"{losses}")
+    return out
+
+
+def one_position_run(label: str, config, tokens, steps: int, card: str, *,
+                     grads: bool = False, drops: bool = False):
+    """``init_train_state(0)`` on a plan of one position: the loss and
+    (``grads``) the gradient at init -- on the host, bf16 -- and
+    (``drops``) the routes the MoE drops there, then ``steps`` timed
+    steps.  Everything on the card is freed before it returns."""
+    import torch
+    from aiko_services_tpu_torch.models import llama, train
+    from aiko_services_tpu_torch.models.checkpoint import flatten
+    from aiko_services_tpu_torch.parallel.mesh import MeshPlan
+    held = free_card()
+    plan = MeshPlan.build({"dp": 1}, devices=[tokens.device])
+    params, state, _ = train.init_train_state(0, config, plan)
+    out = {}
+    if drops:
+        out["drops"] = routes_dropped(params, config, tokens)
+    if grads:
+        loss, gradient = train.value_and_grad(params, config, tokens)
+        out["grads"] = {name: leaf.to("cpu")
+                        for name, leaf in flatten(gradient).items()}
+        out["loss"] = float(loss)
+        del gradient
+    step = train.make_train_step(config, plan)
+    params, state, losses, times, peak = timed_steps(
+        step, params, state, tokens, steps, held)
+    params, state, profiled = profiled_step(step, params, state, tokens)
+    profiled.update(forward_backward_ms(params, config, tokens))
+    del params, state
+    free_card()
+    out["run"] = step_summary(label, losses, times, peak, card,
+                              mesh={"dp": 1}, batch=list(tokens.shape),
+                              profiled=profiled)
+    out.setdefault("loss", losses[0])
+    return out
+
+
+def routes_dropped(params, config, tokens) -> int:
+    """The (token, expert) routes the MoE drops in one forward of the
+    training loss at ``params`` (one position or placed)."""
+    import torch
+    from aiko_services_tpu_torch.models import llama, train
+    with torch.no_grad(), llama.record_route_drops() as counts:
+        train.language_model_loss(params, config, tokens)
+    return int(sum(int(count) for count in counts))
+
+
+def replicas_stored_once(params, config) -> dict:
+    """A placed tree's replicas after the steps: the groups on distinct
+    cards hold equal bits (none when every position lists one card), and
+    the distinct tensors hold the model's parameter count exactly -- each
+    replica stored, and stepped, once a card."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    replicas = params.replicas()
+    return {"distinct_tensors": len(params.tensors()),
+            "stored": sum(t.numel() for t in params.tensors()),
+            "params": sum(leaf.numel()
+                          for leaf in _leaves(llama.abstract_params(config))),
+            "replica_groups_across_cards": len(replicas),
+            "equal": all(torch.equal(group[0], member.to(group[0].device))
+                         for group in replicas for member in group[1:])}
+
+
+def sharded_dense(device, card: str) -> dict:
+    """13a (module docstring)."""
+    import torch
+    from aiko_services_tpu_torch.models import train
+    from aiko_services_tpu_torch.models.checkpoint import flatten
+    config = train_config()
+    tokens = token_batch(config, TRAIN_BATCH, device)
+    reference = one_position_run("sharded-1b-one-position", config, tokens,
+                                 SHARDED_STEPS, card, grads=True)
+    plan = cp_mesh_plan(SHARDED_MESH, device)
+    held = free_card()
+    params, state, _ = train.init_train_state(0, config, plan)
+    loss, gradient = train.value_and_grad(params, config, tokens)
+    worst, diff, norm = 0.0, 0.0, 0.0
+    for name, got in flatten(plan.gather(gradient)).items():
+        want = reference["grads"][name].to(device).float()
+        leaf_diff = (got.float() - want).square().sum().item()
+        leaf_norm = want.square().sum().item()
+        worst = max(worst, math.sqrt(leaf_diff / max(leaf_norm, 1e-30)))
+        diff, norm = diff + leaf_diff, norm + leaf_norm
+    del gradient, reference["grads"]
+    step = train.make_train_step(config, plan)
+    params, state, losses, times, peak = timed_steps(
+        step, params, state, tokens, SHARDED_STEPS, held)
+    params, state, profiled = profiled_step(step, params, state, tokens)
+    profiled.update(forward_backward_ms(params, config, tokens))
+    replicas = replicas_stored_once(params, config)
+    del params, state
+    free_card()
+    gaps = {"loss_gap": abs(float(loss) - reference["loss"]),
+            "grad_rel_l2_worst_leaf": worst,
+            "grad_rel_l2": math.sqrt(diff / norm)}
+    run = step_summary("sharded-1b", losses, times, peak, card,
+                       mesh=SHARDED_MESH, batch=list(tokens.shape),
+                       replicas=replicas, **gaps, profiled=profiled,
+                       one_position=reference["run"])
+    modes = {}
+    for label, cfg, accumulate, tol in (
+            ("sharded-1b-remat", train_config(remat=True), 1, 1e-2),
+            ("sharded-1b-accumulate-2", config, 2, 5e-2)):
+        held = free_card()
+        params, state, _ = train.init_train_state(0, cfg, plan)
+        params, state, mode_losses, mode_times, mode_peak = timed_steps(
+            train.make_train_step(cfg, plan, accumulate_steps=accumulate),
+            params, state, tokens, 2, held)
+        del params, state
+        free_card()
+        modes[label] = step_summary(
+            label, mode_losses, mode_times, mode_peak, card,
+            mesh=SHARDED_MESH, first_loss_gap=abs(mode_losses[0] - losses[0]),
+            tol=tol)
+        if modes[label]["first_loss_gap"] > tol:
+            raise AssertionError(f"{label}: first loss {mode_losses[0]} "
+                                 f"against {losses[0]} (tol {tol})")
+    if not (gaps["loss_gap"] <= SHARDED_LOSS_TOL
+            and worst <= SHARDED_GRAD_TOL and replicas["equal"]
+            and replicas["stored"] == replicas["params"]):
+        raise AssertionError(f"sharded-1b: loss gap {gaps['loss_gap']:.3e} (tol "
+                             f"{SHARDED_LOSS_TOL}), worst leaf's gradient "
+                             f"relative L2 {worst:.4f} (tol "
+                             f"{SHARDED_GRAD_TOL}), replicas {replicas}")
+    return {"plain": run, **modes}
+
+
+def sharded_moe(device, card: str) -> dict:
+    """13b (module docstring)."""
+    from aiko_services_tpu_torch.models import train
+    config = moe_config(max_seq=512, remat=True)
+    tokens = token_batch(config, MOE_TRAIN_BATCH, device)
+    reference = one_position_run("sharded-moe-one-position", config, tokens,
+                                 MOE_TRAIN_STEPS, card, drops=True)
+    plan = cp_mesh_plan(SHARDED_MOE_MESH, device)
+    held = free_card()
+    params, state, _ = train.init_train_state(0, config, plan)
+    drops = routes_dropped(params, config, tokens)
+    params, state, losses, times, peak = timed_steps(
+        train.make_train_step(config, plan), params, state, tokens,
+        MOE_TRAIN_STEPS, held)
+    del params, state
+    free_card()
+    gap = abs(losses[0] - reference["loss"])
+    run = step_summary("sharded-moe-remat", losses, times, peak, card,
+                       mesh=SHARDED_MOE_MESH, batch=list(tokens.shape),
+                       loss_gap=gap, routes_dropped=drops,
+                       one_position_routes_dropped=reference["drops"],
+                       one_position=reference["run"])
+    if gap > SHARDED_LOSS_TOL or drops != reference["drops"]:
+        raise AssertionError(f"sharded-moe-remat: first loss gap {gap:.3e} "
+                             f"(tol {SHARDED_LOSS_TOL}), routes dropped "
+                             f"{drops} against {reference['drops']}")
+    return run
+
+
+def placed_serving(params, config, prompts, device, card: str, label: str,
+                   feed=None):
+    """Each prompt through ``prefill_into_slot`` into its slot of one
+    8-row cache (placed by ``cache_specs`` for a placed tree), then
+    SHARDED_DECODE_STEPS ``decode_step`` calls of every row, fed the
+    greedy tokens of ``feed`` (this run's own when None).  Returns the
+    logits (each prompt's prefill, each step's), the greedy tokens, the
+    launches and the CUDA-event ms."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.parallel.mesh import MeshPlan, Placed
+    cache = llama.init_cache(config, len(prompts), device=device)
+    if isinstance(params, Placed):
+        cache = MeshPlan(params.mesh).put(cache, llama.cache_specs(config))
+    torch.cuda.synchronize()
+    counters = zero_launches()
+    out = {"prefill": [], "steps": [], "greedy": [], "first": []}
+    begin = torch.cuda.Event(enable_timing=True)
+    middle = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        begin.record()
+        for slot, prompt in enumerate(prompts):
+            logits, cache = llama.prefill_into_slot(
+                params, config, prompt[None], cache, slot, 0)
+            out["prefill"].append(logits[0])
+            out["first"].append(int(logits[0, -1].argmax()))
+        middle.record()
+        tokens = torch.tensor(out["first"] if feed is None
+                              else feed["first"], device=device)
+        lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                               device=device)
+        for index in range(SHARDED_DECODE_STEPS):
+            logits, cache = llama.decode_step(params, config, tokens, cache,
+                                              lengths)
+            out["steps"].append(logits)
+            out["greedy"].append(logits.argmax(-1))
+            tokens = out["greedy"][-1] if feed is None \
+                else feed["greedy"][index]
+            lengths = lengths + 1
+        end.record()
+    end.synchronize()
+    out["launches"] = {k: v for k, v in read_launches(counters).items() if v}
+    out["prefill_ms"] = begin.elapsed_time(middle)
+    out["decode_step_ms"] = middle.elapsed_time(end) / SHARDED_DECODE_STEPS
+    del cache
+    print(f"sharded-int8 {label}: prefill of {len(prompts)} prompts "
+          f"{out['prefill_ms']:.2f} ms, decode step "
+          f"{out['decode_step_ms']:.3f} ms (CUDA events, eager), launches "
+          f"{out['launches']} on {card}", flush=True)
+    return out
+
+
+def sharded_int8(device, card: str) -> tuple[dict, dict]:
+    """13c (module docstring) -> (results, the placed run's launches)."""
+    import torch
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.quant import (quantize_params,
+                                                      quantize_specs)
+    config = dataclasses.replace(serving_config(), kv_dtype="int8")
+    free_card()
+    params = llama.init_params(0, config, device=device)
+    qparams = quantize_params(params)
+    del params
+    free_card()
+    prompts = [torch.tensor(prompt, device=device)
+               for prompt, _ in mixed_requests(config)]
+    one = placed_serving(qparams, config, prompts, device, card,
+                         "one-position")
+    plan = cp_mesh_plan(SHARDED_DECODE_MESH, device)
+    placed = plan.put(qparams, quantize_specs(llama.partition_specs(config)))
+    del qparams
+    free_card()
+    got = placed_serving(placed, config, prompts, device, card,
+                         f"placed {SHARDED_DECODE_MESH}", feed=one)
+    del placed
+    errors = [relative_error(a[None], b[None])
+              for a, b in zip(got["prefill"], one["prefill"])] + \
+        [relative_error(a[None], b[None])
+         for a, b in zip(got["steps"], one["steps"])]
+    agree = sum(bool(torch.equal(a, b))
+                for a, b in zip(got["greedy"], one["greedy"]))
+    wanted = {name: 2 * count for name, count in one["launches"].items()
+              if name != "int8_combine"}
+    counts = got["launches"]
+    out = {"run": "sharded-int8", "mesh": SHARDED_DECODE_MESH,
+           "prompts": len(prompts), "steps": SHARDED_DECODE_STEPS,
+           "max_err_rel": max(errors), "prefill_err_rel": errors[:8],
+           "step_err_rel": errors[8:], "tol": LOGITS_TOL,
+           "argmax_agree_steps": agree,
+           "prefill_ms": got["prefill_ms"],
+           "one_position_prefill_ms": one["prefill_ms"],
+           "decode_step_ms": got["decode_step_ms"],
+           "one_position_decode_step_ms": one["decode_step_ms"],
+           "launches": counts, "one_position_launches": one["launches"],
+           "card": card}
+    del got, one
+    free_card()
+    print(f"sharded {json.dumps(out)}", flush=True)
+    kernels = {"flash_decode_attention_stacked[int8]", "decode_combine",
+               "flash_attention", "int8_matmul", "int8_matmul[M>16]"}
+    if max(errors) > LOGITS_TOL or not kernels <= set(wanted) \
+            or any(counts.get(name, 0) != count
+                   for name, count in wanted.items()) \
+            or set(counts) - set(wanted) - {"int8_combine"}:
+        raise AssertionError(
+            f"sharded-int8: logits error {max(errors):.4f} (tol "
+            f"{LOGITS_TOL}); launches {counts}, wanted twice the "
+            f"one-position run's {wanted} (int8_combine apart) and no other")
+    return out, counts
+
+
+def sharded_step_run(card: str) -> dict:
+    """Phase 13 (module docstring): 13a and 13b launch no kernel of the
+    port; 13c launches #2 (int8), #4 and #5 at each position.  Returns
+    the phase's launches (13c's placed run)."""
+    from aiko_services_tpu_torch.device import resolve_device
+    device = resolve_device(None)
+    held = free_card()
+    print(f"sharded-step: the card holds {held:.3f} GiB before the phase; "
+          f"every position of each mesh lists {device}", flush=True)
+    counters = zero_launches()
+    dense = sharded_dense(device, card)
+    moe = sharded_moe(device, card)
+    counts = read_launches(counters)
+    check_launches("sharded-1b and sharded-moe-remat", counts, set())
+    serving, launches = sharded_int8(device, card)
+    return {"launches": launches, "dense": dense, "moe": moe,
+            "int8": serving}
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -3697,6 +4115,10 @@ def main() -> int:
     # -- phase 12: context parallelism on a mesh of positions ------------
     context = context_parallel_run(card)
     pipeline_launches["context-parallel"] = context["launches"]
+
+    # -- phase 13: the sharded model step on placed trees -----------------
+    sharded = sharded_step_run(card)
+    pipeline_launches["sharded-step"] = sharded["launches"]
 
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)

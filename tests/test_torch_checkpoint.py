@@ -3,7 +3,7 @@ and its safetensors format (``models/_safetensors.py``): twins of
 ``tests/test_checkpoint.py`` -- the same states through both packages'
 ``save_pytree`` / ``Checkpointer`` and back, equal leaf for leaf -- with
 the sharded restore as a one-device plan on a CPU descriptor of the
-tests' pool (a plan over two cards raises ``not_ported``); the format
+tests' pool and onto a plan of eight (a placed tree); the format
 against the ``safetensors`` package both ways, every dtype, bf16
 included; an async save followed by an in-place change of the source
 tensors.  Restores are exact: every comparison is bitwise."""
@@ -21,7 +21,7 @@ from aiko_services_tpu.models import checkpoint as jax_checkpoint
 from aiko_services_tpu_torch.models import _safetensors, bridge, llama
 from aiko_services_tpu_torch.models.checkpoint import (
     Checkpointer, flatten, maybe_restore, restore_pytree, save_pytree)
-from aiko_services_tpu_torch.parallel import MeshPlan, make_mesh
+from aiko_services_tpu_torch.parallel import MeshPlan, Placed, make_mesh
 
 CPU = torch.device("cpu")
 DTYPES = [torch.bfloat16, torch.float16, torch.float32, torch.float64,
@@ -87,15 +87,31 @@ def test_sharded_restore_onto_mesh(tmp_path, cpu_pool):
     assert meta["step"] == 10
 
 
-def test_restore_plan_over_two_cards_raises(tmp_path):
-    """A plan over two CUDA cards raises ``not_ported`` before anything
-    touches a card, as the plan's own puts do."""
-    save_pytree(tmp_path / "ck", {"x": torch.zeros(4)})
-    plan = MeshPlan(make_mesh({"tp": 2}, [torch.device("cuda", 0),
-                                          torch.device("cuda", 1)]))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        restore_pytree(tmp_path / "ck", template={"x": torch.zeros(4)},
-                       plan=plan)
+def test_restore_plan_over_two_cards_raises(tmp_path, cpu_pool):
+    """A plan of several positions no longer raises: ``restore(plan=,
+    specs=)`` returns a placed tree, each position reading its own slice
+    from the file, bitwise equal to ``put`` of the saved tree; ``save``
+    of a placed tree writes the gathered leaves."""
+    config = llama.LlamaConfig.tiny(vocab_size=64, max_seq=32)
+    params = llama.init_params(0, config, device="cpu")
+    plan = MeshPlan(make_mesh({"dp": 2, "fsdp": 2, "tp": 2}, cpu_pool))
+    specs = llama.partition_specs(config)
+    with Checkpointer(tmp_path / "ck") as ckpt:
+        ckpt.save(1, {"params": plan.put(params, specs)}, wait=True)
+        restored = ckpt.restore(
+            template={"params": llama.abstract_params(config)}, plan=plan,
+            specs={"params": specs})["params"]
+        whole = ckpt.restore(template={"params": llama.abstract_params(
+            config)}, device="cpu")["params"]
+    for name, value in flatten(params).items():        # gathered on save
+        assert _bitwise(flatten(whole)[name], value), name
+    want = plan.put(params, specs)
+    assert isinstance(restored, Placed) and restored.specs == want.specs
+    for position in range(plan.mesh.size):
+        for (name, got), expected in zip(
+                flatten(restored.shards[position]).items(),
+                flatten(want.shards[position]).values()):
+            assert _bitwise(got, expected), (position, name)
 
 
 def test_retention_and_latest(tmp_path):

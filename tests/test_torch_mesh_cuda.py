@@ -1,8 +1,8 @@
 """The port's mesh on the card (``parallel/mesh.py``, ``parallel/ring.py``,
-``models/long_context.py``): a mesh of distinct cards computes each
-position on its own card and hops between cards by peer copies; the
-same mesh with one card listed at every position gives the same
-numbers.  Imports no JAX, so it runs on the card machine:
+``models/long_context.py``, the sharded step of ``models/train.py``): a
+mesh of distinct cards computes each position on its own card and hops
+between cards by peer copies; the same mesh with one card listed at
+every position gives the same numbers.  Imports no JAX, so it runs on the card machine:
 
     python3 -m pytest --noconftest -q tests/test_torch_mesh_cuda.py
 
@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from aiko_services_tpu_torch.models import llama
+from aiko_services_tpu_torch.models import llama, train
 from aiko_services_tpu_torch.models.checkpoint import flatten
 from aiko_services_tpu_torch.models.long_context import (
     make_long_context_forward, make_long_context_loss)
@@ -126,6 +126,38 @@ def test_loss_gradient_across_cards_matches_one_card(several):
         grads.append((loss.item(), {name: leaf.grad
                                     for name, leaf in leaves.items()}))
     (loss_a, grad_a), (loss_b, grad_b) = grads
+    assert abs(loss_a - loss_b) <= LOSS_TOL
+    for name, leaf in grad_b.items():
+        scale = leaf.abs().max().item()
+        assert (grad_a[name] - leaf).abs().max().item() <= GRAD_TOL * scale, \
+            name
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_across_cards_matches_one_card(several):
+    """The sharded model step (``models/train.py`` on a placed tree) on
+    {"dp": 2, "fsdp": 2, "tp": 2} with the positions spread over the
+    cards: the loss and every gradient leaf equal to the same mesh's
+    with card 0 at every position; after a step, every replica of a
+    leaf (on distinct cards) holds the same bits."""
+    c = config()
+    batch = tokens((4, 64)).to(several[0])
+    axes = {"dp": 2, "fsdp": 2, "tp": 2}
+    results = []
+    for devices in ((several * 8)[:8], [several[0]] * 8):
+        mesh_plan = MeshPlan(make_mesh(axes, devices))
+        params, state, _ = train.init_train_state(0, c, mesh_plan)
+        loss, grads = train.value_and_grad(params, c, batch)
+        results.append((loss.item(), flatten(mesh_plan.gather(grads))))
+        if devices[0] != devices[1]:
+            assert params.replicas()
+            params, state, _ = train.make_train_step(c, mesh_plan)(
+                params, state, batch)
+            for group in params.replicas():
+                assert len({t.device for t in group}) == len(group)
+                assert all(torch.equal(group[0], member.to(group[0].device))
+                           for member in group[1:])
+    (loss_a, grad_a), (loss_b, grad_b) = results
     assert abs(loss_a - loss_b) <= LOSS_TOL
     for name, leaf in grad_b.items():
         scale = leaf.abs().max().item()

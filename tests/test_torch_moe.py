@@ -6,9 +6,11 @@ Tolerances: logits, the FFN output and the aux within 1e-5 (absolute,
 summation order only; the sharded JAX forward within 1e-4, as its own
 test); quantized codes and scales bit-equal; greedy token streams equal.
 
-Not twinned: ``test_quantized_moe_specs_shard``, which shards an int8
-MoE tree with ``quantize_specs`` over a dp x ep x tp mesh -- the port
-has no multi-card mesh yet (ROADMAP, multi-card meshes)."""
+The mesh tests (``test_ep_sharded_matches_unsharded`` on a port mesh,
+``test_quantized_moe_specs_shard``, ``test_moe_train_step_learns`` over
+dp x ep x tp) are twinned on port meshes in ``test_torch_moe_ep.py``;
+here ``test_ep_sharded_matches_unsharded`` holds the port's one-device
+forward to the JAX package's sharded one."""
 
 import dataclasses
 

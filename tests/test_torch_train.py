@@ -6,7 +6,10 @@ numpy, the port's moments zero).  Tolerances: losses within 1e-5,
 gradients and updated parameters within 1e-4 of each leaf's largest
 magnitude.  Plus the twins of ``test_models.py``'s training tests
 (``test_sharded_train_step``, ``test_remat_training_matches_and_
-microbatching_averages``), on the port's one device."""
+microbatching_averages``) on the port's one device, and a step over a
+plan of two positions against the one-device step (the sharded step's
+own twins, on {"dp": 2, "fsdp": 2, "tp": 2}, are in
+``test_torch_sharded_step.py``)."""
 
 import dataclasses
 
@@ -179,13 +182,28 @@ def test_accumulate_rejects_a_batch_that_does_not_divide():
 
 
 def test_plan_over_two_cards_raises():
+    """A plan of two positions (two CPU descriptors standing for two
+    cards) no longer raises: ``init_train_state`` places the tree, equal
+    leaf for leaf to ``put`` of ``init_params``, and a step equals the
+    one-device step (loss and updated parameters)."""
     _, tc = configs()
-    plan = MeshPlan.build({"dp": 2}, devices=[torch.device("cuda", 0),
-                                              torch.device("cuda", 1)])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tt.make_train_step(tc, plan)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tt.init_train_state(0, tc, plan)
+    plan = MeshPlan.build({"dp": 2}, devices=[torch.device("cpu", 0),
+                                              torch.device("cpu", 1)])
+    params, opt_state, _ = tt.init_train_state(0, tc, plan)
+    want = plan.put(tl.init_params(0, tc, device="cpu"),
+                    tl.partition_specs(tc))
+    for got, expected in zip(params.tensors(), want.tensors()):
+        assert torch.equal(got.detach(), expected)
+    one, state, _ = tt.init_train_state(0, tc, cpu_plan())
+    tokens = torch.from_numpy(batch())
+    params, _, loss = tt.make_train_step(tc, plan)(params, opt_state,
+                                                   tokens)
+    one, _, want_loss = tt.make_train_step(tc, cpu_plan())(one, state,
+                                                           tokens)
+    assert abs(float(loss) - float(want_loss)) <= LOSS_TOL
+    assert_leaves_close(flatten(plan.gather(params)),
+                        {name: leaf.detach().numpy()
+                         for name, leaf in flatten(one).items()})
 
 
 # -- twins of test_models.py's training tests, on one device -----------------
