@@ -10,6 +10,27 @@ namespace aiko {
 
 constexpr float kNegInf = -1e30f;   // the JAX package's _NEG_INF sentinel
 
+// cudaFuncSetAttribute binds a kernel's dynamic shared-memory limit on
+// the CURRENT device only, so a launcher keeps one limit a device
+// (``configured``, indexed by device, zero-initialised) and raises it at
+// the first launch on each device that needs more -- eager, before any
+// graph capture on that device.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+inline cudaError_t raise_smem_limit(Kernel kernel, int bytes,
+                                    int* configured) {
+  int device = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status != cudaSuccess) return status;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= configured[device]) return cudaSuccess;
+  status = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (status == cudaSuccess) configured[device] = bytes;
+  return status;
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -261,13 +261,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_attention_kernel<D>;
   constexpr int bytes = Layout<D>::kBytes;
-  static bool configured = false;      // before any graph capture
-  if (!configured) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (status != cudaSuccess) return static_cast<int>(status);
-    configured = true;
-  }
+  static int configured[aiko::kMaxDevices] = {};
+  const cudaError_t status =
+      aiko::raise_smem_limit(kernel, bytes, configured);
+  if (status != cudaSuccess) return static_cast<int>(status);
   const int bq = kRows / (n_heads / n_kv);
   const dim3 grid((seq + bq - 1) / bq, n_kv, batch);
   kernel<<<grid, kThreads, bytes, stream>>>(

@@ -508,15 +508,11 @@ int launch_typed(const Args& a, Rows rows, int table_bytes,
                  cudaStream_t stream) {
   auto kernel = flash_verify_kernel<HD, N, QT, KV, Rows>;
   const int bytes = Layout<HD, N, QT, KV>::kBytes + table_bytes;
-  // Set before any graph capture (the first launch is eager), raised
-  // when a larger page table needs more.
-  static int configured = 0;
-  if (bytes > configured) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (status != cudaSuccess) return static_cast<int>(status);
-    configured = bytes;
-  }
+  // Raised when a larger page table needs more.
+  static int configured[aiko::kMaxDevices] = {};
+  const cudaError_t status =
+      aiko::raise_smem_limit(kernel, bytes, configured);
+  if (status != cudaSuccess) return static_cast<int>(status);
   kernel<<<dim3(a.n_kv, a.batch, a.splits), kThreads, bytes, stream>>>(
       static_cast<const QT*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),

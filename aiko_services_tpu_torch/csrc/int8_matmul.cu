@@ -504,13 +504,10 @@ int launch(const void* x, const void* w, const void* scale, void* out,
                      BN, CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = int8_matmul_kernel<WGS, BN, STAGES, PRODUCERS>;
-  static bool configured = false;      // before any graph capture
-  if (!configured) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-    if (status != cudaSuccess) return static_cast<int>(status);
-    configured = true;
-  }
+  static int configured[aiko::kMaxDevices] = {};
+  const cudaError_t status =
+      aiko::raise_smem_limit(kernel, L::kBytes, configured);
+  if (status != cudaSuccess) return static_cast<int>(status);
   const dim3 grid((m + L::kBM - 1) / L::kBM, (f + BN - 1) / BN);
   kernel<<<grid, L::kThreads, L::kBytes, static_cast<cudaStream_t>(stream)>>>(
       x_map, w_map, static_cast<const float*>(scale),

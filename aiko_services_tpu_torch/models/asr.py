@@ -40,10 +40,12 @@ import torch.nn.functional as F
 
 from ..device import resolve_device, sync_allowed, upload as _upload
 from ..ops.layers import attention_decode_append, rms_norm, swiglu
+from ..parallel.mesh import P
 
 __all__ = ["AsrConfig", "init_params", "abstract_params", "param_shapes",
            "log_mel", "pad_audio", "encode", "transcribe", "transcriber",
-           "decode_text", "encode_text", "asr_loss", "StreamingAsr"]
+           "decode_text", "encode_text", "asr_loss", "StreamingAsr",
+           "partition_specs"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -234,6 +236,38 @@ def param_shapes(config: AsrConfig) -> dict:
         "embed": (c.vocab_size, c.dim),
         "decoder": layer_stack(c.n_decoder_layers, with_cross=True),
         "decoder_norm": (c.dim,),
+    }
+
+
+def partition_specs(config: AsrConfig) -> dict:
+    """The JAX package's TP layout, mirroring ``models/llama.py``: heads
+    and hidden over tp, on the port's ``P`` and leaf layout (the conv
+    weights are [out, in, width] here, so their output axis, which the
+    JAX package's WIO spec splits last, is split first)."""
+    def layer_specs(with_cross: bool):
+        spec = {
+            "wq": P(None, None, "tp"), "wk": P(None, None, "tp"),
+            "wv": P(None, None, "tp"), "wo": P(None, "tp", None),
+            "w_gate": P(None, None, "tp"), "w_up": P(None, None, "tp"),
+            "w_down": P(None, "tp", None),
+            "attn_norm": P(None, None), "mlp_norm": P(None, None),
+        }
+        if with_cross:
+            spec.update({"xq": P(None, None, "tp"),
+                         "xk": P(None, None, "tp"),
+                         "xv": P(None, None, "tp"),
+                         "xo": P(None, "tp", None),
+                         "cross_norm": P(None, None)})
+        return spec
+
+    return {
+        "conv1": {"w": P("tp", None, None), "b": P("tp")},
+        "conv2": {"w": P("tp", None, None), "b": P("tp")},
+        "encoder": layer_specs(False),
+        "encoder_norm": P(None),
+        "embed": P(None, None),
+        "decoder": layer_specs(True),
+        "decoder_norm": P(None),
     }
 
 

@@ -43,7 +43,17 @@ same code:
 - ``recover()`` rebuilds the device state after a failed block and
   resumes every live request from its committed tokens;
   ``export_state()``/``import_state()`` hand live requests to another
-  batcher at their committed prefix.
+  batcher at their committed prefix;
+- ``params`` may be a tree placed on a mesh (``plan.put(params,
+  quantize_specs(partition_specs(config)))``, a ``parallel.Placed``):
+  ``cache_put`` then places every cache the batcher builds -- the
+  serving cache, the speculation probe's and ``recover()``'s -- as the
+  JAX package's ``cache_put`` does (without one, by
+  ``llama.cache_specs`` or ``llama.paged_cache_specs``), and every
+  loop runs the model's placed entry points: admission writes each
+  slot where its dp group holds it, the decode steps run at every
+  position on its shards, the page table is written at every position,
+  and the device loop is captured with every position's work.
 
 :class:`MicroBatcher` and :class:`MicroBatchElement` (cross-stream
 micro-batching for async pipeline elements, the ``Detector``'s) are the
@@ -67,6 +77,7 @@ from .loop_graph import LoopRunner
 from .paged import PageAllocator, init_paged_cache, pages_per_slot
 from .quant import draft_params
 from ..device import resolve_device, upload
+from ..parallel.mesh import MeshPlan, Placed
 from ..utils.misc import next_power_of_two
 
 __all__ = ["Request", "ContinuousBatcher", "MicroBatcher",
@@ -204,13 +215,19 @@ class ContinuousBatcher:
                  prefix_min_tokens: int = 64,
                  spec_autoprobe: bool | str = True,
                  on_block: Callable | None = None,
+                 cache_put: Callable | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
+        where = params.mesh.devices.flat[0] if isinstance(params, Placed) \
+            else params["embed"].device
+        if where.type != self.device.type:
             raise ValueError(
-                f"ContinuousBatcher: params live on "
-                f"{params['embed'].device}, the batcher on {self.device}")
+                f"ContinuousBatcher: params live on {where}, the batcher "
+                f"on {self.device}")
         self.params = params
+        # Multichip serving: ``cache_put`` places every cache this
+        # batcher builds (the serving cache, the probe's, recover()'s).
+        self._cache_put = cache_put
         self.config = config
         self.max_slots = max_slots
         self.max_seq = max_seq or config.max_seq
@@ -279,9 +296,9 @@ class ContinuousBatcher:
                     f"kv_page_tokens={self.kv_page_tokens} must divide "
                     f"prefill_chunk ({self.prefill_chunk}) so admission "
                     f"chunks stay page-aligned")
-            self.cache = init_paged_cache(
+            self.cache = self._place(init_paged_cache(
                 config, max_slots, self.max_seq, self.kv_page_tokens,
-                kv_pages, device=self.device)
+                kv_pages, device=self.device))
             self._pages = PageAllocator(
                 llama.cache_array(self.cache).shape[1], pps, max_slots,
                 prefix_cache=self.prefix_cache,
@@ -289,8 +306,8 @@ class ContinuousBatcher:
             # Host mirror of the device page table (dirty rows fold in).
             self._table_host = np.zeros((max_slots, pps), dtype=np.int32)
         else:
-            self.cache = llama.init_cache(config, max_slots, self.max_seq,
-                                          device=self.device)
+            self.cache = self._place(llama.init_cache(
+                config, max_slots, self.max_seq, device=self.device))
         # One fetch per retired device-loop block: ``fetch(tree)`` gets
         # the block's _HostTree and returns name -> numpy array.
         self._fetch = fetch if fetch is not None else _HostTree.numpy
@@ -356,6 +373,30 @@ class ContinuousBatcher:
         if self.device_loop:
             self._loop = self._runner(self.speculative, self._draft,
                                       self._generator)
+
+    def _place(self, cache: dict):
+        """A cache the batcher built, placed by ``cache_put`` -- or, for a
+        placed tree given none, on the tree's mesh by the cache's specs."""
+        if self._cache_put is not None:
+            return self._cache_put(cache)
+        if isinstance(self.params, Placed):
+            specs = llama.paged_cache_specs(self.config) \
+                if self.kv_page_tokens else llama.cache_specs(self.config)
+            return MeshPlan(self.params.mesh).put(cache, specs)
+        return cache
+
+    def _write_page_table(self, cache, table: np.ndarray) -> None:
+        """``table`` into the cache's device page table, as one copy
+        enqueued on the current stream -- into every distinct table of a
+        placed cache (each position walks its own)."""
+        source = self._upload(table)
+        if isinstance(cache, Placed):
+            tables = {id(shard["page_table"]): shard["page_table"]
+                      for shard in cache.shards}.values()
+        else:
+            tables = [cache["page_table"]]
+        for target in tables:
+            target.copy_(source)
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without waiting for the stream
@@ -751,16 +792,16 @@ class ContinuousBatcher:
         fully mapped table (each slot's logical pages spread over the
         pool), so the probe pays real page-table traffic."""
         if not self.kv_page_tokens:
-            return llama.init_cache(self.config, self.max_slots,
-                                    self.max_seq, device=self.device)
-        cache = init_paged_cache(self.config, self.max_slots, self.max_seq,
-                                 self.kv_page_tokens, self._pages.total,
-                                 device=self.device)
+            return self._place(llama.init_cache(
+                self.config, self.max_slots, self.max_seq,
+                device=self.device))
+        cache = self._place(init_paged_cache(
+            self.config, self.max_slots, self.max_seq, self.kv_page_tokens,
+            self._pages.total, device=self.device))
         pps = self._pages.pps
         table = (np.arange(self.max_slots * pps, dtype=np.int32)
                  % max(1, self._pages.total - 1)) + 1
-        cache["page_table"].copy_(torch.from_numpy(
-            table.reshape(self.max_slots, pps)))
+        self._write_page_table(cache, table.reshape(self.max_slots, pps))
         return cache
 
     # -- device-resident generation loop -----------------------------------
@@ -951,7 +992,7 @@ class ContinuousBatcher:
         for slot, row in self._pages.dirty.items():
             self._table_host[slot] = row
         self._pages.dirty.clear()
-        self.cache["page_table"].copy_(self._upload(self._table_host))
+        self._write_page_table(self.cache, self._table_host)
 
     def _evict_slot(self, slot: int) -> None:
         """Preempt one slot for its pages: rebase the request onto its
@@ -1036,12 +1077,13 @@ class ContinuousBatcher:
         if self._pages is not None:
             self._pages.reset()
             self._table_host[:] = 0
-            self.cache = init_paged_cache(
+            self.cache = self._place(init_paged_cache(
                 self.config, self.max_slots, self.max_seq,
-                self.kv_page_tokens, self._pages.total, device=self.device)
+                self.kv_page_tokens, self._pages.total, device=self.device))
         else:
-            self.cache = llama.init_cache(self.config, self.max_slots,
-                                          self.max_seq, device=self.device)
+            self.cache = self._place(llama.init_cache(
+                self.config, self.max_slots, self.max_seq,
+                device=self.device))
         self.recoveries += 1
         return len(revived)
 

@@ -77,6 +77,7 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -91,15 +92,17 @@ from ..ops.flash_decode import (_split_paged, _split_stacked,
 from ..ops.int8_matmul import int8_matmul
 from ..ops.layers import (apply_rope, attention_decode_append,
                           attention_prefill, rms_norm, rope_frequencies)
-from ..parallel.mesh import (Keep, P, Placed, all_gather, axis_index,
-                             filter_spec, psum, shard_map)
+from ..parallel.mesh import (Each, Keep, P, Placed, all_gather, assemble,
+                             axis_index, filter_spec, psum, shard_map)
 from ..parallel.mesh import remat as mesh_remat
 from .paged import (gather_layer, gather_slot, is_paged, paged_extent,
                     pool_page_tokens, scatter_pages)
 from .quant import dequantize_kv, is_quantized, map_leaf, quantize_kv
+from ..utils import not_ported
 
 __all__ = ["LlamaConfig", "init_params", "abstract_params", "param_shapes",
-           "partition_specs", "cache_specs", "TensorShard", "init_cache",
+           "partition_specs", "cache_specs", "paged_cache_specs",
+           "TensorShard", "init_cache",
            "cache_array", "cache_extent", "prefill",
            "prefill_with_aux", "prefill_into_slot", "prefill_into_slots",
            "decode_step", "decode_block",
@@ -313,6 +316,22 @@ def cache_specs(config: LlamaConfig | None = None) -> dict:
     return {"k": spec, "v": spec}
 
 
+def paged_cache_specs(config: LlamaConfig | None = None) -> dict:
+    """A PAGED cache (``models/paged.py``): the pools' kv heads over tp,
+    as :func:`cache_specs` lays out the flat payload ([L, P, pt, K*hd]
+    on its fused head axis, an int8 pool's [L, P, pt, K, 1] scales on
+    their kv-head axis); the page axis and the [B, pps] page table stay
+    whole at every position, so every position walks the same table.
+    No JAX counterpart: the JAX package places its paged pools only
+    through GSPMD, never by a spec tree."""
+    spec = P(None, None, None, "tp")
+    if config is not None and config.kv_dtype == "int8":
+        leaf = {"int8": spec, "scale": P(None, None, None, "tp", None)}
+    else:
+        leaf = spec
+    return {"k": leaf, "v": leaf, "page_table": P(None, None)}
+
+
 def abstract_params(config: LlamaConfig) -> dict:
     """The parameter dict as meta tensors: its shapes and dtype, no
     storage and nothing drawn (a checkpoint restore's template)."""
@@ -394,15 +413,24 @@ def _require_whole_pages(cache: dict, starts, s: int) -> None:
             f"a whole number of page-aligned {page_tokens}-token pages")
 
 
+def _local_cache(cache) -> dict:
+    """A cache dict: ``cache`` itself, or the first position's shard of a
+    placed cache (its extent, page size and page count are every
+    position's)."""
+    return cache.shards[0] if isinstance(cache, Placed) else cache
+
+
 def cache_array(cache: dict) -> torch.Tensor:
-    """The cache's key payload tensor."""
-    k = cache["k"]
+    """The cache's key payload tensor (the first position's shard of a
+    placed cache)."""
+    k = _local_cache(cache)["k"]
     return k["int8"] if is_quantized(k) else k
 
 
 def cache_extent(cache: dict) -> int:
     """Logical per-slot token extent T; position T-1 is the trash
     position inactive rows write to."""
+    cache = _local_cache(cache)
     if is_paged(cache):
         return paged_extent(cache)
     return cache_array(cache).shape[2]
@@ -891,25 +919,16 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
     chunk discipline guarantees both), and the attention row is the
     slot's gathered page view.
 
-    On a placed tree (:func:`_on_mesh`) the cache is placed by
-    :func:`cache_specs` with its batch whole (no dp axis): every
-    position writes its kv heads of the slot's row."""
+    On a placed tree the cache is placed too (:func:`cache_specs`, or
+    :func:`paged_cache_specs`), and the slot's row is written where it
+    lives (:func:`_admit_on_mesh`): with the batch split over dp, only
+    the positions of the slot's dp group run the chunk, each writing its
+    kv heads of its local row; the logits come back whole."""
     if isinstance(params, Placed):
-        if _batch_spec(cache)[0] is not None:
-            raise ValueError(f"prefill_into_slot on a mesh needs the "
-                             f"cache's batch whole, not split over "
-                             f"{_batch_spec(cache)[0]}")
-        return _on_mesh(functools.partial(_prefill_slot_at, int(slot),
-                                          int(start)),
-                        params, config, tokens, cache, (), logits_dims=2)
+        return _admit_on_mesh(params, config, tokens, cache, [int(slot)],
+                              [int(start)], batched=False)
     return _prefill_into_slot_impl(params, config, tokens, cache, slot,
                                    start)
-
-
-def _prefill_slot_at(slot, start, params, config, tokens, cache,
-                     shard=None):
-    return _prefill_into_slot_impl(params, config, tokens, cache, slot,
-                                   start, shard)
 
 
 def _prefill_into_slot_impl(params: dict, config: LlamaConfig,
@@ -977,13 +996,27 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
     row (same slot, start and tokens): the writes are idempotent, which
     is how the batcher pads N to a power of two.  Dense attention only
     (flash admission keeps per-slot calls: its q_offset is per call).
-    Returns (logits [N, S, vocab], cache)."""
-    c = config
-    if c.attention == "flash":
+    Returns (logits [N, S, vocab], cache).
+
+    On a placed tree each dp group runs the rows whose slots it holds
+    (:func:`_admit_on_mesh`), so rows of one burst may fall in several
+    groups."""
+    if config.attention == "flash":
         raise ValueError("prefill_into_slots is dense-only; "
                          "flash admission uses prefill_into_slot")
     slots = [int(slot) for slot in slots]
     starts = [int(start) for start in starts]
+    if isinstance(params, Placed):
+        return _admit_on_mesh(params, config, tokens, cache, slots, starts,
+                              batched=True)
+    return _prefill_into_slots_impl(params, config, tokens, cache, slots,
+                                    starts)
+
+
+def _prefill_into_slots_impl(params: dict, config: LlamaConfig,
+                             tokens: torch.Tensor, cache: dict, slots: list,
+                             starts: list, shard: TensorShard | None = None):
+    c = config
     n, s = tokens.shape
     extent = cache_extent(cache)
     if any(start < 0 or start + s > extent for start in starts):
@@ -1028,7 +1061,84 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
                                      positions)
         return attend
 
-    return _forward(params, c, tokens, factory)[0], cache
+    return _forward(params, c, tokens, factory, shard=shard)[0], cache
+
+
+def _batch_axes(cache: Placed) -> tuple:
+    """The mesh axes a placed cache splits its batch over (none for a
+    paged cache or a batch kept whole)."""
+    entry = _batch_spec(cache)[0]
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _admit_on_mesh(params: Placed, config: LlamaConfig, tokens, cache,
+                   slots: list, starts: list, batched: bool):
+    """Admission on a placed tree and cache: the chunk rows ``tokens``
+    [N, S] (whole, on the mesh's first device) for ``slots`` at
+    ``starts``.  Each slot lives in one group of the axes the cache
+    splits its batch over (dp; none for a paged cache, whose batch is
+    whole): only that group's positions run the slot's rows, writing its
+    local row (slot mod the group's rows) with their kv heads, while the
+    groups that hold no admitted slot run nothing and write nothing.
+    Every running position holds its rows whole (no row split), so the
+    MoE routes them as the whole burst.  Returns (logits [N, S, vocab]
+    whole on the first device, in row order, the cache placed)."""
+    mesh = params.mesh
+    tp = mesh.shape.get("tp", 1)
+    if config.n_kv_heads % tp:
+        raise ValueError(f"tp ({tp}) must divide n_kv_heads "
+                         f"({config.n_kv_heads})")
+    if not isinstance(cache, Placed):
+        raise ValueError("admission on a placed tree needs the cache "
+                         "placed (plan.put(cache, cache_specs(config)))")
+    axes = _batch_axes(cache)
+    sizes = [mesh.shape[axis] for axis in axes]
+    rows_per_group = cache_array(cache).shape[1]
+    owned: dict[int, list] = {}
+    for row, slot in enumerate(slots):
+        group, local = divmod(slot, rows_per_group) if axes else (0, slot)
+        owned.setdefault(group, []).append((row, local))
+    if config.n_experts and len(owned) > 1:
+        raise not_ported("a mixture-of-experts admission burst over "
+                         "several dp groups (each would route its rows "
+                         "apart)", "ROADMAP Queue 1 item 7.3b")
+    specs = params.specs
+    whole = list(range(len(slots)))
+
+    def local(p, t, c):
+        mine = owned.get(axis_index(axes) if axes else 0)
+        if not mine:
+            return None, c
+        shard = TensorShard(mesh, specs, ())
+        shard.counts_routes = all(
+            axis_index(axis) == 0 for axis in mesh.axis_names
+            if axis not in axes and mesh.shape[axis] > 1)
+        rows = [row for row, _ in mine]
+        if rows != whole:
+            t = torch.cat([t[row:row + 1] for row in rows])
+        if not batched:
+            return _prefill_into_slot_impl(p, config, t, c, mine[0][1],
+                                           starts[0], shard)
+        return _prefill_into_slots_impl(p, config, t, c,
+                                        [slot for _, slot in mine],
+                                        [starts[row] for row in rows],
+                                        shard)
+    each, cache = shard_map(local, mesh,
+                            in_specs=(None, P(None, None), None),
+                            out_specs=(Each(), Keep(cache.specs)))(
+        params, tokens, cache)
+    vocab = filter_spec(mesh, P("tp"))[0]
+    by_row = {}
+    for group, mine in owned.items():
+        at = dict(zip(axes, (int(i) for i in np.unravel_index(group, sizes))))
+        logits = assemble(mesh, P(None, None, vocab), each, None, at)
+        by_row.update((row, logits[index:index + 1])
+                      for index, (row, _) in enumerate(mine))
+    if len(owned) == 1 and list(by_row) == whole:
+        return logits, cache            # one group, its rows in order
+    return torch.cat([by_row[row] for row in whole]), cache
 
 
 def _resolve_decode_flash(c: LlamaConfig, cache: dict) -> bool:
@@ -1157,7 +1267,12 @@ def _on_mesh(body, params: Placed, config: LlamaConfig, tokens, cache,
         batch = _batch_spec(cache)
     row_axes = tuple(axis for axis in (batch[0] if isinstance(
         batch[0], tuple) else (batch[0],)) if axis)
-    cache_spec = None if cache is None else cache_specs(config)
+    cache_in = cache_out = None
+    if isinstance(cache, Placed):
+        cache_out = Keep(cache.specs)
+    elif cache is not None:
+        cache_in = cache_specs(config)
+        cache_out = Keep(cache_in)
     token_spec = None if isinstance(tokens, Placed) \
         else P(batch[0], *([None] * (tokens.ndim - 1)))
     specs = params.specs
@@ -1167,11 +1282,11 @@ def _on_mesh(body, params: Placed, config: LlamaConfig, tokens, cache,
         return body(p, config, t, c, *rows, shard=shard)
     vocab = filter_spec(mesh, P("tp"))[0]
     out_specs = (P(batch[0], *([None] * (logits_dims - 1)), vocab),
-                 None if cache is None else Keep(cache_spec))
+                 cache_out)
     if aux:
         out_specs += (P(),)
     return shard_map(local, mesh,
-                     in_specs=(None, token_spec, cache_spec,
+                     in_specs=(None, token_spec, cache_in,
                                *[batch] * len(per_row)),
                      out_specs=out_specs)(params, tokens, cache, *per_row)
 
@@ -1214,6 +1329,17 @@ def select_tokens(generator: torch.Generator, logits: torch.Tensor,
     return torch.where(temperatures > 0, sampled, greedy)
 
 
+def _decode_stepper(params, config: LlamaConfig, cache):
+    """The decode step of a block or loop: the placed :func:`decode_step`
+    on a placed tree (each position resolves its backend on its shard),
+    else the one-device step with the backend resolved once."""
+    if isinstance(params, Placed):
+        return decode_step
+    use_flash = _resolve_decode_flash(config, cache)
+    return lambda p, c, tokens, kv, lengths: _decode_step_impl(
+        p, c, tokens, kv, lengths, use_flash)
+
+
 def decode_block(params: dict, config: LlamaConfig, tokens: torch.Tensor,
                  cache: dict, lengths: torch.Tensor, active: torch.Tensor,
                  temperatures: torch.Tensor, generator: torch.Generator, *,
@@ -1222,15 +1348,18 @@ def decode_block(params: dict, config: LlamaConfig, tokens: torch.Tensor,
     back with no host synchronisation.  tokens/lengths: [B] device
     tensors; active: [B] bool (inactive rows write to the trash position
     T-1, as in the single-step batcher tick).  Returns (emitted
-    [num_steps, B] int32, tokens' [B], lengths' [B], cache)."""
+    [num_steps, B] int32, tokens' [B], lengths' [B], cache).
+
+    On a placed tree and cache every step is the placed
+    :func:`decode_step` (the kernels at each position on its shards) and
+    the sampling runs on its whole logits, on the mesh's first device."""
     trash = cache_extent(cache) - 1
-    use_flash = _resolve_decode_flash(config, cache)
+    step = _decode_stepper(params, config, cache)
     emitted = []
     for _ in range(num_steps):
         positions = torch.where(active, torch.clamp(lengths, max=trash),
                                 torch.full_like(lengths, trash))
-        logits, cache = _decode_step_impl(params, config, tokens, cache,
-                                          positions, use_flash)
+        logits, cache = step(params, config, tokens, cache, positions)
         tokens = select_tokens(generator, logits, temperatures,
                                top_k=top_k).to(torch.int32)
         lengths = lengths + active.to(lengths.dtype)
@@ -1282,7 +1411,8 @@ def _history_push(history: torch.Tensor, candidates: torch.Tensor,
 
 
 def _draft_window(draft: dict, config: LlamaConfig, tokens, cache: dict,
-                  lengths, active, k: int, window: int, trash: int):
+                  lengths, active, k: int, window: int, trash: int,
+                  shard: TensorShard | None = None):
     """``k`` greedy draft tokens per row from ONE read of the cache: the
     last ``window`` positions of each row are gathered once (int8 windows
     dequantized, small), and the k autoregressive draft steps attend over
@@ -1291,7 +1421,10 @@ def _draft_window(draft: dict, config: LlamaConfig, tokens, cache: dict,
     written to the cache: the verify step writes target-model k/v at
     these positions.  The window approximates the full prefix (draft
     quality only: verify accepts matching tokens alone).
-    tokens/lengths/active: [B]; returns drafts [B, k] int32."""
+    tokens/lengths/active: [B]; returns drafts [B, k] int32.  With
+    ``shard`` it runs at one mesh position (:func:`_draft_on_mesh`): its
+    kv heads and leaf shards, each step's logits gathered over tp for
+    the argmax."""
     c = config
     b = tokens.shape[0]
     w = int(window)
@@ -1330,11 +1463,14 @@ def _draft_window(draft: dict, config: LlamaConfig, tokens, cache: dict,
     win_k, win_v = gather_window(cache["k"]), gather_window(cache["v"])
     # Scratch k/v for this call's draft tokens: column j holds step j's
     # k/v at position lengths + j.
-    scratch_k = torch.zeros((c.n_layers, b, k, c.n_kv_heads, c.head_dim),
+    kv_heads = c.n_kv_heads // (shard.size if shard is not None else 1)
+    scratch_k = torch.zeros((c.n_layers, b, k, kv_heads, c.head_dim),
                             dtype=dtype, device=device)
     scratch_v = torch.zeros_like(scratch_k)
     spos = torch.clamp(lengths[:, None]
                        + torch.arange(k, device=device)[None, :], max=trash)
+    embed = draft["embed"] if shard is None \
+        else shard.whole(draft["embed"], shard.specs["embed"])
     current = tokens
     drafts = []
     for step in range(k):
@@ -1346,7 +1482,7 @@ def _draft_window(draft: dict, config: LlamaConfig, tokens, cache: dict,
         valid = torch.cat([wvalid, svalid,
                            torch.ones((b, 1), dtype=torch.bool,
                                       device=device)], dim=1)
-        hidden = draft["embed"][current.long()[:, None]]     # [B, 1, D]
+        hidden = embed[current.long()[:, None]]              # [B, 1, D]
         for index in range(c.n_layers):
             def attend(q, kk, vv, index=index):
                 q = apply_rope(q, rope, pos)
@@ -1361,16 +1497,40 @@ def _draft_window(draft: dict, config: LlamaConfig, tokens, cache: dict,
                 scratch_k[index, :, step] = kk[:, 0].to(dtype)
                 scratch_v[index, :, step] = vv[:, 0].to(dtype)
                 return out
-            hidden, _ = _block(c, hidden, _layer(draft, index), attend,
-                               kernel)
-        logits = _finish(draft, c, hidden, kernel)           # [B, 1, V]
+            layer = _layer(draft, index)
+            if shard is not None:
+                layer = shard.gathered(layer)
+            hidden, _ = _block(c, hidden, layer, attend, kernel, shard)
+        logits = _finish(draft, c, hidden, kernel, shard)    # [B, 1, V]
+        if shard is not None and shard.size > 1:
+            logits = all_gather(logits, "tp", axis=-1)
         current = logits[:, 0, :].argmax(-1).to(torch.int32)
         drafts.append(current)
     return torch.stack(drafts, dim=1)
 
 
+def _draft_on_mesh(draft: Placed, config: LlamaConfig, tokens, cache,
+                   lengths, active, k: int, window: int, trash: int):
+    """:func:`_draft_window` on a placed draft tree and cache: each
+    position drafts the rows its cache shard holds (the batch split as
+    the cache splits it) on its leaf shards; the drafts come back whole
+    [B, k] on the mesh's first device."""
+    mesh = draft.mesh
+    batch = _batch_spec(cache)
+    specs = draft.specs
+
+    def local(p, t, c, rows_lengths, rows_active):
+        shard = TensorShard(mesh, specs, _batch_axes(cache))
+        return _draft_window(p, config, t, c, rows_lengths, rows_active, k,
+                             window, trash, shard)
+    return shard_map(local, mesh, in_specs=(None, batch, None, batch, batch),
+                     out_specs=P(batch[0], None))(draft, tokens, cache,
+                                                  lengths, active)
+
+
 def _chunk_verify(params: dict, config: LlamaConfig, chunk, cache: dict,
-                  starts, trash: int, use_flash: bool = False):
+                  starts, trash: int, use_flash: bool = False,
+                  shard: TensorShard | None = None):
     """One batched multi-token target step: forward ``chunk`` [B, S]
     (current token + S-1 draft tokens per row) at positions
     ``starts + i``, writing every position's k/v optimistically and
@@ -1385,7 +1545,15 @@ def _chunk_verify(params: dict, config: LlamaConfig, chunk, cache: dict,
     kernel); otherwise the dense concat route attends the cache rows
     (a paged cache gathered, int8 rows dequantized) concatenated with
     the chunk's own k/v.  Each layer's S writes land in place after
-    that layer's attention, which never admits positions >= starts."""
+    that layer's attention, which never admits positions >= starts.
+
+    On a placed tree and cache it runs at every mesh position
+    (:func:`_on_mesh`: the verify kernel on each position's kv heads),
+    the logits whole."""
+    if isinstance(params, Placed):
+        return _on_mesh(functools.partial(_chunk_verify_local, trash),
+                        params, config, chunk, cache, (starts,),
+                        logits_dims=2)
     c = config
     b, s = chunk.shape
     device = chunk.device
@@ -1450,7 +1618,13 @@ def _chunk_verify(params: dict, config: LlamaConfig, chunk, cache: dict,
             return out
         return attend
 
-    return _forward(params, c, chunk, factory)[0], cache
+    return _forward(params, c, chunk, factory, shard=shard)[0], cache
+
+
+def _chunk_verify_local(trash, params, config, chunk, cache, starts,
+                        shard=None):
+    return _chunk_verify(params, config, chunk, cache, starts, trash,
+                         _resolve_decode_flash(config, cache), shard)
 
 
 _LOOP_MODES = ("off", "ngram", "draft")
@@ -1490,7 +1664,16 @@ def decode_loop(params: dict, config: LlamaConfig, tokens: torch.Tensor,
 
     Returns ``(emitted [B, ring], counts [B], tokens', lengths',
     active', budget', history', generator, accepted [B], drafted [B],
-    steps, cache)``, int32 except the bool ``active'``."""
+    steps, cache)``, int32 except the bool ``active'``.
+
+    On a placed tree and cache every iteration's model work runs at each
+    mesh position on its shards -- the placed :func:`decode_step`, the
+    placed verify forward (:func:`_chunk_verify`) and draft
+    (:func:`_draft_on_mesh`, on a draft tree placed on the same mesh) --
+    and everything else -- the sampling, the acceptance and stop tests,
+    the carries -- runs on the whole rows on the mesh's first device, so
+    the block is still one launch sequence with no host synchronisation
+    (``models/loop_graph.py`` captures it with every position's work)."""
     if speculative not in _LOOP_MODES:
         raise ValueError(
             f"speculative={speculative!r}: one of off|ngram|draft")
@@ -1504,7 +1687,9 @@ def decode_loop(params: dict, config: LlamaConfig, tokens: torch.Tensor,
     per_iter = k + 1
     window = max(1, int(spec_window))
     draft = draft if draft is not None else params
-    use_flash = _resolve_decode_flash(config, cache)
+    step_fn = _decode_stepper(params, config, cache)
+    use_flash = None if isinstance(params, Placed) \
+        else _resolve_decode_flash(config, cache)
     int32 = torch.int32
     tokens, lengths, budget = (x.to(int32) for x in (tokens, lengths,
                                                      budget))
@@ -1533,8 +1718,7 @@ def decode_loop(params: dict, config: LlamaConfig, tokens: torch.Tensor,
         if not spec:
             positions = torch.where(live, torch.clamp(lengths, max=trash),
                                     trash_rows)
-            logits, cache = _decode_step_impl(params, config, tokens, cache,
-                                              positions, use_flash)
+            logits, cache = step_fn(params, config, tokens, cache, positions)
             sampled = select_tokens(generator, logits, temperatures,
                                     top_k=top_k).to(int32)
             slot_index = torch.where(live, counts,
@@ -1550,6 +1734,9 @@ def decode_loop(params: dict, config: LlamaConfig, tokens: torch.Tensor,
         greedy_row = live & (temperatures <= 0)
         if speculative == "ngram":
             drafts = _ngram_draft(history, tokens, k)
+        elif isinstance(draft, Placed):
+            drafts = _draft_on_mesh(draft, config, tokens, cache, lengths,
+                                    live, k, window, trash)
         else:
             drafts = _draft_window(draft, config, tokens, cache, lengths,
                                    live, k, window, trash)

@@ -41,6 +41,24 @@ launch sequence once as a ``torch.cuda.CUDAGraph`` and replays it:
   first) are planned, so it lifts the process's synchronisation guard
   (``device.sync_allowed``) while it runs.
 
+A PLACED tree and cache (``parallel.Placed``) capture the same way.
+``decode_loop`` then runs each iteration's model work at every mesh
+position, one thread a position (``parallel.shard_map``), and each
+thread enqueues its position's kernels on the stream the capturing
+thread has current on that position's card.  On one card that is the
+capture stream itself (the capture makes it current), so the fork and
+the join are the stream's own order, and one graph holds every
+position's work in the order the exchanges between positions impose:
+the collectives of ``parallel/mesh.py`` are device copies and sums of
+the positions' tensors, recorded as graph nodes like any other kernel.
+The ``thread_local`` mode restricts only the capturing thread, so the
+position threads may make the calls a capture forbids it (the caching
+allocator's, which routes their allocations to the graph's pool
+because they are made on the capture stream).  A mesh over several
+cards would need each card's work forked from the capture stream by an
+event and its allocations routed to a pool on its own card; it is
+refused (``not_ported``) rather than captured in part.
+
 On the CPU the same ``decode_loop`` runs eagerly on the same buffers.
 On the card a capture that fails raises: there is no eager fallback.
 """
@@ -55,6 +73,8 @@ import torch
 from . import llama
 from ..device import sync_allowed
 from ..ops import launch_counters
+from ..parallel.mesh import Placed
+from ..utils import not_ported
 
 __all__ = ["LoopRunner"]
 
@@ -66,7 +86,11 @@ CARRIES = ("tokens", "lengths", "active", "budget", "history")
 
 
 def _tensors(tree):
-    """Every tensor of a cache dict, int8 leaves included."""
+    """Every tensor of a cache dict, int8 leaves included (every distinct
+    tensor of every position of a placed cache)."""
+    if isinstance(tree, Placed):
+        yield from tree.tensors()
+        return
     for value in tree.values():
         if isinstance(value, dict):
             yield from _tensors(value)
@@ -172,6 +196,14 @@ class LoopRunner:
 
     def _capture(self, cache: dict) -> None:
         """Warm up, then capture one block on the current inputs."""
+        if isinstance(self.params, Placed):
+            cards = {device.index or 0
+                     for device in self.params.mesh.devices.flat
+                     if device.type == "cuda"}
+            if len(cards) > 1:
+                raise not_ported(
+                    f"capturing the device loop over {len(cards)} CUDA "
+                    f"cards", "ROADMAP Queue 1 item 7.4")
         begin = time.perf_counter()
         stream = torch.cuda.current_stream(self.device)
         # Warm-up outside the capture: one iteration with every row

@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import MeshPlan, Placed
+
 __all__ = ["QUANTIZED_LAYER_KEYS", "quantize_weight", "quantize_params",
            "quantize_specs", "quantize_kv", "dequantize_kv", "is_quantized",
            "map_leaf", "draft_params"]
@@ -113,11 +115,21 @@ def quantize_params(params: dict) -> dict:
     return quantized
 
 
-def draft_params(params: dict) -> dict:
+def draft_params(params):
     """The self-drafting tree for speculative serving: the target's own
     weight-only int8 quantization (half the weight bytes a draft step,
     no second checkpoint).  An already quantized tree is returned as
-    it is."""
+    it is.  A placed tree (``parallel.Placed``) of model-dtype weights is
+    quantized whole -- gathered, quantized, then placed on its mesh by
+    :func:`quantize_specs` of its specs -- since a leaf split over its
+    contraction axis (wo, w_down) would take other per-channel scales
+    if each shard were quantized alone."""
+    if isinstance(params, Placed):
+        if is_quantized(params.shards[0].get("unembed")):
+            return params
+        whole = quantize_params(params.gather(params.mesh.devices.flat[0]))
+        return MeshPlan(params.mesh).put(whole,
+                                         quantize_specs(params.specs))
     if is_quantized(params.get("unembed")):
         return params
     return quantize_params(params)

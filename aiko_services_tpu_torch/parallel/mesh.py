@@ -61,9 +61,10 @@ from .. import device as device_rule
 from ..utils import not_ported
 
 __all__ = ["AXIS_ORDER", "Mesh", "MeshPlan", "NamedSharding", "Placed",
-           "Keep", "make_mesh", "P", "filter_spec", "filter_specs",
-           "shard_map", "Collectives", "MeshAborted", "ppermute",
-           "all_to_all", "all_gather", "psum", "axis_index", "remat"]
+           "Keep", "Each", "assemble", "make_mesh", "P", "filter_spec",
+           "filter_specs", "shard_map", "Collectives", "MeshAborted",
+           "ppermute", "all_to_all", "all_gather", "psum", "axis_index",
+           "remat"]
 
 AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
@@ -301,6 +302,13 @@ class Keep:
 
     def __init__(self, specs):
         self.specs = specs
+
+
+class Each:
+    """An out spec of :func:`shard_map` that returns every position's
+    output as it stands, a list in position order (for outputs that only
+    some positions compute: :func:`assemble` then reads the group that
+    did)."""
 
 
 class P(tuple):
@@ -766,15 +774,30 @@ def _split(mesh: Mesh, position: int, device, spec: P, tensor,
     return tensor.to(device)
 
 
-def _assemble(mesh: Mesh, spec: P, outputs: list, device):
+def assemble(mesh: Mesh, spec: P, outputs: list, device,
+             at: dict | None = None):
+    """The global tensor from the positions' outputs (a list in position
+    order, as :class:`Each` returns it) under ``spec``, read from the
+    positions at coordinate ``at[axis]`` on each axis ``at`` names and 0
+    on every other axis the spec does not split, on ``device`` (None:
+    the mesh's first device)."""
+    if device is None:
+        device = _placed(mesh.devices.flat[0])
+    return _assemble(mesh, filter_spec(mesh, spec), outputs, device, at)
+
+
+def _assemble(mesh: Mesh, spec: P, outputs: list, device,
+              at: dict | None = None):
     """The global tensor from every position's output under ``spec``:
     the shards of split dimensions concatenated in order, a replicated
-    shard taken from the position with coordinate 0 on each axis the
-    spec does not name."""
-    layout = _layout(mesh, spec, outputs[0].ndim)
+    shard taken from the position with coordinate 0 (or ``at[axis]``)
+    on each axis the spec does not name."""
+    at = at or {}
+    layout = _layout(mesh, spec,
+                     next(out for out in outputs if out is not None).ndim)
 
     def block(shard: tuple) -> torch.Tensor:
-        coords = [0] * len(mesh.axis_names)
+        coords = [at.get(axis, 0) for axis in mesh.axis_names]
         for (_, axes, _), index in zip(layout, shard):
             sizes = [mesh.shape[a] for a in axes]
             for axis, coord in zip(axes, np.unravel_index(index, sizes)):
@@ -912,6 +935,8 @@ def _gather_outputs(mesh: Mesh, out_specs, results: list, device):
         return None
     if isinstance(out_specs, Keep):
         return Placed(mesh, filter_specs(mesh, out_specs.specs), results)
+    if isinstance(out_specs, Each):
+        return list(results)
     if isinstance(out_specs, P):
         return _assemble(mesh, out_specs, results, device)
     if isinstance(out_specs, dict):

@@ -24,8 +24,11 @@ Counterpart of ``aiko_services_tpu/pipeline/tensor.py``:
 - only when a frame must leave the process is it encoded host-side
   (:func:`encode_array` / :func:`decode_array`);
 - :func:`distributed_mesh_spec` parses the ``mesh`` request exactly as
-  the JAX package does; :func:`ensure_distributed` refuses a multi-host
-  mesh (``torch.distributed`` bring-up is ROADMAP Queue 1 item 7).
+  the JAX package does; :func:`ensure_distributed` skips the bring-up
+  of a mesh with no coordinator, as the JAX package does, so
+  :class:`StagePlacement` carves virtual host groups in this process,
+  and refuses a real multi-host mesh (a coordinator set: the
+  ``torch.distributed`` bring-up is ROADMAP Queue 1 item 7.6).
 """
 
 from __future__ import annotations
@@ -104,12 +107,16 @@ def distributed_mesh_spec(parameters) -> dict | None:
 
 
 def ensure_distributed(spec: dict | None) -> tuple[int, int]:
-    """(process index, process count) of this process.  A real
-    multi-host mesh (more than one host declared) raises: the port has
-    no ``torch.distributed`` bring-up yet."""
-    if spec and spec["hosts"] > 1:
-        raise not_ported(f"a multi-host mesh ({spec['hosts']} hosts)",
-                         "ROADMAP Queue 1 item 7")
+    """(process index, process count) of this process.  A virtual mesh
+    (no coordinator: the CI shape) needs no bring-up --
+    :class:`StagePlacement` carves ``hosts`` virtual host groups out of
+    this process's pool, as the JAX package does.  A REAL multi-host
+    mesh (a coordinator set, more than one host declared) raises: the
+    port has no ``torch.distributed`` bring-up yet."""
+    if spec and spec.get("coordinator") and spec["hosts"] > 1:
+        raise not_ported(f"a multi-host mesh ({spec['hosts']} hosts, "
+                         f"coordinator {spec['coordinator']})",
+                         "ROADMAP Queue 1 item 7.6")
     return 0, 1
 
 

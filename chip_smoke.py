@@ -246,7 +246,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     counts (``int8_combine`` printed) and no other kernel.  It prints
     each run's step ms (CUDA events, steps 2 on), peak above what the
     card held, the one-position run's beside it, and 13c's prefill and
-    decode-step ms.
+    decode-step ms.  (d) ``serving-tp-int8``: 13c's tree served by
+    ``ContinuousBatcher`` with ``cache_put`` placing its cache
+    (``cache_specs``, or ``paged_cache_specs`` for pages), phase 3's 8
+    requests at SERVING_TP_TOKENS new tokens (top-k 50, 8 slots,
+    512-token chunks): dense at decode_block 4 (``inflight`` 2), paged
+    (64-token pages) at decode_block 1, the captured device loop
+    (``decode_block_tokens=16``) and the ngram loop over pages (4 draft
+    tokens), each first on the unplaced tree, every launch counter
+    zeroed before each run.  Gates: every request finishes; the greedy
+    streams of the three plain runs equal those of the placed
+    ``prefill_into_slot`` / ``decode_step`` driven by hand on the same
+    tree (same slots, chunks and positions; the ngram run's agreement
+    is printed); the loops capture once and replay every block (none
+    eager); each run launches its path's kernels and no other -- #2 or
+    #3 (int8), ``decode_combine``, #4, #5's two routes and
+    ``int8_combine``, #6; the ngram run the paged int8 verify,
+    ``verify_combine``, #4, #5's M > 16 route and #6 -- the model's
+    kernels exactly twice the one-position run's counts (top-k, which
+    samples the whole logits, once; ``int8_combine`` printed), the
+    ngram run's verify kernel and combine exactly twice 32 layers x (12
+    iterations x replays + 1).  It prints each run's tokens/s, the
+    hand-driven decode-step and admission-chunk ms (CUDA events) and
+    the one-position run's beside each.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
@@ -254,7 +276,8 @@ the pipeline runs' own under ``pipeline_launches``, phase 9's zero
 under ``fusion-chain``, phase 10's under ``checkpoint-cli``, phase 11's
 (11b's, with 11a's, 11c's and 11d's zeros) under ``train-moe``, phase
 12's zeros under ``context-parallel``, phase 13's (13c's placed run)
-under ``sharded-step``; the entries on config 4's and config 5's paths
+under ``sharded-step``, 13d's (its four placed batcher runs) under
+``serving-tp-int8``; the entries on config 4's and config 5's paths
 carry ``"path"`` and their run's launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
 of JAX or of the JAX package.
 """
@@ -1169,7 +1192,8 @@ def prefix_requests(config) -> list[tuple]:
 
 def serve(params, config, requests, label: str, device, card: str, *,
           decode_block: int = 1, serial_first: bool = False,
-          recover_at: int = 0, **options) -> dict:
+          recover_at: int = 0, new_tokens: int = NEW_TOKENS,
+          **options) -> dict:
     """One ContinuousBatcher run (8 slots, prefill chunk 512, top-k 50)
     over ``requests``; ``serial_first`` drains the first request alone
     before submitting the rest; ``recover_at`` > 0 arms a fault probe that
@@ -1208,7 +1232,7 @@ def serve(params, config, requests, label: str, device, card: str, *,
         rid = f"r{index}"
         streams[rid] = []
         batcher.submit(Request(
-            rid, list(prompt), max_new_tokens=NEW_TOKENS,
+            rid, list(prompt), max_new_tokens=new_tokens,
             temperature=temperature,
             emit=lambda r, token, done: streams[r].append(token)))
         if serial_first and index == 0:
@@ -1227,9 +1251,9 @@ def serve(params, config, requests, label: str, device, card: str, *,
     wall = time.perf_counter() - begin
     stats = batcher.take_request_stats()
     for rid, tokens in streams.items():
-        if len(tokens) != NEW_TOKENS:
+        if len(tokens) != new_tokens:
             raise AssertionError(f"{label}: {rid} got {len(tokens)} of "
-                                 f"{NEW_TOKENS} tokens")
+                                 f"{new_tokens} tokens")
     ttft = sorted(s["ttft_ms"] for s in stats)
     metrics = {
         "run": label, "decode_block": decode_block,
@@ -3909,6 +3933,212 @@ def sharded_step_run(card: str) -> dict:
             "int8": serving}
 
 
+# -- phase 13d: the continuous batcher on a placed int8 tree --------------
+
+SERVING_TP_TOKENS = 16      # new tokens a request (about 120 s a phase)
+#: (label, batcher options, the attention kernel of the run's path)
+SERVING_TP_PLAN = (
+    ("tp-int8-dense-4", dict(decode_block=4, inflight=2),
+     "flash_decode_attention_stacked"),
+    ("tp-int8-paged-1", dict(decode_block=1, kv_page_tokens=64),
+     "flash_decode_attention_paged"),
+    ("tp-int8-loop-16", dict(decode_block_tokens=16),
+     "flash_decode_attention_stacked"),
+    ("tp-int8-loop-ngram-paged-16",
+     dict(decode_block_tokens=16, speculative="ngram", spec_tokens=4,
+          kv_page_tokens=64), "flash_verify_attention_paged"))
+
+
+def hand_driven(params, config, requests, device, card: str,
+                label: str) -> dict:
+    """The batcher's work on ``requests`` driven by hand, eagerly: each
+    prompt into slot = its index through ``prefill_into_slot`` in the
+    batcher's 512-token chunks (padded, the last start clamped to
+    ``max_seq - 512``), its first token the argmax at the last prompt
+    position, then SERVING_TP_TOKENS - 1 ``decode_step`` calls of all
+    eight rows, each fed its own argmax at its own length.  A placed tree
+    gets a cache placed by ``cache_specs``.  Returns the greedy token
+    streams by request id, the admission ms a chunk and the decode-step
+    ms (CUDA events)."""
+    import torch
+    from aiko_services_tpu_torch.device import upload
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.parallel.mesh import MeshPlan, Placed
+    chunk = 512
+    cache = llama.init_cache(config, len(requests), device=device)
+    if isinstance(params, Placed):
+        cache = MeshPlan(params.mesh).put(cache, llama.cache_specs(config))
+    free_card()
+    begin, middle, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+    firsts, chunks = [], 0
+    with torch.no_grad():
+        begin.record()
+        for slot, (prompt, _) in enumerate(requests):
+            done = 0
+            while done < len(prompt):
+                start = min(done, config.max_seq - chunk)
+                part = prompt[start:start + chunk]
+                padded = torch.zeros((1, chunk), dtype=torch.int64)
+                padded[0, :len(part)] = torch.tensor(part)
+                logits, cache = llama.prefill_into_slot(
+                    params, config, upload(padded, device), cache, slot,
+                    start)
+                done = start + len(part)
+                chunks += 1
+            firsts.append(logits[0, len(prompt) - start - 1].argmax())
+        middle.record()
+        tokens = torch.stack(firsts)
+        lengths = torch.tensor([len(prompt) for prompt, _ in requests],
+                               dtype=torch.int32, device=device)
+        emitted = [tokens]
+        for _ in range(SERVING_TP_TOKENS - 1):
+            logits, cache = llama.decode_step(params, config, tokens, cache,
+                                              lengths)
+            tokens = logits.argmax(-1)
+            lengths = lengths + 1
+            emitted.append(tokens)
+        end.record()
+    end.synchronize()
+    rows = torch.stack(emitted, dim=1).tolist()
+    out = {"streams": {f"r{index}": row for index, row in enumerate(rows)},
+           "admission_ms": begin.elapsed_time(middle) / chunks,
+           "chunks": chunks,
+           "decode_step_ms": middle.elapsed_time(end)
+           / (SERVING_TP_TOKENS - 1)}
+    del cache
+    print(f"serving-tp-int8 {label}, by hand: {chunks} admission chunks "
+          f"{out['admission_ms']:.2f} ms each, decode step "
+          f"{out['decode_step_ms']:.3f} ms (CUDA events, eager) on {card}",
+          flush=True)
+    return out
+
+
+def serving_tp_run(card: str) -> dict:
+    """Phase 13d (module docstring) -> its launches (the four placed
+    batcher runs' together) and each run's summary."""
+    from aiko_services_tpu_torch.device import resolve_device
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.quant import (quantize_params,
+                                                      quantize_specs)
+    device = resolve_device(None)
+    config = dataclasses.replace(serving_config(), kv_dtype="int8")
+    free_card()
+    params = llama.init_params(0, config, device=device)
+    qparams = quantize_params(params)
+    del params
+    free_card()
+    requests = mixed_requests(config)
+    greedy = [f"r{index}" for index in range(0, len(requests), 2)]
+    options = dict(new_tokens=SERVING_TP_TOKENS)
+
+    def run(label, tree, settings, cache_put=None):
+        counters = zero_launches()
+        extra = {} if cache_put is None else {"cache_put": cache_put}
+        result = serve(tree, config, requests, label, device, card,
+                       **options, **settings, **extra)
+        result["launches"] = {name: count for name, count
+                              in read_launches(counters).items() if count}
+        print(f"serving-tp-int8 {json.dumps(result['metrics'])} launches "
+              f"{json.dumps(result['launches'])}", flush=True)
+        return result
+    alone = {"hand": hand_driven(qparams, config, requests, device, card,
+                                 "one position")}
+    for label, settings, _ in SERVING_TP_PLAN:
+        alone[label] = run(f"{label} one position", qparams, settings)
+    plan = cp_mesh_plan(SHARDED_DECODE_MESH, device)
+    placed = plan.put(qparams, quantize_specs(llama.partition_specs(config)))
+    del qparams
+    free_card()
+    hand = hand_driven(placed, config, requests, device, card,
+                       f"placed {SHARDED_DECODE_MESH}")
+    launches, summary = {}, []
+    for label, settings, attention in SERVING_TP_PLAN:
+        specs = llama.paged_cache_specs(config) \
+            if "kv_page_tokens" in settings else llama.cache_specs(config)
+        got = run(label, placed, settings,
+                  cache_put=lambda cache, specs=specs: plan.put(cache, specs))
+        one = alone[label]
+        agree = sum(got["streams"][rid] == hand["streams"][rid]
+                    for rid in greedy)
+        agree_one = sum(got["streams"][rid] == one["streams"][rid]
+                        for rid in greedy)
+        speculative = "speculative" in settings
+        wanted = {f"{attention}[int8]", "flash_attention",
+                  "int8_matmul[M>16]", "topk"} | (
+            {"verify_combine"} if speculative else
+            {"decode_combine", "int8_matmul", "int8_combine"})
+        check_launches(f"{label} one position", one["launches"], wanted)
+        check_launches(label, got["launches"], wanted)
+        # The model's kernels launch at each position; top-k samples the
+        # whole logits once a step on the first device, as one position
+        # does.
+        twice = {name: (count if name == "topk" else 2 * count)
+                 for name, count in one["launches"].items()
+                 if name != "int8_combine"}
+        metrics = got["metrics"]
+        if speculative:
+            # Acceptance sets how many blocks a run takes, so the two
+            # runs' totals differ; each replayed block verifies
+            # ring - spec_tokens times (one more in the capture's
+            # warm-up) at every layer of every position.
+            iterations = settings["decode_block_tokens"] \
+                - settings["spec_tokens"]
+            twice = {name: 2 * config.n_layers
+                     * (iterations * metrics["replays"] + 1)
+                     for name in (f"{attention}[int8]", "verify_combine")}
+            if metrics["draft_tokens"] <= 0 or got["leaked"]:
+                raise AssertionError(f"{label}: no draft tokens, or "
+                                     f"leaked pages")
+        entry = {"run": label, "mesh": SHARDED_DECODE_MESH,
+                 "greedy_equal_to_hand": f"{agree}/{len(greedy)}",
+                 "greedy_equal_to_one_position": f"{agree_one}/{len(greedy)}",
+                 "tokens_per_s": metrics["tokens_per_s"],
+                 "one_position_tokens_per_s": one["metrics"]["tokens_per_s"],
+                 "decode_step_ms": hand["decode_step_ms"],
+                 "one_position_decode_step_ms":
+                     alone["hand"]["decode_step_ms"],
+                 "admission_ms": hand["admission_ms"],
+                 "one_position_admission_ms": alone["hand"]["admission_ms"],
+                 "int8_combine": got["launches"].get("int8_combine", 0),
+                 "one_position_int8_combine":
+                     one["launches"].get("int8_combine", 0),
+                 "card": card}
+        if speculative:
+            entry.update(draft_tokens=metrics["draft_tokens"],
+                         accepted_tokens=metrics["accepted_tokens"])
+        if "captures" in metrics:
+            eager = metrics["blocks_dispatched"] - metrics["replays"]
+            entry.update(captures=metrics["captures"],
+                         replays=metrics["replays"],
+                         capture_s=metrics["capture_s"], broken=eager)
+            if metrics["captures"] < 1 or eager:
+                raise AssertionError(
+                    f"{label}: {metrics['captures']} captures, {eager} "
+                    f"blocks not replayed from a captured graph")
+        print(f"serving-tp-int8 {json.dumps(entry)}", flush=True)
+        summary.append(entry)
+        # A verified position attends the chunk's earlier k/v before
+        # their int8 quantization, where a decode step reads them
+        # quantized: the speculative run's agreement is reported only.
+        if agree != len(greedy) and not speculative:
+            raise AssertionError(
+                f"{label}: greedy streams equal to the placed decode_step "
+                f"driven by hand for {agree} of {len(greedy)} requests")
+        if any(got["launches"].get(name, 0) != count
+               for name, count in twice.items()):
+            raise AssertionError(
+                f"{label}: launches {got['launches']}, wanted {twice} "
+                f"(twice one position's, top-k once, int8_combine "
+                f"apart; a verify kernel per replayed iteration)")
+        for name, count in got["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+        del got
+    del placed
+    free_card()
+    return {"launches": launches, "runs": summary}
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -4119,6 +4349,10 @@ def main() -> int:
     # -- phase 13: the sharded model step on placed trees -----------------
     sharded = sharded_step_run(card)
     pipeline_launches["sharded-step"] = sharded["launches"]
+
+    # -- phase 13d: the continuous batcher on a placed int8 tree ---------
+    serving_tp = serving_tp_run(card)
+    pipeline_launches["serving-tp-int8"] = serving_tp["launches"]
 
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)

@@ -1,8 +1,10 @@
 """The port's mesh on the card (``parallel/mesh.py``, ``parallel/ring.py``,
-``models/long_context.py``, the sharded step of ``models/train.py``): a
-mesh of distinct cards computes each position on its own card and hops
-between cards by peer copies; the same mesh with one card listed at
-every position gives the same numbers.  Imports no JAX, so it runs on the card machine:
+``models/long_context.py``, the sharded step of ``models/train.py``,
+the continuous batcher on a placed int8 tree): a mesh of distinct cards
+computes each position on its own card and hops between cards by peer
+copies; the same mesh with one card listed at every position gives the
+same numbers (the batcher: the same greedy streams, and its captured
+device loop the host loop's).  Imports no JAX, so it runs on the card machine:
 
     python3 -m pytest --noconftest -q tests/test_torch_mesh_cuda.py
 
@@ -20,9 +22,13 @@ import pytest
 import torch
 
 from aiko_services_tpu_torch.models import llama, train
+from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
+                                                     Request)
 from aiko_services_tpu_torch.models.checkpoint import flatten
 from aiko_services_tpu_torch.models.long_context import (
     make_long_context_forward, make_long_context_loss)
+from aiko_services_tpu_torch.models.quant import (quantize_params,
+                                                  quantize_specs)
 from aiko_services_tpu_torch.parallel import (MeshPlan, P, axis_index,
                                               make_mesh, ppermute, psum,
                                               shard_map)
@@ -197,3 +203,68 @@ def test_failure_on_a_card_aborts_the_call(cards):
     with pytest.raises(ZeroDivisionError):
         shard_map(body, mesh, in_specs=(P("sp"),), out_specs=P())(
             torch.ones(8, device=cards[0]))
+
+
+def serving_config():
+    """int8 weights and cache at kernel-sized heads (head_dim 64; a
+    1,024-token extent takes the decode kernels), bf16, flash."""
+    return dataclasses.replace(
+        llama.LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                          n_kv_heads=2, hidden_dim=512, max_seq=1024,
+                          rope_theta=10_000.0),
+        attention="flash", kv_dtype="int8")
+
+
+def served(devices: list, **options) -> dict:
+    """Four greedy requests through a ``ContinuousBatcher`` on the int8
+    tree placed over {"tp": 2} on ``devices``, ``cache_put`` placing its
+    cache: the token streams."""
+    c = serving_config()
+    params = quantize_params(llama.init_params(0, c, device=devices[0]))
+    mesh_plan = MeshPlan(make_mesh({"tp": 2}, devices))
+    placed = mesh_plan.put(params, quantize_specs(llama.partition_specs(c)))
+    specs = llama.paged_cache_specs(c) if "kv_page_tokens" in options \
+        else llama.cache_specs(c)
+    batcher = ContinuousBatcher(
+        placed, c, max_slots=4, prefill_chunk=256, device=devices[0],
+        cache_put=lambda cache: mesh_plan.put(cache, specs), **options)
+    rng = np.random.default_rng(3)
+    streams = {}
+    for index, length in enumerate((40, 300, 120, 260)):
+        streams[index] = []
+        batcher.submit(Request(
+            str(index), rng.integers(0, 256, length).tolist(),
+            max_new_tokens=12,
+            emit=lambda rid, token, done: streams[int(rid)].append(token)))
+    batcher.run_until_drained(max_steps=400)
+    assert all(len(stream) == 12 for stream in streams.values())
+    return streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [
+    dict(decode_block=1), dict(decode_block=4, inflight=2),
+    dict(kv_page_tokens=64)], ids=["host-1", "host-4", "paged-1"])
+def test_batcher_across_cards_matches_one_card(several, options):
+    """The batcher over {"tp": 2} on two distinct cards gives the greedy
+    streams of the same mesh with card 0 listed twice."""
+    assert served(several[:2], **options) == \
+        served([several[0]] * 2, **options)
+
+
+@pytest.mark.cuda
+def test_captured_loop_on_one_card_matches_host_loop(cards):
+    """The device loop over {"tp": 2} on card 0 listed twice -- one CUDA
+    graph holding both positions' work -- emits the host loop's greedy
+    streams."""
+    one = [cards[0]] * 2
+    assert served(one, decode_block_tokens=16) == \
+        served(one, decode_block=1)
+
+
+@pytest.mark.cuda
+def test_loop_capture_across_cards_refused(several):
+    """Capturing the device loop over two cards is refused loudly, never
+    run eagerly in its place."""
+    with pytest.raises(NotImplementedError, match="2 CUDA cards"):
+        served(several[:2], decode_block_tokens=16)
