@@ -14,13 +14,24 @@ as the same overlay dict the reference's elements feed ImageOverlay
   ``python -m aiko_services_tpu_torch convert detector``), restored onto
   the placed device against the tree's shapes; after
   ``on_replacement`` the weights rebuild from it, not from random init;
-- the device is the placement's (``TPUElement.plan.device``): the card
-  by default, a CPU descriptor of the tests' device pool on the CPU;
+- the devices are the placement's: the weights are put once on every
+  card of the stage (``plan.put(params, P())``; one card listed at
+  several positions holds them once), and a micro-batch splits over
+  the stage's positions -- padded to a multiple of their count, so a
+  lone frame splits too, each position's rows run on its card and the
+  padding rows dropped at ``batch_finish``.  The positions dispatch in
+  turn from the worker thread (their work is independent: no
+  collective), so two positions that list one card never replay one
+  captured graph at once.  The synchronous path and ``device_fn`` (a
+  fused segment) run on the stage's lead card (``plan.device``).  The
+  card by default, CPU descriptors of the tests' device pool on the
+  CPU;
 - the micro-batch worker runs its uploads, detect and host copies on a
-  CUDA stream of its own, so detect overlaps the work the other
-  threads enqueue (the ``LLM`` element's blocks); a host burst is
-  stacked once and uploaded once, through pinned memory, and the result
-  comes back by asynchronous copies into pinned memory;
+  CUDA stream of its own on each card, so detect overlaps the work the
+  other threads enqueue (the ``LLM`` element's blocks); a host burst is
+  stacked once in pinned memory and each position's rows uploaded from
+  it once, and each card's result comes back by asynchronous copies
+  into pinned memory, waited for once a card;
 - the transfer guard is process-wide (``device.sync_guard``): the one
   wait for a batch's result (after its event) and the synchronous
   path's fetch run with it lifted (``device.sync_allowed``), so a
@@ -39,6 +50,7 @@ from ..device import sync_allowed
 from ..models import detector
 from ..models.batching import MicroBatchElement, _HostTree, pad_to_bucket
 from ..models.checkpoint import restore_or_init
+from ..parallel.mesh import P, _placed
 from ..pipeline import StreamEvent, TPUElement
 
 __all__ = ["Detector"]
@@ -75,10 +87,12 @@ class Detector(MicroBatchElement, TPUElement):
 
     def __init__(self, context):
         super().__init__(context)
-        self._params = None
+        self._params = None             # the lead card's weights
+        self._placed = None             # every card's (a Placed)
         self._config = None
         self._detect = None
-        self._stream = None             # the worker's CUDA stream
+        self._streams = {}              # card -> the worker's stream
+        self.position_stats = []        # per position: device, batches, rows
 
     def on_replacement(self):
         super().on_replacement()
@@ -88,8 +102,9 @@ class Detector(MicroBatchElement, TPUElement):
         # worker -- it referenced the old params.
         self.stop_microbatcher()
         self._params = None             # _ensure_model reloads on the
-        self._detect = None             # replacement submesh
-        self._stream = None
+        self._placed = None             # replacement submesh
+        self._detect = None
+        self._streams = {}
 
     def _ensure_model(self):
         if self._params is not None:
@@ -112,9 +127,14 @@ class Detector(MicroBatchElement, TPUElement):
             score_threshold=float(threshold), max_detections=32)
         checkpoint, found = self.get_parameter("checkpoint", None)
         seed, _ = self.get_parameter("seed", 0)
-        self._params = self.put(restore_or_init(
+        plan = self.plan
+        self._placed = plan.put(restore_or_init(
             detector, self._config, int(seed),
-            checkpoint if found else None, self.plan.device))
+            checkpoint if found else None, _placed(plan.device)), P())
+        self._params = self._placed.shards[0]
+        self.position_stats = [{"device": str(device), "batches": 0,
+                                "rows": 0}
+                               for device in plan.mesh.devices.flat]
         config = self._config
         self._detect = self.jit(
             lambda params, images: detector.detect(params, config, images))
@@ -149,8 +169,8 @@ class Detector(MicroBatchElement, TPUElement):
     def batch_context(self):
         # The model is SNAPSHOTTED with the flush: a queued batch must
         # dispatch against the weights it was built with, never a
-        # half-swapped model after on_replacement.
-        return self._detect, self._params, self.plan.device
+        # half-swapped model after on_replacement -- every card's.
+        return self._detect, self._placed, self.position_stats
 
     def _dispatch(self, image):
         """Enqueue the captured detect (asynchronous on the device)."""
@@ -164,7 +184,9 @@ class Detector(MicroBatchElement, TPUElement):
         engine-counted fetch of the slate at the segment boundary.
         ``detector.detect`` runs eagerly here: the segment's own graph
         capture takes it in (a capture cannot nest inside another, so
-        never the element's ``JitCache``-wrapped ``_detect``)."""
+        never the element's ``JitCache``-wrapped ``_detect``).  A
+        segment runs on one device: on a stage over several cards, the
+        lead card's weights."""
         from ..pipeline import DeviceFn
         self._ensure_model()
         config = self._config
@@ -187,51 +209,67 @@ class Detector(MicroBatchElement, TPUElement):
         self.submit_microbatch(complete, image, diagnostic="bad image")
 
     def _worker_stream(self, device):
-        """The worker's own CUDA stream (None on the CPU), made on first
-        use and told to wait for the work already enqueued on the
-        device's default stream (device-resident frames come from
+        """The worker's own CUDA stream on ``device`` (None on the CPU),
+        made on first use and told to wait for the work already enqueued
+        on the card's default stream (device-resident frames come from
         there)."""
         if device.type != "cuda":
             return None
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-        self._stream.wait_stream(torch.cuda.default_stream(device))
-        return self._stream
+        stream = self._streams.get(device)
+        if stream is None:
+            stream = self._streams[device] = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.default_stream(device))
+        return stream
 
     def batch_run(self, context, key, images):
-        """Worker side: stack one same-signature group and dispatch on
-        the worker's stream.  An all-host group stacks ONCE on host and
-        uploads once through pinned memory (uint8 bytes upload raw; the
-        /255 float conversion runs batched on device); groups with
-        device-resident frames stack on device.  The slate's copies to
-        pinned host memory are enqueued behind it."""
-        detect, params, device = context
-        images = pad_to_bucket(images)
-        side = self._worker_stream(device)
-        with torch.cuda.stream(side) if side is not None \
-                else contextlib.nullcontext():
-            if all(isinstance(image, np.ndarray) for image in images):
-                batch = torch.from_numpy(np.stack(
-                    [image[0] if image.ndim == 4 else image
-                     for image in images]))
-                if device.type == "cuda":
-                    batch = batch.pin_memory()
-                batch = batch.to(device, non_blocking=True)
-                if batch.dtype == torch.uint8:
-                    batch = batch.float() / 255.0
-            else:
-                batch = torch.stack([self._preprocess(image)
-                                     for image in images])
-            return _HostTree(detect(params, batch))
+        """Worker side: stack one same-signature group, padded to its
+        bucket and to a multiple of the stage's positions, and dispatch
+        each position's rows on its card's worker stream, the positions
+        in turn.  An all-host group stacks ONCE on host, in pinned
+        memory, and each position's rows upload from it once (uint8
+        bytes upload raw; the /255 float conversion runs batched on
+        device); groups with device-resident frames stack on the lead
+        card.  Each card's slate copies to pinned host memory behind
+        it."""
+        detect, placed, stats = context
+        devices = [_placed(device) for device in placed.mesh.devices.flat]
+        images = pad_to_bucket(images, multiple=len(devices))
+        rows = len(images) // len(devices)
+        if all(isinstance(image, np.ndarray) for image in images):
+            batch = torch.from_numpy(np.stack(
+                [image[0] if image.ndim == 4 else image
+                 for image in images]))
+            if any(device.type == "cuda" for device in devices):
+                batch = batch.pin_memory()
+        else:
+            batch = torch.stack([self._preprocess(image)
+                                 for image in images])
+        results = []
+        for position, device in enumerate(devices):
+            side = self._worker_stream(device)
+            with torch.cuda.stream(side) if side is not None \
+                    else contextlib.nullcontext():
+                part = batch[position * rows:(position + 1) * rows].to(
+                    device, non_blocking=True)
+                if part.dtype == torch.uint8:
+                    part = part.float() / 255.0
+                results.append(_HostTree(detect(placed.shards[position],
+                                                part)))
+            stats[position]["batches"] += 1
+            stats[position]["rows"] += rows
+        return results
 
     def batch_finish(self, context, key, entries, result):
-        """Wait for the batch's host copies ONCE (the boxes/scores/
-        classes/valid rows land host-side together -- a single wait for
-        the whole micro-batch, not four syncs per frame) and complete
-        each frame from its row."""
+        """Wait for the batch's host copies ONCE a card (the
+        boxes/scores/classes/valid rows land host-side together -- a
+        single wait for each card's rows, not four syncs per frame),
+        join the cards' rows in order and complete each frame from its
+        row (the padding rows are dropped)."""
         try:
             with sync_allowed():
-                fetched = result.numpy()
+                parts = [part.numpy() for part in result]
+            fetched = {name: np.concatenate([part[name] for part in parts])
+                       for name in parts[0]}
         except Exception as error:            # pragma: no cover - defensive
             for complete, _ in entries:
                 complete(StreamEvent.ERROR, {"diagnostic": str(error)})

@@ -105,10 +105,12 @@ def _knob_on(value, default: bool) -> bool:
     return text in ("on", "true", "1", "yes")
 
 
-def pad_to_bucket(rows: list) -> list:
-    """Pad a ragged admission burst to its power-of-two bucket by
-    repeating the first row (idempotent device work)."""
-    bucket = next_power_of_two(len(rows))
+def pad_to_bucket(rows: list, multiple: int = 1) -> list:
+    """Pad a ragged admission burst to its power-of-two bucket, rounded
+    up to a multiple of ``multiple`` (the dp cards a batch splits over:
+    a lone frame still gives each card a row), by repeating the first
+    row (idempotent device work)."""
+    bucket = -(-next_power_of_two(len(rows)) // multiple) * multiple
     return list(rows) + [rows[0]] * (bucket - len(rows))
 
 

@@ -203,7 +203,7 @@ class LoopRunner:
             if len(cards) > 1:
                 raise not_ported(
                     f"capturing the device loop over {len(cards)} CUDA "
-                    f"cards", "ROADMAP Queue 1 item 7.4")
+                    f"cards", "ROADMAP Queue 1 item 7.4b")
         begin = time.perf_counter()
         stream = torch.cuda.current_stream(self.device)
         # Warm-up outside the capture: one iteration with every row

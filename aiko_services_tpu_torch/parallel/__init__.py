@@ -5,7 +5,7 @@
 from .mesh import (AXIS_ORDER, Collectives, Keep, Mesh, MeshAborted,
                    MeshPlan, NamedSharding, P, Placed, all_gather,
                    all_to_all, axis_index, filter_spec, filter_specs,
-                   make_mesh, ppermute, psum, remat, shard_map)
+                   make_mesh, ppermute, psum, remat, shard_map, submesh)
 from .ring import (ring_attention, ulysses_attention, blockwise_attention,
                    ring_attention_sharded)
 
@@ -13,5 +13,5 @@ __all__ = ["AXIS_ORDER", "Collectives", "Keep", "Mesh", "MeshAborted",
            "MeshPlan", "NamedSharding", "P", "Placed", "all_gather",
            "all_to_all", "axis_index", "filter_spec", "filter_specs",
            "make_mesh", "ppermute", "psum", "remat", "shard_map",
-           "ring_attention", "ulysses_attention", "blockwise_attention",
-           "ring_attention_sharded"]
+           "submesh", "ring_attention", "ulysses_attention",
+           "blockwise_attention", "ring_attention_sharded"]

@@ -24,10 +24,17 @@ sharded array holds it once a chip); positions on distinct descriptors
 each hold their own copy.  ``MeshPlan.gather(placed)`` (no JAX
 counterpart) returns the whole tree on ``plan.device``.
 ``MeshPlan.shard(*spec)`` returns a :class:`NamedSharding` whose
-``.spec`` is the filtered spec; its ``.device`` is where the port's
-stage code puts a stage's tensors (ONE device: placing stages over card
-groups is ROADMAP Queue 1 item 7, so a stage over several cards raises
-``not_ported`` there, before it computes on one card in silence).
+``.spec`` is the filtered spec; ``.put(value)`` places a tree by it (a
+:class:`Placed`, what a stage hop with a spec returns), and ``.device``
+is the stage's LEAD card, ``plan.device`` (the first of its
+topology-sorted chunk), where a stage's unsharded tensors go.  Under
+GSPMD the JAX package's replicated array makes every chip of a stage
+compute the same value, so one computation on the lead card gives the
+same numbers; only elements that shard (a ``Detector`` over dp, a
+placed tree over tp) use the other cards.  :meth:`Placed.reshard`
+moves a placed tree onto another mesh and spec (gathered onto the
+target's lead card, then split), and :func:`submesh` carves one slice
+of a mesh, as the JAX package's does.
 
 :func:`shard_map` runs a function once a position -- one thread each,
 from ONE process, as the JAX package drives every local chip from one
@@ -58,13 +65,12 @@ import numpy as np
 import torch
 
 from .. import device as device_rule
-from ..utils import not_ported
 
 __all__ = ["AXIS_ORDER", "Mesh", "MeshPlan", "NamedSharding", "Placed",
-           "Keep", "Each", "assemble", "make_mesh", "P", "filter_spec",
-           "filter_specs", "shard_map", "Collectives", "MeshAborted",
-           "ppermute", "all_to_all", "all_gather", "psum", "axis_index",
-           "remat"]
+           "Keep", "Each", "assemble", "make_mesh", "submesh", "P",
+           "filter_spec", "filter_specs", "shard_map", "Collectives",
+           "MeshAborted", "ppermute", "all_to_all", "all_gather", "psum",
+           "axis_index", "remat"]
 
 AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
@@ -121,11 +127,26 @@ def make_mesh(axes: dict[str, int] | None = None,
     return Mesh(array.reshape(sizes), names)
 
 
+def submesh(mesh: Mesh, axis: str, index: int) -> Mesh:
+    """Carve the slice ``axis == index`` out of a mesh -- stage placement
+    onto disjoint device groups (e.g. stage A on tp block 0, stage B on
+    block 1).  A slice of one device becomes a one-position ``dp``
+    mesh."""
+    axis_pos = mesh.axis_names.index(axis)
+    devices = np.asarray(np.take(mesh.devices, index, axis=axis_pos),
+                         dtype=object)
+    names = tuple(n for n in mesh.axis_names if n != axis)
+    if devices.ndim == 0:
+        devices = devices.reshape(1)
+        names = ("dp",)
+    return Mesh(devices, names)
+
+
 class MeshPlan:
     """A mesh plus the sharding vocabulary models use: ``shard(*spec)``
     (a :class:`NamedSharding`, axis names absent from the mesh dropped),
-    ``put`` and ``gather`` (placed trees), and ``replicated()``, the one
-    device a pipeline stage's tensors go to."""
+    ``put`` and ``gather`` (placed trees), and ``replicated()``, the
+    lead card a pipeline stage's unsharded tensors go to."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -146,14 +167,10 @@ class MeshPlan:
         return filter_spec(self.mesh, spec)
 
     def replicated(self) -> torch.device:
-        """The device a stage's tensors go to: ``plan.device``, for a
-        stage on one card; a stage over several cards raises."""
-        cards = {device.index or 0 for device in self.mesh.devices.flat
-                 if device.type == "cuda"}
-        if len(cards) > 1:
-            raise not_ported(
-                f"a stage over {len(cards)} CUDA cards "
-                f"({self.mesh.shape})", "ROADMAP Queue 1 item 7")
+        """The device a stage's unsharded tensors go to: the lead card,
+        ``plan.device``, for a plan over one card or several (the JAX
+        package's replicated array computes the same value on every
+        chip; the port computes it once, on the lead card)."""
         return self.device
 
     def shard(self, *spec) -> "NamedSharding":
@@ -203,10 +220,13 @@ class MeshPlan:
 
 class NamedSharding:
     """``plan.shard(*spec)``: the mesh and the filtered spec (``.spec``),
-    as the JAX ``NamedSharding`` carries them.  ``.device`` is the one
-    device a pipeline stage's tensors go to (``plan.replicated()``)."""
+    as the JAX ``NamedSharding`` carries them.  ``put(value)`` places a
+    tree by the spec over every position of the mesh (a
+    :class:`Placed`); ``.device`` is the lead card
+    (``plan.replicated()``).  Two shardings are equal when their meshes
+    list the same devices on the same axes and their specs match."""
 
-    def __init__(self, plan: MeshPlan, spec: "P"):
+    def __init__(self, plan: MeshPlan, spec):
         self.plan = plan
         self.mesh = plan.mesh
         self.spec = spec
@@ -214,6 +234,21 @@ class NamedSharding:
     @property
     def device(self) -> torch.device:
         return self.plan.replicated()
+
+    @property
+    def device_set(self) -> set:
+        return set(self.mesh.devices.flat)
+
+    def put(self, value) -> "Placed":
+        return self.plan.put(value, self.spec)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, NamedSharding) \
+            and _same_mesh(self.mesh, other.mesh) and self.spec == other.spec
+
+    def __hash__(self) -> int:
+        return hash((self.mesh.axis_names, self.mesh.devices.shape,
+                     tuple(self.mesh.devices.flat)))
 
     def __repr__(self) -> str:
         return f"NamedSharding({dict(self.mesh.shape)}, {self.spec})"
@@ -277,6 +312,17 @@ class Placed:
         return Placed(self.mesh, self.specs,
                       [_map_specs(apply, self.specs, shard)
                        for shard in self.shards])
+
+    @property
+    def sharding(self) -> NamedSharding:
+        """The mesh and specs this tree is laid out by."""
+        return NamedSharding(MeshPlan(self.mesh), self.specs)
+
+    def reshard(self, sharding: NamedSharding) -> "Placed":
+        """This tree laid out on ``sharding``'s mesh by its spec: the
+        whole tree gathered onto the target's lead card (copies between
+        cards), then split by ``MeshPlan.put``."""
+        return sharding.put(self.gather(sharding.device))
 
     def gather(self, device):
         """The whole tree on ``device``: new tensors, detached."""
@@ -770,6 +816,7 @@ def _split(mesh: Mesh, position: int, device, spec: P, tensor,
                                size)
     if copy:
         return tensor.to(device, copy=True,
+                         non_blocking=device.type == "cuda",
                          memory_format=torch.contiguous_format)
     return tensor.to(device)
 

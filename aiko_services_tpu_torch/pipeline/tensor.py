@@ -7,14 +7,19 @@ Counterpart of ``aiko_services_tpu/pipeline/tensor.py``:
   elements;
 - a stage is *placed* on a group of the process's devices
   (:class:`StagePlacement`; the pool is ``device.local_devices()``),
-  and frames hop stages by ``Tensor.to(plan.device,
-  non_blocking=True)``.  A stage's tensors live whole on its plan's
-  first device (``parallel/mesh.py``): one card holds one stage, and a
-  plan over several cards raises until ROADMAP Queue 1 item 7.  A hop
-  moves tensor leaves only: host values (numpy arrays, text, lists)
-  stay on the host until the element uploads them itself -- the
-  ``Detector`` stacks a host burst and uploads it once, through pinned
-  memory;
+  one card or several.  A hop with no spec lands a frame's tensors
+  whole on the stage's LEAD card (``plan.device``, the first of its
+  topology-sorted chunk) by ``Tensor.to(plan.device,
+  non_blocking=True)``: the JAX package's replicated array computes the
+  same value on every chip, so one computation on the lead card gives
+  the same numbers.  A hop with a spec returns a
+  :class:`~..parallel.mesh.Placed` over the stage's mesh, each card
+  holding its shard (the JAX array sharded by ``NamedSharding``).  Only
+  elements that shard use the other cards: the ``Detector`` splits a
+  micro-batch over its stage's dp cards.  A hop moves tensor leaves
+  only: host values (numpy arrays, text, lists) stay on the host until
+  the element uploads them itself -- the ``Detector`` stacks a host
+  burst and uploads each card's rows once, through pinned memory;
 - :class:`JitCache` keys a function per (tree structure, shape, dtype
   and device of each leaf, context) -- the counterpart of ``jax.jit``'s
   compile once per shape: on the card a miss captures the call as a
@@ -45,7 +50,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import device as device_rule
-from ..parallel.mesh import MeshPlan, make_mesh
+from ..parallel.mesh import MeshPlan, NamedSharding, Placed, make_mesh
 from ..utils import not_ported
 from .element import PipelineElement
 
@@ -290,7 +295,10 @@ class JitCache:
         tensors = [leaf for leaf in leaves if isinstance(leaf, torch.Tensor)]
         device = next(leaf.device for leaf in tensors
                       if leaf.device.type == "cuda")
-        with device_rule.sync_allowed():
+        # The capture runs on a stream of the leaves' own card: the
+        # graph's default capture stream lives on whichever card made it
+        # first, and a capture there would miss this card's launches.
+        with device_rule.sync_allowed(), torch.cuda.device(device):
             stream = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device)
             side.wait_stream(stream)
@@ -304,7 +312,8 @@ class JitCache:
             counters = list(launch_counters().values())
             before = [getattr(wrapper, attr) for wrapper, attr in counters]
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
+                                  capture_error_mode="thread_local"):
                 outputs = fn(*static_args, **static_kwargs)
             launches = {}
             for (wrapper, attr), start in zip(counters, before):
@@ -335,6 +344,12 @@ class JitCache:
     @property
     def entries(self) -> int:
         return len(self._compiled)
+
+    @property
+    def devices(self) -> set:
+        """The cards the captured graphs live on (empty on the CPU)."""
+        return {entry.device for entry in self._compiled.values()
+                if isinstance(entry, _Captured)}
 
     @property
     def stats(self) -> dict:
@@ -370,13 +385,19 @@ class StagePlacement:
 
     The JAX package's carving, replicas, failover and accounting on
     ``torch.device`` lists (the pool defaults to
-    ``device.local_devices()``); a stage's tensors land on its plan's
-    first device (``MeshPlan.device``), and ``transfer`` moves tensor
-    leaves there with ``Tensor.to(device, non_blocking=True)``,
-    asynchronous on the card.  A leaf already resident is skipped (a
-    CPU tensor is resident on every CPU descriptor: its device carries
-    no index); a host value (numpy, text) is left as it is.  The rest
-    of this docstring is the JAX package's.
+    ``device.local_devices()``).  A stage may span several cards.
+    ``transfer`` with no spec moves tensor leaves to the stage's lead
+    card (``MeshPlan.device``) with ``Tensor.to(device,
+    non_blocking=True)``, asynchronous on the card; with a spec it
+    places each tensor leaf over the stage's mesh (a ``Placed``, each
+    card its shard).  A leaf already resident is skipped (a CPU tensor
+    is resident on every CPU descriptor: its device carries no index),
+    and so is a ``Placed`` already laid out on the target mesh by the
+    same spec; another ``Placed`` is resharded (gathered onto the
+    target's lead card, then split), or gathered whole onto the lead
+    card by a hop with no spec.  A host value (numpy, text) is left as
+    it is, so a frame of host values hops without a call to any card.
+    The rest of this docstring is the JAX package's.
 
     The reference deploys stages into other OS processes found by
     ServiceFilter (reference pipeline.py:246-258); on TPU a stage lands
@@ -856,42 +877,44 @@ class StagePlacement:
     # -- stage hops --------------------------------------------------------
 
     def stage_sharding(self, stage: str, spec: tuple = (),
-                       replica: int | None = None) -> torch.device:
-        """The memoized device frames move to when hopping to ``stage``
-        (or one replica's submesh of it) -- resolved once per (stage,
-        replica, generation, spec), not per frame; a plan over several
-        cards raises here (``MeshPlan.replicated``)."""
+                       replica: int | None = None):
+        """The memoized target of a hop to ``stage`` (or one replica's
+        submesh of it): the stage's lead card with no spec, a
+        ``NamedSharding`` over its mesh with one -- resolved once per
+        (stage, replica, generation, spec), not per frame, and without
+        a call to any card."""
         key = (stage, replica, self.generation,
                tuple(spec) if spec else None)
         sharding = self._shardings.get(key)
         if sharding is None:
             plan = self.plans[stage] if replica is None \
                 else self.replica_plan(stage, replica)
-            sharding = plan.shard(*spec).device if spec \
-                else plan.replicated()
+            sharding = plan.shard(*spec) if spec else plan.replicated()
             self._shardings[key] = sharding
         return sharding
 
     def transfer(self, value, to_stage: str, *spec,
                  replica: int | None = None):
-        """Move ``value`` (tensor or pytree) onto a stage's device (a
-        single replica's when ``replica`` is given).
+        """Move ``value`` (tensor or pytree) onto a stage (a single
+        replica's submesh when ``replica`` is given): with no spec each
+        tensor leaf onto the stage's lead card, with a spec each onto
+        its mesh as a ``Placed``.
 
-        Non-blocking: ``Tensor.to(..., non_blocking=True)`` enqueues the
-        copy and returns, so the hop overlaps the upstream stage's
-        next-frame compute.  Tensor leaves already resident there pass
-        through untouched (counted in ``transfer_skipped``); host
-        leaves stay on the host."""
-        device = self.stage_sharding(to_stage, spec, replica=replica)
+        Non-blocking: the copies are enqueued and the call returns, so
+        the hop overlaps the upstream stage's next-frame compute.
+        Leaves already where the hop would put them pass through
+        untouched (counted in ``transfer_skipped``); host leaves stay
+        on the host."""
+        target = self.stage_sharding(to_stage, spec, replica=replica)
 
         def hop(leaf):
-            if not isinstance(leaf, torch.Tensor):
+            if not isinstance(leaf, (torch.Tensor, Placed)):
                 return leaf
-            if resident(leaf, device):
+            if _arrived(leaf, target):
                 self.transfer_skipped += 1
                 return leaf
             self.transfer_puts += 1
-            return leaf.to(device, non_blocking=True)
+            return _place(leaf, target)
 
         return pytree.tree_map(hop, value)
 
@@ -943,11 +966,37 @@ def _upload(leaf, device: torch.device):
     return leaf.to(device, non_blocking=True)
 
 
+def _arrived(leaf, target) -> bool:
+    """True when ``leaf`` already lies where ``target`` (a device, or a
+    ``NamedSharding``) would put it."""
+    if isinstance(target, NamedSharding):
+        return isinstance(leaf, Placed) and leaf.sharding == target
+    return isinstance(leaf, torch.Tensor) and resident(leaf, target)
+
+
+def _place(leaf, target):
+    """One leaf where a hop or put sends it: ``target`` a device (the
+    lead card: a tensor or host array uploaded, a ``Placed`` gathered
+    whole) or a ``NamedSharding`` (a tensor or host array placed over
+    its mesh, a ``Placed`` resharded); a leaf already there, or text
+    and numbers, as it is."""
+    if _arrived(leaf, target):
+        return leaf
+    if isinstance(leaf, Placed):
+        return leaf.reshard(target) if isinstance(target, NamedSharding) \
+            else leaf.gather(target)
+    if not isinstance(target, NamedSharding):
+        return _upload(leaf, target)
+    if isinstance(leaf, (torch.Tensor, np.ndarray)):
+        return target.put(leaf)
+    return leaf
+
+
 def tree_device_put(tree, plan: MeshPlan, spec=None):
-    """Put every array leaf of a swag/pytree on ``plan``'s device."""
-    device = plan.shard(spec).device if spec is not None \
-        else plan.replicated()
-    return pytree.tree_map(lambda leaf: _upload(leaf, device), tree)
+    """Put every array leaf of a swag/pytree on ``plan``: on its lead
+    card, or with ``spec`` over its mesh (each leaf a ``Placed``)."""
+    target = plan.shard(spec) if spec is not None else plan.replicated()
+    return pytree.tree_map(lambda leaf: _place(leaf, target), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -1095,11 +1144,12 @@ class TPUElement(PipelineElement):
 
     def put(self, value, *spec):
         """Place a tensor, host array (or pytree of them) on this
-        element's device; a host array goes through pinned memory on
-        the card."""
-        device = (self.plan.shard(*spec).device if spec
-                  else self.plan.replicated())
-        return pytree.tree_map(lambda leaf: _upload(leaf, device), value)
+        element's lead card, or with ``spec`` over its mesh (each leaf
+        a ``Placed``: ``put(params, P())`` holds the weights once on
+        every card of the stage); a host array goes through pinned
+        memory on the card."""
+        target = self.plan.shard(*spec) if spec else self.plan.replicated()
+        return pytree.tree_map(lambda leaf: _place(leaf, target), value)
 
     def metrics(self) -> dict:
         return {"jit": self.jit_cache.stats,

@@ -268,7 +268,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     ngram run's verify kernel and combine exactly twice 32 layers x (12
     iterations x replays + 1).  It prints each run's tokens/s, the
     hand-driven decode-step and admission-chunk ms (CUDA events) and
-    the one-position run's beside each.
+    the one-position run's beside each;
+14. config 4 with DET over two dp positions (``config4-dp2-loop-16``):
+    phase 7's definition, frames and LLM with DET placed by
+    ``placement: {mesh: {dp: 2}}``.  For the run the device pool
+    (``device.local_devices``) lists the one card twice, as the CPU
+    tests stand CPU descriptors in for cards, so DET's stage has two
+    positions on it: the ``Detector`` puts its weights once, pads each
+    micro-batch to a multiple of 2 (the first frame alone too) and runs
+    each position's rows in turn on the card's worker stream.  Beside
+    the pipeline runs' gates (every frame OKAY and equal to the direct
+    batcher, #2 + combine, #4 and #6 and no other kernel): detections
+    equal to phase 7's where both ran one batch shape (the first frame;
+    the burst as one batch of 8 on the lead card), every frame's equal to
+    its position's rows run at the same shape on one position (the same
+    classes, boxes and scores within DETECT_TOL), both positions
+    dispatched every micro-batch, fewer micro-batches than frames, LLM
+    decode steps below 0.6 x frames x new tokens and no failed card.  It
+    prints each position's micro-batches and rows, the detect graphs and
+    their cards, the burst's agreement with phase 7's beside one card's
+    batch 8 against two batches of 4, the ``DET_time`` median beside
+    phase 7's and the phase's seconds.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
@@ -277,9 +297,11 @@ under ``fusion-chain``, phase 10's under ``checkpoint-cli``, phase 11's
 (11b's, with 11a's, 11c's and 11d's zeros) under ``train-moe``, phase
 12's zeros under ``context-parallel``, phase 13's (13c's placed run)
 under ``sharded-step``, 13d's (its four placed batcher runs) under
-``serving-tp-int8``; the entries on config 4's and config 5's paths
-carry ``"path"`` and their run's launches), then ``{"ok": true, "device": {...}}``.  It imports nothing
-of JAX or of the JAX package.
+``serving-tp-int8``, phase 14's under ``config4-dp2-loop-16``; the
+entries on config 4's and config 5's paths carry ``"path"`` and their
+run's launches, phase 14's as ``config4_dp2_launches``), then ``{"ok":
+true, "device": {...}}``.  It imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -1613,9 +1635,11 @@ DETECT_TOL = 1e-3       # boxes and scores, captured replay vs eager call
 
 
 def _pipeline_definition(label: str, llm: dict, parameters: dict,
-                         detector: dict | None = None) -> dict:
+                         detector: dict | None = None,
+                         det_mesh: dict | None = None) -> dict:
     """``(CAP (LLM))``, or ``(DET (CAP (LLM)))`` when the detector's
-    parameters are given (the detector placed on the card)."""
+    parameters are given (the detector placed by ``det_mesh``, one
+    position by default)."""
     module = "aiko_services_tpu_torch.elements.llm"
     elements = [
         {"name": "CAP", "input": [{"name": "detections"}],
@@ -1632,7 +1656,8 @@ def _pipeline_definition(label: str, llm: dict, parameters: dict,
         elements.insert(0, {
             "name": "DET", "input": [{"name": "image"}],
             "output": [{"name": "detections"}],
-            "parameters": detector, "placement": {"mesh": {"dp": 1}},
+            "parameters": detector,
+            "placement": {"mesh": det_mesh or {"dp": 1}},
             "deploy": {"local": {
                 "module": "aiko_services_tpu_torch.elements.detect",
                 "class_name": "Detector"}}})
@@ -1831,7 +1856,8 @@ def agree_with_direct(label: str, streams: dict, record: dict,
 def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
                  card: str, detector: dict | None = None,
                  frames_in: list | None = None, after=None,
-                 kernels: set | None = None) -> dict:
+                 kernels: set | None = None,
+                 det_mesh: dict | None = None) -> dict:
     """One run of the ``(CAP (LLM))`` pipeline over PIPELINE_DETECTIONS
     (see the module docstring) -- or of ``(DET (CAP (LLM)))`` over
     ``frames_in`` when ``detector`` holds the detector's parameters --
@@ -1841,9 +1867,10 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
     last frame's response arrives; the direct run is a comparison and
     counts nowhere.  The element's module is instrumented for the run
     only (``recording_llm``).  ``after(pipeline, frame_metrics)`` runs
-    before the pipeline stops; its dict joins the result.  ``kernels``
+    before the pipeline stops; its dict joins the result, beside each
+    frame's ``detections`` (None without a detector).  ``kernels``
     names the run's path when it is not ``decode`` with its combine, #4
-    and #6."""
+    and #6; ``det_mesh`` places the detector."""
     import torch
     from aiko_services_tpu_torch.models.tokenizer import ByteTokenizer
 
@@ -1851,7 +1878,7 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
         timers, prompts = record["timers"], record["prompts"]
         submitted, finished = record["submitted"], record["finished"]
         pipeline = load_pipeline(_pipeline_definition(
-            label, llm, parameters, detector), runtime)
+            label, llm, parameters, detector, det_mesh), runtime)
         counters = zero_launches()
         responses = Responses()
         arrivals, failures = responses.arrivals, responses.failures
@@ -1882,7 +1909,7 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
                                  f"frames answered; failed: {failures}")
         element = pipeline.graph.get_node("LLM").element
         batcher = element._batcher
-        texts, captions, frame_metrics = {}, {}, {}
+        texts, captions, frame_metrics, detections = {}, {}, {}, {}
         while not responses.empty():
             _, frame_id, swag, frame_metrics[frame_id], okay, diagnostic = \
                 responses.get()
@@ -1891,6 +1918,7 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
                                      f"{diagnostic}")
             texts[frame_id], captions[frame_id] = swag["text"], \
                 swag["CAP.text"]
+            detections[frame_id] = swag.get("detections")
         tokenizer = ByteTokenizer()
         by_prompt = {tuple(prompt): rid for rid, prompt in prompts.items()}
         request_of = {
@@ -1941,7 +1969,8 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
         del batcher, loop
         pipeline.stop()
         element.close()
-        return {"metrics": metrics, "launches": counts, **extra}
+        return {"metrics": metrics, "launches": counts,
+                "detections": detections, **extra}
 
 
 def detector_work(config, batch: int, size: int) -> dict:
@@ -1997,6 +2026,14 @@ def device_ms(fn, calls: int = 10) -> float:
     return float(np.median(times))
 
 
+def config4_images() -> list:
+    """Config 4's frames: 640x640x3 uint8 from numpy seed 4."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, 256, (CONFIG4_SIZE, CONFIG4_SIZE, 3),
+                         dtype=np.uint8) for _ in range(CONFIG4_FRAMES)]
+
+
 def config4_run(card: str) -> dict:
     """BASELINE config 4 on one card: ``(DET (CAP (LLM)))`` through the
     port's ``create_pipeline``, the detector placed on the card by its
@@ -2015,9 +2052,7 @@ def config4_run(card: str) -> dict:
     from aiko_services_tpu_torch.models import detector
     from aiko_services_tpu_torch.pipeline import JitCache
 
-    rng = np.random.default_rng(4)
-    images = [rng.integers(0, 256, (CONFIG4_SIZE, CONFIG4_SIZE, 3),
-                           dtype=np.uint8) for _ in range(CONFIG4_FRAMES)]
+    images = config4_images()
 
     def after(pipeline, frame_metrics) -> dict:
         det = pipeline.graph.get_node("DET").element
@@ -2082,6 +2117,157 @@ def config4_run(card: str) -> dict:
         {"transfer_guard": "disallow"}, "flash_decode_attention_stacked",
         card, detector=CONFIG4_DETECTOR,
         frames_in=[{"image": image} for image in images], after=after)
+
+
+# -- phase 14: config 4 with DET split over its stage's dp positions ------
+
+#: DET's stage in ``config4-dp2-loop-16``: two dp positions, which the
+#: one card stands in for (the device pool lists it twice).
+CONFIG4_DP_MESH = {"dp": 2}
+
+
+def compare_detections(got: dict, want: dict) -> dict:
+    """Each frame's detections (frame id -> list) against another run's:
+    a frame agrees when its count and classes are equal in order and
+    every box coordinate and score lies within DETECT_TOL -> the frames
+    that agree, of how many, and the largest error over the frames
+    whose classes agree."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"frames {sorted(got)} against {sorted(want)}")
+    agree, error = 0, 0.0
+    for frame_id, rows in got.items():
+        expected = want[frame_id]
+        if [d["class"] for d in rows] != [d["class"] for d in expected]:
+            continue
+        frame_error = max([abs(a - b) for mine, theirs in zip(rows, expected)
+                           for a, b in zip(mine["box"] + [mine["score"]],
+                                           theirs["box"] + [theirs["score"]])]
+                          or [0.0])
+        error = max(error, frame_error)
+        agree += frame_error <= DETECT_TOL
+    return {"frames_equal": agree, "frames": len(got), "max_abs_err": error}
+
+
+def position_detections(det, images: list, first_id: int,
+                        positions: int | None = None) -> dict:
+    """``images`` as the ``Detector``'s worker runs one micro-batch of
+    them over ``positions`` (by default its stage's) -- padded to a
+    multiple of them, each position's rows one batch -- but every batch
+    through the captured ``detect`` on the lead card: frame id ->
+    detections."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.models.batching import pad_to_bucket
+    positions = positions or det.plan.mesh.size
+    padded = pad_to_bucket(images, multiple=positions)
+    rows = len(padded) // positions
+    found = []
+    for position in range(positions):
+        batch = torch.from_numpy(np.stack(
+            padded[position * rows:(position + 1) * rows])).to(
+                det.plan.device).float() / 255.0
+        fetched = {name: value.cpu().numpy()
+                   for name, value in det._detect(det._params, batch).items()}
+        found += [det._slate_outputs(fetched, row)["detections"]
+                  for row in range(rows)]
+    return {first_id + index: rows for index, rows
+            in enumerate(found[:len(images)])}
+
+
+def config4_dp_run(card: str, single: dict) -> dict:
+    """Phase 7's run with DET placed by ``placement: {mesh: {dp: 2}}``:
+    the device pool (``device.local_devices``) lists the one card twice
+    for the run, so DET's stage has two positions on it and the
+    ``Detector`` splits every micro-batch over them, each position's
+    rows run in turn on the card's worker stream.  Beside
+    ``pipeline_run``'s gates: the detections equal phase 7's
+    (``single``: the same count and classes, boxes and scores within
+    DETECT_TOL) where the two ran the same batch shape -- the first
+    frame, alone in both -- and every frame's equal to its position's
+    rows run at the same shape through the one-position captured
+    ``detect``; both positions dispatched every micro-batch, fewer
+    micro-batches than frames, LLM steps below 0.6 x frames x new
+    tokens and no failed card; and the burst run as one batch of 8 on
+    the lead card (phase 7's shape) equal to phase 7's.  The burst's
+    agreement with phase 7's (batch 8 there, 4 a position here) is
+    printed beside the same comparison made on one card alone (batch 8
+    against two batches of 4): bf16 slates at another batch shape may
+    break score ties otherwise."""
+    import numpy as np
+    from aiko_services_tpu_torch import device as device_rule
+
+    images = config4_images()
+
+    def after(pipeline, frame_metrics) -> dict:
+        det = pipeline.graph.get_node("DET").element
+        batcher = pipeline.graph.get_node("LLM").element._batcher
+        positions = [dict(stats) for stats in det.position_stats]
+        micro_batches = positions[0]["batches"]
+        steps_limit = 0.6 * CONFIG4_FRAMES * NEW_TOKENS
+        failed = pipeline.check_device_health()
+        out = {"det_mesh": dict(det.plan.mesh.shape),
+               "positions": positions, "micro_batches": micro_batches,
+               "detect_calls": det.jit_cache.hits + det.jit_cache.misses,
+               "detect_graphs": det.jit_cache.entries,
+               "graph_devices": sorted(map(str, det.jit_cache.devices)),
+               "detect_capture_s": det.jit_cache.capture_s,
+               "llm_steps": batcher.steps, "llm_steps_limit": steps_limit,
+               "health_failed": [str(device) for device in failed],
+               "det_time_ms_median": float(np.median(
+                   [m["DET_time"] for m in frame_metrics.values()])) * 1e3,
+               "llm_time_ms_median": float(np.median(
+                   [m["LLM_time"] for m in frame_metrics.values()])) * 1e3}
+        if out["det_mesh"] != CONFIG4_DP_MESH or micro_batches < 1 \
+                or any(stats["batches"] != micro_batches
+                       for stats in positions) \
+                or micro_batches >= CONFIG4_FRAMES \
+                or batcher.steps >= steps_limit or failed:
+            raise AssertionError(f"config4-dp2: {out}")
+        same_shape = {**position_detections(det, images[:1], 0),
+                      **position_detections(det, images[1:], 1)}
+        batch8 = position_detections(det, images[1:], 1, positions=1)
+        out["one_card_batch8_vs_batch4"] = compare_detections(
+            batch8, {frame_id: rows for frame_id, rows
+                     in same_shape.items() if frame_id})
+        return {"config4_dp": out, "same_shape": same_shape,
+                "batch8": batch8}
+
+    begin = time.perf_counter()
+    pool = device_rule.local_devices
+    card_zero = pool()[0]
+    device_rule.local_devices = lambda: [card_zero] * CONFIG4_DP_MESH["dp"]
+    try:
+        result = pipeline_run(
+            "config4-dp2-loop-16", {"decode_block_tokens": 16},
+            {"transfer_guard": "disallow"}, "flash_decode_attention_stacked",
+            card, detector=CONFIG4_DETECTOR,
+            frames_in=[{"image": image} for image in images], after=after,
+            det_mesh=CONFIG4_DP_MESH)
+    finally:
+        device_rule.local_devices = pool
+    out = result["config4_dp"]
+    got = result["detections"]
+    out["vs_positions_same_shape"] = compare_detections(
+        got, result["same_shape"])
+    phase7 = single["detections"]
+    out["vs_phase7_first_frame"] = compare_detections(
+        {0: got[0]}, {0: phase7[0]})
+    out["batch8_vs_phase7_burst"] = compare_detections(
+        result["batch8"], {frame_id: rows for frame_id, rows
+                           in phase7.items() if frame_id})
+    out["vs_phase7_burst"] = compare_detections(
+        {frame_id: rows for frame_id, rows in got.items() if frame_id},
+        {frame_id: rows for frame_id, rows in phase7.items() if frame_id})
+    out.update({"phase7_det_time_ms_median":
+                single["config4"]["det_time_ms_median"],
+                "phase_s": time.perf_counter() - begin, "card": card})
+    print(f"config4-dp2 {json.dumps(out)}", flush=True)
+    for key in ("vs_positions_same_shape", "vs_phase7_first_frame",
+                "batch8_vs_phase7_burst"):
+        if out[key]["frames_equal"] != out[key]["frames"]:
+            raise AssertionError(f"config4-dp2: detections {key}: "
+                                 f"{out[key]}")
+    return result
 
 
 # -- phase 8: BASELINE config 5, streaming ASR -> gate -> int8 LLM ---------
@@ -4354,6 +4540,10 @@ def main() -> int:
     serving_tp = serving_tp_run(card)
     pipeline_launches["serving-tp-int8"] = serving_tp["launches"]
 
+    # -- phase 14: config 4 with DET split over two dp positions ---------
+    config4_dp = config4_dp_run(card, config4)
+    pipeline_launches["config4-dp2-loop-16"] = config4_dp["launches"]
+
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)
                   for label, counts in pipeline_launches.items()}
@@ -4363,6 +4553,8 @@ def main() -> int:
             if by_run[run]:
                 entry["path"] = path
                 entry[f"{path}_launches"] = by_run[run]
+        if by_run["config4-dp2-loop-16"]:
+            entry["config4_dp2_launches"] = by_run["config4-dp2-loop-16"]
         if entry.get("path") != "kernel phase":
             entry["launches"] = launches[entry["name"]] \
                 + sum(by_run.values())

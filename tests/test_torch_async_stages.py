@@ -119,7 +119,12 @@ def test_detector_microbatches_burst(tmp_path, runtime, cpu_pool):
                      timeout=120.0)
 
     element = pipeline.graph.get_node("detect").element
-    dispatches = element.jit_cache.hits + element.jit_cache.misses
+    # A micro-batch splits over the positions of the detector's stage
+    # (the default placement: every device of the pool, dp 8 here) and
+    # dispatches once a position.
+    dispatches = element.position_stats[0]["batches"]
+    assert element.jit_cache.hits + element.jit_cache.misses \
+        == dispatches * element.plan.mesh.size
     assert dispatches < n_frames, (
         f"{dispatches} dispatches for {n_frames} frames: not batched")
 

@@ -305,24 +305,41 @@ def test_placement_block_places_stage(runtime, cpu_pool):
 
 
 def test_placement_block_rejected(runtime, monkeypatch):
-    """A placement block over two CUDA cards is refused where a tensor
-    would be put on it -- sharding a stage over cards waits for ROADMAP
-    Queue 1 item 7 -- before any CUDA call (so here, with no card, it
-    raises the same), never computing on one card in silence."""
+    """A placement block over two CUDA cards resolves (the stage's lead
+    card is the first), and the claimed-tensor hop onto such a head
+    stage never reaches the handler that leaves tensors host-side: a
+    frame of host values hops without a CUDA call (so here, with no
+    card, it hops the same), and over CPU descriptors a tensor lands on
+    the stage.  (The name is kept from when such a block was refused.)"""
+    import numpy as np
     import torch
     from aiko_services_tpu_torch import device as device_rule
+    from aiko_services_tpu_torch.pipeline.tensor import resident
+
+    def placed_head(pool, name):
+        monkeypatch.setattr(device_rule, "local_devices", lambda: list(pool))
+        elements = [element("A", "ElementA", ["a"], ["a"]),
+                    element("B", "ElementB", ["a"], ["b"])]
+        elements[0]["placement"] = {"devices": 2}
+        p = Pipeline(definition(["(A B)"], elements, name=name,
+                                parameters={"preflight": "off"}),
+                     runtime=runtime)
+        monkeypatch.setattr(p.logger, "exception",
+                            lambda *args, **kwargs: logged.append(args))
+        assert list(p.stage_placement.plan("A").mesh.devices.flat) == pool
+        return p
+
+    logged = []
     cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
-    monkeypatch.setattr(device_rule, "local_devices", lambda: list(cards))
-    elements = [element("A", "ElementA", ["a"], ["a"]),
-                element("B", "ElementB", ["a"], ["b"])]
-    elements[1]["placement"] = {"devices": 2}
-    p = Pipeline(definition(["(A B)"], elements,
-                            parameters={"preflight": "off"}),
-                 runtime=runtime)
-    assert list(p.stage_placement.plan("B").mesh.devices.flat) == cards
-    with pytest.raises(NotImplementedError,
-                       match="2 CUDA cards.*not ported.*item 7"):
-        p.stage_placement.transfer({"a": torch.ones(2)}, "B")
+    p = placed_head(cards, "p_cards")
+    assert p.stage_placement.stage_sharding("A") == cards[0]
+    claimed = {"a": np.ones(2, np.float32)}
+    assert p._upload_claimed("s", claimed)["a"] is claimed["a"]
+    pool = [torch.device("cpu", 0), torch.device("cpu", 1)]
+    p = placed_head(pool, "p_pool")
+    landed = p._upload_claimed("s", {"a": torch.ones(2)})
+    assert resident(landed["a"], p.stage_placement.plan("A").device)
+    assert logged == []
 
 
 def test_multi_host_mesh_rejected(runtime):

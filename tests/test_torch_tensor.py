@@ -2,8 +2,9 @@
 StagePlacement, replica, ``tree_device_put``, codec and
 definition-placement tests, on the eight-CPU device pool
 (``torch_pipeline_elements.cpu_pool``), plus the port's own: the
-residency rule of CPU descriptors, the refusal of a plan over several
-cards, and the cache's counts under threads."""
+residency rule of CPU descriptors, a plan over several cards (its lead
+card, resolved without a call to a card), and the cache's counts under
+threads."""
 
 import queue
 
@@ -14,7 +15,7 @@ import torch
 from conftest import run_until
 from torch_pipeline_elements import CPU_POOL, cpu_pool  # noqa: F401
 
-from aiko_services_tpu_torch.parallel import MeshPlan, make_mesh
+from aiko_services_tpu_torch.parallel import MeshPlan, Placed, make_mesh
 from aiko_services_tpu_torch.pipeline import Pipeline
 from aiko_services_tpu_torch.pipeline.tensor import (
     JitCache, ShapeBucketer, StagePlacement, decode_array, encode_array,
@@ -146,15 +147,30 @@ def test_stage_placement_overflow_rejected(cpu_pool):
 
 
 def test_stage_transfer_reshards(cpu_pool):
+    """A hop with a spec places a tensor over the stage's mesh (each
+    position its shard); a placed value hopping to another stage is
+    resharded, and one already laid out there by the same spec passes
+    through.  With no spec a value lands whole on the lead card."""
     placement = StagePlacement(cpu_pool)
     placement.assign({"a": {"dp": 4}, "b": {"tp": 4}})
     x = torch.arange(16.0).reshape(4, 4)
     on_a = placement.transfer(x, "a", "dp", None)
     on_b = placement.transfer(on_a, "b", None, "tp")
-    np.testing.assert_array_equal(on_b.numpy(), x.numpy())
+    assert isinstance(on_a, Placed) and isinstance(on_b, Placed)
+    assert [tuple(t.shape) for t in on_a.shards] == [(1, 4)] * 4
+    assert [tuple(t.shape) for t in on_b.shards] == [(4, 1)] * 4
+    assert dict(on_b.mesh.shape) == {"tp": 4}
+    assert list(on_b.mesh.devices.flat) == cpu_pool[4:]
+    np.testing.assert_array_equal(
+        placement.plan("b").gather(on_b).numpy(), x.numpy())
     assert placement.stage_sharding("b") == cpu_pool[4]
-    # A CPU tensor is resident on every CPU descriptor: both hops skip.
-    assert (placement.transfer_puts, placement.transfer_skipped) == (0, 2)
+    assert (placement.transfer_puts, placement.transfer_skipped) == (2, 0)
+    assert placement.transfer(on_b, "b", None, "tp") is on_b
+    whole = placement.transfer(on_b, "b")
+    np.testing.assert_array_equal(whole.numpy(), x.numpy())
+    # A CPU tensor is resident on every CPU descriptor: the hop skips.
+    assert placement.transfer(whole, "a") is whole
+    assert (placement.transfer_puts, placement.transfer_skipped) == (3, 2)
     host = placement.transfer({"image": np.ones((2, 2)), "text": "t"}, "b")
     assert isinstance(host["image"], np.ndarray) and host["text"] == "t"
     assert placement.stats["transfer_skipped"] == 2
@@ -162,12 +178,18 @@ def test_stage_transfer_reshards(cpu_pool):
 
 def test_tree_device_put(cpu_pool):
     plan = MeshPlan(make_mesh({"dp": 4}, cpu_pool[:4]))
-    tree = {"x": torch.ones((8, 2)), "host": np.ones(3, np.float32),
+    tree = {"x": torch.ones((8, 2)), "host": np.ones((4, 3), np.float32),
             "meta": "keep-me"}
     placed = tree_device_put(tree, plan, ("dp", None))
     assert placed["meta"] == "keep-me"
-    assert isinstance(placed["host"], torch.Tensor)
-    assert placed["x"] is tree["x"]             # already resident
+    assert isinstance(placed["host"], Placed)
+    assert [tuple(t.shape) for t in placed["host"].shards] == [(1, 3)] * 4
+    assert [tuple(t.shape) for t in placed["x"].shards] == [(2, 2)] * 4
+    np.testing.assert_array_equal(plan.gather(placed["x"]).numpy(),
+                                  tree["x"].numpy())
+    whole = tree_device_put(tree, plan)
+    assert isinstance(whole["host"], torch.Tensor)
+    assert whole["x"] is tree["x"]              # already resident
     assert dict(plan.mesh.shape) == {"dp": 4} and plan.mesh.size == 4
 
 
@@ -194,17 +216,25 @@ def test_resident_rule():
 
 
 def test_plan_over_two_cards_raises_at_put_without_touching_a_card():
-    """A stage over two CUDA descriptors is bookkeeping until a tensor
-    is put on it; then it raises ``not_ported`` (sharding over cards is
-    ROADMAP Queue 1 item 7) -- before any CUDA call, so it raises the
-    same here, where there is no card."""
+    """A stage over two CUDA descriptors resolves its lead card, the
+    first of its chunk, and a frame of host values hops onto it without
+    a call to any card -- so here, where there is no card, it hops the
+    same.  (The name is kept from when such a plan raised.)"""
     cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
     placement = StagePlacement(cards)
     placement.assign({"llm": {"tp": 2}})
-    with pytest.raises(NotImplementedError, match="2 CUDA cards.*not ported"):
-        placement.transfer(torch.ones(2), "llm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tree_device_put({"x": torch.ones(2)}, placement.plan("llm"))
+    assert placement.stage_sharding("llm") == cards[0]
+    assert placement.plan("llm").replicated() == cards[0]
+    assert placement.plan("llm").shard("tp").device == cards[0]
+    frame = {"text": "a caption", "image": np.ones((2, 2), np.uint8),
+             "detections": [{"class": "dog"}]}
+    hopped = placement.transfer(frame, "llm")
+    assert hopped["text"] == "a caption"
+    assert hopped["image"] is frame["image"]
+    assert hopped["detections"] == frame["detections"]
+    assert (placement.transfer_puts, placement.transfer_skipped) == (0, 0)
+    assert tree_device_put({"meta": "t"}, placement.plan("llm")) \
+        == {"meta": "t"}
     one = MeshPlan(make_mesh({"dp": 1}, cards[1:]))
     assert one.replicated() == cards[1]
 
