@@ -786,6 +786,7 @@ class ContinuousBatcher:
                 if index and elapsed > 0:       # block 0 = warm-up
                     best = max(best, emitted / elapsed)
             rates[mode] = best
+            runner.reset()              # its graph pools on other cards
             del runner, cache
         return rates["draft"] / rates["off"] if rates["off"] else 0.0
 

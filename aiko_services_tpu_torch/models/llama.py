@@ -98,7 +98,6 @@ from ..parallel.mesh import remat as mesh_remat
 from .paged import (gather_layer, gather_slot, is_paged, paged_extent,
                     pool_page_tokens, scatter_pages)
 from .quant import dequantize_kv, is_quantized, map_leaf, quantize_kv
-from ..utils import not_ported
 
 __all__ = ["LlamaConfig", "init_params", "abstract_params", "param_shapes",
            "partition_specs", "cache_specs", "paged_cache_specs",
@@ -547,10 +546,12 @@ def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict,
     probabilities, so they carry the router's gradient.
 
     On a mesh (``shard``) the result is the GLOBAL batch's, as GSPMD
-    keeps it: the capacity follows the global row count, a route's slot
-    counts every earlier route in global token-major order (the routes
-    of the rows and sequence chunks before this position's, from
-    ``shard.route_prefix``), and the aux takes its means over all rows.
+    keeps it: the capacity follows the global row count
+    (``shard.routed_tokens``), a route's slot counts every earlier route
+    in global token-major order (the routes of the rows and sequence
+    chunks before this position's, from ``shard.route_prefix``), and the
+    aux takes its means over all rows.  Rows that ``shard.keep`` marks
+    False (an admission burst's padding) route nothing.
     Expert parallelism keeps the batch whole over ``ep``: each ep
     position routes every row of its batch shard and runs only its E/ep
     experts on their slice of the [E, C, D] dispatch buffer; the
@@ -561,7 +562,7 @@ def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict,
     b, s, d = x.shape
     n = b * s
     e, k = c.n_experts, c.n_experts_per_token
-    rows = n if shard is None else n * shard.row_shards
+    rows = n if shard is None else shard.routed_tokens(n)
     cap = c.moe_capacity(rows)
     xf = x.reshape(n, d)
 
@@ -572,6 +573,11 @@ def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict,
     gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
     experts = torch.arange(e, device=x.device)
     onehot = (choices[..., None] == experts).float()            # [n, k, E]
+    routed = probs
+    if shard is not None and shard.keep is not None:
+        keep = shard.keep.repeat_interleave(s).float()          # [n]
+        onehot = onehot * keep[:, None, None]
+        routed = probs * keep[:, None]
     flat = onehot.reshape(n * k, e)
     # Each (token, choice)'s slot in its expert's buffer: how many
     # earlier rows picked the same expert (token-major order, so a
@@ -614,7 +620,7 @@ def _moe_ffn(config: LlamaConfig, x: torch.Tensor, layer: dict,
     else:
         fraction = shard.route_sum(flat.reshape(n, k, e).sum((0, 1))) \
             / (rows * k)
-        aux = e * torch.sum(fraction * shard.route_sum(probs.sum(0)) / rows)
+        aux = e * torch.sum(fraction * shard.route_sum(routed.sum(0)) / rows)
     return out.reshape(b, s, d), aux
 
 
@@ -642,8 +648,12 @@ class TensorShard:
     - ep: the position runs experts :meth:`experts` of E, and
       :meth:`reduce_experts` sums the MoE FFN's output over ep and tp;
     - the routed rows: ``row_shards`` positions split them (batch and
-      sequence axes), :meth:`route_prefix` and :meth:`route_sum` make
-      the MoE capacity, slots and aux those of the global batch."""
+      sequence axes), :meth:`routed_tokens`, :meth:`route_prefix` and
+      :meth:`route_sum` make the MoE capacity, slots and aux those of
+      the global batch."""
+
+    #: per local row, whether it routes (None: every row does).
+    keep: torch.Tensor | None = None
 
     def __init__(self, mesh, specs: dict, batch_axes=("dp", "fsdp"),
                  seq_axis: str | None = None):
@@ -694,6 +704,11 @@ class TensorShard:
         return {name: self.whole(leaf, self._layer_specs[name])
                 for name, leaf in layer.items()}
 
+    def routed_tokens(self, n: int) -> int:
+        """The global token count the MoE capacity follows, from this
+        position's ``n``."""
+        return n * self.row_shards
+
     def route_prefix(self, counts: torch.Tensor) -> torch.Tensor:
         """counts [b, E]: the routes each local row's chunk sends to each
         expert -> the routes that precede the chunk in global
@@ -719,6 +734,37 @@ class TensorShard:
         """``x`` summed over the positions that split the routed rows."""
         axes = self._rows + self._seq
         return psum(x, axes) if axes else x
+
+
+class BurstShard(TensorShard):
+    """One position's part of a mixture-of-experts admission burst whose
+    rows fall in several groups of ``axes`` (the axes a placed cache
+    splits its batch over): each group runs its own rows, padded to the
+    largest group's count with rows that route nothing (``keep``) and
+    write nothing, so the routing is the whole burst's, as GSPMD routes
+    it in the JAX package: the capacity follows the burst's ``rows``,
+    and a route's slot counts the routes of every row before its own in
+    the burst's row order.  ``order`` [groups * width]: the burst row of
+    each group's rows in group order (padding after every burst row)."""
+
+    def __init__(self, mesh, specs: dict, axes: tuple, order: torch.Tensor,
+                 rows: int, keep: torch.Tensor):
+        super().__init__(mesh, specs, axes)
+        self._order = order
+        self._burst_rows = rows
+        self.keep = keep
+
+    def routed_tokens(self, n: int) -> int:
+        return self._burst_rows * (n // self.keep.numel())
+
+    def route_prefix(self, counts: torch.Tensor) -> torch.Tensor:
+        b = counts.shape[0]
+        table = all_gather(counts, self._rows, axis=0)          # [G*b, E]
+        ordered = torch.zeros_like(table).index_copy_(0, self._order, table)
+        before = torch.cumsum(ordered, dim=0) - ordered
+        mine = self._order[axis_index(self._rows) * b
+                           + torch.arange(b, device=counts.device)]
+        return before[mine]
 
 
 def _block(config: LlamaConfig, hidden, layer: dict, attend,
@@ -1000,7 +1046,7 @@ def prefill_into_slots(params: dict, config: LlamaConfig,
 
     On a placed tree each dp group runs the rows whose slots it holds
     (:func:`_admit_on_mesh`), so rows of one burst may fall in several
-    groups."""
+    groups; a mixture-of-experts burst still routes as one."""
     if config.attention == "flash":
         raise ValueError("prefill_into_slots is dense-only; "
                          "flash admission uses prefill_into_slot")
@@ -1028,12 +1074,14 @@ def _prefill_into_slots_impl(params: dict, config: LlamaConfig,
     rope = _rope(c, tokens.device)
     positions = upload(torch.tensor(starts), tokens.device)[:, None] \
         + torch.arange(s, device=tokens.device)[None, :]
-    slot_index = upload(torch.tensor(slots), tokens.device)
+    slot_index = upload(torch.tensor([0 if slot is None else slot
+                                      for slot in slots]), tokens.device)
 
     def factory(index):
         def write_rows(arr, value):
             for row, (slot, start) in enumerate(zip(slots, starts)):
-                arr[index, slot, start:start + s] = value[row]
+                if slot is not None:        # None: padding, writes nothing
+                    arr[index, slot, start:start + s] = value[row]
 
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
@@ -1080,11 +1128,14 @@ def _admit_on_mesh(params: Placed, config: LlamaConfig, tokens, cache,
     ``starts``.  Each slot lives in one group of the axes the cache
     splits its batch over (dp; none for a paged cache, whose batch is
     whole): only that group's positions run the slot's rows, writing its
-    local row (slot mod the group's rows) with their kv heads, while the
-    groups that hold no admitted slot run nothing and write nothing.
-    Every running position holds its rows whole (no row split), so the
-    MoE routes them as the whole burst.  Returns (logits [N, S, vocab]
-    whole on the first device, in row order, the cache placed)."""
+    local row (slot mod the group's rows) with their kv heads.  When
+    the rows fall in one group, the others run nothing and write
+    nothing, and its positions hold the whole burst, so the MoE routes
+    it whole.  A mixture-of-experts burst over several groups runs at
+    every group, each on its own rows padded to the largest group's
+    count (:class:`BurstShard`), so it still routes as one burst.
+    Returns (logits [N, S, vocab] whole on the first device, in row
+    order, the cache placed)."""
     mesh = params.mesh
     tp = mesh.shape.get("tp", 1)
     if config.n_kv_heads % tp:
@@ -1100,31 +1151,47 @@ def _admit_on_mesh(params: Placed, config: LlamaConfig, tokens, cache,
     for row, slot in enumerate(slots):
         group, local = divmod(slot, rows_per_group) if axes else (0, slot)
         owned.setdefault(group, []).append((row, local))
-    if config.n_experts and len(owned) > 1:
-        raise not_ported("a mixture-of-experts admission burst over "
-                         "several dp groups (each would route its rows "
-                         "apart)", "ROADMAP Queue 1 item 7.3b")
+    burst = bool(config.n_experts) and len(owned) > 1
+    if burst:
+        width = max(len(mine) for mine in owned.values())
+        order, padding = [], len(slots)
+        for group in range(math.prod(sizes)):
+            mine = owned.get(group, [])
+            order += [row for row, _ in mine]
+            order += range(padding, padding + width - len(mine))
+            padding += width - len(mine)
     specs = params.specs
     whole = list(range(len(slots)))
 
     def local(p, t, c):
-        mine = owned.get(axis_index(axes) if axes else 0)
-        if not mine:
-            return None, c
-        shard = TensorShard(mesh, specs, ())
-        shard.counts_routes = all(
-            axis_index(axis) == 0 for axis in mesh.axis_names
-            if axis not in axes and mesh.shape[axis] > 1)
+        group = axis_index(axes) if axes else 0
+        mine = owned.get(group, [])
         rows = [row for row, _ in mine]
+        mine_slots = [slot for _, slot in mine]
+        mine_starts = [starts[row] for row in rows]
+        if burst:
+            pad = width - len(mine)
+            keep = torch.arange(width, device=t.device) < len(mine)
+            shard = BurstShard(mesh, specs, axes,
+                               upload(torch.tensor(order), t.device),
+                               len(slots), keep)
+            rows += [0] * pad
+            mine_slots += [None] * pad
+            mine_starts += [0] * pad
+        elif not mine:
+            return None, c
+        else:
+            shard = TensorShard(mesh, specs, ())
+            shard.counts_routes = all(
+                axis_index(axis) == 0 for axis in mesh.axis_names
+                if axis not in axes and mesh.shape[axis] > 1)
         if rows != whole:
             t = torch.cat([t[row:row + 1] for row in rows])
         if not batched:
-            return _prefill_into_slot_impl(p, config, t, c, mine[0][1],
-                                           starts[0], shard)
-        return _prefill_into_slots_impl(p, config, t, c,
-                                        [slot for _, slot in mine],
-                                        [starts[row] for row in rows],
-                                        shard)
+            return _prefill_into_slot_impl(p, config, t, c, mine_slots[0],
+                                           mine_starts[0], shard)
+        return _prefill_into_slots_impl(p, config, t, c, mine_slots,
+                                        mine_starts, shard)
     each, cache = shard_map(local, mesh,
                             in_specs=(None, P(None, None), None),
                             out_specs=(Each(), Keep(cache.specs)))(

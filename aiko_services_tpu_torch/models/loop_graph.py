@@ -44,20 +44,33 @@ launch sequence once as a ``torch.cuda.CUDAGraph`` and replays it:
 A PLACED tree and cache (``parallel.Placed``) capture the same way.
 ``decode_loop`` then runs each iteration's model work at every mesh
 position, one thread a position (``parallel.shard_map``), and each
-thread enqueues its position's kernels on the stream the capturing
-thread has current on that position's card.  On one card that is the
-capture stream itself (the capture makes it current), so the fork and
-the join are the stream's own order, and one graph holds every
-position's work in the order the exchanges between positions impose:
-the collectives of ``parallel/mesh.py`` are device copies and sums of
-the positions' tensors, recorded as graph nodes like any other kernel.
+thread makes the capturing thread's current stream on every card of
+the mesh its own: its kernels go to its card's stream, and a copy
+between cards to the streams of both cards.  :class:`GraphCards` lays
+the capture over the cards.  The runner's device is the capture card:
+its capture stream (made once a runner) records the graph, and the
+capture makes it current there.  Every other card of the mesh is a
+FORKED card, with a stream of its own for the runner's life, made
+current on that card for the capturing thread during the warm-up and
+the capture; inside the capture it waits on an event of the capture
+stream (the fork) and the capture stream waits on an event of it
+before the capture ends (the join).  One ``torch.cuda.CUDAGraph`` then
+holds every card's kernels and the copies between cards, in the order
+the exchanges between positions impose, and a replay from the capture
+card runs the whole block.  Allocations on a forked card during the
+capture go to a graph pool on that card, which the runner holds while
+its graph lives and releases at :meth:`LoopRunner.reset`: without it
+the capture's blocks would return to the card's caching allocator, and
+a later replay would write into memory that other tensors own.  The
+warm-up runs on the same streams, so cuBLAS's workspace for each
+stream, the kernels' shared-memory limits on each card and the peer
+access between the cards exist before the capture; every card of the
+mesh is synchronised before it begins.  A replay waits on every forked
+card's current stream, and they wait on it, so the block is ordered
+with the host's work on each card (admission, the page-table copies).
 The ``thread_local`` mode restricts only the capturing thread, so the
 position threads may make the calls a capture forbids it (the caching
-allocator's, which routes their allocations to the graph's pool
-because they are made on the capture stream).  A mesh over several
-cards would need each card's work forked from the capture stream by an
-event and its allocations routed to a pool on its own card; it is
-refused (``not_ported``) rather than captured in part.
+allocator's, which routes their allocations to the graph's pools).
 
 On the CPU the same ``decode_loop`` runs eagerly on the same buffers.
 On the card a capture that fails raises: there is no eager fallback.
@@ -65,6 +78,7 @@ On the card a capture that fails raises: there is no eager fallback.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -74,9 +88,8 @@ from . import llama
 from ..device import sync_allowed
 from ..ops import launch_counters
 from ..parallel.mesh import Placed
-from ..utils import not_ported
 
-__all__ = ["LoopRunner"]
+__all__ = ["GraphCards", "LoopRunner"]
 
 #: decode_loop's return tuple, by name (None: the generator).
 OUTPUTS = ("emitted", "counts", "tokens", "lengths", "active", "budget",
@@ -98,6 +111,105 @@ def _tensors(tree):
             yield value
 
 
+def _card(device: torch.device) -> torch.device:
+    return torch.device("cuda", device.index or 0)
+
+
+class GraphCards:
+    """Where a runner's graph lives, given its device and the devices of
+    its tree's mesh positions (``torch.device`` descriptors; none for an
+    unplaced tree): ``capture`` is the card that records and replays the
+    graph (None on the CPU: no capture), ``forked`` the other cards of
+    the positions, each forked from the capture stream on a stream of
+    its own (made at the first :meth:`current`, kept for the runner's
+    life), with a graph pool of its own.  The constructor makes no CUDA
+    call."""
+
+    def __init__(self, device: torch.device, positions=()):
+        self.capture = _card(device) if device.type == "cuda" else None
+        self.forked = tuple(dict.fromkeys(
+            _card(d) for d in positions
+            if d.type == "cuda" and _card(d) != self.capture))
+        self.streams: dict | None = None
+        self.pools: dict = {}
+
+    @contextlib.contextmanager
+    def current(self):
+        """The capture stream (yielded) current on the capture card, each
+        forked card's stream on its card (for this thread), ordered after
+        the work already on those cards' current streams, and the work
+        enqueued there next after them; the capture card stays the
+        current device.  Inside, :meth:`fork` and :meth:`join` tie the
+        forked streams to the capture stream."""
+        if self.streams is None:
+            self.streams = {card: torch.cuda.Stream(card)
+                            for card in (self.capture, *self.forked)}
+        previous = {card: torch.cuda.current_stream(card)
+                    for card in self.streams}
+        for card, stream in self.streams.items():
+            stream.wait_stream(previous[card])
+        try:
+            with torch.cuda.stream(self.streams[self.capture]):
+                for card in self.forked:
+                    torch.cuda.set_stream(self.streams[card])
+                torch.cuda.set_device(self.capture)
+                try:
+                    yield self.streams[self.capture]
+                finally:
+                    for card in self.forked:
+                        torch.cuda.set_stream(previous[card])
+                    torch.cuda.set_device(self.capture)
+        finally:
+            for card, stream in self.streams.items():
+                previous[card].wait_stream(stream)
+
+    def fork(self) -> None:
+        capture = self.streams[self.capture]
+        for card in self.forked:
+            self.streams[card].wait_stream(capture)
+
+    def join(self) -> None:
+        capture = self.streams[self.capture]
+        for card in self.forked:
+            capture.wait_stream(self.streams[card])
+
+    def synchronize(self) -> None:
+        for card in (self.capture, *self.forked):
+            torch.cuda.synchronize(card)
+
+    def begin_pools(self) -> None:
+        """Every forked card's allocations into a new graph pool of its
+        own until :meth:`end_pools` (the capture card's go to the
+        graph's own pool)."""
+        for card in self.forked:
+            pool = torch.cuda.graph_pool_handle()
+            torch._C._cuda_beginAllocateToPool(card.index, pool)
+            self.pools[card] = pool
+
+    def end_pools(self) -> None:
+        for card, pool in self.pools.items():
+            torch._C._cuda_endAllocateToPool(card.index, pool)
+
+    def release_pools(self) -> None:
+        """Give the pools back (their blocks free once no tensor holds
+        them)."""
+        for card, pool in self.pools.items():
+            torch._C._cuda_releasePool(card.index, pool)
+        self.pools = {}
+
+    @contextlib.contextmanager
+    def ordered(self):
+        """A replay on the capture card's current stream, ordered after
+        the work on every forked card's current stream and before the
+        work enqueued there next."""
+        launch = torch.cuda.current_stream(self.capture)
+        for card in self.forked:
+            launch.wait_stream(torch.cuda.current_stream(card))
+        yield
+        for card in self.forked:
+            torch.cuda.current_stream(card).wait_stream(launch)
+
+
 class LoopRunner:
     """``decode_loop`` blocks for one batch of ``batch`` rows: see the
     module docstring.  ``history_width`` is the ngram window (1 for the
@@ -114,6 +226,8 @@ class LoopRunner:
                             spec_window=int(spec_window), top_k=int(top_k))
         self.generator = generator
         self.device = device
+        self.cards = GraphCards(device, params.mesh.devices.flat
+                                if isinstance(params, Placed) else ())
 
         def zeros(dtype, *shape):
             return torch.zeros((batch, *shape), dtype=dtype, device=device)
@@ -147,12 +261,14 @@ class LoopRunner:
         target.copy_(source, non_blocking=self.device.type == "cuda")
 
     def reset(self) -> None:
-        """Drop the captured graph (the cache was rebuilt, or an input
-        buffer reallocated); the next :meth:`run` captures anew."""
+        """Drop the captured graph and release its pools on the forked
+        cards (the cache was rebuilt, or an input buffer reallocated);
+        the next :meth:`run` captures anew."""
         self._graph = None
         self._outputs = None
         self._bound = ()
         self._launch_delta = {}
+        self.cards.release_pools()
 
     def _loop(self, cache: dict, inputs: dict, **overrides) -> dict:
         out = llama.decode_loop(
@@ -180,7 +296,8 @@ class LoopRunner:
                     "LoopRunner: the cache or page table moved since the "
                     "graph was captured; reset() the runner after "
                     "rebuilding the cache")
-            self._graph.replay()
+            with self.cards.ordered():
+                self._graph.replay()
             for (wrapper, attr), count in self._launch_delta.items():
                 setattr(wrapper, attr, getattr(wrapper, attr) + count)
             self.replays += 1
@@ -195,36 +312,41 @@ class LoopRunner:
         return tuple(tensor.data_ptr() for tensor in _tensors(cache))
 
     def _capture(self, cache: dict) -> None:
-        """Warm up, then capture one block on the current inputs."""
-        if isinstance(self.params, Placed):
-            cards = {device.index or 0
-                     for device in self.params.mesh.devices.flat
-                     if device.type == "cuda"}
-            if len(cards) > 1:
-                raise not_ported(
-                    f"capturing the device loop over {len(cards)} CUDA "
-                    f"cards", "ROADMAP Queue 1 item 7.4b")
+        """Warm up, then capture one block on the current inputs, every
+        card's work forked from the capture stream and joined back."""
         begin = time.perf_counter()
-        stream = torch.cuda.current_stream(self.device)
-        # Warm-up outside the capture: one iteration with every row
-        # inactive (writes only the trash position) loads the kernel
-        # library, sets the kernels' shared-memory limits and
-        # initialises cuBLAS before the capture records anything.
+        cards = self.cards
+        # Warm-up outside the capture, on the capture's own streams: one
+        # iteration with every row inactive (writes only the trash
+        # position) loads the kernel library, sets the kernels'
+        # shared-memory limits on each card, enables peer access and
+        # initialises cuBLAS for each stream before the capture records
+        # anything.
         warm = {name: tensor.clone() for name, tensor in self.inputs.items()}
         warm["active"].zero_()
         spec = self.options["speculative"] != "off"
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
+        with cards.current():
+            cards.fork()
             self._loop(cache, warm,
                        ring=self.options["spec_tokens"] + 1 if spec else 1)
-        stream.wait_stream(side)
+            cards.join()
+        cards.synchronize()
         counters = list(launch_counters().values())
         before = [getattr(wrapper, attr) for wrapper, attr in counters]
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outputs = self._loop(cache, self.inputs)
+        cards.begin_pools()
+        try:
+            with cards.current() as stream, torch.cuda.graph(
+                    graph, stream=stream, capture_error_mode="thread_local"):
+                cards.fork()
+                outputs = self._loop(cache, self.inputs)
+                cards.join()
+        except BaseException:
+            cards.end_pools()
+            cards.release_pools()
+            raise
+        cards.end_pools()
         self._launch_delta = {}
         for (wrapper, attr), start in zip(counters, before):
             captured = getattr(wrapper, attr) - start

@@ -862,16 +862,21 @@ def _assemble(mesh: Mesh, spec: P, outputs: list, device,
 
 
 def _run_position(fn, exchange, mesh, position, errors, results,
-                  modes, stream):
+                  modes, streams):
     """One position's thread: ``fn()`` under the caller's grad and
-    inference modes and CUDA stream.  Any failure is kept for the
-    caller to raise and aborts the other positions' waits."""
+    inference modes and CUDA streams (``streams``: the caller's current
+    stream on each card of the mesh, the position's own card last, so a
+    copy between two cards runs on the caller's streams of both).  Any
+    failure is kept for the caller to raise and aborts the other
+    positions' waits."""
     _current.collectives = _LocalCollectives(exchange, mesh, position)
     inference, grad = modes
     try:
-        with torch.inference_mode(inference), torch.set_grad_enabled(grad), \
-                (torch.cuda.stream(stream) if stream is not None
-                 else contextlib.nullcontext()):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.inference_mode(inference))
+            stack.enter_context(torch.set_grad_enabled(grad))
+            for stream in streams:
+                stack.enter_context(torch.cuda.stream(stream))
             results[position] = fn()
     except BaseException as error:     # re-raised by the caller
         errors[position] = error
@@ -882,10 +887,15 @@ def _run_position(fn, exchange, mesh, position, errors, results,
 
 
 def _streams(mesh: Mesh) -> list:
-    """Each position's CUDA stream: the calling thread's current stream
-    on the position's card (None for a CPU position)."""
-    return [torch.cuda.current_stream(device) if device.type == "cuda"
-            else None for device in map(_placed, mesh.devices.flat)]
+    """Each position's CUDA streams: the calling thread's current stream
+    on every card of the mesh, the position's own card last (none for a
+    CPU position)."""
+    devices = [_placed(device) for device in mesh.devices.flat]
+    current = {device: torch.cuda.current_stream(device)
+               for device in devices if device.type == "cuda"}
+    return [(*(stream for card, stream in current.items()
+               if card != device), current[device])
+            if device.type == "cuda" else () for device in devices]
 
 
 def _run_positions(mesh: Mesh, calls: list, modes: tuple,

@@ -268,7 +268,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     ngram run's verify kernel and combine exactly twice 32 layers x (12
     iterations x replays + 1).  It prints each run's tokens/s, the
     hand-driven decode-step and admission-chunk ms (CUDA events) and
-    the one-position run's beside each;
+    the one-position run's beside each.  (e) ``moe-dp2-burst``: phase
+    11b's MoE (4 experts, top-2, capacity factor 2.0, bf16, flash, seed
+    0) placed over ``{"dp": 2, "tp": 2}``: a burst of 4 chunk rows of
+    512 tokens (numpy seed 11) into slots 3, 0, 2, 1 of a 4-row cache
+    split over dp (both groups, out of order) through one
+    ``prefill_into_slots`` (dense: the batched admission is dense-only),
+    at capacity factor 2.0 and at MOE_DP_DROPPING (routes drop): its
+    logits within LOGITS_TOL of max |logit| of the same burst on ``{"tp":
+    2}`` (one group holds every row, so it routes the burst whole, with
+    the same tp arithmetic) and its routes dropped
+    (``llama.record_route_drops``) equal to that burst's, some dropped
+    at MOE_DP_DROPPING, no kernel launched; the unplaced call's error
+    and drops are printed beside (its bf16 sums differ from tp's, which
+    flips router near-ties); then ``ContinuousBatcher``
+    over the placed tree (4 slots, 512-token chunks, top-k 50) serving
+    4 greedy prompts of 100-500 tokens (numpy seed 12) at MOE_DP_TOKENS
+    new tokens, at decode_block 4 (``inflight`` 2) and through the
+    captured device loop (``decode_block_tokens=16``, every block a
+    replay): the two runs' streams equal, each launching #2, its
+    combine, #4 and #6 and no other kernel.  It prints the burst's
+    error and drops, each run's tokens/s and launches, the phase's
+    seconds and its peak above what the card held;
 14. config 4 with DET over two dp positions (``config4-dp2-loop-16``):
     phase 7's definition, frames and LLM with DET placed by
     ``placement: {mesh: {dp: 2}}``.  For the run the device pool
@@ -297,7 +318,8 @@ under ``fusion-chain``, phase 10's under ``checkpoint-cli``, phase 11's
 (11b's, with 11a's, 11c's and 11d's zeros) under ``train-moe``, phase
 12's zeros under ``context-parallel``, phase 13's (13c's placed run)
 under ``sharded-step``, 13d's (its four placed batcher runs) under
-``serving-tp-int8``, phase 14's under ``config4-dp2-loop-16``; the
+``serving-tp-int8``, 13e's (its two batcher runs) under
+``moe-dp2-burst``, phase 14's under ``config4-dp2-loop-16``; the
 entries on config 4's and config 5's paths carry ``"path"`` and their
 run's launches, phase 14's as ``config4_dp2_launches``), then ``{"ok":
 true, "device": {...}}``.  It imports nothing of JAX or of the JAX
@@ -4325,6 +4347,158 @@ def serving_tp_run(card: str) -> dict:
     return {"launches": launches, "runs": summary}
 
 
+#: 13e: phase 11's MoE over dp x tp, one card at every position.
+MOE_DP_MESH = {"dp": 2, "tp": 2}
+MOE_DP_TOKENS = 8               # new tokens a request
+#: the batcher's prompts (tokens): slots 0-3 of a 4-row cache, two rows
+#: a dp group.
+MOE_DP_PROMPTS = (100, 300, 200, 500)
+#: the burst: chunk rows into slots of both dp groups, out of order.
+MOE_DP_SLOTS = (3, 0, 2, 1)
+#: a capacity factor at which the burst drops routes.
+MOE_DP_DROPPING = 0.5
+
+
+def moe_dp_run(card: str) -> dict:
+    """Phase 13e (module docstring) -> its launches and summary."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.device import resolve_device
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
+                                                         Request)
+    begin = time.perf_counter()
+    device = resolve_device(None)
+    config = moe_config()
+    held = free_card()
+    params = llama.init_params(0, config, device=device)
+    plan = cp_mesh_plan(MOE_DP_MESH, device)
+    placed = plan.put(params, llama.partition_specs(config))
+    # The burst goes through the dense admission (flash admits a slot a
+    # call): the same weights with dense attention, at the config's
+    # capacity factor and at one where routes drop.  Its reference is the
+    # same burst on {"tp": 2} (one group holds every row, so it routes
+    # the burst whole) -- the same tp arithmetic; the unplaced call's
+    # bf16 sums differ from tp's, which flips router near-ties, so it is
+    # reported only.
+    whole = cp_mesh_plan({"tp": MOE_DP_MESH["tp"]}, device)
+    whole_tree = whole.put(params, llama.partition_specs(config))
+    tokens = token_batch(config, (len(MOE_DP_SLOTS), 512), device, seed=11)
+    starts = [0] * len(MOE_DP_SLOTS)
+    counters = zero_launches()
+    bursts = []
+    for factor in (config.capacity_factor, MOE_DP_DROPPING):
+        dense = dataclasses.replace(config, attention="dense",
+                                    capacity_factor=factor)
+        out = {}
+        for name, tree, mesh_plan in (("placed", placed, plan),
+                                      ("one group", whole_tree, whole),
+                                      ("unplaced", params, None)):
+            cache = llama.init_cache(dense, 4, device=device)
+            if mesh_plan is not None:
+                cache = mesh_plan.put(cache, llama.cache_specs(dense))
+            with llama.record_route_drops() as found:
+                logits, _ = llama.prefill_into_slots(
+                    tree, dense, tokens, cache, MOE_DP_SLOTS, starts)
+                out[name] = (logits, int(sum(found)))
+            del cache
+        burst = {"capacity_factor": factor, "rows": len(MOE_DP_SLOTS),
+                 "slots": list(MOE_DP_SLOTS),
+                 "logits_error": relative_error(out["placed"][0],
+                                                out["one group"][0]),
+                 "route_drops": out["placed"][1],
+                 "one_group_route_drops": out["one group"][1],
+                 "unplaced_logits_error": relative_error(
+                     out["placed"][0], out["unplaced"][0]),
+                 "unplaced_route_drops": out["unplaced"][1]}
+        del out
+        print(f"moe-dp2-burst {json.dumps(burst)}", flush=True)
+        if burst["logits_error"] > LOGITS_TOL \
+                or burst["route_drops"] != burst["one_group_route_drops"]:
+            raise AssertionError(
+                f"moe-dp2-burst at capacity factor {factor}: logits "
+                f"{burst['logits_error']:.4f} of max |logit| from the burst "
+                f"on one group (tolerance {LOGITS_TOL}), route drops "
+                f"{burst['route_drops']} against "
+                f"{burst['one_group_route_drops']}")
+        bursts.append(burst)
+    if bursts[-1]["route_drops"] <= 0:
+        raise AssertionError(f"moe-dp2-burst: no route dropped at capacity "
+                             f"factor {MOE_DP_DROPPING}")
+    launches = {name: count for name, count
+                in read_launches(counters).items() if count}
+    check_launches("moe-dp2-burst", launches, set())
+    del whole_tree, params
+    free_card()
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, config.vocab_size, length).tolist()
+               for length in MOE_DP_PROMPTS]
+    wanted = {"flash_decode_attention_stacked", "decode_combine",
+              "flash_attention", "topk"}
+    runs = {}
+    for label, options in (("moe-dp2-host-4", dict(decode_block=4,
+                                                    inflight=2)),
+                           ("moe-dp2-loop-16", dict(decode_block_tokens=16))):
+        counters = zero_launches()
+        batcher = ContinuousBatcher(
+            placed, config, max_slots=4, prefill_chunk=512, sample_top_k=50,
+            device=device, cache_put=lambda c: plan.put(
+                c, llama.cache_specs(config)), **options)
+        streams = {}
+        started = time.perf_counter()
+        for index, prompt in enumerate(prompts):
+            streams[index] = []
+            batcher.submit(Request(
+                str(index), prompt, max_new_tokens=MOE_DP_TOKENS,
+                emit=lambda rid, token, done: streams[int(rid)].append(
+                    token)))
+        batcher.run_until_drained(max_steps=10_000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - started
+        run = {"run": label, "mesh": MOE_DP_MESH, "wall_s": wall,
+               "tokens_per_s": batcher.tokens_emitted / wall,
+               "launches": {name: count for name, count
+                            in read_launches(counters).items() if count}}
+        if batcher.device_loop:
+            run.update(captures=batcher._loop.captures,
+                       replays=batcher._loop.replays,
+                       capture_s=batcher._loop.capture_s,
+                       broken=batcher.blocks_dispatched
+                       - batcher._loop.replays)
+        print(f"moe-dp2 {json.dumps(run)}", flush=True)
+        check_launches(label, run["launches"], wanted)
+        if any(len(stream) != MOE_DP_TOKENS for stream in streams.values()):
+            raise AssertionError(f"{label}: a request fell short of "
+                                 f"{MOE_DP_TOKENS} tokens")
+        runs[label] = dict(run, streams=streams)
+        del batcher
+    loop = runs["moe-dp2-loop-16"]
+    if loop["captures"] < 1 or loop["broken"]:
+        raise AssertionError(f"moe-dp2-loop-16: {loop['captures']} "
+                             f"captures, {loop['broken']} blocks not "
+                             f"replayed from a captured graph")
+    agree = sum(runs["moe-dp2-host-4"]["streams"][index]
+                == loop["streams"][index] for index in range(len(prompts)))
+    del placed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+    free_card()
+    seconds = time.perf_counter() - begin
+    print(f"moe-dp2: greedy streams equal, host-4 and loop-16: "
+          f"{agree}/{len(prompts)}; phase {seconds:.1f} s, peak "
+          f"{peak:.2f} GiB above held on {card}", flush=True)
+    if agree != len(prompts):
+        raise AssertionError("moe-dp2-loop-16 emitted other greedy tokens "
+                             "than moe-dp2-host-4")
+    totals: dict = {}
+    for run in runs.values():
+        for name, count in run["launches"].items():
+            totals[name] = totals.get(name, 0) + count
+    return {"launches": totals, "bursts": bursts, "seconds": seconds,
+            "peak_gib": peak,
+            "runs": [{key: value for key, value in run.items()
+                      if key != "streams"} for run in runs.values()]}
+
+
 def _map(tree: dict, fn) -> dict:
     return {name: _map(value, fn) if isinstance(value, dict) else fn(value)
             for name, value in tree.items()}
@@ -4539,6 +4713,10 @@ def main() -> int:
     # -- phase 13d: the continuous batcher on a placed int8 tree ---------
     serving_tp = serving_tp_run(card)
     pipeline_launches["serving-tp-int8"] = serving_tp["launches"]
+
+    # -- phase 13e: an MoE admission burst over two dp groups ------------
+    moe_dp = moe_dp_run(card)
+    pipeline_launches["moe-dp2-burst"] = moe_dp["launches"]
 
     # -- phase 14: config 4 with DET split over two dp positions ---------
     config4_dp = config4_dp_run(card, config4)
