@@ -4,8 +4,17 @@ asks for the CPU by name.
 There is no silent fallback.  With no card present and no explicit
 ``device="cpu"``, :func:`resolve_device` raises, so a serving process
 that lost its GPU fails loudly instead of decoding on the host.
-:func:`local_devices` (the port's ``jax.devices()``: the pool stage
-placement carves) raises the same way.
+:func:`local_devices` (the port's ``jax.local_devices()``: this
+process's cards) raises the same way.
+
+:func:`devices` is the port's ``jax.devices()``: the GLOBAL pool that
+stage placement carves and meshes default to.  Before a multi-host
+bring-up (``parallel/distributed.py``) it is :func:`local_devices`;
+after one it lists every process's devices in process order, the same
+list in every process: this process's as plain ``torch.device``\\ s,
+another process's as :class:`RemoteDevice` descriptors, on which no
+tensor can be placed.  :func:`process_index` reads the process that
+holds any of them.
 
 :func:`sync_guard` and :func:`sync_allowed` hold the process's CUDA
 synchronisation guard (``torch.cuda.set_sync_debug_mode``): a guard
@@ -24,7 +33,8 @@ import threading
 
 import torch
 
-__all__ = ["resolve_device", "local_devices", "upload", "sync_guard",
+__all__ = ["resolve_device", "local_devices", "devices", "RemoteDevice",
+           "process_index", "is_local", "upload", "sync_guard",
            "sync_allowed"]
 
 _SYNC_LEVELS = {"warn": 1, "error": 2}
@@ -58,6 +68,60 @@ def local_devices() -> list[torch.device]:
     resolve_device("cuda")
     return [torch.device("cuda", index)
             for index in range(torch.cuda.device_count())]
+
+
+class RemoteDevice:
+    """A device of another process of a multi-host mesh: its process,
+    type (``cuda`` or ``cpu``) and index there.  Equal descriptors name
+    the same device; no tensor can be placed on one."""
+
+    __slots__ = ("process_index", "type", "index")
+
+    def __init__(self, process_index: int, type: str, index: int | None):
+        self.process_index = int(process_index)
+        self.type = type
+        self.index = index
+
+    def _key(self) -> tuple:
+        return (self.process_index, self.type, self.index)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, RemoteDevice) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(("remote",) + self._key())
+
+    def __repr__(self) -> str:
+        index = "" if self.index is None else f":{self.index}"
+        return f"RemoteDevice(process {self.process_index}, " \
+            f"{self.type}{index})"
+
+
+#: The bring-up's record: this process's index, the process count and
+#: the global pool (None before a bring-up).  Written once, by
+#: ``parallel.distributed.ensure``.
+_process = {"index": 0, "count": 1, "pool": None}
+
+
+def devices() -> list:
+    """The global device pool (``jax.devices()``): :func:`local_devices`
+    before a multi-host bring-up, every process's devices in process
+    order after one."""
+    pool = _process["pool"]
+    return list(pool) if pool is not None else local_devices()
+
+
+def process_index(device=None) -> int:
+    """The process that holds ``device``: a :class:`RemoteDevice`'s own,
+    this process's index for a plain ``torch.device`` (and for None)."""
+    if isinstance(device, RemoteDevice):
+        return device.process_index
+    return _process["index"]
+
+
+def is_local(device) -> bool:
+    """True for a device of this process (not a :class:`RemoteDevice`)."""
+    return not isinstance(device, RemoteDevice)
 
 
 def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:

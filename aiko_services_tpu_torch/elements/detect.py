@@ -131,7 +131,7 @@ class Detector(MicroBatchElement, TPUElement):
         self._placed = plan.put(restore_or_init(
             detector, self._config, int(seed),
             checkpoint if found else None, _placed(plan.device)), P())
-        self._params = self._placed.shards[0]
+        self._params = self._placed.first_shard()
         self.position_stats = [{"device": str(device), "batches": 0,
                                 "rows": 0}
                                for device in plan.mesh.devices.flat]

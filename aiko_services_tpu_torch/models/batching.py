@@ -77,6 +77,7 @@ from .loop_graph import LoopRunner
 from .paged import PageAllocator, init_paged_cache, pages_per_slot
 from .quant import draft_params
 from ..device import resolve_device, upload
+from ..parallel import distributed
 from ..parallel.mesh import MeshPlan, Placed
 from ..utils.misc import next_power_of_two
 
@@ -220,6 +221,12 @@ class ContinuousBatcher:
                  cache_put: Callable | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
+        if isinstance(params, Placed) \
+                and distributed.spans_processes(params.mesh):
+            raise NotImplementedError(
+                "ContinuousBatcher over a mesh that spans processes: the "
+                "batcher and its captured loop run over one process's "
+                "devices (ROADMAP item 7.6's follow-ons)")
         where = params.mesh.devices.flat[0] if isinstance(params, Placed) \
             else params["embed"].device
         if where.type != self.device.type:

@@ -309,7 +309,7 @@ class Checkpointer:
 def _gathered(tree):
     """``tree`` with every placed subtree gathered whole."""
     if isinstance(tree, Placed):
-        return tree.gather(tree.mesh.devices.flat[0])
+        return tree.gather(MeshPlan(tree.mesh).device)
     if isinstance(tree, dict):
         return {key: _gathered(value) for key, value in tree.items()}
     if isinstance(tree, (list, tuple)):

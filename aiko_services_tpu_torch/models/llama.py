@@ -413,10 +413,10 @@ def _require_whole_pages(cache: dict, starts, s: int) -> None:
 
 
 def _local_cache(cache) -> dict:
-    """A cache dict: ``cache`` itself, or the first position's shard of a
-    placed cache (its extent, page size and page count are every
-    position's)."""
-    return cache.shards[0] if isinstance(cache, Placed) else cache
+    """A cache dict: ``cache`` itself, or the first shard this process
+    holds of a placed cache (its extent, page size and page count are
+    every position's)."""
+    return cache.first_shard() if isinstance(cache, Placed) else cache
 
 
 def cache_array(cache: dict) -> torch.Tensor:

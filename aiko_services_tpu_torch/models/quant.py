@@ -125,9 +125,9 @@ def draft_params(params):
     contraction axis (wo, w_down) would take other per-channel scales
     if each shard were quantized alone."""
     if isinstance(params, Placed):
-        if is_quantized(params.shards[0].get("unembed")):
+        if is_quantized(params.first_shard().get("unembed")):
             return params
-        whole = quantize_params(params.gather(params.mesh.devices.flat[0]))
+        whole = quantize_params(params.gather(MeshPlan(params.mesh).device))
         return MeshPlan(params.mesh).put(whole,
                                          quantize_specs(params.specs))
     if is_quantized(params.get("unembed")):

@@ -35,6 +35,11 @@ eagerly on PyTorch.
   optimizer in place.  :func:`value_and_grad` (no JAX counterpart: the
   JAX tests call ``jax.value_and_grad``) returns the loss and the
   gradient tree, placed like the parameters.
+- Over a mesh that spans processes (``parallel/distributed.py``) every
+  process runs the same step: each holds and steps its own positions'
+  tensors, computes the same loss of the whole batch, and sums a
+  replicated leaf's gradients with the other processes' holders of it,
+  in position order.
 """
 
 from __future__ import annotations
@@ -47,7 +52,9 @@ import torch.nn.functional as F
 
 from . import llama
 from .checkpoint import flatten
-from ..parallel.mesh import MeshPlan, Placed
+from .. import device as device_rule
+from ..parallel import distributed
+from ..parallel.mesh import MeshPlan, Placed, _leaf_list, _shard_key
 
 __all__ = ["adamw", "make_train_step", "init_train_state",
            "language_model_loss", "value_and_grad", "PlacedOptimizer"]
@@ -157,6 +164,9 @@ def _reduce_replicas(params: Placed, grads: dict) -> None:
     """Every replica's gradient (``grads``: tensor id -> gradient) made
     the sum of the group's partial gradients, in position order, in
     float32: each replica then takes the same step."""
+    if distributed.spans_processes(params.mesh):
+        _reduce_replicas_across(params, grads)
+        return
     for group in params.replicas():
         first = group[0].device
         total = grads[id(group[0])].float()
@@ -164,6 +174,58 @@ def _reduce_replicas(params: Placed, grads: dict) -> None:
             total = total + grads[id(member)].to(first).float()
         for member in group:
             grads[id(member)] = total.to(member.device, copy=True)
+
+
+def _reduce_replicas_across(params: Placed, grads: dict) -> None:
+    """:func:`_reduce_replicas` over a mesh that spans processes: a
+    replica is held once a device (positions that list one device share
+    it); the holders of a shard on other processes send their partial
+    gradients, and every process sums each group's, in position order,
+    in float32."""
+    mesh = params.mesh
+    leaf_specs = _leaf_list(params.specs, params.specs)
+    columns = [None if shard is None else _leaf_list(params.specs, shard)
+               for shard in params.shards]
+    local = next(column for column in columns if column is not None)
+    idents = [(device_rule.process_index(d), d.type, d.index)
+              for d in mesh.devices.flat]
+    groups: dict = {}
+    for index, spec in enumerate(leaf_specs):
+        for position in range(mesh.size):
+            key = (index, _shard_key(mesh, position, spec,
+                                     local[index].ndim))
+            holders = groups.setdefault(key, {})
+            holders.setdefault(idents[position], position)
+    mine, me = {}, device_rule.process_index()
+    for (index, shard), holders in groups.items():
+        if len(holders) > 1:
+            for ident, position in holders.items():
+                if ident[0] == me:
+                    tensor = columns[position][index]
+                    mine[index, shard, position] = grads[id(tensor)].float()
+    found = dict(mine)
+    group = distributed.mesh_group(mesh, tuple(range(mesh.size)))
+    for theirs in distributed.exchange_trees(group, mine,
+                                             MeshPlan(mesh).device):
+        for key, value in theirs.items():
+            found.setdefault(key, value)
+    for (index, shard), holders in groups.items():
+        if len(holders) < 2:
+            continue
+        positions = sorted(holders.values())
+        mine_here = [p for p in range(mesh.size) if columns[p] is not None
+                     and _shard_key(mesh, p, leaf_specs[index],
+                                    local[index].ndim) == shard]
+        if not mine_here:
+            continue
+        first = columns[mine_here[0]][index].device
+        total = None
+        for position in positions:
+            part = found[index, shard, position].to(first)
+            total = part if total is None else total + part
+        for tensor in {id(columns[p][index]): columns[p][index]
+                       for p in mine_here}.values():
+            grads[id(tensor)] = total.to(tensor.device, copy=True)
 
 
 def _gradients(params, config: llama.LlamaConfig, tokens: torch.Tensor,

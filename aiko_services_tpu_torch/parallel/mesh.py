@@ -51,8 +51,22 @@ positions' tensors, so the positions' work forms ONE autograd graph and
 gradients flow back through it.  :func:`remat` is ``jax.checkpoint``
 inside a mapped function: a function's activations dropped and
 recomputed in the backward pass by every position together, its
-collectives included.  A ``torch.distributed`` backend for meshes
-across hosts implements the same interface (ROADMAP).
+collectives included.
+
+A mesh over the GLOBAL pool of a multi-host bring-up
+(``parallel/distributed.py``; :func:`make_mesh`'s default, as
+``jax.devices()`` is the JAX package's) may span processes.  Every
+process runs the same program: each runs its own positions of a
+:func:`shard_map` call, a collective whose group spans processes swaps
+the processes' values over the group's process group (the second
+backend behind :class:`Collectives`), and the outputs come out whole in
+every process (the shards another process computed are fetched; their
+gradients stay with the process that computed them, since every process
+computes the same loss of the whole).  A :class:`Placed` tree holds
+tensors at this process's positions only (None at another's);
+``gather`` fetches the rest.  :attr:`MeshPlan.device` is the mesh's
+first device of THIS process (a descriptor of another process for a
+mesh wholly there, on which nothing is placed).
 """
 
 from __future__ import annotations
@@ -65,14 +79,56 @@ import numpy as np
 import torch
 
 from .. import device as device_rule
+from . import distributed
 
 __all__ = ["AXIS_ORDER", "Mesh", "MeshPlan", "NamedSharding", "Placed",
            "Keep", "Each", "assemble", "make_mesh", "submesh", "P",
            "filter_spec", "filter_specs", "shard_map", "Collectives",
            "MeshAborted", "ppermute", "all_to_all", "all_gather", "psum",
-           "axis_index", "remat"]
+           "axis_index", "remat", "donate_argnums_supported",
+           "device_inventory", "inventory_tags", "virtual_cpu_devices"]
 
 AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
+
+
+def donate_argnums_supported(argnums: tuple) -> tuple:
+    """The JAX contract: the argument numbers a backend may donate.  The
+    port donates nothing -- a training step updates its parameters and
+    moments in place instead (``models/train.py``) -- so this is ``()``
+    on every device."""
+    del argnums
+    return ()
+
+
+def device_inventory() -> dict:
+    """The global pool for tags and placement, as the JAX package reads
+    ``jax.devices()``: platform (``gpu`` or ``cpu``), the device kind,
+    every process's device count, the process count and this process's
+    device count."""
+    pool = device_rule.devices()
+    local = [device for device in pool if device_rule.is_local(device)]
+    cards = [device for device in local if device.type == "cuda"]
+    kind = torch.cuda.get_device_name(cards[0]) if cards \
+        else ("cpu" if local else "none")
+    platform = "gpu" if cards else (pool[0].type if pool else "none")
+    return {"platform": platform, "device_kind": kind,
+            "device_count": len(pool),
+            "process_count": device_rule._process["count"],
+            "local_device_count": len(local)}
+
+
+def inventory_tags() -> list[str]:
+    info = device_inventory()
+    return [f"platform={info['platform']}",
+            f"accelerator={info['device_kind'].replace(' ', '_')}",
+            f"chips={info['device_count']}"]
+
+
+def virtual_cpu_devices(count: int = 8) -> list[torch.device]:
+    """``count`` CPU descriptors (``torch.device("cpu", i)``), the tests'
+    stand-ins for cards: the JAX package's forced host devices, which
+    the port needs no flag for."""
+    return [torch.device("cpu", index) for index in range(count)]
 
 
 class Mesh:
@@ -103,7 +159,7 @@ def make_mesh(axes: dict[str, int] | None = None,
     over all devices.  Axis sizes must multiply to the device count.
     """
     devices = list(devices if devices is not None
-                   else device_rule.local_devices())
+                   else device_rule.devices())
     count = len(devices)
     if not axes:
         axes = {"dp": count}
@@ -158,7 +214,10 @@ class MeshPlan:
 
     @property
     def device(self) -> torch.device:
-        return self.mesh.devices.flat[0]
+        """The lead card: the mesh's first device of this process (the
+        first device, another process's descriptor, for a mesh wholly in
+        another process)."""
+        return _home(self.mesh)
 
     def axis_size(self, name: str) -> int:
         return self.mesh.shape.get(name, 1)
@@ -195,6 +254,9 @@ class MeshPlan:
             leaf = torch.as_tensor(leaf)
             made, shards = {}, []
             for position, descriptor in enumerate(descriptors):
+                if not device_rule.is_local(descriptor):
+                    shards.append(None)
+                    continue
                 key = (descriptor, _shard_key(self.mesh, position, spec,
                                               leaf.ndim))
                 if key not in made:
@@ -207,7 +269,9 @@ class MeshPlan:
             per_leaf = _map_specs(place, specs, tree)
         return Placed(self.mesh, specs, [
             _map_specs(lambda spec, shards: shards[position], specs,
-                       per_leaf) for position in range(self.mesh.size)])
+                       per_leaf)
+            if device_rule.is_local(descriptors[position]) else None
+            for position in range(self.mesh.size)])
 
     def gather(self, placed: "Placed"):
         """The whole tree of ``placed`` on ``plan.device``: new tensors,
@@ -257,10 +321,10 @@ class NamedSharding:
 class Placed:
     """A tree placed on a mesh (``MeshPlan.put``, or a :class:`Keep`
     output of :func:`shard_map`): ``shards[position]`` is that position's
-    tree of local tensors, laid out by ``specs`` (filtered).  Positions
-    that list one device descriptor and hold the same shard of a leaf
-    hold the same tensor.  No JAX counterpart: the port's sharded
-    array."""
+    tree of local tensors, laid out by ``specs`` (filtered), None at a
+    position of another process.  Positions that list one device
+    descriptor and hold the same shard of a leaf hold the same tensor.
+    No JAX counterpart: the port's sharded array."""
 
     def __init__(self, mesh: Mesh, specs, shards: list):
         self.mesh = mesh
@@ -268,15 +332,25 @@ class Placed:
         self.shards = shards
 
     def tensors(self) -> list[torch.Tensor]:
-        """Every distinct tensor, in position order, each once."""
+        """Every distinct tensor this process holds, in position order,
+        each once."""
         return [tensor for mine in self.owned() for tensor in mine]
+
+    def first_shard(self):
+        """The shard of this process's first position (every position's
+        tree has the same structure)."""
+        return next(shard for shard in self.shards if shard is not None)
 
     def owned(self) -> list[list[torch.Tensor]]:
         """Per position, the distinct tensors it holds first (a tensor
-        shared by several positions belongs to the first)."""
+        shared by several positions belongs to the first; none at
+        another process's position)."""
         seen, out = set(), []
         for shard in self.shards:
             mine = []
+            if shard is None:
+                out.append(mine)
+                continue
             for tensor in _leaf_list(self.specs, shard):
                 if id(tensor) not in seen:
                     seen.add(id(tensor))
@@ -289,9 +363,12 @@ class Placed:
         shard of one leaf (on distinct device descriptors), each group in
         position order: what must stay equal."""
         groups: dict = {}
-        columns = [_leaf_list(self.specs, shard) for shard in self.shards]
+        columns = [None if shard is None else _leaf_list(self.specs, shard)
+                   for shard in self.shards]
         for index, spec in enumerate(_leaf_list(self.specs, self.specs)):
             for position, column in enumerate(columns):
+                if column is None:
+                    continue
                 tensor = column[index]
                 key = (index, _shard_key(self.mesh, position, spec,
                                          tensor.ndim))
@@ -310,7 +387,8 @@ class Placed:
                 made[id(tensor)] = fn(tensor)
             return made[id(tensor)]
         return Placed(self.mesh, self.specs,
-                      [_map_specs(apply, self.specs, shard)
+                      [None if shard is None
+                       else _map_specs(apply, self.specs, shard)
                        for shard in self.shards])
 
     @property
@@ -325,9 +403,14 @@ class Placed:
         return sharding.put(self.gather(sharding.device))
 
     def gather(self, device):
-        """The whole tree on ``device``: new tensors, detached."""
+        """The whole tree on ``device``: new tensors, detached.  Over a
+        mesh that spans processes every process calls it and gets the
+        whole tree (the shards it lacks fetched from their processes)."""
         device = _placed(device)
-        columns = [_leaf_list(self.specs, shard) for shard in self.shards]
+        columns = [None if shard is None else _leaf_list(self.specs, shard)
+                   for shard in self.shards]
+        if distributed.spans_processes(self.mesh):
+            columns = _fetch_columns(self.mesh, self.specs, columns, device)
         with torch.no_grad():
             wholes = iter([
                 _assemble(self.mesh, spec, [column[index]
@@ -504,6 +587,7 @@ class _LocalCollectives(Collectives):
         self._exchange = exchange
         self._mesh = mesh
         self._position = position
+        self._local = set(_local_positions(mesh))
         self._coords = np.unravel_index(position, mesh.devices.shape)
         self.device = _placed(mesh.devices.flat[position])
 
@@ -525,10 +609,29 @@ class _LocalCollectives(Collectives):
                 coords, self._mesh.devices.shape)))
         return tuple(members), members.index(self._position)
 
+    def _spans(self, axis_name) -> bool:
+        return any(member not in self._local
+                   for member in self._group(axis_name)[0])
+
     def _gather(self, axis_name, value) -> tuple[list, int]:
         members, rank = self._group(axis_name)
-        return self._exchange.gather(self._position, members, rank,
-                                     value), rank
+        local = [member for member in members if member in self._local]
+        if len(local) == len(members):
+            return self._exchange.gather(self._position, members, rank,
+                                         value), rank
+        # The group spans processes: the local members meet, the first
+        # swaps their values with the other processes', all read it.
+        mine = local.index(self._position)
+        values = self._exchange.gather(self._position, tuple(local), mine,
+                                       value)
+        everyone = None
+        if mine == 0:
+            devices = [_placed(self._mesh.devices.flat[m]) for m in local]
+            everyone = distributed.gather_across(
+                self._mesh, members, values, _flat(value)[1], devices)
+        shared = self._exchange.gather(self._position, tuple(local), mine,
+                                       everyone)
+        return shared[0], rank
 
     def _here(self, tensor: torch.Tensor) -> torch.Tensor:
         return tensor.to(self.device)
@@ -540,6 +643,9 @@ class _LocalCollectives(Collectives):
         values, rank = self._gather(axis_name, x)
         sources = [src for src, dst in perm if dst == rank]
         if not sources:                     # jax.lax.ppermute: zeros
+            if self._spans(axis_name):
+                # Tied to the exchange, so its backward runs here too.
+                return _map_values(_zeros_tied, values[rank])
             return _map_values(torch.zeros_like, x)
         return _map_values(self._here, values[sources[0]])
 
@@ -568,15 +674,15 @@ class _LocalCollectives(Collectives):
             out = fn(*args)
         if not torch.is_grad_enabled():
             return out
-        everyone = tuple(range(self._mesh.size))
+        everyone = tuple(sorted(self._local))
+        mine = everyone.index(self._position)
         tensors, rebuild = _flat(args)
-        entries = self._exchange.gather(self._position, everyone,
-                                        self._position,
+        entries = self._exchange.gather(self._position, everyone, mine,
                                         (fn, tensors, rebuild, out))
         built = None
-        if self._position == 0:
+        if mine == 0:
             outputs = [_flat(entry[3]) for entry in entries]
-            node = {"mesh": self._mesh,
+            node = {"mesh": self._mesh, "positions": everyone,
                     "fns": [entry[0] for entry in entries],
                     "arguments": [(entry[2], len(entry[1]))
                                   for entry in entries],
@@ -586,15 +692,51 @@ class _LocalCollectives(Collectives):
                 node, *[t for entry in entries for t in entry[1]]))
             built = [remake([next(produced) for _ in flat])
                      for flat, remake in outputs]
-        shared = self._exchange.gather(self._position, everyone,
-                                       self._position, built)
-        return shared[0][self._position]
+        shared = self._exchange.gather(self._position, everyone, mine,
+                                       built)
+        return shared[0][mine]
 
 
 def _placed(device: torch.device) -> torch.device:
     """Where a tensor of position ``device`` lives (a CPU descriptor's
-    tensors lie on the CPU)."""
+    tensors lie on the CPU).  Another process's device holds none."""
+    if not device_rule.is_local(device):
+        raise ValueError(f"{device} belongs to another process: no tensor "
+                         f"of this one is placed there")
     return torch.device("cpu") if device.type == "cpu" else device
+
+
+def _local_positions(mesh: Mesh) -> list[int]:
+    """The positions of ``mesh`` this process runs, in order."""
+    return [position for position, device in enumerate(mesh.devices.flat)
+            if device_rule.is_local(device)]
+
+
+def _home(mesh: Mesh):
+    """The mesh's first device of this process (its first device when it
+    has none here)."""
+    return next((device for device in mesh.devices.flat
+                 if device_rule.is_local(device)), mesh.devices.flat[0])
+
+
+class _Tie(torch.autograd.Function):
+    """``zeros`` with a zero gradient edge to ``source``: a value that
+    depends on a collective's exchange in the autograd graph, so the
+    exchange's backward runs in every process that ran its forward."""
+
+    @staticmethod
+    def forward(ctx, source):
+        return torch.zeros_like(source)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.zeros_like(grad)
+
+
+def _zeros_tied(source: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and source.requires_grad:
+        return _Tie.apply(source)
+    return torch.zeros_like(source)
 
 
 def _map_values(fn, value):
@@ -692,9 +834,13 @@ class _MeshRemat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, plan, *inputs):
+        # The outputs leave the plan: held by ctx they would form a
+        # cycle through the node's outputs that the collector cannot see,
+        # and every remat call's arguments would outlive the step.
+        outputs = tuple(plan.pop("outputs"))
         ctx.plan = plan
         ctx.save_for_backward(*inputs)
-        return tuple(plan["outputs"])
+        return outputs
 
     @staticmethod
     def backward(ctx, *grads):
@@ -706,12 +852,14 @@ class _MeshRemat(torch.autograd.Function):
             args.append(rebuild(inputs[begin:begin + count]))
             begin += count
         mesh, fns = plan["mesh"], plan["fns"]
+        calls = [None] * mesh.size
+        for position, fn, a in zip(plan["positions"], fns, args):
+            calls[position] = lambda fn=fn, a=a: fn(*a)
         with torch.enable_grad():
-            results = _run_positions(
-                mesh, [lambda fn=fn, a=a: fn(*a) for fn, a in zip(fns, args)],
-                (False, True), plan["streams"])
-        outputs = [tensor for result in results
-                   for tensor in _flat(result)[0]]
+            results = _run_positions(mesh, calls, (False, True),
+                                     plan["streams"])
+        outputs = [tensor for position in plan["positions"]
+                   for tensor in _flat(results[position])[0]]
         pairs = [(out, grad) for out, grad in zip(outputs, grads)
                  if grad is not None and out.requires_grad]
         wanted = [x for x in inputs if x.requires_grad]
@@ -829,7 +977,7 @@ def assemble(mesh: Mesh, spec: P, outputs: list, device,
     on every other axis the spec does not split, on ``device`` (None:
     the mesh's first device)."""
     if device is None:
-        device = _placed(mesh.devices.flat[0])
+        device = _placed(_home(mesh))
     return _assemble(mesh, filter_spec(mesh, spec), outputs, device, at)
 
 
@@ -890,21 +1038,25 @@ def _streams(mesh: Mesh) -> list:
     """Each position's CUDA streams: the calling thread's current stream
     on every card of the mesh, the position's own card last (none for a
     CPU position)."""
-    devices = [_placed(device) for device in mesh.devices.flat]
+    devices = [_placed(device) if device_rule.is_local(device) else None
+               for device in mesh.devices.flat]
     current = {device: torch.cuda.current_stream(device)
-               for device in devices if device.type == "cuda"}
+               for device in devices
+               if device is not None and device.type == "cuda"}
     return [(*(stream for card, stream in current.items()
                if card != device), current[device])
-            if device.type == "cuda" else () for device in devices]
+            if device is not None and device.type == "cuda" else ()
+            for device in devices]
 
 
 def _run_positions(mesh: Mesh, calls: list, modes: tuple,
                    streams: list) -> list:
-    """``calls[position]()`` at every position, one thread each with the
-    position's collectives -> the results in position order.  A position
-    that raises aborts the call: the positions waiting in a collective
-    raise :class:`MeshAborted`, and the first failure in position order
-    that is not an abort is re-raised."""
+    """``calls[position]()`` at every position with a call (this
+    process's), one thread each with the position's collectives -> the
+    results in position order (None where there is no call).  A
+    position that raises aborts the call: the positions waiting in a
+    collective raise :class:`MeshAborted`, and the first failure in
+    position order that is not an abort is re-raised."""
     count = mesh.size
     exchange = _Exchange(count)
     results, errors = [None] * count, [None] * count
@@ -912,7 +1064,8 @@ def _run_positions(mesh: Mesh, calls: list, modes: tuple,
         target=_run_position, name=f"shard_map-{position}",
         args=(call, exchange, mesh, position, errors, results, modes,
               stream), daemon=True)
-        for position, (call, stream) in enumerate(zip(calls, streams))]
+        for position, (call, stream) in enumerate(zip(calls, streams))
+        if call is not None]
     for thread in threads:
         thread.start()
     for thread in threads:
@@ -935,7 +1088,7 @@ def _local_args(mesh: Mesh, in_specs, args, position: int, device) -> list:
     a global tree's split by its spec."""
     local = []
     for spec, arg in zip(in_specs, args, strict=True):
-        if arg is None:
+        if arg is None or device is None:
             local.append(None)
         elif isinstance(arg, Placed):
             if not _same_mesh(arg.mesh, mesh):
@@ -970,24 +1123,130 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
 
     A position that raises aborts the call: the positions waiting in a
     collective raise :class:`MeshAborted`, and the call re-raises the
-    first failure in position order that is not an abort."""
+    first failure in position order that is not an abort.
+
+    Over a mesh that spans processes, every process calls the function
+    with the same arguments, in the same order as its other calls over
+    the mesh, and runs its own positions; the outputs come out whole in
+    every process (:class:`Keep` outputs hold this process's shards).
+    The first call prepares the mesh's process groups."""
     def run(*args):
-        devices = [_placed(device) for device in mesh.devices.flat]
+        spans = distributed.spans_processes(mesh)
+        if spans:
+            group = _mesh_wide(mesh)
+            args = [arg if arg is None or isinstance(arg, Placed)
+                    or spec is None else _map_specs(
+                        lambda _, leaf: distributed.shared_input(group, leaf)
+                        if torch.is_tensor(leaf) else leaf, spec, arg)
+                    for spec, arg in zip(in_specs, args, strict=True)]
         calls = []
-        for position, device in enumerate(devices):
+        for position, device in enumerate(mesh.devices.flat):
+            if not device_rule.is_local(device):
+                calls.append(None)
+                continue
             local = _local_args(mesh, tuple(in_specs), args, position,
-                                device)
+                                _placed(device))
             calls.append(lambda local=local: fn(*local))
         modes = (torch.is_inference_mode_enabled(), torch.is_grad_enabled())
         results = _run_positions(mesh, calls, modes, _streams(mesh))
-        return _gather_outputs(mesh, out_specs, results, devices[0])
+        home = _placed(_home(mesh))
+        if spans:
+            results = _fetch_outputs(mesh, out_specs, results, home)
+        return _gather_outputs(mesh, out_specs, results, home)
     return run
+
+
+def _mesh_wide(mesh: Mesh):
+    """The process group of every position of a mesh that spans
+    processes (prepared first: every process calls this)."""
+    distributed.prepare(mesh)
+    return distributed.mesh_group(mesh, tuple(range(mesh.size)))
+
+
+def _strip_kept(out_specs, result):
+    """``result`` with every :class:`Keep` (and None-spec) part None:
+    what another process must fetch of a position's output."""
+    if result is None or out_specs is None or isinstance(out_specs, Keep):
+        return None
+    if isinstance(out_specs, (P, Each)):
+        return result
+    if isinstance(out_specs, dict):
+        return {key: _strip_kept(spec, result[key])
+                for key, spec in out_specs.items()}
+    return type(out_specs)(_strip_kept(spec, result[index])
+                           for index, spec in enumerate(out_specs))
+
+
+def _fill_kept(out_specs, fetched):
+    """A fetched output of another process's position, None where the
+    spec keeps it placed (that position holds no tensor here)."""
+    if fetched is None or out_specs is None \
+            or isinstance(out_specs, Keep):
+        return None
+    if isinstance(out_specs, (P, Each)):
+        return fetched
+    if isinstance(out_specs, dict):
+        return {key: _fill_kept(spec, fetched[key])
+                for key, spec in out_specs.items()}
+    return type(out_specs)(_fill_kept(spec, fetched[index])
+                           for index, spec in enumerate(out_specs))
+
+
+def _fetch_outputs(mesh: Mesh, out_specs, results: list, device) -> list:
+    """Every position's output in every process: another process's
+    outputs (their :class:`Keep` parts apart) fetched as new tensors,
+    detached -- every process computes the same loss of the whole, so a
+    position's output takes its gradient in its own process only."""
+    mine = {position: _strip_kept(out_specs, results[position])
+            for position in _local_positions(mesh)}
+    merged = dict(mine)
+    for theirs in distributed.exchange_trees(_mesh_wide(mesh), mine,
+                                             device):
+        for position, value in theirs.items():
+            merged.setdefault(position, value)
+    return [results[position] if position in mine
+            else _fill_kept(out_specs, merged[position])
+            for position in range(mesh.size)]
+
+
+def _fetch_columns(mesh: Mesh, specs, columns: list, device) -> list:
+    """``columns`` (each position's leaf list, None at another
+    process's) with every shard :func:`_assemble` reads filled in, from
+    the processes that hold them."""
+    leaf_specs = _leaf_list(specs, specs)
+    local = [column for column in columns if column is not None]
+    mine = {}
+    needed = []
+    for index, spec in enumerate(leaf_specs):
+        split = {axis for _, axes, _ in _layout(mesh, spec,
+                                                local[0][index].ndim)
+                 for axis in axes}
+        reads = [position for position in range(mesh.size)
+                 if all(coord == 0 for axis, coord in zip(
+                     mesh.axis_names,
+                     np.unravel_index(position, mesh.devices.shape))
+                     if axis not in split)]
+        needed.append(reads)
+        for position in reads:
+            if columns[position] is not None:
+                mine[index, position] = columns[position][index]
+    found = dict(mine)
+    for theirs in distributed.exchange_trees(_mesh_wide(mesh), mine,
+                                             device):
+        for key, tensor in theirs.items():
+            found.setdefault(key, tensor)
+    filled = [list(column) if column is not None
+              else [None] * len(leaf_specs) for column in columns]
+    for index, reads in enumerate(needed):
+        for position in reads:
+            filled[position][index] = found[index, position]
+    return filled
 
 
 def _gather_outputs(mesh: Mesh, out_specs, results: list, device):
     """Every position's output tree -> one tree of global tensors (a
-    :class:`Placed` tree under a :class:`Keep` spec; None where the
-    spec is None)."""
+    :class:`Placed` tree under a :class:`Keep` spec, None at another
+    process's positions; None where the spec is None)."""
     if out_specs is None:
         return None
     if isinstance(out_specs, Keep):

@@ -685,7 +685,7 @@ class Pipeline(Actor):
 
         # Multi-host mesh mode (ISSUE 9): ``mesh: {hosts: N}`` (or the
         # AIKO_MESH_* env) spans one logical pipeline across hosts --
-        # jax.distributed bring-up when a coordinator is configured,
+        # torch.distributed bring-up when a coordinator is configured,
         # then per-host submesh carving so same-mesh stage hops ride
         # ICI/DCN and only genuinely foreign processes pay the pipe.
         try:
@@ -699,7 +699,8 @@ class Pipeline(Actor):
             except Exception as error:
                 raise DefinitionError(
                     f"pipeline {self.definition.name!r}: "
-                    f"jax.distributed bring-up failed: {error}")
+                    f"torch.distributed bring-up at coordinator "
+                    f"{mesh_spec['coordinator']} failed: {error}")
         stages = {}
         replica_specs = {}
         stage_hosts = {}
@@ -3658,6 +3659,7 @@ class Pipeline(Actor):
                         stream, frame,
                         f"{node.name}: missing inputs {missing}")
                     return
+                remote_outputs = None
                 if self.stage_placement is not None \
                         and node.name in self.stage_placement.plans:
                     # Stage hop: reshard this stage's inputs onto its
@@ -3669,11 +3671,26 @@ class Pipeline(Actor):
                     # re-uploading what _map_in just fetched would undo
                     # the contract.
                     hop_start = time.perf_counter()
-                    inputs.update(self.stage_placement.transfer(
-                        {name: value for name, value in inputs.items()
-                         if name not in host_typed}, node.name,
-                        replica=frame.stage_replica
-                        if frame.stage == node.name else None))
+                    if self.stage_placement.across_hosts:
+                        # A real multi-host mesh: the hop runs over the
+                        # process group, and a stage of another process
+                        # yields handles to its outputs here.
+                        try:
+                            moved, remote_outputs = \
+                                self.stage_placement.hop_across(
+                                    node, frame, inputs, host_typed,
+                                    stream.stream_id)
+                        except (ValueError, RuntimeError) as error:
+                            self._frame_error(stream, frame,
+                                              f"{node.name}: {error}")
+                            return
+                        inputs.update(moved)
+                    else:
+                        inputs.update(self.stage_placement.transfer(
+                            {name: value for name, value in inputs.items()
+                             if name not in host_typed}, node.name,
+                            replica=frame.stage_replica
+                            if frame.stage == node.name else None))
                     hop_ms = (time.perf_counter() - hop_start) * 1000.0
                     frame.metrics[f"{node.name}_hop_ms"] = hop_ms
                     self._rec("hop", stream.stream_id, frame.frame_id,
@@ -3683,6 +3700,10 @@ class Pipeline(Actor):
                                            "stream": stream.stream_id,
                                            "frame": frame.frame_id,
                                            "ms": hop_ms})
+                if remote_outputs is not None:
+                    self._map_out(node, frame, remote_outputs)
+                    index += 1
+                    continue
                 self.run_hook("pipeline.process_element:0",
                               lambda: {"element": node.name,
                                        "stream": stream.stream_id,

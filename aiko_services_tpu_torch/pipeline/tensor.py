@@ -5,8 +5,9 @@ Counterpart of ``aiko_services_tpu/pipeline/tensor.py``:
 
 - swag values are ``torch.Tensor``\\ s resident on the card between
   elements;
-- a stage is *placed* on a group of the process's devices
-  (:class:`StagePlacement`; the pool is ``device.local_devices()``),
+- a stage is *placed* on a group of the pool's devices
+  (:class:`StagePlacement`; the pool is ``device.devices()``, this
+  process's cards, or every process's after a multi-host bring-up),
   one card or several.  A hop with no spec lands a frame's tensors
   whole on the stage's LEAD card (``plan.device``, the first of its
   topology-sorted chunk) by ``Tensor.to(plan.device,
@@ -32,8 +33,16 @@ Counterpart of ``aiko_services_tpu/pipeline/tensor.py``:
   the JAX package does; :func:`ensure_distributed` skips the bring-up
   of a mesh with no coordinator, as the JAX package does, so
   :class:`StagePlacement` carves virtual host groups in this process,
-  and refuses a real multi-host mesh (a coordinator set: the
-  ``torch.distributed`` bring-up is ROADMAP Queue 1 item 7.6).
+  and brings up ``torch.distributed`` for a real multi-host mesh (a
+  coordinator set, ``parallel/distributed.py``): the pool is then every
+  process's devices and the carve groups it by process.  Every process
+  builds the same pipeline and posts the same frames in the same order
+  (multi-controller, as under ``jax.distributed``); a stage runs in the
+  process that holds its cards, the others create its element but do
+  not call it and hold :class:`RemoteValue` handles for its outputs.  A
+  hop to a stage of another process sends the frame's tensors from the
+  process that holds them over the process group
+  (:meth:`StagePlacement.transfer_across`), never the broker.
 """
 
 from __future__ import annotations
@@ -50,18 +59,18 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import device as device_rule
+from ..parallel import distributed
 from ..parallel.mesh import MeshPlan, NamedSharding, Placed, make_mesh
-from ..utils import not_ported
 from .element import PipelineElement
 
 __all__ = ["ShapeBucketer", "JitCache", "LeafSignature", "StagePlacement",
            "TPUElement", "encode_array", "decode_array", "tree_device_put",
            "device_sort_key", "distributed_mesh_spec",
-           "ensure_distributed"]
+           "ensure_distributed", "RemoteValue", "HostValueAcrossHosts"]
 
 
 # ---------------------------------------------------------------------------
-# Multi-host mesh request (parsed as in the JAX package; bring-up waits).
+# Multi-host mesh request (parsed as in the JAX package) and bring-up.
 
 MESH_ENV_HOSTS = "AIKO_MESH_HOSTS"
 MESH_ENV_COORDINATOR = "AIKO_MESH_COORDINATOR"
@@ -112,17 +121,19 @@ def distributed_mesh_spec(parameters) -> dict | None:
 
 
 def ensure_distributed(spec: dict | None) -> tuple[int, int]:
-    """(process index, process count) of this process.  A virtual mesh
-    (no coordinator: the CI shape) needs no bring-up --
-    :class:`StagePlacement` carves ``hosts`` virtual host groups out of
-    this process's pool, as the JAX package does.  A REAL multi-host
-    mesh (a coordinator set, more than one host declared) raises: the
-    port has no ``torch.distributed`` bring-up yet."""
+    """Bring up ``torch.distributed`` for a REAL multi-host mesh (a
+    coordinator is configured and more than one host declared), once a
+    process (``parallel.distributed.ensure``); afterwards
+    ``device.devices()`` is the GLOBAL pool and :class:`StagePlacement`
+    groups it by process.  Single-process/virtual meshes (no
+    coordinator -- the CI shape) skip the bring-up and carve virtual
+    host groups instead.  Returns (process_index, process_count).  A
+    bring-up that fails raises (a peer missing after
+    ``distributed.BRINGUP_TIMEOUT_S``)."""
     if spec and spec.get("coordinator") and spec["hosts"] > 1:
-        raise not_ported(f"a multi-host mesh ({spec['hosts']} hosts, "
-                         f"coordinator {spec['coordinator']})",
-                         "ROADMAP Queue 1 item 7.6")
-    return 0, 1
+        return distributed.ensure(spec["hosts"], spec["coordinator"],
+                                  spec["process_id"])
+    return device_rule.process_index(), device_rule._process["count"]
 
 
 # ---------------------------------------------------------------------------
@@ -365,9 +376,11 @@ def device_sort_key(device):
     """ICI-topology order for carving contiguous stage chunks: TPU chip
     ``coords`` (x, y, z) then core, so consecutive devices in the sorted
     pool are ICI neighbours and adjacent stages' chunks touch.  Devices
-    without coords fall back to id order -- a ``torch.device``'s id is
-    its index (a card's ordinal, a CPU descriptor's number), the order
-    ``device.local_devices()`` enumerates."""
+    without coords fall back to (process, id) order -- a
+    ``torch.device``'s id is its index (a card's ordinal, a CPU
+    descriptor's number), the order ``device.local_devices()``
+    enumerates, and its process this one (another's for a
+    ``device.RemoteDevice``)."""
     coords = getattr(device, "coords", None)
     if coords is not None:
         try:
@@ -375,8 +388,8 @@ def device_sort_key(device):
                     int(getattr(device, "core_on_chip", 0) or 0))
         except (TypeError, ValueError):
             pass
-    if isinstance(device, torch.device):
-        return (1, (), device.index or 0)
+    if isinstance(device, (torch.device, device_rule.RemoteDevice)):
+        return (1, (device_rule.process_index(device),), device.index or 0)
     return (1, (), int(getattr(device, "id", 0)))
 
 
@@ -384,8 +397,9 @@ class StagePlacement:
     """Carve the local device set into per-stage submeshes.
 
     The JAX package's carving, replicas, failover and accounting on
-    ``torch.device`` lists (the pool defaults to
-    ``device.local_devices()``).  A stage may span several cards.
+    ``torch.device`` lists (the pool defaults to ``device.devices()``,
+    every process's after a multi-host bring-up).  A stage may span
+    several cards.
     ``transfer`` with no spec moves tensor leaves to the stage's lead
     card (``MeshPlan.device``) with ``Tensor.to(device,
     non_blocking=True)``, asynchronous on the card; with a spec it
@@ -436,13 +450,13 @@ class StagePlacement:
 
     def __init__(self, devices: Sequence | None = None):
         self.devices = sorted(devices if devices is not None
-                              else device_rule.local_devices(),
+                              else device_rule.devices(),
                               key=device_sort_key)
         self.plans: dict[str, MeshPlan] = {}
         self._requests: dict = {}
         # Multi-host mesh mode (ISSUE 9): the pool partitions into
-        # per-host device groups -- by ``device.process_index`` under a
-        # real jax.distributed mesh, or N contiguous virtual groups of
+        # per-host device groups -- by the process index under a real
+        # torch.distributed mesh, or N contiguous virtual groups of
         # the topology-sorted pool in a single process (the CI shape,
         # same carving code).  Stages land wholly inside ONE host's
         # group (``stage_hosts``), so a stage hop between same-host
@@ -574,16 +588,15 @@ class StagePlacement:
     # -- mesh mode: per-host device groups ---------------------------------
 
     def _host_groups_for(self, devices: list) -> list[list]:
-        """Partition ``devices`` into per-host groups: by the real
-        ``process_index`` when a jax.distributed mesh spans processes,
-        else ``self.hosts`` contiguous chunks of the topology-sorted
-        pool (virtual hosts -- single-process reproduction of the
-        multi-host carve, same code path)."""
+        """Partition ``devices`` into per-host groups: by the process
+        index when a torch.distributed mesh spans processes, else
+        ``self.hosts`` contiguous chunks of the topology-sorted pool
+        (virtual hosts -- single-process reproduction of the multi-host
+        carve, same code path)."""
         by_process: dict[int, list] = {}
         for device in devices:
-            by_process.setdefault(
-                int(getattr(device, "process_index", 0) or 0),
-                []).append(device)
+            by_process.setdefault(device_rule.process_index(device),
+                                  []).append(device)
         if len(by_process) > 1:
             return [by_process[key] for key in sorted(by_process)]
         count = self.hosts or 1
@@ -918,6 +931,111 @@ class StagePlacement:
 
         return pytree.tree_map(hop, value)
 
+    # -- stages of other processes (a real multi-host mesh) ----------------
+
+    def stage_process(self, stage: str) -> int:
+        """The process whose devices hold ``stage`` (a stage never spans
+        hosts)."""
+        return device_rule.process_index(
+            self.plans[stage].mesh.devices.flat[0])
+
+    @property
+    def across_hosts(self) -> bool:
+        """True in mesh mode over a real multi-host bring-up: stages then
+        lie in several processes."""
+        return bool(self.hosts) and distributed.initialized()
+
+    def hop_across(self, node, frame, inputs: dict, host_typed: list,
+                   stream_id) -> tuple[dict, dict | None]:
+        """The engine's stage hop in a multi-host mesh: (the inputs as
+        :meth:`transfer_across` moves them, the stage's outputs as
+        :class:`RemoteValue` handles when the stage runs in another
+        process, else None).  An input produced by a stage of another
+        process is the producer's to send; a host-typed one fails the
+        frame (``ValueError`` naming the stage and host), as fetching
+        an array of another host raises under ``jax.distributed``."""
+        stage = node.name
+        target = self.stage_process(stage)
+        mapping = node.properties or {}
+        sources = {}
+        for name in inputs:
+            key = mapping.get(name, name)
+            producer = frame.produced.get(key) or key.partition(".")[0]
+            sources[name] = (self.stage_process(producer), producer) \
+                if producer in self.plans else None
+        for name in host_typed:
+            if sources.get(name) and sources[name][0] != target:
+                raise HostValueAcrossHosts(
+                    f"host input {name!r} was produced by stage "
+                    f"{sources[name][1]!r} on host {sources[name][0]}, "
+                    f"and stage {stage!r} runs on host {target}")
+        moved = {name: value for name, value in inputs.items()
+                 if name not in host_typed}
+        moved = self.transfer_across(
+            moved, stage, sources, distributed.hop_tag(
+                stream_id, frame.frame_id, stage),
+            replica=frame.stage_replica if frame.stage == stage else None)
+        if target != device_rule.process_index():
+            outputs = node.element.definition.output \
+                if node.element.definition else []
+            return moved, {io["name"]: RemoteValue(target, stage, io["name"])
+                           for io in outputs}
+        held = [leaf for value in moved.values()
+                for leaf in pytree.tree_leaves(value)
+                if isinstance(leaf, RemoteValue)]
+        if held:
+            raise HostValueAcrossHosts(
+                f"stage {stage!r} on host {target} was handed {held[0]}, "
+                f"which no stage hop brought here")
+        return moved, None
+
+    def transfer_across(self, inputs: dict, to_stage: str, sources: dict,
+                        tag: int, *spec, replica: int | None = None) -> dict:
+        """A hop to ``to_stage`` in a multi-host mesh.  ``sources`` names,
+        for each input, the (process, stage) of the stage that produced
+        it, or None when every process holds it (a frame's own data).
+        In the stage's process, each input another process holds is
+        received from it (:func:`~..parallel.distributed.recv_tree`),
+        then every input is placed as :meth:`transfer` places it; a host
+        value produced there raises :class:`HostValueAcrossHosts`.  In
+        another process, the inputs this one holds are sent to the
+        stage's process, and every input becomes a :class:`RemoteValue`
+        naming it; a process that holds none moves nothing."""
+        me = device_rule.process_index()
+        target = self.stage_process(to_stage)
+        if me != target:
+            mine = {name: _sendable(value)
+                    for name, value in sorted(inputs.items())
+                    if sources.get(name) and sources[name][0] == me}
+            if mine:
+                distributed.send_tree(mine, target, tag)
+            for name, value in mine.items():
+                for leaf in pytree.tree_leaves(value):
+                    if isinstance(leaf, _HostLeaf):  # its receiver fails too
+                        raise HostValueAcrossHosts(
+                            f"{name}: a host value ({leaf.kind}) produced "
+                            f"by stage {sources[name][1]!r} on host {me} "
+                            f"cannot cross to host {target}")
+            return {name: RemoteValue(target, to_stage, name)
+                    for name in inputs}
+        lead = self.plans[to_stage].device
+        arrived = dict(inputs)
+        by_process: dict = {}
+        for name, source in sorted(sources.items()):
+            if source and source[0] != me:
+                by_process.setdefault(source[0], []).append(name)
+        for process, names in sorted(by_process.items()):
+            got = distributed.recv_tree(process, tag, lead)
+            for name in names:
+                for leaf in pytree.tree_leaves(got[name]):
+                    if isinstance(leaf, _HostLeaf):
+                        raise HostValueAcrossHosts(
+                            f"{name}: a host value ({leaf.kind}) produced "
+                            f"by stage {sources[name][1]!r} on host "
+                            f"{process} cannot cross to host {me}")
+                arrived[name] = got[name]
+        return self.transfer(arrived, to_stage, *spec, replica=replica)
+
     @property
     def stats(self) -> dict:
         result = {"generation": self.generation,
@@ -941,6 +1059,48 @@ class StagePlacement:
                                      for group in self.host_groups]
             result["stage_hosts"] = dict(self.stage_hosts)
         return result
+
+
+class RemoteValue:
+    """A handle to an output that a stage computed in another process of
+    a multi-host mesh: the counterpart of a JAX array this process cannot
+    address.  It names the process, the stage and the output."""
+
+    __slots__ = ("process_index", "stage", "name")
+
+    def __init__(self, process_index: int, stage: str, name: str):
+        self.process_index, self.stage, self.name = \
+            int(process_index), stage, name
+
+    def __repr__(self) -> str:
+        return (f"RemoteValue(process {self.process_index}, "
+                f"{self.stage}.{self.name})")
+
+
+class HostValueAcrossHosts(ValueError):
+    """A host value (text, a list, a numpy array) produced by a stage in
+    another process: only tensors cross hosts."""
+
+
+class _HostLeaf:
+    """What a hop sends in place of a host value: its type's name."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+
+def _sendable(value):
+    """``value`` as a hop sends it: tensors as they are, a placed tree
+    gathered whole onto its lead card, a host value as its type."""
+    if isinstance(value, Placed):
+        return value.gather(MeshPlan(value.mesh).device)
+    if isinstance(value, dict):
+        return {key: _sendable(item) for key, item in value.items()}
+    if isinstance(value, (list, tuple)) and not isinstance(value, str):
+        return type(value)(_sendable(item) for item in value)
+    if isinstance(value, torch.Tensor):
+        return value
+    return _HostLeaf(type(value).__name__)
 
 
 def resident(tensor: torch.Tensor, device: torch.device) -> bool:
@@ -980,6 +1140,10 @@ def _place(leaf, target):
     whole) or a ``NamedSharding`` (a tensor or host array placed over
     its mesh, a ``Placed`` resharded); a leaf already there, or text
     and numbers, as it is."""
+    if not isinstance(target, NamedSharding) \
+            and not device_rule.is_local(target):
+        raise ValueError(f"{target} belongs to another process: a value "
+                         f"is placed there by that process")
     if _arrived(leaf, target):
         return leaf
     if isinstance(leaf, Placed):

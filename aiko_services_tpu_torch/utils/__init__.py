@@ -9,5 +9,5 @@ from .configuration import (
 from .logger import get_logger, TransportLogHandler, RateLimiter
 from .misc import (LRUCache, load_module, load_class, find_free_port,
                    utc_iso8601, epoch_to_iso8601, process_memory_rss,
-                   next_power_of_two, not_ported)
+                   next_power_of_two)
 from .trace import MethodTrace, trace_methods, record_calls

@@ -16,7 +16,7 @@ from datetime import datetime, timezone
 
 __all__ = ["LRUCache", "load_module", "load_class", "find_free_port",
            "utc_iso8601", "epoch_to_iso8601", "process_memory_rss",
-           "next_power_of_two", "not_ported"]
+           "next_power_of_two"]
 
 
 def next_power_of_two(n: int) -> int:
@@ -27,13 +27,6 @@ def next_power_of_two(n: int) -> int:
     while bucket < n:
         bucket *= 2
     return bucket
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error an option of the JAX package raises in the port until
-    its ROADMAP item lands."""
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet ({item})")
 
 
 class LRUCache:

@@ -309,7 +309,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     prints each position's micro-batches and rows, the detect graphs and
     their cards, the burst's agreement with phase 7's beside one card's
     batch 8 against two batches of 4, the ``DET_time`` median beside
-    phase 7's and the phase's seconds.
+    phase 7's and the phase's seconds;
+15. the multi-host backend (``multihost``): 15b's one-process run (two
+    train steps of Llama-3.2-1B, phase 11a's batch, over ``{"fsdp":
+    2}`` with the card listed twice), then two child processes started
+    by ``subprocess`` that share the card and meet through
+    ``torch.distributed`` (the coordinator on 127.0.0.1 at a port bound
+    at 0 first; gloo, since one card is listed by both, and the phase
+    prints it), each running: 15a, 13c's placed int8 path over ``{"tp":
+    2}`` with position 0 in process 0 and position 1 in process 1 (each
+    builds the seed-0 tree, quantizes it and puts its own shard, the two
+    in turns so only one bf16 tree is on the card; the launch counters
+    zeroed just before it), fed 13c's one-position
+    greedy tokens: its logits bitwise equal (SHA-256 of each call's
+    bytes) to 13c's placed run with the card listed twice, its greedy
+    tokens equal, and each process launching exactly one position's
+    kernels, half of 13c's placed counts; 15b over ``{"fsdp": 2}``
+    with a position a process: the losses and the updated tree's
+    SHA-256 equal to the one-process run's, each process's peak
+    printed; 15c, a ``(det llm)`` pipeline of ``StageWork`` over
+    ``mesh: {hosts: 2, coordinator}``, ``det`` on host 0 and ``llm`` on
+    host 1: 4 frames of 1024 x 1024 ones in order in both processes,
+    process 1 holding ``llm``'s tensors and process 0 handles naming
+    process 1.  Before the children start it prints the card's free
+    memory and the card tensors this process still reaches.  Each child
+    writes to a file of its own; a child that fails or outlasts
+    MULTIHOST_TIMEOUT_S fails the phase; the children's lines are
+    printed first, prefixed with their process, and on a failure their
+    last lines also go to standard error.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
@@ -319,7 +346,8 @@ under ``fusion-chain``, phase 10's under ``checkpoint-cli``, phase 11's
 12's zeros under ``context-parallel``, phase 13's (13c's placed run)
 under ``sharded-step``, 13d's (its four placed batcher runs) under
 ``serving-tp-int8``, 13e's (its two batcher runs) under
-``moe-dp2-burst``, phase 14's under ``config4-dp2-loop-16``; the
+``moe-dp2-burst``, phase 14's under ``config4-dp2-loop-16``, phase
+15's (both processes' 15a together) under ``multihost``; the
 entries on config 4's and config 5's paths carry ``"path"`` and their
 run's launches, phase 14's as ``config4_dp2_launches``), then ``{"ok":
 true, "device": {...}}``.  It imports nothing of JAX or of the JAX
@@ -4086,6 +4114,14 @@ def sharded_int8(device, card: str) -> tuple[dict, dict]:
     got = placed_serving(placed, config, prompts, device, card,
                          f"placed {SHARDED_DECODE_MESH}", feed=one)
     del placed
+    # Phase 15a's reference: the same run with each position in a
+    # process of its own is held to this one, bit for bit.
+    MULTIHOST_REFERENCE["int8"] = {
+        "feed": {"first": list(one["first"]),
+                 "greedy": [t.tolist() for t in one["greedy"]]},
+        "digests": logits_digests(got),
+        "greedy": [t.tolist() for t in got["greedy"]],
+        "launches": dict(got["launches"])}
     errors = [relative_error(a[None], b[None])
               for a, b in zip(got["prefill"], one["prefill"])] + \
         [relative_error(a[None], b[None])
@@ -4120,6 +4156,16 @@ def sharded_int8(device, card: str) -> tuple[dict, dict]:
             f"{LOGITS_TOL}); launches {counts}, wanted twice the "
             f"one-position run's {wanted} (int8_combine apart) and no other")
     return out, counts
+
+
+def logits_digests(run: dict) -> list[str]:
+    """SHA-256 of the bytes of each logits tensor of a
+    :func:`placed_serving` run (its prefills, then its steps)."""
+    import hashlib
+    import torch
+    return [hashlib.sha256(logits.detach().contiguous().view(torch.uint8)
+                           .cpu().numpy().tobytes()).hexdigest()
+            for logits in run["prefill"] + run["steps"]]
 
 
 def sharded_step_run(card: str) -> dict:
@@ -4504,6 +4550,352 @@ def _map(tree: dict, fn) -> dict:
             for name, value in tree.items()}
 
 
+# -- phase 15: the multi-host backend, two processes on the card ---------
+
+#: What phase 15's processes are held to: 13c's placed int8 run
+#: (filled by ``sharded_int8``) and 15b's one-process train run.
+MULTIHOST_REFERENCE: dict = {}
+MULTIHOST_TRAIN_MESH = {"fsdp": 2}
+MULTIHOST_TRAIN_STEPS = 2
+MULTIHOST_FRAMES = 4
+MULTIHOST_FRAME_SHAPE = (1024, 1024)    # 4 MiB of float32 a hop
+MULTIHOST_TIMEOUT_S = 480               # a child's whole run
+
+
+def params_checksum(plan, params) -> str:
+    """SHA-256 over the bytes of every leaf of a placed tree, gathered
+    whole, in name order."""
+    import hashlib
+    import torch
+    from aiko_services_tpu_torch.models.checkpoint import flatten
+    digest = hashlib.sha256()
+    for name, leaf in sorted(flatten(plan.gather(params)).items()):
+        digest.update(name.encode())
+        digest.update(leaf.contiguous().view(torch.uint8).cpu().numpy()
+                      .tobytes())
+    return digest.hexdigest()
+
+
+def multihost_train(plan, device, card: str, label: str) -> dict:
+    """15b: ``init_train_state(0)`` of Llama-3.2-1B on ``plan``, then
+    MULTIHOST_TRAIN_STEPS steps of TRAIN_BATCH (numpy seed 0) -> the
+    losses, the updated tree's checksum, the step ms and the peak."""
+    from aiko_services_tpu_torch.models import train
+    config = train_config()
+    held = free_card()
+    tokens = token_batch(config, TRAIN_BATCH, device)
+    params, state, _ = train.init_train_state(0, config, plan)
+    step = train.make_train_step(config, plan)
+    params, state, losses, times, peak = timed_steps(
+        step, params, state, tokens, MULTIHOST_TRAIN_STEPS, held)
+    out = {"losses": losses, "checksum": params_checksum(plan, params),
+           "step_ms": times, "peak_gib_above_held": peak}
+    del params, state
+    free_card()
+    print(f"multihost-train {label}: losses {losses}, step ms {times} "
+          f"(CUDA events), peak {peak:.2f} GiB above held on {card}",
+          flush=True)
+    return out
+
+
+def multihost_pipeline(coordinator: str, process: int) -> dict:
+    """15c: ``(det llm)`` of ``StageWork`` over ``mesh: {hosts: 2,
+    coordinator, process_id}``, ``det`` on host 0 and ``llm`` on host 1,
+    one card each -> the carve and every response."""
+    import torch
+    from aiko_services_tpu_torch.pipeline.tensor import RemoteValue
+
+    def stage(name: str, placement: dict) -> dict:
+        return {"name": name, "input": [{"name": "x"}],
+                "output": [{"name": "x"}],
+                "parameters": {"factor": 2.0}, "placement": placement,
+                "deploy": {"local": {
+                    "module": "aiko_services_tpu_torch.elements.common",
+                    "class_name": "StageWork"}}}
+    definition = {
+        "version": 0, "name": "multihost_det_llm", "runtime": "torch",
+        "graph": ["(det llm)"],
+        "parameters": {"mesh": {"hosts": 2, "coordinator": coordinator,
+                                "process_id": process}},
+        "elements": [stage("det", {"devices": 1}),
+                     stage("llm", {"devices": 1, "host": 1})]}
+    with loopback_runtime() as runtime:
+        pipeline = load_pipeline(definition, runtime)
+        placement = pipeline.stage_placement
+        responses = Responses()
+        frame = torch.ones(MULTIHOST_FRAME_SHAPE)
+        begin = time.perf_counter()
+        for _ in range(MULTIHOST_FRAMES):
+            pipeline.process_frame_local({"x": frame}, stream_id="s",
+                                         queue_response=responses)
+        rows = []
+
+        def drained():
+            while not responses.empty():
+                rows.append(responses.get())
+            return len(rows) >= MULTIHOST_FRAMES or responses.failures
+        runtime.run(until=drained, timeout=120.0)
+        seconds = time.perf_counter() - begin
+        pipeline.stop()
+        out = {"stage_hosts": dict(placement.stage_hosts),
+               "host_groups": [len(group) for group in placement.host_groups],
+               "frames": [row[1] for row in rows],
+               "failures": list(responses.failures), "seconds": seconds,
+               "values": []}
+        for row in rows:
+            value = row[2].get("x")
+            out["values"].append(
+                repr(value) if isinstance(value, RemoteValue)
+                else float(value.float().mean()) if torch.is_tensor(value)
+                else repr(value))
+    return out
+
+
+def multihost_child(spec_path: str) -> None:
+    """One process of phase 15: brings itself up as process ``k`` of 2
+    through the pipeline package's ``ensure_distributed``, runs 15a,
+    15b and 15c, and writes what each gave to its result file."""
+    import resource
+    import torch
+    import torch.distributed as dist
+    spec = json.loads(Path(spec_path).read_text())
+    process, card = spec["process"], spec["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.quant import (quantize_params,
+                                                      quantize_specs)
+    from aiko_services_tpu_torch.ops import _build
+    from aiko_services_tpu_torch.parallel import MeshPlan, distributed
+    from aiko_services_tpu_torch.pipeline.tensor import ensure_distributed
+    _build.load_library()
+    device = torch.device("cuda", 0)
+    out = {"process": process}
+
+    def host_peak(part: str) -> None:
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        free, _ = torch.cuda.mem_get_info()
+        print(f"process {process}: {part} done, host peak {rss:.2f} GiB, "
+              f"{free / 2 ** 30:.2f} GiB of the card free", flush=True)
+
+    out["ensure"] = ensure_distributed({"hosts": 2, "process_id": process,
+                                        "coordinator": spec["coordinator"]})
+    out["transport"] = distributed.transport()
+    free, _ = torch.cuda.mem_get_info()
+    print(f"process {process}: torch.distributed up, transport "
+          f"{out['transport']}, {free / 2 ** 30:.2f} GiB of the card free",
+          flush=True)
+
+    # 15a: 13c's placed int8 serving, one position in each process.
+    reference = spec["int8"]
+    config = dataclasses.replace(serving_config(), kv_dtype="int8")
+    plan = MeshPlan.build(SHARDED_DECODE_MESH)      # the global pool
+    # The processes build the tree in turns: two bf16 trees of
+    # Llama-3-8B at once would take some 50 GB of the shared card.
+    for turn in range(2):
+        if turn == process:
+            free_card()
+            params = llama.init_params(0, config, device=device)
+            qparams = quantize_params(params)
+            del params
+            placed = plan.put(qparams,
+                              quantize_specs(llama.partition_specs(config)))
+            del qparams
+            held = free_card()
+        dist.barrier()
+    prompts = [torch.tensor(prompt, device=device)
+               for prompt, _ in mixed_requests(config)]
+    feed = {"first": reference["feed"]["first"],
+            "greedy": [torch.tensor(tokens, device=device)
+                       for tokens in reference["feed"]["greedy"]]}
+    got = placed_serving(placed, config, prompts, device, card,
+                         f"process {process} of {SHARDED_DECODE_MESH}",
+                         feed=feed)
+    out["int8"] = {"digests": logits_digests(got),
+                   "greedy": [t.tolist() for t in got["greedy"]],
+                   "launches": got["launches"],
+                   "prefill_ms": got["prefill_ms"],
+                   "decode_step_ms": got["decode_step_ms"],
+                   "peak_gib_above_held":
+                       torch.cuda.max_memory_allocated() / 2 ** 30 - held}
+    del placed, got
+    free_card()
+    host_peak("15a")
+
+    # 15b: two train steps of Llama-3.2-1B over fsdp across the processes.
+    out["train"] = multihost_train(MeshPlan.build(MULTIHOST_TRAIN_MESH),
+                                   device, card, f"process {process}")
+    host_peak("15b")
+
+    # 15c: the (det llm) pipeline, det here on host 0, llm on host 1.
+    out["pipeline"] = multihost_pipeline(spec["coordinator"], process)
+    host_peak("15c")
+    distributed.shutdown()
+    Path(spec["result"]).write_text(json.dumps(out))
+
+
+def live_card_tensors(top: int = 5) -> str:
+    """The card tensors the garbage collector can reach: their GiB and
+    the largest shapes (what an earlier phase left alive)."""
+    import gc
+    import warnings
+    import torch
+    seen, sizes = set(), []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # deprecated module attributes
+        tensors = [thing for thing in gc.get_objects()
+                   if isinstance(thing, torch.Tensor)]
+    for thing in tensors:
+        try:
+            if not thing.is_cuda:
+                continue
+            storage = thing.untyped_storage()
+        except RuntimeError:
+            continue
+        if storage.data_ptr() in seen:
+            continue
+        seen.add(storage.data_ptr())
+        sizes.append((storage.nbytes(), tuple(thing.shape), thing.dtype))
+    sizes.sort(key=lambda entry: -entry[0])
+    largest = ", ".join(f"{list(shape)} {str(dtype)[6:]}"
+                        for _, shape, dtype in sizes[:top])
+    return (f"{len(sizes)} reachable tensors, "
+            f"{sum(entry[0] for entry in sizes) / 2 ** 30:.2f} GiB; "
+            f"largest {largest}")
+
+
+def multihost_run(card: str) -> dict:
+    """Phase 15 (module docstring): 15b's one-process run, then two
+    child processes sharing the card over gloo.  Returns each process's
+    launches in 15a."""
+    import resource
+    import socket
+    import tempfile
+    import torch
+    from aiko_services_tpu_torch.parallel import MeshPlan
+    device = torch.device("cuda", 0)
+    begin = time.perf_counter()
+    one = multihost_train(MeshPlan.build(MULTIHOST_TRAIN_MESH,
+                                         devices=[device, device]),
+                          device, card, "one process, the card twice")
+    free_card()
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{probe.getsockname()[1]}"
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_multihost_"))
+    free, total = torch.cuda.mem_get_info()
+    print(f"multihost: spawning 2 processes at {coordinator}; the card has "
+          f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free, this "
+          f"process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB ({live_card_tensors()}), host peak "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20:.2f}"
+          f" GiB", flush=True)
+    # Each child writes to a file, never a pipe: a child blocked on a
+    # full pipe the parent is not reading stalls its peer's collectives.
+    logs = [workdir / f"{process}.log" for process in range(2)]
+    children = []
+    try:
+        for process in range(2):
+            spec = {"process": process, "coordinator": coordinator,
+                    "card": card, "int8": MULTIHOST_REFERENCE["int8"],
+                    "result": str(workdir / f"{process}.json")}
+            path = workdir / f"{process}.spec.json"
+            path.write_text(json.dumps(spec))
+            code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                    f"import chip_smoke; "
+                    f"chip_smoke.multihost_child({str(path)!r})")
+            with logs[process].open("w") as log:
+                children.append(subprocess.Popen(
+                    [sys.executable, "-u", "-c", code], cwd=str(ROOT),
+                    stdin=subprocess.DEVNULL, stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+        while any(child.poll() is None for child in children) \
+                and time.monotonic() < deadline:
+            time.sleep(0.5)
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+    codes = [child.returncode for child in children]
+    outputs = [log.read_text(errors="replace") for log in logs]
+    for process, output in enumerate(outputs):
+        for line in output.splitlines():
+            print(f"[multihost process {process}] {line}", flush=True)
+    if any(codes):
+        # Standard error too, so a failure shows the children's own words.
+        for process, output in enumerate(outputs):
+            for line in output.splitlines()[-60:]:
+                print(f"[multihost process {process}] {line}",
+                      file=sys.stderr, flush=True)
+        raise AssertionError(f"multihost: the processes exited {codes} "
+                             f"(a negative code: killed after "
+                             f"{MULTIHOST_TIMEOUT_S} s)")
+    results = [json.loads((workdir / f"{process}.json").read_text())
+               for process in range(2)]
+    seconds = time.perf_counter() - begin
+    reference = MULTIHOST_REFERENCE["int8"]
+    placed_counts = reference["launches"]
+    problems = []
+    for process, got in enumerate(results):
+        int8, trained, served = got["int8"], got["train"], got["pipeline"]
+        if tuple(got["ensure"]) != (process, 2):
+            problems.append(f"process {process}: ensure_distributed gave "
+                            f"{got['ensure']}")
+        if got["transport"] != "gloo":
+            problems.append(f"process {process}: transport "
+                            f"{got['transport']}, not gloo (one card)")
+        half = {name: count // 2 for name, count in placed_counts.items()}
+        if any(2 * int8["launches"].get(name, 0) != count
+               for name, count in placed_counts.items()) \
+                or set(int8["launches"]) - set(placed_counts):
+            problems.append(f"process {process}: 15a launched "
+                            f"{int8['launches']}, one position of 13c's "
+                            f"placed run is {half}")
+        if int8["greedy"] != reference["greedy"]:
+            problems.append(f"process {process}: 15a's greedy tokens differ "
+                            f"from 13c's placed run")
+        same = sum(a == b for a, b in zip(int8["digests"],
+                                          reference["digests"]))
+        if same != len(reference["digests"]):
+            problems.append(f"process {process}: 15a's logits bitwise equal "
+                            f"to 13c's placed run in {same} of "
+                            f"{len(reference['digests'])} calls")
+        if trained["losses"] != one["losses"] \
+                or trained["checksum"] != one["checksum"]:
+            problems.append(f"process {process}: 15b's losses "
+                            f"{trained['losses']} / checksum "
+                            f"{trained['checksum'][:12]} against one "
+                            f"process's {one['losses']} / "
+                            f"{one['checksum'][:12]}")
+        want = ["RemoteValue(process 1, llm.x)"] * MULTIHOST_FRAMES \
+            if process == 0 else [4.0] * MULTIHOST_FRAMES
+        if served["failures"] or served["frames"] != list(
+                range(MULTIHOST_FRAMES)) or served["values"] != want \
+                or served["stage_hosts"] != {"det": 0, "llm": 1}:
+            problems.append(f"process {process}: 15c {served}")
+    out = {"run": "multihost", "card": card, "seconds": seconds,
+           "transport": results[0]["transport"],
+           "one_process_train": one,
+           "processes": [{"int8": {key: got["int8"][key] for key in
+                                   ("launches", "prefill_ms",
+                                    "decode_step_ms", "peak_gib_above_held")},
+                          "train": {key: got["train"][key] for key in
+                                    ("losses", "step_ms",
+                                     "peak_gib_above_held")},
+                          "pipeline": {key: got["pipeline"][key] for key in
+                                       ("frames", "seconds", "values")}}
+                         for got in results],
+           "13c_placed_launches": placed_counts}
+    print(f"multihost {json.dumps(out)}", flush=True)
+    if problems:
+        raise AssertionError("multihost: " + "; ".join(problems))
+    return {"launches": results[0]["int8"]["launches"],
+            "launches_by_process": [got["int8"]["launches"]
+                                    for got in results]}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}", 2)
@@ -4721,6 +5113,14 @@ def main() -> int:
     # -- phase 14: config 4 with DET split over two dp positions ---------
     config4_dp = config4_dp_run(card, config4)
     pipeline_launches["config4-dp2-loop-16"] = config4_dp["launches"]
+
+    # -- phase 15: the multi-host backend, two processes on the card -----
+    multihost = multihost_run(card)
+    # Both processes' launches: the path launched its kernels in each.
+    pipeline_launches["multihost"] = {
+        name: sum(counts.get(name, 0)
+                  for counts in multihost["launches_by_process"])
+        for name in multihost["launches"]}
 
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)

@@ -54,12 +54,6 @@ COPIED_FILES = (
 #: module -> [((first, last) reference lines, reason)].  An insertion
 #: sits at the reference line it precedes.
 ALLOWED = {
-    "utils/__init__.py": [
-        ((12, 12), "exports not_ported, the error the port raises for an "
-                   "option of the JAX package that waits for a ROADMAP "
-                   "item (earlier slices of the port use it)")],
-    "utils/misc.py": [
-        ((19, 30), "adds not_ported (see utils/__init__.py)")],
     "analysis/params.py": [
         ((348, 348), "ELEMENT_PARAMETERS gains the port LLM's `device` "
                      "parameter (the port's device rule, device.py)"),
@@ -137,6 +131,20 @@ ALLOWED = {
         ((800, 800), "convert llama: the same (the command calls the "
                      "port's models/convert.py)"),
         ((816, 816), "convert detector: the same")],
+    "pipeline/pipeline.py": [
+        ((688, 688), "the bring-up is torch.distributed's "
+                     "(parallel/distributed.py)"),
+        ((702, 702), "the bring-up error names torch.distributed and the "
+                     "coordinator"),
+        ((3661, 3661), "the hop site starts with no handles (a stage of "
+                       "another process yields them)"),
+        ((3672, 3676), "in a real multi-host mesh the hop runs over the "
+                       "process group (StagePlacement.hop_across) and a "
+                       "failed hop fails the frame; the virtual mesh keeps "
+                       "the reference's transfer"),
+        ((3686, 3686), "a stage of another process is not called here: "
+                       "its outputs are handles naming that process, as "
+                       "a JAX array of another host is not addressable")],
     "pipeline/journal.py": [
         ((83, 87), "_encodable skips torch-typed leaves (the exact "
                    "translation of the jax test): a CUDA tensor would "

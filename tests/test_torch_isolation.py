@@ -36,8 +36,10 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tests/test_torch_cuda.py"],
+    "path", sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py",
+        ROOT / "tests/torch_multihost_worker.py",
+        ROOT / "tests/test_torch_multihost_cuda.py"],
     ids=lambda path: str(path.relative_to(ROOT)))
 def test_no_jax_import_in_port_sources(path):
     bad = [module for module in _imports(path) if _forbidden(module)]

@@ -344,7 +344,9 @@ def test_placement_block_rejected(runtime, monkeypatch):
 
 def test_multi_host_mesh_rejected(runtime):
     """A one-host mesh request needs no bring-up; a multi-host one
-    raises until the port brings up ``torch.distributed``."""
+    brings up ``torch.distributed``, and a bring-up that fails (here:
+    this process has no device to list) is a ``DefinitionError`` naming
+    torch.distributed and the coordinator."""
     body = definition(["(A)"], [element("A", "ElementA", ["a"], ["a"])],
                       parameters={"mesh": {"hosts": 1}})
     Pipeline(body, runtime=runtime)
@@ -353,7 +355,9 @@ def test_multi_host_mesh_rejected(runtime):
                       parameters={"mesh": {"hosts": 2,
                                            "coordinator": "localhost:1"},
                                   "preflight": "off"})
-    with pytest.raises(DefinitionError, match="multi-host.*not ported"):
+    with pytest.raises(DefinitionError,
+                       match="torch.distributed bring-up at coordinator "
+                             "localhost:1 failed"):
         Pipeline(body, runtime=runtime)
 
 

@@ -9,7 +9,9 @@ call raise instead of hang.
 The inputs are small integers in float32, so every sum is exact and the
 two sides agree bit for bit; gradients likewise."""
 
+import gc
 import threading
+import weakref
 
 import jax
 import numpy as np
@@ -25,7 +27,8 @@ from aiko_services_tpu_torch.parallel import (MeshAborted, MeshPlan, P,
                                               all_gather, all_to_all,
                                               axis_index, filter_spec,
                                               make_mesh, ppermute, psum,
-                                              ring_attention, shard_map)
+                                              remat, ring_attention,
+                                              shard_map)
 
 AXES = {"dp": 2, "sp": 4}
 CALL_LIMIT_S = 30.0
@@ -200,3 +203,27 @@ def test_position_returning_early_raises():
 def test_collective_outside_shard_map_raises():
     with pytest.raises(RuntimeError, match="outside shard_map"):
         psum(torch.ones(2), "sp")
+
+
+def test_remat_frees_its_tensors_after_the_backward_pass():
+    """A ``remat`` node holds its positions' arguments and results only
+    as long as the graph: once the backward pass ran and the loss is
+    gone, no tensor made inside the mapped function stays alive."""
+    _, mesh = meshes({"dp": 2})
+    made = []
+
+    def body(w, x):
+        h = w * 2.0
+        y = remat(lambda h, x: torch.tanh(h * x), h, x)
+        made.extend([weakref.ref(h), weakref.ref(y)])
+        return psum(y.sum(), "dp")
+    w = torch.ones(8, requires_grad=True)
+    x = torch.from_numpy(integers((2, 8)))
+    loss = shard_map(body, mesh, in_specs=(P(), P("dp")),
+                     out_specs=P())(w, x)
+    loss.backward()
+    assert w.grad is not None and torch.isfinite(w.grad).all()
+    del loss
+    gc.collect()
+    assert len(made) == 4
+    assert all(ref() is None for ref in made)
