@@ -53,7 +53,15 @@ same code:
   loop runs the model's placed entry points: admission writes each
   slot where its dp group holds it, the decode steps run at every
   position on its shards, the page table is written at every position,
-  and the device loop is captured with every position's work.
+  and the device loop is captured with every position's work.  The mesh
+  may span processes (``parallel/distributed.py``): every process then
+  builds the same batcher, submits the same requests in the same order
+  and steps it as often; each runs its own positions, samples the whole
+  rows from the whole logits on its home device (its first device of
+  the mesh) with its own generator, seeded alike, and ends with the
+  same host state.  The one decision read from a clock, ``speculative:
+  auto``'s probe, is agreed over the processes.  The captured loop
+  needs NCCL: over gloo (processes sharing a card) it raises.
 
 :class:`MicroBatcher` and :class:`MicroBatchElement` (cross-stream
 micro-batching for async pipeline elements, the ``Detector``'s) are the
@@ -78,7 +86,7 @@ from .paged import PageAllocator, init_paged_cache, pages_per_slot
 from .quant import draft_params
 from ..device import resolve_device, upload
 from ..parallel import distributed
-from ..parallel.mesh import MeshPlan, Placed
+from ..parallel.mesh import MeshPlan, Placed, home_device
 from ..utils.misc import next_power_of_two
 
 __all__ = ["Request", "ContinuousBatcher", "MicroBatcher",
@@ -221,18 +229,29 @@ class ContinuousBatcher:
                  cache_put: Callable | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        if isinstance(params, Placed) \
-                and distributed.spans_processes(params.mesh):
-            raise NotImplementedError(
-                "ContinuousBatcher over a mesh that spans processes: the "
-                "batcher and its captured loop run over one process's "
-                "devices (ROADMAP item 7.6's follow-ons)")
-        where = params.mesh.devices.flat[0] if isinstance(params, Placed) \
+        placed = isinstance(params, Placed)
+        where = home_device(params.mesh) if placed \
             else params["embed"].device
         if where.type != self.device.type:
             raise ValueError(
                 f"ContinuousBatcher: params live on {where}, the batcher "
                 f"on {self.device}")
+        if placed:
+            # Every upload, host mirror, the generator and the outputs
+            # live where this process's whole logits land.
+            self.device = where
+        spans = placed and distributed.spans_processes(params.mesh)
+        if spans and int(decode_block_tokens) > 0 \
+                and self.device.type == "cuda" \
+                and distributed.transport() == "gloo":
+            raise RuntimeError(
+                "ContinuousBatcher: decode_block_tokens > 0 captures the "
+                "device loop as one CUDA graph, and the mesh spans "
+                "processes over gloo -- they share a card, which NCCL "
+                "refuses -- and gloo moves card tensors through host "
+                "memory after a wait no graph can hold; serve these "
+                "processes with decode_block_tokens=0, or give each its "
+                "own cards (NCCL)")
         self.params = params
         # Multichip serving: ``cache_put`` places every cache this
         # batcher builds (the serving cache, the probe's, recover()'s).
@@ -397,11 +416,13 @@ class ContinuousBatcher:
     def _write_page_table(self, cache, table: np.ndarray) -> None:
         """``table`` into the cache's device page table, as one copy
         enqueued on the current stream -- into every distinct table of a
-        placed cache (each position walks its own)."""
+        placed cache (each position walks its own; over processes, this
+        process's positions' only: every process writes the same rows)."""
         source = self._upload(table)
         if isinstance(cache, Placed):
             tables = {id(shard["page_table"]): shard["page_table"]
-                      for shard in cache.shards}.values()
+                      for shard in cache.shards
+                      if shard is not None}.values()
         else:
             tables = [cache["page_table"]]
         for target in tables:
@@ -770,6 +791,20 @@ class ContinuousBatcher:
             device=self.device)
 
     def _spec_probe(self) -> float:
+        """Draft speculation's tokens/s over plain decode's
+        (:meth:`_probe_ratio`).  The ratio comes from this process's
+        clock, so over a mesh that spans processes two processes may
+        measure two ratios: one choosing draft and the other plain would
+        make other exchanges and deadlock at the next.  They agree on
+        the LOWEST ratio of all (draft only where every process measured
+        the win), over the mesh's control group (gloo, host values)."""
+        ratio = self._probe_ratio()
+        if isinstance(self.params, Placed) \
+                and distributed.spans_processes(self.params.mesh):
+            ratio = distributed.agree_min(self.params.mesh, ratio)
+        return ratio
+
+    def _probe_ratio(self) -> float:
         """Measure draft speculation against plain decode on a SCRATCH
         cache (the serving cache's shapes; ``self.cache`` is never
         touched) and return spec tokens/s over plain tokens/s.  Each arm

@@ -1124,7 +1124,8 @@ def _batch_axes(cache: Placed) -> tuple:
 def _admit_on_mesh(params: Placed, config: LlamaConfig, tokens, cache,
                    slots: list, starts: list, batched: bool):
     """Admission on a placed tree and cache: the chunk rows ``tokens``
-    [N, S] (whole, on the mesh's first device) for ``slots`` at
+    [N, S] (whole, on the mesh's first device of this process) for
+    ``slots`` at
     ``starts``.  Each slot lives in one group of the axes the cache
     splits its batch over (dp; none for a paged cache, whose batch is
     whole): only that group's positions run the slot's rows, writing its
@@ -1134,7 +1135,8 @@ def _admit_on_mesh(params: Placed, config: LlamaConfig, tokens, cache,
     it whole.  A mixture-of-experts burst over several groups runs at
     every group, each on its own rows padded to the largest group's
     count (:class:`BurstShard`), so it still routes as one burst.
-    Returns (logits [N, S, vocab] whole on the first device, in row
+    Returns (logits [N, S, vocab] whole on the first device of this
+    process -- over processes every process gets them whole --, in row
     order, the cache placed)."""
     mesh = params.mesh
     tp = mesh.shape.get("tp", 1)
@@ -1419,7 +1421,11 @@ def decode_block(params: dict, config: LlamaConfig, tokens: torch.Tensor,
 
     On a placed tree and cache every step is the placed
     :func:`decode_step` (the kernels at each position on its shards) and
-    the sampling runs on its whole logits, on the mesh's first device."""
+    the sampling runs on its whole logits, on the mesh's first device of
+    this process: over processes each samples the whole rows itself,
+    from logits equal bit for bit in every process, with its own
+    generator seeded alike, so the tokens agree and top-k launches once
+    a step in each process."""
     trash = cache_extent(cache) - 1
     step = _decode_stepper(params, config, cache)
     emitted = []
@@ -1581,7 +1587,8 @@ def _draft_on_mesh(draft: Placed, config: LlamaConfig, tokens, cache,
     """:func:`_draft_window` on a placed draft tree and cache: each
     position drafts the rows its cache shard holds (the batch split as
     the cache splits it) on its leaf shards; the drafts come back whole
-    [B, k] on the mesh's first device."""
+    [B, k] on the mesh's first device of this process (in every
+    process, over processes)."""
     mesh = draft.mesh
     batch = _batch_spec(cache)
     specs = draft.specs
@@ -1738,9 +1745,11 @@ def decode_loop(params: dict, config: LlamaConfig, tokens: torch.Tensor,
     placed verify forward (:func:`_chunk_verify`) and draft
     (:func:`_draft_on_mesh`, on a draft tree placed on the same mesh) --
     and everything else -- the sampling, the acceptance and stop tests,
-    the carries -- runs on the whole rows on the mesh's first device, so
-    the block is still one launch sequence with no host synchronisation
-    (``models/loop_graph.py`` captures it with every position's work)."""
+    the carries -- runs on the whole rows on the mesh's first device of
+    this process (every process runs it alike over a mesh that spans
+    processes), so the block is still one launch sequence with no host
+    synchronisation (``models/loop_graph.py`` captures it with every
+    position's work of this process)."""
     if speculative not in _LOOP_MODES:
         raise ValueError(
             f"speculative={speculative!r}: one of off|ngram|draft")

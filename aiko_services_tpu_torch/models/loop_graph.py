@@ -72,6 +72,20 @@ The ``thread_local`` mode restricts only the capturing thread, so the
 position threads may make the calls a capture forbids it (the caching
 allocator's, which routes their allocations to the graph's pools).
 
+A placed tree whose mesh SPANS PROCESSES (``parallel/distributed.py``)
+captures this process's positions only: :class:`GraphCards` takes this
+process's cards, and no stream, event or pool is made for another's.
+Each exchange with the other processes in the block takes the capture
+path (``distributed.capturing``): its layout comes from the same
+exchange in the warm-up, and the graph holds one
+``all_gather_into_tensor`` over NCCL for it, on the current stream of
+the card that sends it.  Every process replays its graph once a block,
+in the order the batcher's identical schedule gives them, so each
+replay's collectives pair with the peer's; after each replay the
+groups' sequences are checked across the processes over gloo
+(``distributed.replayed``).  Over gloo no graph can hold an exchange of
+card tensors, and the capture raises.
+
 On the CPU the same ``decode_loop`` runs eagerly on the same buffers.
 On the card a capture that fails raises: there is no eager fallback.
 """
@@ -85,8 +99,9 @@ import numpy as np
 import torch
 
 from . import llama
-from ..device import sync_allowed
+from ..device import is_local, sync_allowed
 from ..ops import launch_counters
+from ..parallel import distributed
 from ..parallel.mesh import Placed
 
 __all__ = ["GraphCards", "LoopRunner"]
@@ -226,8 +241,13 @@ class LoopRunner:
                             spec_window=int(spec_window), top_k=int(top_k))
         self.generator = generator
         self.device = device
-        self.cards = GraphCards(device, params.mesh.devices.flat
-                                if isinstance(params, Placed) else ())
+        placed = isinstance(params, Placed)
+        self.cards = GraphCards(device, [
+            d for d in params.mesh.devices.flat if is_local(d)]
+            if placed else ())
+        # A mesh over processes: its exchanges in the graph, their count.
+        self.spans = placed and distributed.spans_processes(params.mesh)
+        self._exchanges: distributed.Captured | None = None
 
         def zeros(dtype, *shape):
             return torch.zeros((batch, *shape), dtype=dtype, device=device)
@@ -268,6 +288,7 @@ class LoopRunner:
         self._outputs = None
         self._bound = ()
         self._launch_delta = {}
+        self._exchanges = None
         self.cards.release_pools()
 
     def _loop(self, cache: dict, inputs: dict, **overrides) -> dict:
@@ -298,6 +319,8 @@ class LoopRunner:
                     "rebuilding the cache")
             with self.cards.ordered():
                 self._graph.replay()
+            if self._exchanges is not None:
+                distributed.replayed(self._exchanges)
             for (wrapper, attr), count in self._launch_delta.items():
                 setattr(wrapper, attr, getattr(wrapper, attr) + count)
             self.replays += 1
@@ -316,6 +339,12 @@ class LoopRunner:
         card's work forked from the capture stream and joined back."""
         begin = time.perf_counter()
         cards = self.cards
+        if self.spans and distributed.transport() != "nccl":
+            raise RuntimeError(
+                "LoopRunner: a capture over a mesh that spans processes "
+                "needs NCCL; the transport is gloo (the processes share a "
+                "card), and no graph can hold a gloo exchange of card "
+                "tensors")
         # Warm-up outside the capture, on the capture's own streams: one
         # iteration with every row inactive (writes only the trash
         # position) loads the kernel library, sets the kernels'
@@ -336,9 +365,12 @@ class LoopRunner:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         cards.begin_pools()
+        exchanges = distributed.capturing() if self.spans \
+            else contextlib.nullcontext()
         try:
             with cards.current() as stream, torch.cuda.graph(
-                    graph, stream=stream, capture_error_mode="thread_local"):
+                    graph, stream=stream, capture_error_mode="thread_local"), \
+                    exchanges as record:
                 cards.fork()
                 outputs = self._loop(cache, self.inputs)
                 cards.join()
@@ -354,6 +386,7 @@ class LoopRunner:
             if captured:
                 self._launch_delta[wrapper, attr] = captured
         self._graph, self._outputs = graph, outputs
+        self._exchanges = record
         self._bound = self._pointers(cache)
         self.captures += 1
         self.capture_s += time.perf_counter() - begin

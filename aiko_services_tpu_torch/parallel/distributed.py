@@ -40,11 +40,30 @@ disagree raise instead of mixing values.  A peer that is gone fails the
 exchange within :data:`BRINGUP_TIMEOUT_S` (gloo raises at once on a
 closed connection; NCCL's watchdog ends the process at the timeout), and
 the group stays failed: no exchange goes on with one process's values.
+
+An eager exchange reads the host: its header (sequence, direction,
+sizes) is made on the host and read back, and a tree's skeleton is
+pickled and its size exchanged first.  A CUDA graph can hold none of
+that, so an exchange made inside :func:`capturing` (the loop graph's
+capture) takes the CAPTURE path, over NCCL for card tensors (over gloo
+it takes CPU tensors only: the tests' descriptors).  Its layout -- the
+block sizes of a collective, a tree's skeleton and every process's
+tensor bytes -- comes from the same exchange made eagerly before (the
+capture's warm-up), which checked it across the processes and left it
+with the group; inside the capture only the packing copies and one
+``all_gather_into_tensor`` run, on the calling thread's current stream
+(ProcessGroupNCCL forks its own stream from it by an event and joins it
+back, so both are in the graph), into buffers of the graph's pool, and
+nothing is read on the host.  The capture counts the exchanges each
+group made; after each replay :func:`replayed` advances the groups'
+sequences by those counts and checks them across the processes over
+each group's CONTROL group (gloo, host integers: no card read).
 """
 
 from __future__ import annotations
 
 import atexit
+import contextlib
 import datetime
 import pickle
 import sys
@@ -59,7 +78,7 @@ from .. import device as device_rule
 __all__ = ["BRINGUP_TIMEOUT_S", "ensure", "initialized", "transport",
            "spans_processes", "prepare", "mesh_group", "pair_groups",
            "gather_across", "shared_input", "exchange_trees", "send_tree",
-           "recv_tree",
+           "recv_tree", "capturing", "replayed", "agree_min",
            "flush_sends", "shutdown", "hop_tag", "PeerLost"]
 
 #: The bound on the bring-up and on every exchange across processes: a
@@ -71,7 +90,7 @@ _HEADER = 32                     # int64 [sequence, direction, size, count]
 
 _lock = threading.Lock()
 _state: dict = {"initialized": False, "transport": None, "pairs": {},
-                "groups": {}, "layouts": set()}
+                "groups": {}, "layouts": set(), "capturing": None}
 
 
 class PeerLost(RuntimeError):
@@ -182,17 +201,23 @@ def spans_processes(mesh) -> bool:
 
 class _Group:
     """One process group a group of mesh positions exchanges over: its
-    processes in order, the transport's group, a sequence number and a
-    failure that sticks."""
+    processes in order, the transport's group, a gloo control group (the
+    same group under gloo) for host values, a sequence number, a failure
+    that sticks, and the layouts its eager exchanges checked across the
+    processes (what the capture path may use)."""
 
     def __init__(self, ranks: tuple):
         import torch.distributed as dist
         self.ranks = ranks
         self.pg = dist.new_group(list(ranks), backend=_state["transport"],
                                  timeout=_timeout())
+        self.control = self.pg if _state["transport"] == "gloo" else \
+            dist.new_group(list(ranks), backend="gloo", timeout=_timeout())
         self.sequence = 0
         self.failed: str | None = None
         self.lock = threading.Lock()
+        self.blocks: set = set()        # (direction, block bytes, width)
+        self.trees: dict = {}           # skeleton bytes -> its layout
 
     @property
     def nccl(self) -> bool:
@@ -346,6 +371,20 @@ def _exchange_blocks(group: _Group, blocks: list, block_bytes: int,
     with group.lock:
         where = _stage_device(group, devices)
         tensors = [t for block in blocks for t in block]
+        record = _state["capturing"]
+        if record is not None:
+            if (direction, block_bytes, width) not in group.blocks:
+                raise RuntimeError(
+                    f"an exchange of {width} blocks of {block_bytes} bytes "
+                    f"among processes {group.ranks} inside a capture was "
+                    f"never made eagerly: its layout is unchecked")
+            _capturable(group, tensors)
+            buffer = torch.zeros(_HEADER + width * block_bytes,
+                                 dtype=torch.uint8, device=where)
+            for index, block in enumerate(blocks):
+                _fill(buffer, _HEADER + index * block_bytes, block)
+            record.counts[group] = record.counts.get(group, 0) + 1
+            return _gather_buffers(group, buffer)
         head = _header(group, direction, block_bytes, len(blocks))
         pinned = where.type == "cpu" and any(t.device.type == "cuda"
                                              for t in tensors)
@@ -366,6 +405,7 @@ def _exchange_blocks(group: _Group, blocks: list, block_bytes: int,
                                 f"{block_bytes}")
                 raise PeerLost(f"a collective's members differ in shape "
                                f"across processes: {group.failed}")
+        group.blocks.add((direction, block_bytes, width))
         return buffers
 
 
@@ -573,7 +613,7 @@ def _unpack(skeleton, tensors: list):
 
 def _encode(tree, where: torch.device) -> tuple:
     """(the packed tree as one byte buffer on ``where``: skeleton then
-    tensors, the tensors staged from)."""
+    tensors, the pickled skeleton, the tensors staged from)."""
     skeleton, tensors = _pack(tree)
     head = pickle.dumps(skeleton)
     slots, block = _slots([(tuple(t.shape), t.dtype) for t in tensors])
@@ -585,31 +625,41 @@ def _encode(tree, where: torch.device) -> tuple:
     buffer[:len(head)].copy_(torch.frombuffer(bytearray(head),
                                               dtype=torch.uint8))
     _fill(buffer, start, tensors)
-    return buffer, len(head), tensors
+    return buffer, head, tensors
 
 
-def _decode(buffer: torch.Tensor, head_bytes: int, device) -> object:
-    """The tree :func:`_encode` packed into ``buffer``, its tensors new
-    on ``device``."""
+def _skeleton(buffer: torch.Tensor, head_bytes: int) -> tuple:
+    """(the skeleton :func:`_encode` packed into ``buffer``, the slots of
+    its tensors)."""
     skeleton = pickle.loads(buffer[:head_bytes].cpu().numpy().tobytes())
     flat: list = []
     _pack_slots(skeleton, flat)
     flat.sort(key=lambda slot: slot.index)
-    slots, _ = _slots([(slot.shape, slot.dtype) for slot in flat])
-    tensors = _read(buffer, _aligned(head_bytes), slots, device) \
-        if flat else []
+    return skeleton, _slots([(slot.shape, slot.dtype) for slot in flat])[0]
+
+
+def _decode(skeleton, slots: list, buffer: torch.Tensor, base: int,
+            device) -> object:
+    """The tree of ``skeleton`` whose tensors' bytes start at ``base`` of
+    ``buffer``, its tensors new on ``device``."""
+    tensors = _read(buffer, base, slots, device) if slots else []
     return _unpack(skeleton, tensors)
 
 
 def exchange_trees(group: _Group, tree, device: torch.device) -> list:
     """Every process's ``tree`` (dicts, lists and tuples of tensors and
     picklable values) in the group's process order, this process's as
-    given, the others' new tensors on ``device``."""
+    given, the others' new tensors on ``device``.  Inside
+    :func:`capturing` only the tensors' bytes travel, laid out as the
+    eager exchange of the same skeleton found them."""
     with group.lock:
+        record = _state["capturing"]
+        if record is not None:
+            return _captured_trees(group, record, tree, device)
         where = _stage_device(group, [device])
-        buffer, head_bytes, tensors = _encode(tree, where)
+        buffer, skeleton, tensors = _encode(tree, where)
         sizes = torch.zeros(_HEADER, dtype=torch.uint8, device=where)
-        head = _header(group, 2, buffer.numel(), head_bytes)
+        head = _header(group, 2, buffer.numel(), len(skeleton))
         sizes.view(torch.int64)[:4].copy_(head)
         found = _check_headers(group, _gather_buffers(group, sizes), head)
         width = max(int(h[2]) for h in found)
@@ -619,9 +669,129 @@ def exchange_trees(group: _Group, tree, device: torch.device) -> list:
         if where.type == "cpu":
             _wait_staged(tensors)
         buffers = _gather_buffers(group, padded)
+        me = device_rule.process_index()
+        out, layout = [], {}
+        for rank, got, h in zip(group.ranks, buffers, found):
+            head_q = int(h[3])
+            layout[rank] = (int(h[2]) - _aligned(head_q),
+                            None if rank == me else _skeleton(got, head_q))
+            out.append(tree if rank == me else _decode(
+                *layout[rank][1], got, _aligned(head_q), device))
+        # What the capture path needs of this skeleton's exchange: every
+        # process's tensor bytes, and the others' skeletons and slots.
+        group.trees[skeleton] = layout
+    return out
+
+
+def _captured_trees(group: _Group, record, tree, device) -> list:
+    """:func:`exchange_trees` on the capture path: each process's tensor
+    bytes alone, padded to the largest process's, in one gather."""
+    skeleton, tensors = _pack(tree)
+    layout = group.trees.get(pickle.dumps(skeleton))
+    if layout is None:
+        raise RuntimeError(
+            f"a tree exchanged among processes {group.ranks} inside a "
+            f"capture was never exchanged eagerly: its layout is unchecked")
+    _capturable(group, tensors)
+    where = _stage_device(group, [device])
+    width = max(max(size for size, _ in layout.values()), _ALIGN)
+    buffer = torch.zeros(width, dtype=torch.uint8, device=where)
+    _fill(buffer, 0, tensors)
+    record.counts[group] = record.counts.get(group, 0) + 1
+    buffers = _gather_buffers(group, buffer)
     me = device_rule.process_index()
-    return [tree if rank == me else _decode(got, int(h[3]), device)
-            for rank, got, h in zip(group.ranks, buffers, found)]
+    return [tree if rank == me else _decode(*layout[rank][1], got, 0, device)
+            for rank, got in zip(group.ranks, buffers)]
+
+
+# ---------------------------------------------------------------------------
+# The capture path.
+
+class Captured:
+    """What a capture made across processes: per group, the exchanges
+    the graph holds (each replay runs every one of them again)."""
+
+    def __init__(self):
+        self.counts: dict = {}
+
+
+def _capturable(group: _Group, tensors) -> None:
+    """A graph holds an exchange over NCCL, or over gloo between CPU
+    tensors (the tests' descriptors: no card, no capture, the same
+    layouts); gloo moves card tensors through host memory after a wait,
+    which no capture can hold."""
+    if not group.nccl and any(t.device.type == "cuda" for t in tensors):
+        raise RuntimeError(
+            f"an exchange of card tensors among processes {group.ranks} "
+            f"inside a CUDA graph capture: the transport is gloo (the "
+            f"processes share a card, which NCCL refuses), and gloo moves "
+            f"card tensors through host memory after a wait no graph can "
+            f"hold")
+
+
+@contextlib.contextmanager
+def capturing():
+    """Every exchange across processes made inside takes the capture path
+    (module docstring); yields the :class:`Captured` record of them,
+    which :func:`replayed` takes after each replay."""
+    with _lock:
+        if _state["capturing"] is not None:
+            raise RuntimeError("a capture across processes is already open")
+        record = _state["capturing"] = Captured()
+    try:
+        yield record
+    finally:
+        _state["capturing"] = None
+
+
+def replayed(record: Captured) -> None:
+    """After a replay of a graph captured under :func:`capturing`: each
+    group's sequence advances by the exchanges the graph holds, and every
+    process of the group must stand at the same sequence -- checked over
+    the group's control group (gloo, host integers; no card read).  A
+    process that replayed another number of times, or is gone, raises
+    :class:`PeerLost`, and the group stays failed."""
+    import torch.distributed as dist
+    for group, count in record.counts.items():
+        with group.lock:
+            if group.failed:
+                raise PeerLost(f"processes {group.ranks}: an earlier "
+                               f"exchange failed ({group.failed})")
+            group.sequence += count
+            mine = torch.tensor([group.sequence], dtype=torch.int64)
+            seen = [torch.empty_like(mine) for _ in group.ranks]
+            try:
+                dist.all_gather(seen, mine, group=group.control)
+            except Exception as error:
+                group.failed = f"{type(error).__name__}: {error}"
+                raise PeerLost(f"a replay's check among processes "
+                               f"{group.ranks} failed: {group.failed}") \
+                    from error
+            found = [int(value) for value in seen]
+            if any(value != group.sequence for value in found):
+                group.failed = (f"after a replay the processes stand at "
+                                f"exchanges {found}")
+                raise PeerLost(f"processes {group.ranks} replayed out of "
+                               f"step: {group.failed}")
+
+
+def agree_min(mesh, value: float) -> float:
+    """The least of ``value`` over the processes of ``mesh`` (every one
+    calls this at the same point), over the mesh-wide group's control
+    group: a decision each process takes from its own clock, made the
+    same everywhere."""
+    import torch.distributed as dist
+    prepare(mesh)
+    group = mesh_group(mesh, tuple(range(mesh.size)))
+    with group.lock:
+        least = torch.tensor([float(value)], dtype=torch.float64)
+        try:
+            dist.all_reduce(least, op=dist.ReduceOp.MIN, group=group.control)
+        except Exception as error:
+            group.failed = f"{type(error).__name__}: {error}"
+            raise PeerLost(f"an agreement among processes {group.ranks} "
+                           f"failed: {group.failed}") from error
+    return float(least[0])
 
 
 # ---------------------------------------------------------------------------

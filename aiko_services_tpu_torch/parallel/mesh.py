@@ -62,11 +62,17 @@ the processes' values over the group's process group (the second
 backend behind :class:`Collectives`), and the outputs come out whole in
 every process (the shards another process computed are fetched; their
 gradients stay with the process that computed them, since every process
-computes the same loss of the whole).  A :class:`Placed` tree holds
-tensors at this process's positions only (None at another's);
-``gather`` fetches the rest.  :attr:`MeshPlan.device` is the mesh's
-first device of THIS process (a descriptor of another process for a
-mesh wholly there, on which nothing is placed).
+computes the same loss of the whole; a shard that several processes
+hold is read from this process's copy, its gradient shared among them,
+so every process's backward meets the same exchanges).  A
+:class:`Placed` tree holds tensors at this process's positions only
+(None at another's); ``gather`` fetches the rest.
+:attr:`MeshPlan.device` is the mesh's first device of THIS process (a
+descriptor of another process for a mesh wholly there, on which
+nothing is placed); :func:`home_device` is where this process's whole
+outputs land.  Inside a CUDA graph capture the exchanges across
+processes take the capture path of ``parallel/distributed.py``
+(:func:`~.distributed.capturing`).
 """
 
 from __future__ import annotations
@@ -85,7 +91,7 @@ __all__ = ["AXIS_ORDER", "Mesh", "MeshPlan", "NamedSharding", "Placed",
            "Keep", "Each", "assemble", "make_mesh", "submesh", "P",
            "filter_spec", "filter_specs", "shard_map", "Collectives",
            "MeshAborted", "ppermute", "all_to_all", "all_gather", "psum",
-           "axis_index", "remat", "donate_argnums_supported",
+           "axis_index", "remat", "home_device", "donate_argnums_supported",
            "device_inventory", "inventory_tags", "virtual_cpu_devices"]
 
 AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
@@ -719,6 +725,14 @@ def _home(mesh: Mesh):
                  if device_rule.is_local(device)), mesh.devices.flat[0])
 
 
+def home_device(mesh: Mesh) -> torch.device:
+    """Where this process's whole values of a computation over ``mesh``
+    live -- :func:`shard_map`'s outputs, a batcher's tokens and sampling:
+    the mesh's first device of this process, as a tensor's device (the
+    CPU for a CPU descriptor).  Raises for a mesh with no device here."""
+    return _placed(_home(mesh))
+
+
 class _Tie(torch.autograd.Function):
     """``zeros`` with a zero gradient edge to ``source``: a value that
     depends on a collective's exchange in the autograd graph, so the
@@ -977,19 +991,25 @@ def assemble(mesh: Mesh, spec: P, outputs: list, device,
     on every other axis the spec does not split, on ``device`` (None:
     the mesh's first device)."""
     if device is None:
-        device = _placed(_home(mesh))
+        device = home_device(mesh)
     return _assemble(mesh, filter_spec(mesh, spec), outputs, device, at)
 
 
 def _assemble(mesh: Mesh, spec: P, outputs: list, device,
-              at: dict | None = None):
+              at: dict | None = None, own: bool = False):
     """The global tensor from every position's output under ``spec``:
     the shards of split dimensions concatenated in order, a replicated
     shard taken from the position with coordinate 0 (or ``at[axis]``)
-    on each axis the spec does not name."""
+    on each axis the spec does not name -- or, with ``own`` (a mesh that
+    spans processes, under grad), from this process's first position
+    that holds it, its gradient divided by the number of processes that
+    hold one (:class:`_Share`)."""
     at = at or {}
     layout = _layout(mesh, spec,
                      next(out for out in outputs if out is not None).ndim)
+    free = [axis for axis in mesh.axis_names
+            if axis not in at and all(axis not in axes
+                                      for _, axes, _ in layout)]
 
     def block(shard: tuple) -> torch.Tensor:
         coords = [at.get(axis, 0) for axis in mesh.axis_names]
@@ -998,6 +1018,22 @@ def _assemble(mesh: Mesh, spec: P, outputs: list, device,
             for axis, coord in zip(axes, np.unravel_index(index, sizes)):
                 coords[mesh.axis_names.index(axis)] = int(coord)
         position = int(np.ravel_multi_index(coords, mesh.devices.shape))
+        if own:
+            holders = []
+            for offsets in np.ndindex(*[mesh.shape[a] for a in free]):
+                point = list(coords)
+                for axis, offset in zip(free, offsets):
+                    point[mesh.axis_names.index(axis)] = int(offset)
+                holders.append(int(np.ravel_multi_index(
+                    point, mesh.devices.shape)))
+            mine = [p for p in holders
+                    if device_rule.is_local(mesh.devices.flat[p])]
+            owners = {device_rule.process_index(mesh.devices.flat[p])
+                      for p in holders}
+            if mine:
+                value = outputs[mine[0]].to(device)
+                return _Share.apply(value, len(owners)) \
+                    if len(owners) > 1 and value.requires_grad else value
         return outputs[position].to(device)
 
     def build(prefix: tuple) -> torch.Tensor:
@@ -1007,6 +1043,25 @@ def _assemble(mesh: Mesh, spec: P, outputs: list, device,
         return torch.cat([build(prefix + (index,))
                           for index in range(count)], dim)
     return build(())
+
+
+class _Share(torch.autograd.Function):
+    """A replicated output's copy in one of the ``owners`` processes that
+    hold it: the identity forward, its gradient divided by ``owners`` in
+    the backward.  Every process computes the same loss of the whole and
+    differentiates its own copy, so each copy carries its share and the
+    exchanges' backwards meet in every process (a copy read from another
+    process would leave this process's copies, and the backward of the
+    exchanges they took part in, out of the loss)."""
+
+    @staticmethod
+    def forward(ctx, value, owners: int):
+        ctx.owners = owners
+        return value.view_as(value)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.owners, None
 
 
 def _run_position(fn, exchange, mesh, position, errors, results,
@@ -1149,10 +1204,11 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
             calls.append(lambda local=local: fn(*local))
         modes = (torch.is_inference_mode_enabled(), torch.is_grad_enabled())
         results = _run_positions(mesh, calls, modes, _streams(mesh))
-        home = _placed(_home(mesh))
+        home = home_device(mesh)
         if spans:
             results = _fetch_outputs(mesh, out_specs, results, home)
-        return _gather_outputs(mesh, out_specs, results, home)
+        return _gather_outputs(mesh, out_specs, results, home,
+                               own=spans and torch.is_grad_enabled())
     return run
 
 
@@ -1243,10 +1299,13 @@ def _fetch_columns(mesh: Mesh, specs, columns: list, device) -> list:
     return filled
 
 
-def _gather_outputs(mesh: Mesh, out_specs, results: list, device):
+def _gather_outputs(mesh: Mesh, out_specs, results: list, device,
+                    own: bool = False):
     """Every position's output tree -> one tree of global tensors (a
     :class:`Placed` tree under a :class:`Keep` spec, None at another
-    process's positions; None where the spec is None)."""
+    process's positions; None where the spec is None).  ``own``: a
+    replicated shard read from this process's copy
+    (:func:`_assemble`)."""
     if out_specs is None:
         return None
     if isinstance(out_specs, Keep):
@@ -1254,13 +1313,13 @@ def _gather_outputs(mesh: Mesh, out_specs, results: list, device):
     if isinstance(out_specs, Each):
         return list(results)
     if isinstance(out_specs, P):
-        return _assemble(mesh, out_specs, results, device)
+        return _assemble(mesh, out_specs, results, device, own=own)
     if isinstance(out_specs, dict):
         return {key: _gather_outputs(mesh, spec,
                                      [result[key] for result in results],
-                                     device)
+                                     device, own)
                 for key, spec in out_specs.items()}
     return type(out_specs)(
         _gather_outputs(mesh, spec, [result[index] for result in results],
-                        device)
+                        device, own)
         for index, spec in enumerate(out_specs))

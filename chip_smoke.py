@@ -331,8 +331,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     ``mesh: {hosts: 2, coordinator}``, ``det`` on host 0 and ``llm`` on
     host 1: 4 frames of 1024 x 1024 ones in order in both processes,
     process 1 holding ``llm``'s tensors and process 0 handles naming
-    process 1.  Before the children start it prints the card's free
-    memory and the card tensors this process still reaches.  Each child
+    process 1; 15d, right after 15a on 15a's placed tree (none is built
+    again), ``ContinuousBatcher`` with ``cache_put`` placing its cache,
+    phase 3's 8 requests at MULTIHOST_BATCHER_TOKENS new tokens (8
+    slots, 512-token chunks, top-k 50, ``rng_seed`` 0): dense at
+    decode_block 4 (``inflight`` 2), then paged (64-token pages, a full
+    pool) at decode_block 1, every launch counter zeroed before each
+    run; every stream, greedy and sampled, equal to the same run's at
+    the end of phase 13d (one process, ``{"tp": 2}`` with the card
+    listed twice), no leaked page, each process launching exactly half
+    that run's counts of every kernel (#2 or #3 int8, the combines, #4,
+    #5's two routes) and its whole count of top-k (each process samples
+    the whole rows); then the captured loop's batcher
+    (``decode_block_tokens=16``), which must raise at construction,
+    naming gloo and the shared card.  Before the children start it
+    prints the card's free memory and the card tensors this process
+    still reaches.  Each child
     writes to a file of its own; a child that fails or outlasts
     MULTIHOST_TIMEOUT_S fails the phase; the children's lines are
     printed first, prefixed with their process, and on a failure their
@@ -345,9 +359,10 @@ under ``fusion-chain``, phase 10's under ``checkpoint-cli``, phase 11's
 (11b's, with 11a's, 11c's and 11d's zeros) under ``train-moe``, phase
 12's zeros under ``context-parallel``, phase 13's (13c's placed run)
 under ``sharded-step``, 13d's (its four placed batcher runs) under
-``serving-tp-int8``, 13e's (its two batcher runs) under
+``serving-tp-int8`` (with 15d's one-process reference runs, made at
+its end on its tree), 13e's (its two batcher runs) under
 ``moe-dp2-burst``, phase 14's under ``config4-dp2-loop-16``, phase
-15's (both processes' 15a together) under ``multihost``; the
+15's (both processes' 15a and 15d together) under ``multihost``; the
 entries on config 4's and config 5's paths carry ``"path"`` and their
 run's launches, phase 14's as ``config4_dp2_launches``), then ``{"ok":
 true, "device": {...}}``.  It imports nothing of JAX or of the JAX
@@ -4270,7 +4285,8 @@ def hand_driven(params, config, requests, device, card: str,
 
 def serving_tp_run(card: str) -> dict:
     """Phase 13d (module docstring) -> its launches (the four placed
-    batcher runs' together) and each run's summary."""
+    batcher runs' and 15d's one-process reference runs' together) and
+    each run's summary."""
     from aiko_services_tpu_torch.device import resolve_device
     from aiko_services_tpu_torch.models import llama
     from aiko_services_tpu_torch.models.quant import (quantize_params,
@@ -4388,6 +4404,14 @@ def serving_tp_run(card: str) -> dict:
         for name, count in got["launches"].items():
             launches[name] = launches.get(name, 0) + count
         del got
+    # Phase 15d's reference: the same batcher runs with each position in
+    # a process of its own are held to these, stream for stream.
+    MULTIHOST_REFERENCE["batcher"] = multihost_batcher(
+        placed, config, device, card, f"one process, {SHARDED_DECODE_MESH}"
+        f" on the card twice")
+    for run in MULTIHOST_REFERENCE["batcher"].values():
+        for name, count in run["launches"].items():
+            launches[name] = launches.get(name, 0) + count
     del placed
     free_card()
     return {"launches": launches, "runs": summary}
@@ -4559,7 +4583,12 @@ MULTIHOST_TRAIN_MESH = {"fsdp": 2}
 MULTIHOST_TRAIN_STEPS = 2
 MULTIHOST_FRAMES = 4
 MULTIHOST_FRAME_SHAPE = (1024, 1024)    # 4 MiB of float32 a hop
-MULTIHOST_TIMEOUT_S = 480               # a child's whole run
+MULTIHOST_TIMEOUT_S = 600               # a child's whole run
+#: 15d: the batcher over the processes' positions, and its reference.
+MULTIHOST_BATCHER_TOKENS = 8
+MULTIHOST_BATCHER_PLAN = (
+    ("mh-int8-dense-4", dict(decode_block=4, inflight=2)),
+    ("mh-int8-paged-1", dict(decode_block=1, kv_page_tokens=64)))
 
 
 def params_checksum(plan, params) -> str:
@@ -4651,10 +4680,88 @@ def multihost_pipeline(coordinator: str, process: int) -> dict:
     return out
 
 
+def multihost_batcher(placed, config, device, card: str, label: str) -> dict:
+    """15d's two runs (``MULTIHOST_BATCHER_PLAN``) of ``ContinuousBatcher``
+    on the placed int8 tree, ``cache_put`` placing each cache, phase 3's
+    8 requests at MULTIHOST_BATCHER_TOKENS new tokens (8 slots, 512-token
+    chunks, top-k 50, ``rng_seed`` 0), every launch counter zeroed before
+    each run -> each run's streams, launches, leaked pages and times."""
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.parallel.mesh import MeshPlan
+    plan = MeshPlan(placed.mesh)
+    requests = mixed_requests(config)
+    runs = {}
+    for name, settings in MULTIHOST_BATCHER_PLAN:
+        specs = llama.paged_cache_specs(config) \
+            if settings.get("kv_page_tokens") else llama.cache_specs(config)
+        counters = zero_launches()
+        result = serve(placed, config, requests, f"{name} {label}", device,
+                       card, new_tokens=MULTIHOST_BATCHER_TOKENS,
+                       cache_put=lambda cache, specs=specs: plan.put(
+                           cache, specs), **settings)
+        launches = {name: count for name, count
+                    in read_launches(counters).items() if count}
+        metrics = result["metrics"]
+        runs[name] = {"streams": result["streams"], "launches": launches,
+                      "leaked": result["leaked"],
+                      "wall_s": metrics["wall_s"],
+                      "tokens_per_s": metrics["tokens_per_s"],
+                      "ttft_ms_median": metrics["ttft_ms_median"],
+                      "ttft_ms_max": metrics["ttft_ms_max"]}
+        print(f"multihost-batcher {name} {label}: "
+              f"{metrics['tokens_per_s']:.2f} tokens/s, wall "
+              f"{metrics['wall_s']:.2f} s, first token "
+              f"{metrics['ttft_ms_median']:.1f} ms median, launches "
+              f"{json.dumps(launches)} on {card}", flush=True)
+    return runs
+
+
+def multihost_batcher_refused(placed, config, device) -> str | None:
+    """The captured loop's batcher over a mesh of the card that spans
+    processes on gloo: the error its construction raises (None if it
+    builds)."""
+    from aiko_services_tpu_torch.models.batching import ContinuousBatcher
+    try:
+        ContinuousBatcher(placed, config, max_slots=8, prefill_chunk=512,
+                          sample_top_k=50, decode_block_tokens=16,
+                          device=device)
+    except RuntimeError as error:
+        return str(error)
+    return None
+
+
+def multihost_batcher_gate(reference: dict, runs: dict,
+                           process: int) -> list[str]:
+    """What process ``process``'s 15d runs break: every stream equal to
+    the one-process reference's, no leaked page, each kernel launched
+    half the reference's count (one of two positions), top-k as often
+    (each process samples the whole rows), no other kernel."""
+    problems = []
+    for name, want in reference.items():
+        got = runs[name]
+        if got["streams"] != want["streams"]:
+            same = sum(got["streams"][rid] == stream
+                       for rid, stream in want["streams"].items())
+            problems.append(f"process {process}: 15d {name}'s streams "
+                            f"equal the one-process run's for {same} of "
+                            f"{len(want['streams'])} requests")
+        if got["leaked"]:
+            problems.append(f"process {process}: 15d {name} leaked "
+                            f"{got['leaked']} pages")
+        counts, wanted = got["launches"], want["launches"]
+        if any(counts.get(kernel, 0) * (1 if kernel == "topk" else 2)
+               != count for kernel, count in wanted.items()) \
+                or set(counts) - set(wanted):
+            problems.append(f"process {process}: 15d {name} launched "
+                            f"{counts}; the one-process run {wanted} "
+                            f"(half a process, top-k whole)")
+    return problems
+
+
 def multihost_child(spec_path: str) -> None:
     """One process of phase 15: brings itself up as process ``k`` of 2
     through the pipeline package's ``ensure_distributed``, runs 15a,
-    15b and 15c, and writes what each gave to its result file."""
+    15d, 15b and 15c, and writes what each gave to its result file."""
     import resource
     import torch
     import torch.distributed as dist
@@ -4718,9 +4825,21 @@ def multihost_child(spec_path: str) -> None:
                    "decode_step_ms": got["decode_step_ms"],
                    "peak_gib_above_held":
                        torch.cuda.max_memory_allocated() / 2 ** 30 - held}
-    del placed, got
+    del got
     free_card()
     host_peak("15a")
+
+    # 15d: the continuous batcher on 15a's tree, its positions in the two
+    # processes; then the captured loop's batcher, which gloo refuses.
+    begin = time.perf_counter()
+    out["batcher"] = multihost_batcher(placed, config, device, card,
+                                       f"process {process}")
+    out["batcher_refused"] = multihost_batcher_refused(placed, config,
+                                                       device)
+    out["batcher_seconds"] = time.perf_counter() - begin
+    del placed
+    free_card()
+    host_peak("15d")
 
     # 15b: two train steps of Llama-3.2-1B over fsdp across the processes.
     out["train"] = multihost_train(MeshPlan.build(MULTIHOST_TRAIN_MESH),
@@ -4767,7 +4886,7 @@ def live_card_tensors(top: int = 5) -> str:
 def multihost_run(card: str) -> dict:
     """Phase 15 (module docstring): 15b's one-process run, then two
     child processes sharing the card over gloo.  Returns each process's
-    launches in 15a."""
+    launches in 15a and 15d."""
     import resource
     import socket
     import tempfile
@@ -4869,6 +4988,13 @@ def multihost_run(card: str) -> dict:
                             f"{trained['checksum'][:12]} against one "
                             f"process's {one['losses']} / "
                             f"{one['checksum'][:12]}")
+        problems += multihost_batcher_gate(MULTIHOST_REFERENCE["batcher"],
+                                           got["batcher"], process)
+        refused = got["batcher_refused"] or ""
+        if "gloo" not in refused or "card" not in refused:
+            problems.append(f"process {process}: the captured loop's "
+                            f"batcher over gloo gave {refused!r}, not the "
+                            f"named refusal")
         want = ["RemoteValue(process 1, llm.x)"] * MULTIHOST_FRAMES \
             if process == 0 else [4.0] * MULTIHOST_FRAMES
         if served["failures"] or served["frames"] != list(
@@ -4885,15 +5011,31 @@ def multihost_run(card: str) -> dict:
                                     ("losses", "step_ms",
                                      "peak_gib_above_held")},
                           "pipeline": {key: got["pipeline"][key] for key in
-                                       ("frames", "seconds", "values")}}
+                                       ("frames", "seconds", "values")},
+                          "batcher": {name: {key: run[key] for key in
+                                             ("tokens_per_s", "wall_s",
+                                              "ttft_ms_median",
+                                              "ttft_ms_max", "launches")}
+                                      for name, run in got["batcher"].items()},
+                          "batcher_seconds": got["batcher_seconds"]}
                          for got in results],
+           "batcher_one_process": {
+               name: {key: run[key] for key in
+                      ("tokens_per_s", "wall_s", "ttft_ms_median",
+                       "ttft_ms_max", "launches")}
+               for name, run in MULTIHOST_REFERENCE["batcher"].items()},
            "13c_placed_launches": placed_counts}
     print(f"multihost {json.dumps(out)}", flush=True)
     if problems:
         raise AssertionError("multihost: " + "; ".join(problems))
-    return {"launches": results[0]["int8"]["launches"],
-            "launches_by_process": [got["int8"]["launches"]
-                                    for got in results]}
+    by_process = []
+    for got in results:
+        counts = dict(got["int8"]["launches"])
+        for run in got["batcher"].values():
+            for name, count in run["launches"].items():
+                counts[name] = counts.get(name, 0) + count
+        by_process.append(counts)
+    return {"launches": by_process[0], "launches_by_process": by_process}
 
 
 def main() -> int:

@@ -14,7 +14,24 @@ four cards (``tests/torch_multihost_worker.py`` runs both):
 - the ``(det llm)`` pipeline, two cards a stage, ``det`` in process 0
   and ``llm`` in process 1: four frames in order in both processes,
   ``llm``'s outputs in process 1 equal to the one-process virtual
-  carve's, the hop between the processes' cards over NCCL.
+  carve's, the hop between the processes' cards over NCCL;
+- ``ContinuousBatcher`` on Llama-3-8B int8, four requests of 100-1,500
+  tokens (two greedy, two at 0.8, top-k 50), 8 new tokens: over
+  ``{"dp": 2, "tp": 2}`` (dp across the processes) dense at
+  decode_block 4, paged at decode_block 1, the captured loop and the
+  captured ngram loop over pages; over ``{"tp": 2}`` on one card of each
+  process (every layer's ``psum`` an NCCL exchange inside the graph)
+  the captured loop.  Every stream and the host state equal one
+  process's over the same cards; the loops capture once in each process
+  and replay every block; top-k launches as often in each process as
+  in one (each samples the whole rows), the model's kernels half as
+  often over tp (each process runs one of two symmetric positions) and,
+  over dp, the two processes' counts add up to one process's (a slot's
+  admission runs in its dp group's process only);
+- the 4-expert MoE at Llama-3.2-1B widths (remat) over ``{"ep": 2,
+  "tp": 2}`` with ep across the processes, three steps: the two
+  processes' losses and updated trees equal, the first loss bitwise
+  one process's, the later ones within ``MOE_LOSS_REL_TOL``.
 
 Imports no JAX; skips with fewer than four cards.  Prints the times
 (``-s``):
@@ -22,6 +39,7 @@ Imports no JAX; skips with fewer than four cards.  Prints the times
     python3 -m pytest --noconftest -q -s tests/test_torch_multihost_cuda.py
 """
 
+import gc
 import json
 import subprocess
 
@@ -120,3 +138,95 @@ def test_transport_is_nccl_across_distinct_cards(tmp_path, four_cards):
         assert got["transport"] == "nccl"
         assert got["inventory"]["device_count"] == 4
         assert got["inventory"]["local_device_count"] == 2
+
+
+def _launch_gate(key: str, one: dict, both: list) -> list[str]:
+    """What the processes' launches break of the module docstring's
+    rule for ``key``'s run."""
+    problems = []
+    for name, count in one.items():
+        got = [counts.get(name, 0) for counts in both]
+        if name == "topk":
+            ok = got == [count, count]
+        elif key.startswith("tp2"):
+            ok = got == [count // 2, count // 2] and count % 2 == 0
+        else:
+            ok = sum(got) == count
+        if not ok:
+            problems.append(f"{key} {name}: {got} against one process's "
+                            f"{count}")
+    extra = {name for counts in both for name in counts} - set(one)
+    if extra:
+        problems.append(f"{key}: launched {sorted(extra)}, one process "
+                        f"did not")
+    return problems
+
+
+@pytest.mark.cuda
+def test_batcher_across_processes_matches_one_process(tmp_path,
+                                                      four_cards):
+    one = worker.card_batcher(four_cards)
+    gc.collect()
+    torch.cuda.empty_cache()
+    both = _spawned(tmp_path, "card_batcher")
+    keys = ("wall_s", "tokens_per_s", "ttft_ms", "captures", "replays",
+            "capture_s", "block_ms")
+    _report("batcher", one_process={run: {key: got[key] for key in keys
+                                          if key in got}
+                                    for run, got in one.items()},
+            processes=[{run: {key: got[key] for key in keys if key in got}
+                        for run, got in result.items()}
+                       for result in both],
+            launches={run: {"one_process": got["launches"],
+                            "processes": [result[run]["launches"]
+                                          for result in both]}
+                      for run, got in one.items()})
+    problems = []
+    for key, want in one.items():
+        for process, result in enumerate(both):
+            got = result[key]
+            if got["streams"] != want["streams"] \
+                    or got["host"] != want["host"]:
+                problems.append(f"{key}: process {process}'s streams or "
+                                f"host state differ from one process's")
+            if "captures" in want and (got["captures"] != 1 or
+                                       got["replays"] != got["blocks"]):
+                problems.append(f"{key}: process {process} captured "
+                                f"{got['captures']} times, replayed "
+                                f"{got['replays']} of {got['blocks']} "
+                                f"blocks")
+        problems += _launch_gate(key, want["launches"],
+                                 [result[key]["launches"]
+                                  for result in both])
+    assert not problems, problems
+
+
+#: |loss - one process's| / one process's, steps 2 on (bf16 AdamW).
+MOE_LOSS_REL_TOL = 1e-3
+
+
+@pytest.mark.cuda
+def test_moe_ep_across_processes_matches_one_process(tmp_path, four_cards):
+    """The first loss bitwise equal to one process's; the two processes'
+    losses and updated trees equal to each other; the later losses
+    within ``MOE_LOSS_REL_TOL`` of one process's.  (The processes' MoE
+    backward adds the experts' gradient contributions in another order
+    than one process's -- on the CPU its gradients stand within 4.5e-8
+    of one process's -- and bf16 AdamW updates make that a 2e-4
+    relative gap in the second loss, so the tree is not one process's
+    bit for bit.)"""
+    one = worker.card_moe(four_cards)
+    gc.collect()
+    torch.cuda.empty_cache()
+    both = _spawned(tmp_path, "card_moe")
+    _report("moe-ep", one_process={"losses": one["losses"],
+                                   "step_ms": one["step_ms"],
+                                   "checksum": one["checksum"]},
+            processes=[{"losses": got["losses"], "step_ms": got["step_ms"],
+                        "checksum": got["checksum"]} for got in both])
+    assert both[0]["losses"] == both[1]["losses"]
+    assert both[0]["checksum"] == both[1]["checksum"]
+    got = both[0]["losses"]
+    assert got[0] == one["losses"][0]
+    for ours, theirs in zip(got[1:], one["losses"][1:]):
+        assert abs(ours - theirs) <= MOE_LOSS_REL_TOL * abs(theirs)

@@ -1,6 +1,8 @@
 """The processes' side of the port's multi-host tests
 (``tests/test_torch_multihost.py``, ``tests/test_torch_mesh_mode.py``,
-``tests/test_torch_multihost_cuda.py``), JAX-free.
+``tests/test_torch_multihost_cuda.py``), JAX-free.  The bridged weights
+the CPU cases start from come in one file (``argument``), a dict of
+numpy trees by name: ``train``, ``serving`` and ``moe``.
 
 :func:`spawn` starts ``hosts`` processes of this file, each with its own
 devices (``AIKO_CPU_DEVICES`` CPU descriptors, or the cards the caller
@@ -146,13 +148,15 @@ TRAIN_MESHES = (("dp2", {"dp": 2}, False),
 
 def mesh_devices(axes: dict, devices=None) -> list:
     """The devices of a mesh whose major axis splits over the processes:
-    the first ``size / processes`` devices of each process, in order."""
+    the first ``size / processes`` devices of each process, in order (or
+    the first ``size`` of ``devices``)."""
     from aiko_services_tpu_torch import device as device_rule
+    size = int(np.prod(list(axes.values())))
     if devices is not None:
-        return list(devices)
+        return list(devices)[:size]
     pool = device_rule.devices()
     count = device_rule._process["count"]
-    each = int(np.prod(list(axes.values()))) // count
+    each = size // count
     return [d for p in range(count)
             for d in [d for d in pool
                       if device_rule.process_index(d) == p][:each]]
@@ -376,6 +380,313 @@ def lost_peer(coordinator: str, process: int, hosts: int) -> dict:
     return {"seconds": time.monotonic() - begin, "error": None}
 
 
+# -- the continuous batcher across processes ---------------------------------
+
+#: (label, axes): dp across the processes (the dryrun's serving layout),
+#: and tp across them, one position a process.
+BATCHER_MESHES = (("dp2-tp2", {"dp": 2, "tp": 2}), ("tp2", {"tp": 2}))
+BATCHER_TOKENS = 8
+#: (label, batcher options; ``recover_at``: a fault at that dispatch).
+BATCHER_RUNS = (
+    ("dense-4", dict(decode_block=4, inflight=2)),
+    ("paged-1", dict(decode_block=1, kv_page_tokens=8)),
+    ("loop-16", dict(decode_block_tokens=16)),
+    ("loop-ngram-paged-16", dict(decode_block_tokens=16,
+                                 speculative="ngram", spec_tokens=4,
+                                 kv_page_tokens=8)),
+    ("loop-recover-16", dict(decode_block_tokens=16, recover_at=2)))
+
+
+def batcher_requests() -> list[tuple]:
+    """Four (prompt, temperature) requests, two greedy and two at 0.8;
+    the 23-token prompt spans two 16-token chunks."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, 512, n).tolist(), 0.0 if index % 2 == 0
+             else 0.8) for index, n in enumerate((5, 23, 9, 17))]
+
+
+def serving_tree(weights: dict, axes: dict, devices=None):
+    """``decode_config``'s int8 tree from the bridged ``weights``, placed
+    over ``axes`` (:func:`mesh_devices`)."""
+    from aiko_services_tpu_torch.models import bridge, llama
+    from aiko_services_tpu_torch.models.quant import (quantize_params,
+                                                      quantize_specs)
+    from aiko_services_tpu_torch.parallel import MeshPlan, make_mesh
+    config = decode_config()
+    params = quantize_params(bridge.params_from_numpy(weights, config,
+                                                      device="cpu"))
+    plan = MeshPlan(make_mesh(axes, mesh_devices(axes, devices)))
+    return plan.put(params, quantize_specs(llama.partition_specs(config)))
+
+
+#: The CPU runs' batcher settings.
+SMALL_BATCHER = dict(max_slots=2, max_seq=64, prefill_chunk=16,
+                     sample_top_k=8)
+
+
+def serve_batcher(placed, options: dict, config=None, requests=None,
+                  settings=SMALL_BATCHER, device="cpu",
+                  new_tokens: int = BATCHER_TOKENS,
+                  block_replays: int = 0) -> dict:
+    """One ``ContinuousBatcher`` run over ``placed`` with ``settings``,
+    ``options`` and ``cache_put`` by the cache's specs on ``requests``
+    (:func:`batcher_requests` and ``decode_config`` by default) -> every
+    stream, the host state it ends with and, on the card, the run's
+    launches and (``block_replays`` > 0) a loop block's device ms."""
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
+                                                         Request)
+    from aiko_services_tpu_torch.parallel import MeshPlan
+    config = config or decode_config()
+    options = dict(options)
+    recover_at = options.pop("recover_at", 0)
+    dispatches = [0]
+
+    def probe(point):
+        dispatches[0] += 1
+        if dispatches[0] == recover_at:
+            raise RuntimeError(f"injected fault at dispatch {recover_at}")
+    plan = MeshPlan(placed.mesh)
+    specs = llama.paged_cache_specs(config) \
+        if options.get("kv_page_tokens") else llama.cache_specs(config)
+    batcher = ContinuousBatcher(
+        placed, config, device=device,
+        cache_put=lambda cache: plan.put(cache, specs),
+        fault_probe=probe if recover_at else None, **settings, **options)
+    streams = {}
+    for index, (prompt, temperature) in enumerate(
+            requests or batcher_requests()):
+        rid = f"r{index}"
+        streams[rid] = []
+        batcher.submit(Request(
+            rid, list(prompt), max_new_tokens=new_tokens,
+            temperature=temperature,
+            emit=lambda r, token, done: streams[r].append(token)))
+    begin = time.perf_counter()
+    for _ in range(1000):
+        if not (batcher.pending or batcher.active_count
+                or batcher.blocks_in_flight):
+            break
+        try:
+            batcher.step()
+        except RuntimeError:
+            if not recover_at or batcher.recoveries:
+                raise
+            batcher.recover()
+    cards = device != "cpu"
+    if cards:
+        for index in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(index)
+    wall = time.perf_counter() - begin
+    pages = batcher._pages
+    out = {"streams": streams, "recoveries": batcher.recoveries,
+           "speculative": batcher.speculative,
+           "spec_probe_ratio": batcher.spec_probe_ratio,
+           "device": str(batcher.device), "wall_s": wall,
+           "tokens_per_s": batcher.tokens_emitted / wall,
+           "ttft_ms": sorted(s["ttft_ms"]
+                             for s in batcher.take_request_stats()),
+           "host": {"slots": [None if r is None else r.request_id
+                              for r in batcher.slots],
+                    "lengths": batcher.lengths.tolist(),
+                    "tokens_emitted": batcher.tokens_emitted,
+                    "prefill_tokens": batcher.prefill_tokens,
+                    "steps": batcher.steps,
+                    "draft_tokens": batcher.draft_tokens,
+                    "accepted_tokens": batcher.accepted_tokens,
+                    "table": None if pages is None
+                    else batcher._table_host.tolist(),
+                    "leaked": 0 if pages is None else pages.leaked_pages(),
+                    "prefix": None if pages is None
+                    else [pages.prefix_hits, pages.prefix_lookups]}}
+    if cards:
+        from aiko_services_tpu_torch.ops import launch_counters
+        out["launches"] = {name: getattr(wrapper, attr) for name,
+                           (wrapper, attr) in launch_counters().items()
+                           if getattr(wrapper, attr)}
+    if batcher._loop is not None:
+        out.update(captures=batcher._loop.captures,
+                   replays=batcher._loop.replays,
+                   capture_s=batcher._loop.capture_s,
+                   blocks=batcher.blocks_dispatched)
+        if cards and block_replays:
+            # Every row idle: the block still runs each iteration's
+            # kernels (masked), so its device time is a full block's.
+            def replays():
+                for _ in range(block_replays):
+                    batcher._loop.run(batcher.cache)
+            _, ms = _timed(replays)
+            out["block_ms"] = ms / block_replays
+    return out
+
+
+def batcher(weights: dict, devices=None) -> dict:
+    """Every run of ``BATCHER_RUNS`` over each of ``BATCHER_MESHES`` ->
+    {"<mesh> <run>": :func:`serve_batcher`'s result}."""
+    out = {}
+    for mesh_label, axes in BATCHER_MESHES:
+        placed = serving_tree(weights, axes, devices)
+        for label, options in BATCHER_RUNS:
+            out[f"{mesh_label} {label}"] = serve_batcher(placed, options)
+    return out
+
+
+def batcher_step(weights: dict) -> dict:
+    """The batcher over ``{"tp": 2}`` across the processes, built and
+    stepped once."""
+    from aiko_services_tpu_torch.models.batching import (ContinuousBatcher,
+                                                         Request)
+    from aiko_services_tpu_torch.parallel import distributed
+    placed = serving_tree(weights, {"tp": 2})
+    built = ContinuousBatcher(placed, decode_config(), max_slots=2,
+                              max_seq=64, prefill_chunk=16, device="cpu")
+    built.submit(Request("r0", batcher_requests()[0][0], max_new_tokens=8))
+    return {"spans": distributed.spans_processes(placed.mesh),
+            "occupied": built.step(), "prefill_tokens":
+            built.prefill_tokens, "device": str(built.device)}
+
+
+#: The probe's ratio each process is made to report: alone, process 0
+#: would choose draft and process 1 plain.
+FORCED_RATIOS = (2.0, 0.5)
+
+
+def spec_probe(weights: dict, process: int) -> dict:
+    """``speculative="auto"`` over ``{"tp": 2}`` across the processes:
+    the real probe runs (both arms, across the processes), then each
+    process reports its ``FORCED_RATIOS`` entry in its place -> the
+    ratio and mode the batcher took, and its streams."""
+    from aiko_services_tpu_torch.models import batching as tb
+    measure = tb.ContinuousBatcher._probe_ratio
+    measured = []
+
+    def forced(self):
+        measured.append(measure(self))
+        return FORCED_RATIOS[process]
+    tb.ContinuousBatcher._probe_ratio = forced
+    try:
+        out = serve_batcher(serving_tree(weights, {"tp": 2}),
+                            dict(decode_block_tokens=16,
+                                 speculative="auto", spec_tokens=4))
+    finally:
+        tb.ContinuousBatcher._probe_ratio = measure
+    out.update(forced=FORCED_RATIOS[process], measured=measured)
+    return out
+
+
+def capture_path(weights: dict) -> dict:
+    """The capture path of the exchanges (``distributed.capturing``)
+    over gloo between CPU tensors: ``{"tp": 2}`` across the processes,
+    an eager ``decode_step`` (the warm-up that checks the layouts), the
+    same step inside ``capturing`` (every ``psum`` and the logits' fetch
+    from the layouts alone), ``replayed``, another eager step (the
+    sequences still agree), then a step of another batch inside
+    ``capturing``, whose layouts were never checked."""
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.parallel import MeshPlan, distributed
+    config = decode_config()
+    placed = serving_tree(weights, {"tp": 2})
+    plan = MeshPlan(placed.mesh)
+    cache = plan.put(llama.init_cache(config, 2, device="cpu"),
+                     llama.cache_specs(config))
+    tokens = torch.tensor([3, 7])
+    lengths = torch.tensor([4, 9], dtype=torch.int32)
+    out = {}
+    with torch.no_grad():
+        eager, cache = llama.decode_step(placed, config, tokens, cache,
+                                         lengths)
+        with distributed.capturing() as record:
+            captured, cache = llama.decode_step(placed, config, tokens,
+                                                cache, lengths)
+        distributed.replayed(record)
+        again, cache = llama.decode_step(placed, config, tokens, cache,
+                                         lengths)
+        out.update(eager=eager, captured=captured, again=again,
+                   counts=sorted(record.counts.values()))
+        wider = plan.put(llama.init_cache(config, 4, device="cpu"),
+                         llama.cache_specs(config))
+        try:
+            with distributed.capturing():
+                llama.decode_step(placed, config,
+                                  torch.zeros(4, dtype=torch.long), wider,
+                                  torch.zeros(4, dtype=torch.int32))
+            out["unchecked"] = None
+        except Exception as error:
+            out["unchecked"] = f"{type(error).__name__}: {error}"
+    return out
+
+
+# -- the mixture-of-experts over ep across processes --------------------------
+
+MOE_AXES = {"dp": 2, "tp": 2, "ep": 2}
+#: The device orders of the MoE step: the dryrun's own (the global pool
+#: in order: dp crosses the processes) and one where ep crosses them.
+MOE_ORDERS = ("dp-across", "ep-across")
+
+
+def moe_config():
+    from aiko_services_tpu_torch.models import llama
+    return dataclasses.replace(llama.LlamaConfig.tiny_moe(256, 64),
+                               dtype="float32")
+
+
+def moe_batch() -> np.ndarray:
+    return np.random.default_rng(6).integers(0, 256, (8, 16)).astype(
+        np.int32)
+
+
+def moe_devices(order: str, devices=None) -> list:
+    """The eight devices of ``MOE_AXES`` (positions in (dp, ep, tp)
+    order) for ``order``; one process's ``devices`` as they stand."""
+    from aiko_services_tpu_torch import device as device_rule
+    if devices is not None:
+        return list(devices)[:8]
+    pool = device_rule.devices()
+    if order == "dp-across":
+        return mesh_devices(MOE_AXES)
+    by_process = [[d for d in pool if device_rule.process_index(d) == p]
+                  for p in range(2)]
+    return [by_process[ep][dp * 2 + tp]
+            for dp in range(2) for ep in range(2) for tp in range(2)]
+
+
+def moe_ep(weights: dict, devices=None) -> dict:
+    """The dryrun's ``[moe-ep]`` train step (``tiny_moe``, ``MOE_AXES``)
+    from the bridged ``weights``, once in each of ``MOE_ORDERS`` ->
+    {order: {"loss", "grads" and "params" (the gradient at the weights
+    and the updated tree, gathered, numpy), "axes", "owners"}}."""
+    from aiko_services_tpu_torch import device as device_rule
+    from aiko_services_tpu_torch.models import bridge, llama
+    from aiko_services_tpu_torch.models import train as tt
+    from aiko_services_tpu_torch.models.checkpoint import flatten
+    from aiko_services_tpu_torch.parallel import MeshPlan, make_mesh
+    config = moe_config()
+    tokens = torch.from_numpy(moe_batch())
+    out = {}
+
+    def gathered(plan, tree) -> dict:
+        return {name: leaf.detach().numpy()
+                for name, leaf in flatten(plan.gather(tree)).items()}
+    for order in MOE_ORDERS:
+        plan = MeshPlan(make_mesh(MOE_AXES, moe_devices(order, devices)))
+        placed = plan.put(bridge.params_from_numpy(weights, config,
+                                                   device="cpu"),
+                          llama.partition_specs(config))
+        for leaf in placed.tensors():
+            leaf.requires_grad_(True)
+        _, grads = tt.value_and_grad(placed, config, tokens)
+        step = tt.make_train_step(config, plan)
+        placed, _, loss = step(placed, tt.PlacedOptimizer(tt.adamw(),
+                                                          placed), tokens)
+        out[order] = {
+            "loss": float(loss), "grads": gathered(plan, grads),
+            "params": gathered(plan, placed),
+            "axes": dict(plan.mesh.shape),
+            "owners": [device_rule.process_index(d)
+                       for d in plan.mesh.devices.flat]}
+    return out
+
+
 # -- four cards: two processes of two cards each (NCCL) ----------------------
 
 CARD_MESH = {"dp": 2, "tp": 2}
@@ -483,6 +794,140 @@ def card_train(devices=None) -> dict:
             "step_ms": times}
 
 
+#: The batcher on four cards: (mesh label, run label, options).  dp2-tp2
+#: puts dp across the processes (two cards each), tp2 one card of each
+#: process (so every layer's ``psum`` crosses them).
+CARD_BATCHER_RUNS = (
+    ("dp2-tp2", "dense-4", dict(decode_block=4, inflight=2)),
+    ("dp2-tp2", "paged-1", dict(decode_block=1, kv_page_tokens=64)),
+    ("dp2-tp2", "loop-16", dict(decode_block_tokens=16)),
+    ("dp2-tp2", "loop-ngram-paged-16",
+     dict(decode_block_tokens=16, speculative="ngram", spec_tokens=4,
+          kv_page_tokens=64)),
+    ("tp2", "loop-16", dict(decode_block_tokens=16)))
+CARD_BATCHER_TOKENS = 8
+CARD_BLOCK_REPLAYS = 3
+
+
+def card_config(width: str = "full"):
+    """Llama-3-8B int8 (flash, int8 cache, ``max_seq`` 2048), or at
+    ``width`` "small" a dim-256 two-layer int8 Llama with kernel-sized
+    heads (``max_seq`` 1024): the quick check of the same path."""
+    from aiko_services_tpu_torch.models import llama
+    if width == "small":
+        return dataclasses.replace(
+            llama.LlamaConfig(vocab_size=256, dim=256, n_layers=2,
+                              n_heads=4, n_kv_heads=2, hidden_dim=512,
+                              max_seq=1024, rope_theta=10_000.0),
+            attention="flash", kv_dtype="int8")
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(), max_seq=2048,
+                               attention="flash", decode_attention="auto",
+                               kv_dtype="int8")
+
+
+def card_requests(config) -> list[tuple]:
+    """Four requests (numpy seed 7; ``CARD_PROMPTS`` tokens, 40-300 at
+    the small width), even ones greedy, odd ones at 0.8."""
+    rng = np.random.default_rng(7)
+    lengths = CARD_PROMPTS if config.max_seq > 1024 else (40, 300, 120, 260)
+    return [(rng.integers(0, config.vocab_size, n).tolist(),
+             0.0 if index % 2 == 0 else 0.8)
+            for index, n in enumerate(lengths)]
+
+
+def card_mesh(label: str, devices=None):
+    """The mesh of ``label``: over the processes' cards, or over one
+    process's ``devices`` (the same four cards, in the same order)."""
+    from aiko_services_tpu_torch import device as device_rule
+    from aiko_services_tpu_torch.parallel import make_mesh
+    if label == "dp2-tp2":
+        return make_mesh(CARD_MESH, mesh_devices(CARD_MESH, devices))
+    if devices is not None:
+        return make_mesh({"tp": 2}, [devices[0], devices[2]])
+    pool = device_rule.devices()
+    return make_mesh({"tp": 2}, [next(d for d in pool if
+                                      device_rule.process_index(d) == p)
+                                 for p in range(2)])
+
+
+def card_batcher(devices=None, width: str = "full") -> dict:
+    """Each run of ``CARD_BATCHER_RUNS`` (4 slots for the four requests,
+    512-token chunks, top-k 50, ``CARD_BATCHER_TOKENS`` new tokens),
+    launch counters zeroed before each -> {"<mesh> <run>":
+    streams, host state, tokens/s, launches, captures and replays, and a
+    loop block's device ms (CUDA events over ``CARD_BLOCK_REPLAYS``
+    replays after the run, on the batcher's card)}."""
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.quant import (quantize_params,
+                                                      quantize_specs)
+    from aiko_services_tpu_torch.ops import launch_counters
+    from aiko_services_tpu_torch.parallel import MeshPlan
+    config = card_config(width)
+    requests = card_requests(config)
+    settings = dict(max_slots=4, prefill_chunk=512 if width == "full"
+                    else 256, sample_top_k=50)
+    params = quantize_params(llama.init_params(0, config, device="cuda"))
+    out = {}
+    for mesh_label in dict.fromkeys(row[0] for row in CARD_BATCHER_RUNS):
+        plan = MeshPlan(card_mesh(mesh_label, devices))
+        placed = plan.put(params, quantize_specs(
+            llama.partition_specs(config)))
+        for label, run, options in CARD_BATCHER_RUNS:
+            if label != mesh_label:
+                continue
+            counters = launch_counters()
+            for wrapper, attr in counters.values():
+                setattr(wrapper, attr, 0)
+            got = serve_batcher(placed, options, config, requests,
+                                settings, device=None,
+                                new_tokens=CARD_BATCHER_TOKENS,
+                                block_replays=CARD_BLOCK_REPLAYS)
+            out[f"{mesh_label} {run}"] = got
+        del placed
+        torch.cuda.empty_cache()
+    return out
+
+
+CARD_MOE_MESH = {"ep": 2, "tp": 2}
+CARD_MOE_BATCH = (2, 512)
+CARD_MOE_STEPS = 3
+
+
+def card_moe(devices=None) -> dict:
+    """The 4-expert MoE at Llama-3.2-1B widths (top-2, capacity factor
+    2.0, ``max_seq`` 512, remat, bf16, seed 0) over ``CARD_MOE_MESH``, ep
+    across the processes: ``CARD_MOE_STEPS`` steps of one batch (numpy
+    seed 0) -> the losses, a checksum of the updated tree and the
+    CUDA-event ms a step."""
+    import hashlib
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models import train as tt
+    from aiko_services_tpu_torch.models.checkpoint import flatten
+    from aiko_services_tpu_torch.parallel import MeshPlan, make_mesh
+    config = dataclasses.replace(llama.LlamaConfig.llama3_1b(), n_experts=4,
+                                 max_seq=512, attention="flash",
+                                 decode_attention="flash", remat=True)
+    plan = MeshPlan(make_mesh(CARD_MOE_MESH,
+                              mesh_devices(CARD_MOE_MESH, devices)))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, config.vocab_size, CARD_MOE_BATCH)).to(plan.device)
+    params, state, _ = tt.init_train_state(0, config, plan)
+    step = tt.make_train_step(config, plan)
+    losses, times = [], []
+    for _ in range(CARD_MOE_STEPS):
+        (params, state, loss), ms = _timed(
+            lambda: step(params, state, tokens))
+        losses.append(float(loss))
+        times.append(ms)
+    digest = hashlib.sha256()
+    for name, leaf in sorted(flatten(plan.gather(params)).items()):
+        digest.update(name.encode())
+        digest.update(leaf.contiguous().view(torch.uint8).cpu().numpy()
+                      .tobytes())
+    return {"losses": losses, "checksum": digest.hexdigest(),
+            "step_ms": times}
+
+
 def card_pipeline(coordinator: str | None, process: int) -> dict:
     """``(det llm)`` with two cards a stage: across the two processes
     (``coordinator`` set) or the virtual carve of one process's four
@@ -493,8 +938,20 @@ def card_pipeline(coordinator: str | None, process: int) -> dict:
                                                                    1024))
 
 
+def _weights(path: str, name: str) -> dict:
+    return torch.load(path, weights_only=False)[name]
+
+
 CASES = {"collectives": lambda c, p, h, a: collectives(),
-         "train": lambda c, p, h, a: train(torch.load(a, weights_only=False)),
+         "train": lambda c, p, h, a: train(_weights(a, "train")),
+         "batcher": lambda c, p, h, a: batcher(_weights(a, "serving")),
+         "batcher_step": lambda c, p, h, a: batcher_step(
+             _weights(a, "serving")),
+         "spec_probe": lambda c, p, h, a: spec_probe(_weights(a, "serving"),
+                                                     p),
+         "capture_path": lambda c, p, h, a: capture_path(
+             _weights(a, "serving")),
+         "moe_ep": lambda c, p, h, a: moe_ep(_weights(a, "moe")),
          "decode": lambda c, p, h, a: decode(),
          "pipeline": lambda c, p, h, a: pipeline(c, p, h),
          "pipeline_host": lambda c, p, h, a: pipeline(c, p, h, True),
@@ -502,7 +959,11 @@ CASES = {"collectives": lambda c, p, h, a: collectives(),
          "lost_peer": lambda c, p, h, a: lost_peer(c, p, h),
          "card_decode": lambda c, p, h, a: card_decode(),
          "card_train": lambda c, p, h, a: card_train(),
-         "card_pipeline": lambda c, p, h, a: card_pipeline(c, p)}
+         "card_pipeline": lambda c, p, h, a: card_pipeline(c, p),
+         "card_batcher": lambda c, p, h, a: card_batcher(),
+         "card_batcher_small": lambda c, p, h, a: card_batcher(
+             width="small"),
+         "card_moe": lambda c, p, h, a: card_moe()}
 
 
 def main() -> None:
