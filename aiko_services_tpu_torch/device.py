@@ -14,7 +14,10 @@ after one it lists every process's devices in process order, the same
 list in every process: this process's as plain ``torch.device``\\ s,
 another process's as :class:`RemoteDevice` descriptors, on which no
 tensor can be placed.  :func:`process_index` reads the process that
-holds any of them.
+holds any of them.  A stage-placement pool that lists one card several
+times (five positions on one card) names each listing by a
+:class:`PoolSlot`, so a failure retires the one position it names;
+:func:`card_of` gives the card of any pool entry.
 
 :func:`sync_guard` and :func:`sync_allowed` hold the process's CUDA
 synchronisation guard (``torch.cuda.set_sync_debug_mode``): a guard
@@ -34,8 +37,8 @@ import threading
 import torch
 
 __all__ = ["resolve_device", "local_devices", "devices", "RemoteDevice",
-           "process_index", "is_local", "upload", "sync_guard",
-           "sync_allowed"]
+           "PoolSlot", "card_of", "process_index", "is_local", "upload",
+           "sync_guard", "sync_allowed"]
 
 _SYNC_LEVELS = {"warn": 1, "error": 2}
 _sync_lock = threading.Lock()
@@ -95,6 +98,36 @@ class RemoteDevice:
         index = "" if self.index is None else f":{self.index}"
         return f"RemoteDevice(process {self.process_index}, " \
             f"{self.type}{index})"
+
+
+class PoolSlot:
+    """One position of a device pool that lists a card more than once:
+    the card (``device``) and the position in the pool.  Equal slots name
+    the same position, and a slot never equals a device, so a set of
+    failed slots holds the positions that failed and none of the card's
+    other listings.  No tensor is placed on a slot: :func:`card_of`."""
+
+    __slots__ = ("device", "position")
+
+    def __init__(self, device, position: int):
+        self.device = device
+        self.position = int(position)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, PoolSlot) and self.position \
+            == other.position and self.device == other.device
+
+    def __hash__(self) -> int:
+        return hash(("slot", self.device, self.position))
+
+    def __repr__(self) -> str:
+        return f"{self.device}#{self.position}"
+
+
+def card_of(entry):
+    """The device a pool entry stands for: a :class:`PoolSlot`'s card,
+    any other entry itself."""
+    return entry.device if isinstance(entry, PoolSlot) else entry
 
 
 #: The bring-up's record: this process's index, the process count and

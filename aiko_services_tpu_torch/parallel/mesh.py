@@ -284,6 +284,17 @@ class MeshPlan:
         detached (for tests, checkpoints and comparisons)."""
         return placed.gather(self.device)
 
+    def constraint(self, value, *spec) -> "Placed":
+        """``jax.lax.with_sharding_constraint``: ``value`` laid out as
+        ``self.shard(*spec)`` -- a tree of tensors placed by it, a
+        :class:`Placed` resharded (returned as it is when already laid
+        out so)."""
+        target = self.shard(*spec)
+        if isinstance(value, Placed):
+            return value if value.sharding == target \
+                else value.reshard(target)
+        return target.put(value)
+
     def __repr__(self) -> str:
         return f"MeshPlan({dict(self.mesh.shape)})"
 
@@ -642,6 +653,26 @@ class _LocalCollectives(Collectives):
     def _here(self, tensor: torch.Tensor) -> torch.Tensor:
         return tensor.to(self.device)
 
+    def _arrivals(self, axis_name, x: torch.Tensor) -> list:
+        """Every member's ``x`` on this position's device, in group
+        order.  Under grad, in a group of this process's positions, each
+        member hands the group its copies through one :class:`_Fanout`
+        node, whose backward sums them in group order: left to autograd,
+        the members' gradients add up in the order the cards' engine
+        threads finish, which varies from call to call once a group has
+        three members or more on distinct cards."""
+        members, rank = self._group(axis_name)
+        if len(members) > 1 and torch.is_grad_enabled() \
+                and x.requires_grad and not self._spans(axis_name):
+            devices = tuple(_placed(self._mesh.devices.flat[member])
+                            for member in members)
+            copies = _Fanout.apply(devices, x)
+            everyone = self._exchange.gather(self._position, members, rank,
+                                             copies)
+            return [theirs[rank] for theirs in everyone]
+        values, _ = self._gather(axis_name, x)
+        return [self._here(value) for value in values]
+
     def axis_index(self, axis_name) -> int:
         return self._group(axis_name)[1]
 
@@ -665,14 +696,13 @@ class _LocalCollectives(Collectives):
                           for value in values], concat_axis)
 
     def all_gather(self, x, axis_name, axis: int = 0):
-        values, _ = self._gather(axis_name, x)
-        return torch.cat([self._here(value) for value in values], axis)
+        return torch.cat(self._arrivals(axis_name, x), axis)
 
     def psum(self, x, axis_name):
-        values, _ = self._gather(axis_name, x)
-        total = self._here(values[0])
+        values = self._arrivals(axis_name, x)
+        total = values[0]
         for value in values[1:]:
-            total = total + self._here(value)
+            total = total + value
         return total
 
     def remat(self, fn, args):
@@ -731,6 +761,27 @@ def home_device(mesh: Mesh) -> torch.device:
     the mesh's first device of this process, as a tensor's device (the
     CPU for a CPU descriptor).  Raises for a mesh with no device here."""
     return _placed(_home(mesh))
+
+
+class _Fanout(torch.autograd.Function):
+    """A position's value copied to each device of ``devices`` (a view
+    where it already lies there); the backward sums the copies'
+    gradients on the value's device in that order."""
+
+    @staticmethod
+    def forward(ctx, devices, value):
+        ctx.device = value.device
+        return tuple(value.view_as(value) if device == value.device
+                     else value.to(device) for device in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for grad in grads:
+            if grad is not None:
+                grad = grad.to(ctx.device)
+                total = grad if total is None else total + grad
+        return None, total
 
 
 class _Tie(torch.autograd.Function):

@@ -14,6 +14,8 @@ of dtypes numpy cannot hold (bfloat16, float8_*) ride a tagged integer
 view instead: the torch dtype's name and the raw bytes, restored as a
 CPU tensor of that dtype.  Bulk tensor traffic should use the tensor
 transport; this codec is the correctness fallback, not the fast path.
+A tensor on a card reaching it is a fetch the engine skipped: it raises
+(:func:`host_only`) before anything calls the tensor's ``__array__``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 __all__ = ["encode_value", "decode_value", "encode_frame_data",
-           "decode_frame_data", "tag_view", "untag_view"]
+           "decode_frame_data", "tag_view", "untag_view", "host_only"]
 
 _NPY_PREFIX = "npy64:"
 # Tensors of dtypes numpy cannot hold (torch.bfloat16, float8_*...):
@@ -34,6 +36,17 @@ _NPY_PREFIX = "npy64:"
 # layout; the tag restores the dtype on decode.
 _NPYT_PREFIX = "npyt:"
 _VIEW_BY_ITEMSIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def host_only(value):
+    """``value`` as it is, unless it is a tensor on a card: the wire
+    takes host values only, and the engine fetches every device leaf of
+    a frame with one counted ``TransferLedger.fetch`` first."""
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        raise ValueError(f"a tensor on {value.device} reached the wire "
+                         f"codec: fetch a frame's device leaves first "
+                         f"(TransferLedger.fetch)")
+    return value
 
 
 def _extension_dtype(value) -> bool:
@@ -63,6 +76,7 @@ def _save_npy(array: np.ndarray) -> str:
 def encode_value(value):
     if hasattr(value, "__array__") and not isinstance(
             value, (str, bytes, list, tuple, dict)):
+        host_only(value)
         if _extension_dtype(value):
             # bf16 and friends: npy cannot hold them.  Encode the
             # integer view + a dtype tag.
@@ -103,6 +117,7 @@ def tag_view(array) -> tuple[np.ndarray, str | None]:
     tag -- the exact tagging the ``npyt:`` string path above uses, so
     the tensor-pipe data plane and the MQTT codec can never disagree on
     how bf16 round-trips.  Plain dtypes pass through untagged."""
+    host_only(array)
     if _extension_dtype(array):
         view = _VIEW_BY_ITEMSIZE[array.dtype.itemsize]
         return array.view(view).numpy(), \

@@ -40,7 +40,7 @@ from collections import OrderedDict
 
 import numpy as np
 
-from .codec import tag_view, untag_view
+from .codec import host_only, tag_view, untag_view
 from ..faults import CircuitBreaker
 from ..transport.tensor_pipe import (create_pipe_client,
                                      create_pipe_server)
@@ -79,7 +79,7 @@ def split_arrays(frame_data: dict) -> dict:
     """The array-valued entries of a host-side frame dict -- exactly
     the values the MQTT codec would base64 (same predicate), i.e. the
     ones that belong on the pipe."""
-    return {key: value for key, value in frame_data.items()
+    return {key: host_only(value) for key, value in frame_data.items()
             if hasattr(value, "__array__")
             and not isinstance(value, (str, bytes, list, tuple, dict))}
 
@@ -313,7 +313,7 @@ class PipeSender:
                         timeout=self._connect_timeout_s)
                 total = 0
                 for key in sorted(arrays):
-                    view, tag = tag_view(np.asarray(arrays[key]))
+                    view, tag = tag_view(arrays[key])
                     meta = {"t": str(token_id), "k": str(key)}
                     if tag:
                         meta["v"] = tag

@@ -1870,7 +1870,7 @@ class Pipeline(Actor):
         if head not in placement.plans:
             return claimed
         try:
-            return placement.transfer(claimed, head)
+            return placement.upload(claimed, head)
         except Exception:
             self.logger.exception("data plane: device_put of claimed "
                                   "tensors onto stage %r failed; "

@@ -399,7 +399,14 @@ class StagePlacement:
     The JAX package's carving, replicas, failover and accounting on
     ``torch.device`` lists (the pool defaults to ``device.devices()``,
     every process's after a multi-host bring-up).  A stage may span
-    several cards.
+    several cards.  A pool that lists one card several times (a
+    one-card rehearsal of a five-card walk) holds a
+    :class:`~..device.PoolSlot` a listing: stages carve positions, the
+    device sets that name failures (``replica_devices``,
+    ``stage_devices``, what ``drop_replica`` returns) hold slots, and
+    ``drop_replica`` and ``replace`` retire the failed positions only;
+    the plans' meshes hold the cards.  A pool of distinct devices holds
+    the devices themselves.
     ``transfer`` with no spec moves tensor leaves to the stage's lead
     card (``MeshPlan.device``) with ``Tensor.to(device,
     non_blocking=True)``, asynchronous on the card; with a spec it
@@ -449,10 +456,16 @@ class StagePlacement:
     """
 
     def __init__(self, devices: Sequence | None = None):
-        self.devices = sorted(devices if devices is not None
-                              else device_rule.devices(),
-                              key=device_sort_key)
+        pool = sorted(devices if devices is not None
+                      else device_rule.devices(), key=device_sort_key)
+        if len(set(pool)) < len(pool):
+            pool = [device_rule.PoolSlot(device, position)
+                    for position, device in enumerate(pool)]
+        self.devices = pool
         self.plans: dict[str, MeshPlan] = {}
+        # (stage, replica index or None) -> the pool entries its plan
+        # was carved from: what a failure of that plan retires.
+        self._entries: dict[tuple, list] = {}
         self._requests: dict = {}
         # Multi-host mesh mode (ISSUE 9): the pool partitions into
         # per-host device groups -- by the process index under a real
@@ -471,6 +484,7 @@ class StagePlacement:
         self._shardings: dict = {}      # (stage, replica, gen, spec) memo
         self.transfer_puts = 0          # leaves actually moved
         self.transfer_skipped = 0       # leaves already resident
+        self.uploads = 0                # host arrays put by ``upload``
         # Replicated stages: stage -> [MeshPlan | None per slot] (None =
         # dead, retired by drop_replica), the DESIRED counts (what
         # reassign restores toward), and the floor replica counts the
@@ -595,8 +609,8 @@ class StagePlacement:
         carve, same code path)."""
         by_process: dict[int, list] = {}
         for device in devices:
-            by_process.setdefault(device_rule.process_index(device),
-                                  []).append(device)
+            by_process.setdefault(device_rule.process_index(
+                device_rule.card_of(device)), []).append(device)
         if len(by_process) > 1:
             return [by_process[key] for key in sorted(by_process)]
         count = self.hosts or 1
@@ -628,6 +642,7 @@ class StagePlacement:
         resolved = self._resolve(requests, len(self.devices), replicas)
         self.plans = {}
         self.replica_plans = {}
+        self._entries = {}
         if self.hosts:
             self._carve_hosted(requests, replicas, resolved)
             return
@@ -684,6 +699,7 @@ class StagePlacement:
         """Build a stage's MeshPlan (and replica sub-plans) from its
         carved device chunk -- shared by the flat and hosted carves."""
         total = len(chunk)
+        self._entries[name, None] = list(chunk)
         if name in replicas:
             count = replicas[name]
             subs, pos = [], 0
@@ -694,16 +710,18 @@ class StagePlacement:
                 pos += size
                 sub_axes = dict(axes) if axes != "auto" \
                     else {"dp": size}
-                subs.append(MeshPlan(make_mesh(sub_axes, sub)))
+                subs.append(MeshPlan(make_mesh(sub_axes, _cards(sub))))
+                self._entries[name, index] = list(sub)
             self.replica_plans[name] = subs
             # The whole-stage plan (stage_devices, default hops,
             # stats) spans every replica's chips as one dp pool.
             self.plans[name] = MeshPlan(
-                make_mesh({"dp": total}, chunk))
+                make_mesh({"dp": total}, _cards(chunk)))
         else:
             plan_axes = dict(axes) if axes != "auto" \
                 else {"dp": total}
-            self.plans[name] = MeshPlan(make_mesh(plan_axes, chunk))
+            self.plans[name] = MeshPlan(make_mesh(plan_axes,
+                                                  _cards(chunk)))
 
     def record_cost(self, stage: str, seconds: float) -> None:
         """EMA of the measured per-frame cost of a stage (fed from the
@@ -774,9 +792,12 @@ class StagePlacement:
         total fits, and ``auto`` stages re-split the remaining pool by
         recorded cost.  Plans are rebuilt in place -- elements must drop
         cached plans and re-put weights
-        (``TPUElement.on_replacement``)."""
+        (``TPUElement.on_replacement``).  A failed card retires every
+        position that lists it, a failed :class:`~..device.PoolSlot`
+        its own position."""
         failed = set(failed_devices)
-        survivors = [d for d in self.devices if d not in failed]
+        survivors = [d for d in self.devices if d not in failed
+                     and device_rule.card_of(d) not in failed]
         if len(survivors) == len(self.devices):
             return self.plans
         if not survivors:
@@ -829,17 +850,19 @@ class StagePlacement:
         return plan
 
     def replica_devices(self, stage: str, index: int) -> set:
+        """The pool entries one live replica occupies (empty for a dead
+        or unknown slot)."""
         plans = self.replica_plans.get(stage, ())
         if index >= len(plans) or plans[index] is None:
             return set()
-        return set(plans[index].mesh.devices.flat)
+        return set(self._entries[stage, index])
 
     def replica_of(self, stage: str, device) -> int | None:
         """Which live replica of ``stage`` owns ``device`` (None when
         the stage is not replicated or the device is not placed
         there)."""
         for index, plan in enumerate(self.replica_plans.get(stage, ())):
-            if plan is not None and device in set(plan.mesh.devices.flat):
+            if plan is not None and device in self._entries[stage, index]:
                 return index
         return None
 
@@ -862,16 +885,18 @@ class StagePlacement:
         subs = self.replica_plans.get(stage)
         if not subs or index >= len(subs) or subs[index] is None:
             return set()
-        dead = set(subs[index].mesh.devices.flat)
+        dead = set(self._entries.pop((stage, index)))
         subs[index] = None
         self.devices = [d for d in self.devices if d not in dead]
-        alive = [d for plan in subs if plan is not None
-                 for d in plan.mesh.devices.flat]
+        alive = [d for slot, plan in enumerate(subs) if plan is not None
+                 for d in self._entries[stage, slot]]
         if alive:
             self.plans[stage] = MeshPlan(
-                make_mesh({"dp": len(alive)}, alive))
+                make_mesh({"dp": len(alive)}, _cards(alive)))
+            self._entries[stage, None] = alive
         else:
             self.plans.pop(stage, None)
+            self._entries.pop((stage, None), None)
         self.replica_epoch += 1
         self._shardings = {key: value
                            for key, value in self._shardings.items()
@@ -879,13 +904,12 @@ class StagePlacement:
         return dead
 
     def stage_devices(self, stage: str) -> set:
-        """The devices a stage's submesh currently occupies (empty for
-        an unknown stage) -- the chaos harness's ``device_kill`` target
-        resolution and the replay path's blast-radius checks."""
-        plan = self.plans.get(stage)
-        if plan is None:
+        """The pool entries a stage's submesh currently occupies (empty
+        for an unknown stage) -- the chaos harness's ``device_kill``
+        target resolution and the replay path's blast-radius checks."""
+        if stage not in self.plans:
             return set()
-        return set(plan.mesh.devices.flat)
+        return set(self._entries[stage, None])
 
     # -- stage hops --------------------------------------------------------
 
@@ -930,6 +954,23 @@ class StagePlacement:
             return _place(leaf, target)
 
         return pytree.tree_map(hop, value)
+
+    def upload(self, value, to_stage: str):
+        """Host arrays and tensors (a frame's pipe payload, claimed from
+        the data plane) onto a stage's lead card, each through pinned
+        memory by an asynchronous copy, where the JAX package's receiver
+        calls ``device_put``; counted in ``uploads``.  Other values stay
+        as they are."""
+        target = self.stage_sharding(to_stage)
+
+        def put(leaf):
+            if not isinstance(leaf, (np.ndarray, torch.Tensor)) \
+                    or _arrived(leaf, target):
+                return leaf
+            self.uploads += 1
+            return _upload(leaf, target)
+
+        return pytree.tree_map(put, value)
 
     # -- stages of other processes (a real multi-host mesh) ----------------
 
@@ -1045,6 +1086,7 @@ class StagePlacement:
                                for name, cost in self.costs.items()},
                   "transfer_puts": self.transfer_puts,
                   "transfer_skipped": self.transfer_skipped,
+                  "uploads": self.uploads,
                   "shardings_cached": len(self._shardings)}
         if self.replica_plans:
             result["replica_epoch"] = self.replica_epoch
@@ -1059,6 +1101,11 @@ class StagePlacement:
                                      for group in self.host_groups]
             result["stage_hosts"] = dict(self.stage_hosts)
         return result
+
+
+def _cards(entries) -> list:
+    """The devices a list of pool entries stands for."""
+    return [device_rule.card_of(entry) for entry in entries]
 
 
 class RemoteValue:
@@ -1115,14 +1162,16 @@ def resident(tensor: torch.Tensor, device: torch.device) -> bool:
 
 def _upload(leaf, device: torch.device):
     """One leaf onto ``device``: a tensor by an asynchronous copy, a
-    host array through pinned memory on the card; anything else (text,
+    host array or host tensor through pinned memory on the card (a copy
+    from pageable memory would wait for the card); anything else (text,
     numbers) as it is."""
     if isinstance(leaf, np.ndarray):
         leaf = torch.from_numpy(np.ascontiguousarray(leaf))
-        if device.type == "cuda":
-            leaf = leaf.pin_memory()
     if not isinstance(leaf, torch.Tensor) or resident(leaf, device):
         return leaf
+    if device.type == "cuda" and leaf.device.type == "cpu" \
+            and not leaf.is_pinned():
+        leaf = leaf.pin_memory()
     return leaf.to(device, non_blocking=True)
 
 
@@ -1280,7 +1329,7 @@ class TPUElement(PipelineElement):
         # Device pool: the StagePlacement's (which excludes chips removed
         # by replace()) when one exists, else all local devices -- a
         # default-placed element must never re-resolve onto a dead chip.
-        pool = list(placements.devices) if placements is not None \
+        pool = _cards(placements.devices) if placements is not None \
             else device_rule.local_devices()
         if isinstance(placement, dict):
             axes = dict(placement)

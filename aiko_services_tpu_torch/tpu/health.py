@@ -24,7 +24,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..device import sync_allowed
+from ..device import card_of, sync_allowed
 from ..utils import get_logger
 
 __all__ = ["probe_devices", "default_prober"]
@@ -35,12 +35,14 @@ PROBE_TIMEOUT = 5.0
 
 
 def default_prober(device) -> bool:
-    """True when the device completes a host->device->host round trip.
-    The fetch is a planned wait: it runs with the synchronisation guard
+    """True when the device (a pool entry: a :class:`~..device.PoolSlot`
+    probes its card) completes a host->device->host round trip.  The
+    fetch is a planned wait: it runs with the synchronisation guard
     lifted (``device.sync_allowed``)."""
     try:
         with sync_allowed():
-            value = torch.zeros((), dtype=torch.float32).to(device)
+            value = torch.zeros((), dtype=torch.float32).to(
+                card_of(device))
             float(value.cpu())
         return True
     except Exception:

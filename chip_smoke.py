@@ -350,7 +350,47 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     writes to a file of its own; a child that fails or outlasts
     MULTIHOST_TIMEOUT_S fails the phase; the children's lines are
     printed first, prefixed with their process, and on a failure their
-    last lines also go to standard error.
+    last lines also go to standard error;
+16. remote stages over the data plane, and replicas on the card, every
+    launch counter zeroed before each part.  (a) ``bench.py``'s
+    ``bench_pipeline_transport`` shape on the card, both pipelines in
+    this process under ``transfer_guard: disallow`` (the loopback
+    broker, a registrar, the pipe on 127.0.0.1): ``(work (fwd))`` --
+    ``StageWork`` (factor 1, no wait) placed on the card, so the hopped
+    ``x`` is a card tensor, then a remote stage -- forwarding to
+    ``(inc)``, an ``Identity`` placed on the card; a (1024, 2048, 3)
+    uint8 frame (numpy seed 0) in pinned memory, 10 round trips over
+    the pipe, then 6 with ``data_plane: mqtt``, then the frame as bf16
+    10 times over the pipe (its tagged integer view).  Gates: every
+    reply OKAY and exactly ``x * 1.0``; one counted ledger fetch a
+    forward; over the pipe, ``pipe_frames`` equal to the hops on both
+    sides, no fallback, the back's head given the payload on its card
+    (one pinned upload a hop, ``StagePlacement.uploads``) and one
+    counted fetch a response; over MQTT, ``mqtt_frames`` equal to the
+    hops; no guard error; no kernel launched.  It prints the hops' p50
+    and p99 ms and the wire bytes against the raw bytes a round trip.
+    (b) config 4 split over the data plane (``config4-remote-loop-16``):
+    ``(DET (fwd))`` -- phase 7's detector placed on the card, its image
+    and detections forwarded -- to ``(CAP (LLM))`` with the LLM as in
+    ``pipeline-loop-16``; phase 7's 8 frames as pinned tensors (so the
+    image the pipe carries lies on the card), the first alone, then 7
+    at once.  Gates: 8/8 replies equal to phase 7's; #2, its combine,
+    #4 and #6 and no other kernel, ``flash_attention`` exactly phase
+    7's 768, top-k once and #2 and ``decode_combine`` 32 times a loop
+    iteration (a warm-up a capture, 16 a replay); LLM steps below 0.6 x
+    frames x new tokens; every forward over the pipe with one counted
+    fetch, one fetch a retired block; no guard error, no fallback.
+    (c) the replica failover of ``__graft_entry__.py``'s
+    ``[replica-failover]`` section (10) on the card, the device pool
+    (``device.local_devices``) listing it five times for the run: three
+    ``StageWork`` replicas of ``detect`` (``busy_ms`` 20), ``llm``, a
+    spare; ``device_kill`` on ``detect#1`` fired by the health probe
+    mid-flight, ``replica_rebuild_ms`` 80, 9 frames then 6 (16 x 16
+    float32, numpy seed 0, pinned).  Gates: the JAX section's (every
+    frame OKAY and in order, one peer-shed failover, the rule fired
+    once, a rebuild, slot 1 dead then half-open, three live slots at
+    the end), the killed position alone gone (four of the five left),
+    every reply ``x * 4`` on the card, no kernel launched.
 
 The last two lines are the card (``nvidia-smi``), a ``{"kernels": ...}``
 line (each kernel's ``launches`` over every serving and pipeline run,
@@ -362,7 +402,8 @@ under ``sharded-step``, 13d's (its four placed batcher runs) under
 ``serving-tp-int8`` (with 15d's one-process reference runs, made at
 its end on its tree), 13e's (its two batcher runs) under
 ``moe-dp2-burst``, phase 14's under ``config4-dp2-loop-16``, phase
-15's (both processes' 15a and 15d together) under ``multihost``; the
+15's (both processes' 15a and 15d together) under ``multihost``,
+phase 16b's under ``config4-remote-loop-16``; the
 entries on config 4's and config 5's paths carry ``"path"`` and their
 run's launches, phase 14's as ``config4_dp2_launches``), then ``{"ok":
 true, "device": {...}}``.  It imports nothing of JAX or of the JAX
@@ -2035,7 +2076,7 @@ def pipeline_run(label: str, llm: dict, parameters: dict, decode: str,
         pipeline.stop()
         element.close()
         return {"metrics": metrics, "launches": counts,
-                "detections": detections, **extra}
+                "detections": detections, "texts": texts, **extra}
 
 
 def detector_work(config, batch: int, size: int) -> dict:
@@ -5038,6 +5079,415 @@ def multihost_run(card: str) -> dict:
     return {"launches": by_process[0], "launches_by_process": by_process}
 
 
+# -- phase 16: remote stages over the data plane, replicas on the card -----
+
+#: ``bench.py``'s ``bench_pipeline_transport`` frame (``bench.py:1604-1606``):
+#: 6 MB of uint8 (numpy seed 0), 10 hops over the pipe and 6 over MQTT;
+#: then the same frame as bf16 over the pipe (its tagged integer view).
+#: ``StageWork`` hops ``x * 1.0``: float32 from the uint8 frame (24 MB,
+#: about 10 s a hop over MQTT, in the S-expression parser), bf16 as it is.
+TRANSPORT_SHAPE = (1024, 2048, 3)
+TRANSPORT_HOPS = {"tensor_pipe": 10, "mqtt": 6}
+TRANSPORT_RUNS = (("tensor_pipe", "uint8"), ("mqtt", "uint8"),
+                  ("tensor_pipe", "bfloat16"))
+#: The JAX section's walk (``__graft_entry__.py:487-616``): frames through
+#: ``(detect llm)``, then more after the rebuild.
+FAILOVER_FRAMES = (9, 6)
+
+
+def _remote_definitions(name: str, mode: str, front: list, graph: str,
+                        back: list, back_graph: str) -> tuple[dict, dict]:
+    """A front pipeline ending in the remote stage ``fwd`` and the back
+    pipeline it forwards to (``{name}_back``), both under
+    ``transfer_guard: disallow`` on the data plane ``mode``."""
+    parameters = {"transfer_guard": "disallow", "data_plane": mode}
+    return ({"version": 0, "name": f"{name}_front", "runtime": "torch",
+             "graph": [graph], "parameters": dict(parameters),
+             "elements": front},
+            {"version": 0, "name": f"{name}_back", "runtime": "torch",
+             "graph": [back_graph], "parameters": dict(parameters),
+             "elements": back})
+
+
+def _remote_pair(runtime, front: dict, back: dict) -> tuple:
+    """Both pipelines through ``create_pipeline``, the back first; returns
+    once the front's remote stage has found the back."""
+    back_pipeline = load_pipeline(back, runtime)
+    front_pipeline = load_pipeline(front, runtime)
+    stage = front_pipeline.graph.get_node("fwd").element
+    runtime.run(until=lambda: stage.remote_topic_path is not None,
+                timeout=60.0)
+    if stage.remote_topic_path is None:
+        raise AssertionError(f"{front['name']}: the remote stage never "
+                             f"found {back['name']}")
+    return front_pipeline, back_pipeline, stage
+
+
+def _plane(pipeline) -> dict:
+    stats = pipeline.data_plane_stats()
+    return {key: stats[key] for key in ("pipe_frames", "mqtt_frames",
+                                        "fallbacks", "pipe_bytes",
+                                        "mqtt_bytes")}
+
+
+def transport_mode(runtime, mode: str, dtype: str, frame, card: str) -> dict:
+    """16a's pair in one data-plane mode: ``(work (fwd))`` -- a
+    ``StageWork`` (factor 1, no wait) placed on the card, so the hopped
+    ``x`` is a card tensor -- forwarding to ``(inc)``, an ``Identity``
+    placed on the card; TRANSPORT_HOPS[mode] round trips of ``frame`` (a
+    pinned host tensor), one at a time."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.device import sync_allowed
+    common = "aiko_services_tpu_torch.elements.common"
+
+    def placed(name: str, cls: str, parameters: dict) -> dict:
+        return {"name": name, "input": [{"name": "x"}],
+                "output": [{"name": "x"}], "parameters": parameters,
+                "placement": {"devices": 1},
+                "deploy": {"local": {"module": common, "class_name": cls}}}
+
+    label = f"transport_{mode}_{dtype}"
+    front, back = _remote_definitions(
+        label, mode,
+        [placed("work", "StageWork", {"factor": 1.0}),
+         {"name": "fwd", "input": [{"name": "x"}],
+          "output": [{"name": "x"}],
+          "deploy": {"remote": {"name": f"{label}_back"}}}],
+        "(work (fwd))", [placed("inc", "Identity", {})], "(inc)")
+    front, back, stage = _remote_pair(runtime, front, back)
+    expected = frame * 1.0
+    raw = expected.numel() * expected.element_size()
+    hops = TRANSPORT_HOPS[mode]
+    responses = Responses()
+    laps, exact = [], 0
+    for _ in range(hops):
+        begin = time.perf_counter()
+        front.process_frame_local({"x": frame}, stream_id="s",
+                                  queue_response=responses)
+        runtime.run(until=lambda: not responses.empty(), timeout=120.0)
+        laps.append((time.perf_counter() - begin) * 1e3)
+        if responses.empty():
+            raise AssertionError(f"{label}: a hop never returned")
+        _, _, swag, _, okay, diagnostic = responses.get()
+        if not okay:
+            raise AssertionError(f"{label}: {diagnostic}")
+        got = swag["x"]
+        with sync_allowed():
+            got = got.cpu() if isinstance(got, torch.Tensor) \
+                else torch.from_numpy(np.asarray(got))
+        exact += got.dtype == expected.dtype and torch.equal(got, expected)
+    fs, bs = _plane(front), _plane(back)
+    out = {"run": label, "hops": hops, "exact": exact,
+           "piped": stage.remote_pipe is not None, "front": fs, "back": bs,
+           "front_ledger": front.transfer_ledger.stats,
+           "back_ledger": back.transfer_ledger.stats,
+           "back_uploads": back.stage_placement.uploads,
+           "raw_bytes_per_hop": 2 * raw,
+           "wire_bytes_per_hop": (fs["pipe_bytes"] + fs["mqtt_bytes"]
+                                  + bs["pipe_bytes"] + bs["mqtt_bytes"])
+           / hops,
+           "hop_p50_ms": float(np.percentile(laps, 50)),
+           "hop_p99_ms": float(np.percentile(laps, 99)), "card": card}
+    out["wire_over_raw"] = out["wire_bytes_per_hop"] / out["raw_bytes_per_hop"]
+    front.stop()
+    back.stop()
+    problems = []
+    if exact != hops:
+        problems.append(f"{hops - exact} of {hops} hops returned other "
+                        f"bytes than x * 1.0")
+    for side in ("front_ledger", "back_ledger"):
+        if out[side]["implicit"]:
+            problems.append(f"{side}: guard errors {out[side]}")
+    # One counted fetch a forward (the card tensor x) and a response (x
+    # uploaded onto the back's card by the receiver).
+    if out["front_ledger"]["explicit"] != hops:
+        problems.append(f"front fetches {out['front_ledger']} for {hops} "
+                        f"forwards")
+    if mode == "tensor_pipe":
+        if not out["piped"] or fs["pipe_frames"] != hops \
+                or bs["pipe_frames"] != hops or fs["fallbacks"] \
+                or bs["fallbacks"]:
+            problems.append(f"pipe frames and fallbacks: {fs} {bs}")
+        if out["back_uploads"] != hops \
+                or out["back_ledger"]["explicit"] != hops:
+            problems.append(f"the back's head got {out['back_uploads']} "
+                            f"uploads and its responses "
+                            f"{out['back_ledger']} fetches for {hops} hops")
+    elif fs["mqtt_frames"] != hops or bs["mqtt_frames"] != hops \
+            or fs["pipe_frames"] or bs["pipe_frames"]:
+        problems.append(f"mqtt frames: {fs} {bs}")
+    print(f"remote-transport {json.dumps(out)}", flush=True)
+    if problems:
+        raise AssertionError(f"{label}: " + "; ".join(problems))
+    return out
+
+
+def transport_run(card: str) -> dict:
+    """16a (module docstring)."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.services import Registrar
+    image = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, TRANSPORT_SHAPE, dtype=np.uint8))
+    frames = {"uint8": image.pin_memory(),
+              "bfloat16": image.to(torch.bfloat16).pin_memory()}
+    runs = []
+    with loopback_runtime() as runtime:
+        Registrar(runtime=runtime, primary_search_timeout=0.05)
+        for mode, dtype in TRANSPORT_RUNS:
+            runs.append(transport_mode(runtime, mode, dtype, frames[dtype],
+                                       card))
+    return {"runs": runs}
+
+
+def _config4_remote_definitions() -> tuple[dict, dict]:
+    """Config 4 split over the data plane: ``(DET (fwd))`` -- phase 7's
+    detector, placed on the card -- forwarding its image and detections
+    to ``(CAP (LLM))`` with the LLM as in ``pipeline-loop-16``."""
+    unsplit = _pipeline_definition("config4_remote", {
+        "decode_block_tokens": 16}, {"transfer_guard": "disallow"},
+        detector=CONFIG4_DETECTOR)
+    det, cap, llm = unsplit["elements"]
+    det = {**det, "output": [{"name": "image"}, {"name": "detections"}]}
+    return _remote_definitions(
+        "config4_remote", "tensor_pipe",
+        [det, {"name": "fwd", "input": [{"name": "image"},
+                                        {"name": "detections"}],
+               "output": [{"name": "text"}],
+               "deploy": {"remote": {"name": "config4_remote_back"}}}],
+        "(DET (fwd))", [cap, llm], "(CAP (LLM))")
+
+
+def config4_remote_run(card: str, single: dict) -> dict:
+    """16b (module docstring): phase 7's frames and models split over the
+    data plane, held to phase 7's replies."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch.services import Registrar
+    images = [torch.from_numpy(image).pin_memory()
+              for image in config4_images()]
+    begin = time.perf_counter()
+    with loopback_runtime() as runtime:
+        Registrar(runtime=runtime, primary_search_timeout=0.05)
+        front, back = _config4_remote_definitions()
+        front, back, stage = _remote_pair(runtime, front, back)
+        counters = zero_launches()
+        responses = Responses()
+        stream = front.create_stream_local("1", queue_response=responses)
+        front.create_frame_local(stream, {"image": images[0]})
+        runtime.run(until=lambda: responses.qsize() >= 1, timeout=300.0)
+        for image in images[1:]:
+            front.create_frame_local(stream, {"image": image})
+        runtime.run(until=lambda: responses.qsize() >= CONFIG4_FRAMES
+                    or responses.failures, timeout=300.0)
+        counts = read_launches(counters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - begin
+        if responses.failures or responses.qsize() < CONFIG4_FRAMES:
+            raise AssertionError(f"config4-remote: {responses.qsize()} of "
+                                 f"{CONFIG4_FRAMES} frames answered; "
+                                 f"failed: {responses.failures}")
+        texts, metrics = {}, {}
+        while not responses.empty():
+            _, frame_id, swag, metrics[frame_id], _, _ = responses.get()
+            texts[frame_id] = swag["text"]
+        element = back.graph.get_node("LLM").element
+        batcher = element._batcher
+        loop = batcher._loop
+        steps_limit = 0.6 * CONFIG4_FRAMES * NEW_TOKENS
+        out = {"run": "config4-remote-loop-16", "frames": CONFIG4_FRAMES,
+               "wall_s": wall,
+               "replies_equal_phase7": sum(
+                   texts[frame_id] == single["texts"][frame_id]
+                   for frame_id in texts),
+               "llm_steps": batcher.steps, "llm_steps_limit": steps_limit,
+               "captures": loop.captures, "replays": loop.replays,
+               "blocks_retired": batcher.blocks_retired,
+               "front": _plane(front), "back": _plane(back),
+               "front_ledger": front.transfer_ledger.stats,
+               "back_ledger": back.transfer_ledger.stats,
+               "phase7_flash_attention":
+                   single["launches"]["flash_attention"],
+               "det_time_ms_median": float(np.median(
+                   [m["DET_time"] for m in metrics.values()])) * 1e3,
+               "card": card}
+        print(f"config4-remote {json.dumps(out)} launches "
+              f"{json.dumps(counts)}", flush=True)
+        front.stop()
+        back.stop()
+        element.close()
+        del batcher, loop
+    check_launches("config4-remote-loop-16", counts, {
+        "flash_decode_attention_stacked", "decode_combine",
+        "flash_attention", "topk"})
+    iterations = out["captures"] + 16 * out["replays"]
+    decode = counts["flash_decode_attention_stacked"]
+    problems = []
+    if out["replies_equal_phase7"] != CONFIG4_FRAMES:
+        problems.append(f"{out['replies_equal_phase7']} of "
+                        f"{CONFIG4_FRAMES} replies equal phase 7's")
+    if counts["flash_attention"] != out["phase7_flash_attention"]:
+        problems.append(f"flash_attention {counts['flash_attention']} "
+                        f"against phase 7's {out['phase7_flash_attention']}")
+    if counts["topk"] != iterations or decode != 32 * iterations \
+            or counts["decode_combine"] != decode:
+        problems.append(f"decode launches {decode}, combine "
+                        f"{counts['decode_combine']}, top-k "
+                        f"{counts['topk']} against {iterations} loop "
+                        f"iterations (a warm-up a capture, 16 a replay)")
+    if not out["llm_steps"] < steps_limit:
+        problems.append(f"{out['llm_steps']} LLM steps, limit {steps_limit}")
+    for side in ("front", "back"):
+        if out[f"{side}_ledger"]["implicit"] or out[side]["fallbacks"]:
+            problems.append(f"{side}: guard errors or fallbacks: "
+                            f"{out[side + '_ledger']} {out[side]}")
+    if out["front"]["pipe_frames"] != CONFIG4_FRAMES \
+            or out["front_ledger"]["explicit"] != CONFIG4_FRAMES \
+            or out["back_ledger"]["explicit_by_label"].get("llm_block") \
+            != out["blocks_retired"]:
+        problems.append(f"forwards over the pipe and fetches: "
+                        f"{out['front']} {out['front_ledger']} "
+                        f"{out['back_ledger']}")
+    if problems:
+        raise AssertionError("config4-remote: " + "; ".join(problems))
+    return {"launches": counts, **out}
+
+
+def replica_failover_run(card: str) -> dict:
+    """16c (module docstring): the JAX section's replica-failover walk on
+    one card listed five times."""
+    import numpy as np
+    import torch
+    from aiko_services_tpu_torch import device as device_rule
+    from aiko_services_tpu_torch.pipeline.tensor import resident
+    common = "aiko_services_tpu_torch.elements.common"
+
+    def element(name: str, placement: dict) -> dict:
+        return {"name": name, "input": [{"name": "x"}],
+                "output": [{"name": "x"}],
+                "parameters": {"busy_ms": 20.0, "factor": 2.0},
+                "placement": placement,
+                "deploy": {"local": {"module": common,
+                                     "class_name": "StageWork"}}}
+
+    definition = {
+        "version": 0, "name": "replica_failover", "runtime": "torch",
+        "graph": ["(detect llm)"],
+        "parameters": {"replay_limit": 3, "replica_rebuild_ms": 80,
+                       "health_probe_timeout": 2.0,
+                       "fault_plan": {"seed": 0, "rules": [
+                           {"point": "device_kill", "target": "detect#1",
+                            "count": 1}]}},
+        "elements": [element("detect", {"devices": 1, "replicas": 3}),
+                     element("llm", {"devices": 1})]}
+    rng = np.random.default_rng(0)
+    batches = [[torch.from_numpy(rng.standard_normal((16, 16)).astype(
+        np.float32)).pin_memory() for _ in range(count)]
+        for count in FAILOVER_FRAMES]
+    pool = device_rule.local_devices
+    card_zero = pool()[0]
+    device_rule.local_devices = lambda: [card_zero] * 5
+    begin = time.perf_counter()
+    try:
+        with loopback_runtime() as runtime:
+            pipeline = load_pipeline(definition, runtime)
+            placement = pipeline.stage_placement
+            group = pipeline.stage_scheduler.groups["detect"]
+            positions = list(placement.devices)
+            counters = zero_launches()
+            rows, walk = [], None
+            for index, frames in enumerate(batches):
+                responses = Responses()
+                for x in frames:
+                    pipeline.process_frame_local(
+                        {"x": x}, stream_id=f"rf{index}",
+                        queue_response=responses)
+                if index == 0:
+                    def replica1_busy():
+                        return any(frame.stage == "detect"
+                                   and frame.stage_replica == 1
+                                   for stream in pipeline.streams.values()
+                                   for frame in stream.frames.values())
+                    runtime.run(until=replica1_busy, timeout=60.0)
+                    if not replica1_busy():
+                        raise AssertionError("replica-failover: no frame "
+                                             "admitted to replica 1")
+                    pipeline.post_self("check_device_health")
+                runtime.run(until=lambda: responses.qsize() >= len(frames)
+                            or responses.failures, timeout=300.0)
+                got = [responses.get() for _ in range(responses.qsize())]
+                rows.append(got)
+                if index == 0:
+                    survivors = list(placement.devices)
+                    runtime.run(until=lambda: pipeline.share[
+                        "replica_rebuilds"] >= 1, timeout=60.0)
+                    walk = [(slot, state)
+                            for slot, state, _ in group.transitions]
+            counts = read_launches(counters)
+            torch.cuda.synchronize()
+            out = {"run": "replica-failover", "frames": list(FAILOVER_FRAMES),
+                   "answered": [len(got) for got in rows],
+                   "okay": sum(row[4] for got in rows for row in got),
+                   "in_order": all([row[1] for row in got]
+                                   == sorted(row[1] for row in got)
+                                   for got in rows),
+                   "failovers": pipeline.share["replica_failovers"],
+                   "failover_ms": pipeline.share["replica_failover_ms"],
+                   "rebuilds": pipeline.share["replica_rebuilds"],
+                   "device_kill": pipeline.fault_stats()["plan"]["fired"]
+                   .get("device_kill"),
+                   "walk_has_dead_and_half_open":
+                       (1, "dead") in walk and (1, "half_open") in walk,
+                   "states": list(group.states),
+                   "positions": [str(entry) for entry in positions],
+                   "positions_after_kill": [str(entry)
+                                            for entry in survivors],
+                   "positions_now": len(placement.devices),
+                   "replicas_served": sorted({
+                       row[3].get("stage_detect_replica") for got in rows
+                       for row in got}),
+                   "on_card_exact": sum(
+                       isinstance(row[2]["x"], torch.Tensor)
+                       and resident(row[2]["x"], card_zero)
+                       and torch.equal(row[2]["x"].cpu(), x * 4.0)
+                       for got, frames in zip(rows, batches)
+                       for row, x in zip(sorted(got, key=lambda r: r[1]),
+                                         frames)),
+                   "phase_s": time.perf_counter() - begin, "card": card}
+            pipeline.stop()
+    finally:
+        device_rule.local_devices = pool
+    print(f"replica-failover {json.dumps(out)}", flush=True)
+    check_launches("replica-failover", counts, set())
+    total = sum(FAILOVER_FRAMES)
+    if out["answered"] != list(FAILOVER_FRAMES) or out["okay"] != total \
+            or not out["in_order"] or out["failovers"] != 1 \
+            or out["device_kill"] != 1 or out["rebuilds"] < 1 \
+            or not out["walk_has_dead_and_half_open"] \
+            or out["states"] != ["live"] * 3 \
+            or len(positions) != 5 or len(survivors) != 4 \
+            or out["positions_now"] != 4 \
+            or set(survivors) != set(positions) - {positions[1]} \
+            or out["on_card_exact"] != total:
+        raise AssertionError(f"replica-failover: {out}")
+    return out
+
+
+def remote_stages_run(card: str, config4: dict) -> dict:
+    """Phase 16 (module docstring): 16a, 16b and 16c, every launch
+    counter zeroed before each; 16a and 16c launch no kernel."""
+    begin = time.perf_counter()
+    counters = zero_launches()
+    transport = transport_run(card)
+    check_launches("remote-transport", read_launches(counters), set())
+    remote = config4_remote_run(card, config4)
+    failover = replica_failover_run(card)
+    print(f"phase 16: {time.perf_counter() - begin:.1f} s", flush=True)
+    return {"launches": remote["launches"], "transport": transport,
+            "config4_remote": remote, "replica_failover": failover}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}", 2)
@@ -5263,6 +5713,10 @@ def main() -> int:
         name: sum(counts.get(name, 0)
                   for counts in multihost["launches_by_process"])
         for name in multihost["launches"]}
+
+    # -- phase 16: remote stages over the data plane, replicas on the card
+    remote = remote_stages_run(card, config4)
+    pipeline_launches["config4-remote-loop-16"] = remote["launches"]
 
     for entry in kernels:
         by_run = {label: counts.get(entry["name"], 0)

@@ -83,6 +83,14 @@ ALLOWED = {
                    "other dtypes numpy cannot hold are tagged by torch "
                    "dtype and round-trip as raw bytes (a CPU tensor of "
                    "that dtype on decode)")],
+    "pipeline/data_plane.py": [
+        ((43, 43), "imports the codec's host_only"),
+        ((82, 82), "split_arrays refuses a tensor on a card (host_only): "
+                   "its __array__ would copy it to the host uncounted; "
+                   "the engine fetches a frame's device leaves first"),
+        ((316, 316), "the sender hands each array to tag_view as it is: "
+                     "a bf16 host tensor (the fetch's form of a dtype "
+                     "numpy cannot hold) has no numpy array to take")],
     "pipeline/definition.py": [
         ((24, 24), "the port's runtimes are python and torch; 'jax' is "
                    "refused and the message names torch (ROADMAP "
@@ -136,6 +144,10 @@ ALLOWED = {
                      "(parallel/distributed.py)"),
         ((702, 702), "the bring-up error names torch.distributed and the "
                      "coordinator"),
+        ((1872, 1872), "the claimed pipe arrays go onto the head "
+                       "stage's lead card through pinned memory, counted "
+                       "(StagePlacement.upload): the port's stage hop "
+                       "leaves host values on the host"),
         ((3661, 3661), "the hop site starts with no handles (a stage of "
                        "another process yields them)"),
         ((3672, 3676), "in a real multi-host mesh the hop runs over the "

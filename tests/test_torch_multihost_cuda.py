@@ -201,8 +201,13 @@ def test_batcher_across_processes_matches_one_process(tmp_path,
     assert not problems, problems
 
 
-#: |loss - one process's| / one process's, steps 2 on (bf16 AdamW).
-MOE_LOSS_REL_TOL = 1e-3
+#: |loss - one process's| / one process's, steps 2 on (bf16 AdamW).  One
+#: process's step repeats bit for bit since the collectives sum their
+#: gradients in group order; the processes' order differs, which moved
+#: steps 2 and 3 by 2.43e-4 and 6.47e-4 on four H100s (PyTorch 2.11,
+#: CUDA 12.8), where one process's second loss read 11.4105 to 11.4127
+#: before.
+MOE_LOSS_REL_TOL = 7e-4
 
 
 @pytest.mark.cuda

@@ -306,11 +306,12 @@ def test_placement_block_places_stage(runtime, cpu_pool):
 
 def test_placement_block_rejected(runtime, monkeypatch):
     """A placement block over two CUDA cards resolves (the stage's lead
-    card is the first), and the claimed-tensor hop onto such a head
-    stage never reaches the handler that leaves tensors host-side: a
-    frame of host values hops without a CUDA call (so here, with no
-    card, it hops the same), and over CPU descriptors a tensor lands on
-    the stage.  (The name is kept from when such a block was refused.)"""
+    card is the first, where a frame's claimed pipe arrays go: the card
+    run of ``chip_smoke.py`` phase 16a holds that upload), and over CPU
+    descriptors the claimed arrays land on the stage -- a host array put
+    there and counted, a tensor already there as it is -- without
+    reaching the handler that leaves them host-side.  (The name is kept
+    from when such a block was refused.)"""
     import numpy as np
     import torch
     from aiko_services_tpu_torch import device as device_rule
@@ -333,12 +334,17 @@ def test_placement_block_rejected(runtime, monkeypatch):
     cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
     p = placed_head(cards, "p_cards")
     assert p.stage_placement.stage_sharding("A") == cards[0]
-    claimed = {"a": np.ones(2, np.float32)}
-    assert p._upload_claimed("s", claimed)["a"] is claimed["a"]
     pool = [torch.device("cpu", 0), torch.device("cpu", 1)]
     p = placed_head(pool, "p_pool")
-    landed = p._upload_claimed("s", {"a": torch.ones(2)})
-    assert resident(landed["a"], p.stage_placement.plan("A").device)
+    tensor = torch.ones(2)
+    landed = p._upload_claimed("s", {"a": tensor,
+                                     "b": np.ones(2, np.float32)})
+    assert landed["a"] is tensor
+    assert isinstance(landed["b"], torch.Tensor)
+    torch.testing.assert_close(landed["b"], torch.ones(2))
+    for value in landed.values():
+        assert resident(value, p.stage_placement.plan("A").device)
+    assert p.stage_placement.uploads == 1
     assert logged == []
 
 

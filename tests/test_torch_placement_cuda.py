@@ -1,13 +1,16 @@
 """Stages over card groups on four distinct cards: the placement sections
 of ``__graft_entry__.dryrun_multichip`` -- ``[placement]`` (3),
 ``[replacement]`` (4), ``[config4]`` (7), ``[stage-pipeline]`` (8),
-``[chaos]`` (9) and ``[gateway]`` (11) -- through the port
+``[chaos]`` (9), ``[replica-failover]`` (10) and ``[gateway]`` (11) --
+through the port
 (``tests/torch_placement_sections.py``) with the JAX sections'
 assertions, plus what only distinct cards show: each shard of a hop on
 its own card, config 4's stages on disjoint cards with the
 ``Detector``'s graphs on both of its cards and its detections equal to
 a run with one card standing for both positions, ``StageWork`` on each
-stage's lead card, and the time of a hop between cards.  Imports no
+stage's lead card, each replica's output on its own card through a
+replica failover, the mixture-of-experts training step over the four
+cards bit for bit repeatable, and the time of a hop between cards.  Imports no
 JAX, so it runs on the card machine:
 
     python3 -m pytest --noconftest -q -s tests/test_torch_placement_cuda.py
@@ -15,6 +18,7 @@ JAX, so it runs on the card machine:
 Every test skips with fewer than four cards.  The hop times print as one
 ``placement-hops`` JSON line with the card's name and power limit."""
 
+import gc
 import json
 import subprocess
 import time
@@ -23,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_multihost_worker as worker
 import torch_placement_sections as sections
 
 from aiko_services_tpu_torch import device as device_rule
@@ -126,6 +131,61 @@ def test_chaos_section(cards):
     assert result["killed"] == set(cards[:2])
     assert all(device in cards[2:] for devices in result["stages"].values()
                for device in devices)
+
+
+@pytest.mark.cuda
+def test_replica_failover_section(cards, monkeypatch):
+    """The pool lists card 3 twice: the three replicas on cards 0-2, the
+    llm on card 3, the spare card 3's second listing.  Tensor frames
+    (pinned host memory) hop onto each replica's card, where its
+    ``StageWork`` output lies; the kill retires card 1's position only,
+    and the rebuild re-carves the four positions left: the replicas on
+    cards 0, 2 and 3, the llm on the spare, every reply ``x * 4`` on
+    card 3."""
+    pool = [*cards, cards[3]]
+    monkeypatch.setattr(device_rule, "local_devices", lambda: list(pool))
+    result = sections.replica_failover(
+        frame=lambda rng: torch.from_numpy(rng.standard_normal(
+            (16, 16)).astype(np.float32)).pin_memory())
+    assert [device_rule.card_of(entry) for entry in result["pool"]] == pool
+    assert result["leads"] == cards[:3]
+    assert result["killed"] == {result["pool"][1]}
+    assert result["survivors"] == [result["pool"][0], *result["pool"][2:]]
+    assert result["rebuilt_leads"] == [cards[0], cards[2], cards[3]]
+    assert result["llm_lead"] == cards[3]
+    assert result["placed"] == set(result["survivors"])
+    # Before the rebuild each replica computes on its own card (a call
+    # that began on the old layout; one caught by the rebuild computes
+    # where its input was hopped and is replayed); after it, on the
+    # re-carved layout.
+    before = result["calls"][:result["calls_before_rebuild"]]
+    original = [call for call in before if call["stage"] == "detect"
+                and call["lead"] == cards[call["replica"]]]
+    assert {call["replica"] for call in original} == {0, 1, 2}
+    for call in original:
+        assert call["device"] == call["lead"], call
+    for call in result["calls"][result["calls_before_rebuild"]:]:
+        want = result["llm_lead"] if call["stage"] == "llm" \
+            else result["rebuilt_leads"][call["replica"]]
+        assert call["lead"] == want and call["device"] == want, call
+    for sent, got in zip(result["sent"], result["results"]):
+        assert got.device == cards[3]
+        torch.testing.assert_close(got.cpu(), sent * 4.0, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_moe_train_step_over_four_cards_is_bitwise_repeatable(cards):
+    """Phase 11c's MoE over ``{"ep": 2, "tp": 2}`` on the four cards in
+    one process, three steps, twice: the losses and the updated tree's
+    checksum equal (each exchange's gradients summed in group order)."""
+    first = worker.card_moe(cards)
+    gc.collect()
+    torch.cuda.empty_cache()
+    second = worker.card_moe(cards)
+    report = {"card": card_line(), "runs": [first, second]}
+    print(f"moe-ep-four-cards {json.dumps(report)}", flush=True)
+    assert first["losses"] == second["losses"]
+    assert first["checksum"] == second["checksum"]
 
 
 @pytest.mark.cuda

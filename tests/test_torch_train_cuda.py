@@ -129,3 +129,43 @@ def test_batched_admission_makes_no_host_sync(cuda_device, preset):
         guarded, _ = llama.prefill_into_slots(params, config, tokens, cache,
                                               [0, 2, 2], [0, 16, 16])
     torch.testing.assert_close(guarded, plain)
+
+
+def _moe_step_twice(device) -> list[dict]:
+    """Phase 11c's MoE training step (4 experts at Llama-3.2-1B widths,
+    top-2, capacity factor 2.0, ``max_seq`` 512, remat, bf16, seed 0) on
+    one batch of 2 x 512 tokens (numpy seed 0), run twice from scratch in
+    this process: each run's gradients at the initial weights (on the
+    host) and its losses over three AdamW steps."""
+    config = dataclasses.replace(llama.LlamaConfig.llama3_1b(), n_experts=4,
+                                 max_seq=512, remat=True)
+    plan = MeshPlan.build({"dp": 1}, devices=[device])
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, config.vocab_size, (2, 512))).to(device)
+    runs = []
+    for _ in range(2):
+        params, state, _ = train.init_train_state(0, config, plan)
+        _, grads = train.value_and_grad(params, config, tokens)
+        found = {"grads": [leaf.detach().cpu()
+                           for leaf in train._leaves(grads)]}
+        del grads
+        step = train.make_train_step(config, plan)
+        found["losses"] = [float(step(params, state, tokens)[2])
+                           for _ in range(3)]
+        runs.append(found)
+        del params, state
+        torch.cuda.empty_cache()
+    return runs
+
+
+@pytest.mark.cuda
+def test_moe_train_step_is_bitwise_repeatable(cuda_device):
+    """Two runs of the MoE step in one process on one card: every
+    gradient leaf and every loss bit for bit equal."""
+    first, second = _moe_step_twice(cuda_device)
+    print(f"moe step losses {first['losses']} and {second['losses']}")
+    assert first["losses"] == second["losses"]
+    assert first["losses"][-1] < first["losses"][0]
+    assert len(first["grads"]) == len(second["grads"])
+    for ours, theirs in zip(first["grads"], second["grads"]):
+        assert torch.equal(ours, theirs)

@@ -1,8 +1,9 @@
 """The placement sections of ``__graft_entry__.dryrun_multichip`` run
 through the port: ``[placement]`` (3), ``[replacement]`` (4),
-``[config4]`` (7), ``[stage-pipeline]`` (8), ``[chaos]`` (9) and
-``[gateway]`` (11), each with the JAX section's assertions, over a pool
-of four devices.  Imports only the port, so the same sections run on
+``[config4]`` (7), ``[stage-pipeline]`` (8), ``[chaos]`` (9),
+``[replica-failover]`` (10) and ``[gateway]`` (11), each with the JAX
+section's assertions, over a pool of four devices (five pool positions
+for the replica failover).  Imports only the port, so the same sections run on
 four CPU descriptors (``tests/test_torch_placement.py``) and on four
 cards (``tests/test_torch_placement_cuda.py``).
 
@@ -20,6 +21,7 @@ import threading
 import numpy as np
 import torch
 
+from aiko_services_tpu_torch.elements.common import StageWork
 from aiko_services_tpu_torch.parallel import P
 from aiko_services_tpu_torch.pipeline import Pipeline
 from aiko_services_tpu_torch.pipeline.tensor import StagePlacement, resident
@@ -308,6 +310,139 @@ def chaos(devices: list) -> dict:
         out = {"killed": killed, "replayed": replayed,
                "stages": {name: list(plan.mesh.devices.flat)
                           for name, plan in placement.plans.items()}}
+        pipeline.stop()
+    return out
+
+
+# -- 10. [replica-failover] -------------------------------------------------
+
+class RecordedStageWork(StageWork):
+    """``StageWork`` that notes each call: its stage, the replica it ran
+    on, where its output lies and its plan's lead card as it began (None
+    for a call of a replica already retired, which the shed replays on a
+    peer)."""
+
+    calls: list = []
+
+    def process_frame(self, stream, x):
+        current = self.pipeline.current_replica()
+        try:
+            lead = self.plan.device
+        except KeyError:
+            lead = None
+        event, outputs = super().process_frame(stream, x)
+        RecordedStageWork.calls.append({
+            "stage": self.name,
+            "replica": None if current is None else current[1],
+            "device": getattr(outputs["x"], "device", None), "lead": lead})
+        return event, outputs
+
+
+def replica_failover(frame=None) -> dict:
+    """detect at ``replicas: 3``, a ``device_kill`` rule on ONE replica
+    (``detect#1``) fired by the health probe mid-flight: its frames shed
+    to the peers in order, no generation bump; the background rebuild
+    restores the slot half-open and the canary closes it live.  The pool
+    (``device.local_devices()``, five positions: three replicas, the
+    llm and a spare) loses the killed position only.  ``frame(rng)``
+    makes each frame's ``x`` (a float32 numpy array, as the JAX
+    section's, by default)."""
+    n_frames = 9
+    frame = frame or (lambda rng: rng.standard_normal(
+        (16, 16)).astype(np.float32))
+    RecordedStageWork.calls = []
+
+    def element(name: str, placement: dict) -> dict:
+        return {"name": name, "input": [{"name": "x"}],
+                "output": [{"name": "x"}],
+                "parameters": {"busy_ms": 20.0, "factor": 2.0},
+                "placement": placement,
+                "deploy": {"local": {"module": __name__,
+                                     "class_name": "RecordedStageWork"}}}
+
+    with port_runtime() as runtime:
+        pipeline = Pipeline(
+            {"version": 0, "name": "replica_failover", "runtime": "torch",
+             "graph": ["(detect llm)"],
+             "parameters": {
+                 "replay_limit": 3,
+                 "replica_rebuild_ms": 80,
+                 "health_probe_timeout": 2.0,
+                 "fault_plan": {"seed": 0, "rules": [
+                     {"point": "device_kill", "target": "detect#1",
+                      "count": 1}]}},
+             "elements": [element("detect", {"devices": 1, "replicas": 3}),
+                          element("llm", {"devices": 1})]},
+            runtime=runtime)
+        placement = pipeline.stage_placement
+        group = pipeline.stage_scheduler.groups["detect"]
+        pool = list(placement.devices)
+        leads = [placement.replica_plan("detect", index).device
+                 for index in range(3)]
+        responses: queue.Queue = queue.Queue()
+        rng = np.random.default_rng(0)
+        sent = [frame(rng) for _ in range(n_frames)]
+        for x in sent:
+            pipeline.process_frame_local({"x": x}, stream_id="rf",
+                                         queue_response=responses)
+
+        def replica1_busy():
+            return any(frame.stage == "detect" and frame.stage_replica == 1
+                       for stream in pipeline.streams.values()
+                       for frame in stream.frames.values())
+        runtime.run(until=replica1_busy, timeout=60.0)
+        assert replica1_busy(), "no frame admitted to replica 1"
+        # The armed rule marks replica 1's position dead on this probe.
+        pipeline.post_self("check_device_health")
+        collected = collect(runtime, responses, n_frames)
+        assert len(collected) == n_frames, (
+            f"replica-failover: {len(collected)}/{n_frames} frames -- "
+            "dropped through the shed")
+        for *_, okay, diagnostic in collected:
+            assert okay, f"replica-failover frame failed: {diagnostic}"
+        order = [row[1] for row in collected]
+        assert order == sorted(order), \
+            f"replica-failover delivery out of order: {order}"
+        assert pipeline.share["replica_failovers"] == 1, \
+            "the replica kill never took the peer-shed path"
+        fired = pipeline.fault_stats()["plan"]["fired"]
+        assert fired.get("device_kill") == 1
+        survivors = list(placement.devices)
+        runtime.run(until=lambda: pipeline.share["replica_rebuilds"] >= 1,
+                    timeout=60.0)
+        assert pipeline.share["replica_rebuilds"] >= 1, \
+            "background rebuild never ran"
+        walk = [(slot, state) for slot, state, _ in group.transitions]
+        assert (1, "dead") in walk and (1, "half_open") in walk, \
+            f"missing canary lifecycle in {walk}"
+        killed_calls = len(RecordedStageWork.calls)
+        responses2: queue.Queue = queue.Queue()
+        sent2 = [frame(rng) for _ in range(6)]
+        for x in sent2:
+            pipeline.process_frame_local({"x": x}, stream_id="rf2",
+                                         queue_response=responses2)
+        collected2 = collect(runtime, responses2, 6)
+        assert len(collected2) == 6 and all(row[4] for row in collected2)
+        assert group.states == ["live", "live", "live"], \
+            f"canary never reclosed slot 1: {group.states}"
+        out = {"pool": pool, "survivors": survivors,
+               "killed": set(pool) - set(survivors),
+               "leads": leads,
+               "rebuilt_leads": [placement.replica_plan("detect",
+                                                        index).device
+                                 for index in range(3)],
+               "llm_lead": placement.plan("llm").device,
+               "placed": {entry for index in range(3)
+                          for entry in placement.replica_devices("detect",
+                                                                 index)}
+               | placement.stage_devices("llm"),
+               "generation": placement.generation,
+               "calls": list(RecordedStageWork.calls),
+               "calls_before_rebuild": killed_calls,
+               "sent": sent + sent2,
+               "results": [row[2]["x"] for row in collected + collected2],
+               "failover_ms": pipeline.share["replica_failover_ms"],
+               "rebuilds": pipeline.share["replica_rebuilds"]}
         pipeline.stop()
     return out
 
