@@ -136,8 +136,10 @@ class Detector(MicroBatchElement, TPUElement):
                                 "rows": 0}
                                for device in plan.mesh.devices.flat]
         config = self._config
-        self._detect = self.jit(
-            lambda params, images: detector.detect(params, config, images))
+
+        def detect(params, images):     # named: its capture's span
+            return detector.detect(params, config, images)
+        self._detect = self.jit(detect)
 
     def _preprocess(self, image):
         """image -> [H, W, 3] float32 in [0, 1] on this element's

@@ -20,7 +20,13 @@ the same text.  The port's differences:
   the card is process-wide (``pipeline/overlap.py``); the device loop's
   one graph capture lifts it (``models/loop_graph.py``);
 - :meth:`LLM.close` ends the element's worker and drops its model, so a
-  process can free the card's memory between pipelines.
+  process can free the card's memory between pipelines;
+- the worker writes spans to the process ring (``tpu/profiling.py``):
+  ``llm.inbox`` a request (the frame's put to the batcher's submit: the
+  worker's inbox and the tokenizing; the batcher's ``request.*`` spans
+  follow it) and ``llm.wait_work`` (the worker blocked on an empty
+  inbox); the telemetry plane observes ``llm_queue_ms`` and
+  ``llm_admission_ms`` beside ``llm_ttft_ms``.
 
 The rest of this docstring is the JAX package's, and holds here.
 
@@ -65,6 +71,7 @@ from ..models.checkpoint import restore_or_init
 from ..models.tokenizer import ByteTokenizer, load_tokenizer
 from ..pipeline import PipelineElement, StreamEvent
 from ..services import Actor
+from ..tpu.profiling import record_span, span
 from ..utils import generate, get_logger, parse_bool, parse_number
 
 __all__ = ["LLMService", "LLM", "DetectionCaption", "PROTOCOL_LLM"]
@@ -485,7 +492,7 @@ class LLM(PipelineElement):
                 resume = take(stream.stream_id, frame.frame_id)
         self._work.put(("request", str(stream.stream_id), text, complete,
                         self._resolve_request_params(), model_params,
-                        qos_info, journal_key, resume))
+                        qos_info, journal_key, resume, time.perf_counter()))
 
     def stop_stream(self, stream, stream_id):
         """Cancel the stream's outstanding requests: a frame parked here
@@ -526,7 +533,7 @@ class LLM(PipelineElement):
             self._closing = True       # the worker ends after this tick
         elif item[0] == "request":
             (_, stream_id, text, complete, request_params, model_params,
-             qos_info, journal_key, resume) = item
+             qos_info, journal_key, resume, put_time) = item
             try:
                 self._ensure_model(model_params)
                 request, collected = self._make_request(
@@ -559,6 +566,8 @@ class LLM(PipelineElement):
             request.emit = emit
             self._completes[request.request_id] = complete
             self._batcher.submit(request)
+            record_span("llm.inbox", put_time, request.submit_time,
+                        request.request_id)
             if resume:
                 # Adopted frame: fold the journaled committed prefix
                 # in (prompt + committed re-prefill, budget arithmetic
@@ -691,6 +700,10 @@ class LLM(PipelineElement):
                     labels["cls"] = str(entry["cls"])
                 telemetry.registry.observe("llm_ttft_ms",
                                            entry["ttft_ms"], **labels)
+                telemetry.registry.observe("llm_queue_ms",
+                                           entry["queue_ms"], **labels)
+                telemetry.registry.observe("llm_admission_ms",
+                                           entry["admission_ms"], **labels)
                 if entry["tokens"] > 1:
                     telemetry.registry.observe("llm_tpot_ms",
                                                entry["tpot_ms"],
@@ -748,7 +761,8 @@ class LLM(PipelineElement):
         synchronous frame (``process_frame``) is stepping the shared
         batcher: that frame waits for at most the tick in progress."""
         while not self._closing:
-            item = work.get()
+            with span("llm.wait_work", self.name):
+                item = work.get()
             try:
                 with self._device_lock:
                     self._handle(item)

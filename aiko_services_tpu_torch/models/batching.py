@@ -63,9 +63,24 @@ same code:
   auto``'s probe, is agreed over the processes.  The captured loop
   needs NCCL: over gloo (processes sharing a card) it raises.
 
+Spans (``tpu/profiling.py``, into the process ring
+``observability.recorder.process_recorder``): a request's lifecycle,
+one of each, each starting where the last ended -- ``request.queue``
+(submit to its slot), ``request.admission`` (to its last chunk
+written), ``request.first`` (to its first token) and
+``request.decode`` (to its finish), with the same stamps in
+:meth:`ContinuousBatcher.take_request_stats`; and the step's leaves:
+``batcher.prefill`` (one admission pass, info ``rows``: slot, start and
+real length a row), ``batcher.dispatch`` (one block launched, info
+``slots``), ``batcher.fetch`` (a retire's wait for the block's host
+copy) and ``batcher.emit`` (its de-multiplexing).
+
 :class:`MicroBatcher` and :class:`MicroBatchElement` (cross-stream
 micro-batching for async pipeline elements, the ``Detector``'s) are the
-JAX package's code unchanged: they hold no device work of their own.
+JAX package's code, with the micro-batcher's spans added:
+``microbatch.wait`` an entry (submit to its group's run),
+``microbatch.run`` and ``microbatch.finish`` a group.  They hold no
+device work of their own.
 """
 
 from __future__ import annotations
@@ -87,6 +102,7 @@ from .quant import draft_params
 from ..device import resolve_device, upload
 from ..parallel import distributed
 from ..parallel.mesh import MeshPlan, Placed, home_device
+from ..tpu.profiling import record_span, span
 from ..utils.misc import next_power_of_two
 
 __all__ = ["Request", "ContinuousBatcher", "MicroBatcher",
@@ -123,6 +139,11 @@ def pad_to_bucket(rows: list, multiple: int = 1) -> list:
     return list(rows) + [rows[0]] * (bucket - len(rows))
 
 
+def _ms(begin: float, end: float) -> float:
+    """Milliseconds between two stamps, 0 where either is missing."""
+    return (end - begin) * 1e3 if begin and end else 0.0
+
+
 @dataclasses.dataclass
 class Request:
     request_id: str
@@ -142,6 +163,8 @@ class Request:
     rebased: int = 0
     admit_seq: int = -1
     submit_time: float = 0.0         # ttft / tpot stamps
+    slot_time: float = 0.0           # first slot assigned
+    admitted_time: float = 0.0       # last admission chunk written
     first_time: float = 0.0
     # QoS admission: lower rank admits first, ties keep submission order.
     tenant: str | None = None
@@ -464,6 +487,10 @@ class ContinuousBatcher:
             request = self._next_pending()
             request.slot = slot
             request.prefill_pos = 0
+            if request.submit_time and not request.slot_time:
+                request.slot_time = time.perf_counter()
+                record_span("request.queue", request.submit_time,
+                            request.slot_time, request.request_id)
             if self._pages is not None and self.prefix_cache:
                 # Map the longest indexed page chain matching this prompt
                 # read-only and start prefill past it.
@@ -522,14 +549,16 @@ class ContinuousBatcher:
             if not self._ensure_pages(slot, start + self.prefill_chunk):
                 self._prefilling.append(slot)   # pool pressure: wait
                 continue
-            self._sync_page_table()
-            padded = np.zeros((1, self.prefill_chunk), dtype=np.int64)
-            padded[0, :len(chunk_tokens)] = chunk_tokens
-            logits, self.cache = llama.prefill_into_slot(
-                self.params, self.config, self._upload(padded),
-                self.cache, slot, start)
-            self._admission_advance(slot, request, start,
-                                    len(chunk_tokens), logits)
+            rows = ((slot, start, len(chunk_tokens)),)
+            with span("batcher.prefill", info={"rows": rows}):
+                self._sync_page_table()
+                padded = np.zeros((1, self.prefill_chunk), dtype=np.int64)
+                padded[0, :len(chunk_tokens)] = chunk_tokens
+                logits, self.cache = llama.prefill_into_slot(
+                    self.params, self.config, self._upload(padded),
+                    self.cache, slot, start)
+                self._admission_advance(slot, request, start,
+                                        len(chunk_tokens), logits)
 
     def _prefill_tick_batched(self):
         """One chunk for every admitting slot in one batched pass, N
@@ -554,24 +583,30 @@ class ContinuousBatcher:
         admitting = admitting[:_ADMISSION_BURST_MAX]
         if not admitting:
             return
-        self._sync_page_table()
-        n = len(admitting)
-        rows = pad_to_bucket(admitting)
-        tokens = np.zeros((len(rows), self.prefill_chunk), dtype=np.int64)
-        starts = []
-        metas = []
-        for i, slot in enumerate(rows):
-            request = self.slots[slot]
-            start, chunk_tokens = self._admission_chunk(request)
-            tokens[i, :len(chunk_tokens)] = chunk_tokens
-            starts.append(start)
-            metas.append((slot, request, start, len(chunk_tokens)))
-        logits, self.cache = llama.prefill_into_slots(
-            self.params, self.config, self._upload(tokens), self.cache,
-            rows, starts)
-        for i, (slot, request, start, chunk_len) in enumerate(metas[:n]):
-            self._admission_advance(slot, request, start, chunk_len,
-                                    logits[i:i + 1])
+        with span("batcher.prefill") as prefill:
+            self._sync_page_table()
+            n = len(admitting)
+            rows = pad_to_bucket(admitting)
+            tokens = np.zeros((len(rows), self.prefill_chunk),
+                              dtype=np.int64)
+            starts = []
+            metas = []
+            for i, slot in enumerate(rows):
+                request = self.slots[slot]
+                start, chunk_tokens = self._admission_chunk(request)
+                tokens[i, :len(chunk_tokens)] = chunk_tokens
+                starts.append(start)
+                metas.append((slot, request, start, len(chunk_tokens)))
+            prefill.info = {"rows": tuple(
+                (slot, start, chunk_len)
+                for slot, _, start, chunk_len in metas[:n])}
+            logits, self.cache = llama.prefill_into_slots(
+                self.params, self.config, self._upload(tokens), self.cache,
+                rows, starts)
+            for i, (slot, request, start, chunk_len) in enumerate(
+                    metas[:n]):
+                self._admission_advance(slot, request, start, chunk_len,
+                                        logits[i:i + 1])
 
     def _admission_chunk(self, request: Request):
         """(start, chunk tokens) of the request's next prefill chunk.
@@ -603,6 +638,10 @@ class ContinuousBatcher:
             return
         last = len(prompt) - start - 1
         first = self._sample(logits[:, last, :], request.temperature)
+        if request.slot_time and not request.admitted_time:
+            request.admitted_time = time.perf_counter()
+            record_span("request.admission", request.slot_time,
+                        request.admitted_time, request.request_id)
         self.lengths[slot] = len(prompt)
         self._lengths_upper[slot] = len(prompt)
         self.decoding[slot] = True
@@ -715,6 +754,14 @@ class ContinuousBatcher:
             decoding = [i for i in decoding if self.decoding[i]]
             if not decoding:
                 return False
+        with span("batcher.dispatch", info={"slots": tuple(decoding)}):
+            self._launch_block(decoding)
+        if self.on_block is not None:
+            self.on_block("dispatch", len(decoding))
+        return True
+
+    def _launch_block(self, decoding: list[int]) -> None:
+        """Enqueue the block :meth:`_dispatch_block` decided on."""
         if self._chain is None:
             tokens = self._upload(self.current)
             lengths = self._upload(self.lengths)
@@ -748,9 +795,6 @@ class ContinuousBatcher:
         self._inflight.append(_InflightBlock(
             _HostCopy(emitted), [(i, self.slots[i]) for i in decoding],
             firsts, self.decode_block))
-        if self.on_block is not None:
-            self.on_block("dispatch", len(decoding))
-        return True
 
     def _retire_block(self):
         """Wait for the OLDEST in-flight block's tokens and de-multiplex
@@ -758,13 +802,20 @@ class ContinuousBatcher:
         freed and re-admitted while the block was in flight is skipped
         through the request snapshot."""
         blk = self._inflight.popleft()
-        emitted = blk.emitted.numpy()           # [steps, B]
+        with span("batcher.fetch"):
+            emitted = blk.emitted.numpy()       # [steps, B]
+            firsts = None if blk.firsts is None else blk.firsts[1].numpy()
         self.steps += 1
         if self.on_block is not None:
             self.on_block("retire", len(blk.snapshot))
-        if blk.firsts is not None:
-            first_meta, firsts = blk.firsts
-            for (slot, request), token in zip(first_meta, firsts.numpy()):
+        with span("batcher.emit", info={"slots": len(blk.snapshot)}):
+            self._emit_block(blk, emitted, firsts)
+
+    def _emit_block(self, blk: _InflightBlock, emitted: np.ndarray,
+                    firsts: np.ndarray | None) -> None:
+        if firsts is not None:
+            first_meta = blk.firsts[0]
+            for (slot, request), token in zip(first_meta, firsts):
                 if self.slots[slot] is request and not request.done:
                     token = int(token)
                     self.current[slot] = token
@@ -898,6 +949,15 @@ class ContinuousBatcher:
         joining = sorted(self._pending_first)
         if not live and not joining:
             return False
+        with span("batcher.dispatch") as dispatch:
+            dispatch.info = {"slots": self._launch_loop_block(live,
+                                                              joining)}
+        return True
+
+    def _launch_loop_block(self, live: list, joining: list) -> tuple:
+        """Launch the block :meth:`_dispatch_loop_block` decided on;
+        returns the slots it holds."""
+        ring = self.decode_block_tokens
         if self._fault_probe is not None:
             self._fault_probe("decode_block")
         if not self._loop_chained:
@@ -954,7 +1014,7 @@ class ContinuousBatcher:
         self.blocks_dispatched += 1
         if self.on_block is not None:
             self.on_block("dispatch", len(snapshot))
-        return True
+        return tuple(snapshot)
 
     def _retire_loop_block(self):
         """Fetch the OLDEST in-flight loop block -- ONE call of the
@@ -967,7 +1027,12 @@ class ContinuousBatcher:
         blk = self._loop_inflight.popleft()
         if self.on_block is not None:
             self.on_block("retire", len(blk.snapshot))
-        fetched = self._fetch(blk.tree)
+        with span("batcher.fetch"):
+            fetched = self._fetch(blk.tree)
+        with span("batcher.emit", info={"slots": len(blk.snapshot)}):
+            self._emit_loop_block(blk, fetched)
+
+    def _emit_loop_block(self, blk: _LoopBlock, fetched: dict) -> None:
         emitted = fetched["emitted"]
         counts = fetched["counts"]
         self.steps += int(fetched["steps"])
@@ -1175,7 +1240,9 @@ class ContinuousBatcher:
 
     def take_request_stats(self) -> list[dict]:
         """Drain per-request latency stamps ({"ttft_ms", "tpot_ms",
-        "tokens", ...}) recorded at finish."""
+        "tokens", ...}) recorded at finish; ``queue_ms``,
+        ``admission_ms`` and ``first_wait_ms`` split the ttft as the
+        request's spans do (0 where a stamp is missing)."""
         stats, self._request_stats = self._request_stats, []
         return stats
 
@@ -1185,6 +1252,9 @@ class ContinuousBatcher:
         now = time.perf_counter()
         if request.generated == 1:
             request.first_time = now
+            if request.admitted_time:
+                record_span("request.first", request.admitted_time, now,
+                            request.request_id)
         request.committed.append(token)
         # The last usable write position is max_seq - 2 (max_seq - 1 is
         # the trash row), so finish once the sequence would need to
@@ -1204,9 +1274,18 @@ class ContinuousBatcher:
                 tpot_ms = (now - request.first_time) * 1000.0 \
                     / (request.generated - 1) \
                     if request.generated > 1 else 0.0
+                if request.first_time:
+                    record_span("request.decode", request.first_time, now,
+                                request.request_id)
                 self._request_stats.append(
                     {"ttft_ms": round(ttft_ms, 3),
                      "tpot_ms": round(tpot_ms, 3),
+                     "queue_ms": round(_ms(request.submit_time,
+                                           request.slot_time), 3),
+                     "admission_ms": round(_ms(request.slot_time,
+                                               request.admitted_time), 3),
+                     "first_wait_ms": round(_ms(request.admitted_time,
+                                                request.first_time), 3),
                      "tokens": request.generated,
                      "tenant": request.tenant,
                      "cls": request.qos_class})
@@ -1352,13 +1431,13 @@ class MicroBatcher:
         self._schedule_flush = schedule_flush
         self._logger = logger
         self.name = name
-        self._pending: list[tuple] = []  # (rank, seq, key, payload, complete)
+        # (rank, seq, key, payload, complete, submitted at)
+        self._pending: list[tuple] = []
         self._flush_scheduled = False
         self._queue: queue.Queue | None = None
         # perf counters (tests assert dispatches < frames)
         self.submitted = 0
         self.dispatches = 0
-        self.flushes = 0
 
     def submit(self, key, payload, complete, max_batch: int = 8,
                rank: int = 0):
@@ -1371,7 +1450,7 @@ class MicroBatcher:
         burst; all-equal ranks keep submission order exactly."""
         self._ensure_worker()
         self._pending.append((int(rank), self.submitted, key, payload,
-                              complete))
+                              complete, time.perf_counter()))
         self.submitted += 1
         if len(self._pending) >= int(max_batch):
             self.flush()
@@ -1400,16 +1479,18 @@ class MicroBatcher:
         if not pending:
             return
         if self._queue is None:             # stopped mid-burst
-            for _, _, _, _, complete in pending:
-                complete_error(complete, f"{self.name} stopped")
+            for entry in pending:
+                complete_error(entry[4], f"{self.name} stopped")
             return
         pending.sort(key=lambda entry: entry[:2])
         groups: dict = {}
-        for _, _, key, payload, complete in pending:
-            groups.setdefault(key, []).append((complete, payload))
-        self.flushes += 1
+        for _, _, key, payload, complete, submitted in pending:
+            entries, stamps = groups.setdefault(key, ([], []))
+            entries.append((complete, payload))
+            stamps.append(submitted)
         self.dispatches += len(groups)
-        self._queue.put((self._context(), list(groups.items())))
+        self._queue.put((self._context(),
+                         [(key, *group) for key, group in groups.items()]))
 
     def stop(self):
         """Flush pending frames, then retire the worker (in-flight
@@ -1435,10 +1516,15 @@ class MicroBatcher:
         failing dispatch errors every frame of ITS group -- anything
         not completed here would stay parked forever."""
         dispatched = []
-        for key, entries in groups:
+        for key, entries, stamps in groups:
+            begin = time.perf_counter()
+            for submitted in stamps:
+                record_span("microbatch.wait", submitted, begin, self.name)
             try:
-                result = self._run(context, key,
-                                   [payload for _, payload in entries])
+                with span("microbatch.run", self.name,
+                          {"rows": len(entries)}):
+                    result = self._run(context, key,
+                                       [payload for _, payload in entries])
             except Exception as error:
                 if self._logger is not None:
                     self._logger.exception(
@@ -1450,7 +1536,9 @@ class MicroBatcher:
             dispatched.append((key, entries, result))
         for key, entries, result in dispatched:
             try:
-                self._finish(context, key, entries, result)
+                with span("microbatch.finish", self.name,
+                          {"rows": len(entries)}):
+                    self._finish(context, key, entries, result)
             except Exception as error:      # pragma: no cover - defensive
                 if self._logger is not None:
                     self._logger.exception(

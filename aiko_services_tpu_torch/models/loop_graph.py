@@ -103,6 +103,7 @@ from ..device import is_local, sync_allowed
 from ..ops import launch_counters
 from ..parallel import distributed
 from ..parallel.mesh import Placed
+from ..tpu.profiling import span
 
 __all__ = ["GraphCards", "LoopRunner"]
 
@@ -262,6 +263,7 @@ class LoopRunner:
         self._bound: tuple = ()
         self._launch_delta: dict = {}
         # what the serving run reports: captures, replays, capture time
+        # (each capture is also a ``compile:loop`` span)
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -310,8 +312,8 @@ class LoopRunner:
             outputs = self._loop(cache, self.inputs)
         else:
             if self._graph is None:
-                with sync_allowed():        # the capture's planned waits
-                    self._capture(cache)
+                with sync_allowed(), span("compile", name="loop"):
+                    self._capture(cache)    # its waits are planned
             if self._pointers(cache) != self._bound:
                 raise RuntimeError(
                     "LoopRunner: the cache or page table moved since the "

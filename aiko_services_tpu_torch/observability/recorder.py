@@ -50,7 +50,8 @@ from pathlib import Path
 
 __all__ = ["FlightRecorder", "write_blackbox", "events_as_dicts",
            "select_frame_events", "RECORDER_CAPACITY_DEFAULT",
-           "BLACKBOX_LIMIT_DEFAULT", "EVENT_TYPES"]
+           "BLACKBOX_LIMIT_DEFAULT", "EVENT_TYPES", "SpanRecorder",
+           "process_recorder", "PROCESS_CAPACITY"]
 
 _logger = logging.getLogger("aiko.observability")
 
@@ -87,6 +88,22 @@ EVENT_TYPES = (
     "replace",         # full device replacement (info.generation)
     "done",            # frame finished (info.ok)
     "stream_end",      # stream destroyed (incarnation boundary)
+    # Spans in the process ring (process_recorder): one event at the
+    # span's end, ``ms`` its duration, so it began at t - ms / 1e3.
+    "llm.inbox",       # LLM element: frame's put -> batcher submit
+    "llm.wait_work",   # LLM worker blocked on its empty inbox
+    "request.queue",   # batcher: submit -> slot assigned (stream = id)
+    "request.admission",  # slot -> last admission chunk written
+    "request.first",   # -> first token emitted
+    "request.decode",  # first token -> finished
+    "batcher.prefill",  # one admission pass (info.rows: slot, start, len)
+    "batcher.dispatch",  # one block launched (info.slots)
+    "batcher.fetch",   # a retire's wait for its block's host copy
+    "batcher.emit",    # a retire's de-multiplexing of the tokens
+    "microbatch.wait",  # one parked entry: submit -> its group's run
+    "microbatch.run",  # one group's batched dispatch (info.rows)
+    "microbatch.finish",  # one group's fetch and completions
+    "compile",         # a capture (name = loop | the captured fn)
 )
 
 
@@ -245,3 +262,37 @@ def write_blackbox(directory, payload: dict,
         except OSError:                 # pragma: no cover
             pass
     return str(path)
+
+
+#: The process ring's capacity.  The port's serving paths write tens of
+#: spans a second (on one H100, ~35 in a camera pipeline at 3 frames a
+#: second: a frame's request lifecycle, three admission chunks, block
+#: and micro-batch spans; ~20 in a 32-slot chat batcher); five minutes
+#: of set-up and serving at 100 a second fit four times over.
+PROCESS_CAPACITY = 1 << 17
+
+
+class SpanRecorder(FlightRecorder):
+    """The process-wide ring (:func:`process_recorder`): a
+    :class:`FlightRecorder` whose sites may give the stamp they took,
+    so a span is recorded at its end with its duration (``ms``) from
+    the same clock reads."""
+
+    __slots__ = ()
+
+    def record_at(self, t: float, etype: str, stream=None, frame=None,
+                  name=None, ms: float | None = None,
+                  info: dict | None = None) -> None:
+        self._ring.append((t, etype, stream, frame, name, ms, info))
+        self.recorded += 1
+
+
+_PROCESS_RECORDER = SpanRecorder(PROCESS_CAPACITY)
+
+
+def process_recorder() -> SpanRecorder:
+    """The ring every serving path of this process writes its spans to
+    (batcher, device loop, micro-batcher, LLM worker), readable after
+    the run; ``stats["recorded"]`` beyond ``capacity`` says it
+    wrapped."""
+    return _PROCESS_RECORDER

@@ -61,6 +61,7 @@ from torch.utils import _pytree as pytree
 from .. import device as device_rule
 from ..parallel import distributed
 from ..parallel.mesh import MeshPlan, NamedSharding, Placed, make_mesh
+from ..tpu.profiling import span
 from .element import PipelineElement
 
 __all__ = ["ShapeBucketer", "JitCache", "LeafSignature", "StagePlacement",
@@ -232,7 +233,8 @@ class JitCache:
     taken back from the launch counters and added again at each replay,
     so the counters count launches that ran.
 
-    ``capture_s`` sums the warm-ups and captures.  ``stats`` exposes
+    ``capture_s`` sums the warm-ups and captures, each also a
+    ``compile:<fn>`` span in the process ring.  ``stats`` exposes
     hit/miss/entry counters for the Metrics element,
     the dashboard share dict (``Pipeline.jit_stats``) and the bench's
     ``jit_cache_*`` keys.
@@ -286,8 +288,10 @@ class JitCache:
                 else:
                     self.misses += 1
                     begin = time.perf_counter()
-                    entry = self._compiled[key] = self._capture(fn, args,
-                                                                kwargs)
+                    with span("compile", name=getattr(fn, "__name__",
+                                                      "fn")):
+                        entry = self._compiled[key] = self._capture(
+                            fn, args, kwargs)
                     self.capture_s += time.perf_counter() - begin
                 return self._replay(entry, leaves)
 

@@ -19,6 +19,13 @@ the two:
   TensorBoard format; a Chrome trace opens in ``chrome://tracing`` or
   Perfetto).
 - :func:`profile_trace` is the context-manager form for scripts/tests.
+- :class:`span` and :func:`record_span` write the serving paths' spans
+  (batcher, device loop, micro-batcher, LLM worker) to the process ring
+  (``observability.recorder.process_recorder``), always; a
+  :class:`span` entered while a profiler records on its thread is also
+  a ``record_function`` of the same name, so a trace and the ring name
+  the same work.  The ring's stamps are ``time.perf_counter``'s, the
+  clock frame metrics use, so its spans lay over a trace by one offset.
 
 Relation to the telemetry plane (``observability/``): the distributed
 frame traces and the spans here describe the SAME events --
@@ -39,11 +46,60 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from ..observability.recorder import process_recorder
 from ..utils import get_logger
 
-__all__ = ["Profiler", "profile_trace"]
+__all__ = ["Profiler", "profile_trace", "span", "record_span"]
 
 _logger = get_logger("aiko.profiling")
+
+
+_RING = process_recorder()
+_profiling = torch.autograd._profiler_enabled
+
+
+class span:
+    """``with span("batcher.fetch", stream, info): ...`` records one
+    span into the process ring at its end: ``etype``, the stream (a
+    request id, an element), ``name`` (``compile:<name>``'s part after
+    the colon), ``ms`` and ``info``, which the body may still set.
+    While a profiler records on this thread it also opens
+    ``record_function("<etype>[:<name>]")``; otherwise it costs two
+    clock reads and one ring append."""
+
+    __slots__ = ("etype", "stream", "name", "info", "_begin", "_function")
+
+    def __init__(self, etype: str, stream=None, info: dict | None = None,
+                 name: str | None = None):
+        self.etype, self.stream, self.name, self.info = \
+            etype, stream, name, info
+
+    def __enter__(self):
+        self._function = None
+        if _profiling():
+            label = self.etype if self.name is None \
+                else f"{self.etype}:{self.name}"
+            self._function = record_function(label)
+            self._function.__enter__()
+        self._begin = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.perf_counter()
+        if self._function is not None:
+            self._function.__exit__(None, None, None)
+        _RING.record_at(end, self.etype, self.stream, None, self.name,
+                        (end - self._begin) * 1e3, self.info)
+        return False
+
+
+def record_span(etype: str, begin: float, end: float, stream=None,
+                info: dict | None = None) -> None:
+    """A span whose ``perf_counter`` stamps were taken apart (a
+    request's lifecycle, a parked entry's wait): one ring event at
+    ``end``."""
+    _RING.record_at(end, etype, stream, None, None, (end - begin) * 1e3,
+                    info)
 
 
 def _span(name: str):

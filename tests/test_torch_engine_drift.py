@@ -157,6 +157,14 @@ ALLOWED = {
         ((3686, 3686), "a stage of another process is not called here: "
                        "its outputs are handles naming that process, as "
                        "a JAX array of another host is not addressable")],
+    "observability/recorder.py": [
+        ((53, 53), "exports the process ring (SpanRecorder, "
+                   "process_recorder, PROCESS_CAPACITY)"),
+        ((90, 90), "EVENT_TYPES names the spans the port's serving paths "
+                   "write to the process ring"),
+        ((248, 248), "the process-wide ring of spans: the port's batcher, "
+                     "device loop, micro-batcher and LLM worker record "
+                     "where a request's and a frame's time goes")],
     "pipeline/journal.py": [
         ((83, 87), "_encodable skips torch-typed leaves (the exact "
                    "translation of the jax test): a CUDA tensor would "
@@ -173,8 +181,8 @@ KEPT_DEFINITIONS = {
     "pipeline/fusion.py": ("FusionError", "DeviceFn", "_Step", "fusable",
                            "qualified_reads", "partition"),
     "pipeline/tensor.py": ("distributed_mesh_spec",),
-    "models/batching.py": ("MicroBatcher", "complete_error",
-                           "MicroBatchElement"),
+    # (MicroBatcher is the JAX package's with its spans added.)
+    "models/batching.py": ("complete_error", "MicroBatchElement"),
     "models/detector.py": ("DetectorConfig", "_bottleneck", "_run_stage"),
     "tpu/health.py": ("probe_devices",),
     "elements/audio.py": ("read_wav", "write_wav", "AudioWriteFile",
