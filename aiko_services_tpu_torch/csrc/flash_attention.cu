@@ -81,7 +81,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        int seq, int n_heads, int n_kv, int kv_len,
                        int q_offset, int causal, float scale,
                        long long q_sb, long long q_ss, long long q_sh,
-                       long long k_sb, long long k_st, long long k_sh) {
+                       long long k_sb, long long k_st, long long k_sh,
+                       const int* __restrict__ at) {
   using L = Layout<D>;
   constexpr int kChunks = D / 8;        // 16-byte chunks in a row
   constexpr int kO = D / 2;             // accumulator registers of P V
@@ -95,6 +96,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = blockIdx.x * bq;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
+  // A captured admission reads its k/v row and offset from the card.
+  const int kv_b = at ? at[0] : b;
+  if (at) q_offset = at[1];
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
@@ -113,8 +117,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int k_end = causal ? min(kv_len, q_offset + min(q0 + bq, seq))
                            : kv_len;
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
-  const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
-  const __nv_bfloat16* vb = v + b * k_sb + kvh * k_sh;
+  const __nv_bfloat16* kb = k + kv_b * k_sb + kvh * k_sh;
+  const __nv_bfloat16* vb = v + kv_b * k_sb + kvh * k_sh;
   auto load_kv = [&](int tile, int slot) {
     const uint32_t ks = kv_s + (2 * slot) * L::kTileBytes;
     const uint32_t vs = ks + L::kTileBytes;
@@ -256,7 +260,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int seq, int n_heads, int n_kv, int kv_len, int q_offset,
            int causal, float scale, long long q_sb, long long q_ss,
            long long q_sh, long long k_sb, long long k_st, long long k_sh,
-           cudaStream_t stream) {
+           const int* at, cudaStream_t stream) {
   if (kRows % (n_heads / n_kv))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_attention_kernel<D>;
@@ -272,7 +276,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       seq, n_heads, n_kv, kv_len, q_offset, causal, scale, q_sb, q_ss, q_sh,
-      k_sb, k_st, k_sh);
+      k_sb, k_st, k_sh, at);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -303,7 +307,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        int seq, int n_heads, int n_kv, int kv_len,
                        int q_offset, int causal, float scale,
                        long long q_sb, long long q_ss, long long q_sh,
-                       long long k_sb, long long k_st, long long k_sh) {
+                       long long k_sb, long long k_st, long long k_sh,
+                       const int* __restrict__ at) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
   static_assert(DP >= kKeys + 1, "P tile reuses the K tile's space");
@@ -317,6 +322,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * bq;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
+  const int kv_b = at ? at[0] : b;
+  if (at) q_offset = at[1];
   const int tid = threadIdx.x;
   const int tr = tid / 16;
   const int tc = tid % 16;
@@ -341,8 +348,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
   const int k_end = causal ? min(kv_len, q_offset + q0 + bq) : kv_len;
-  const float* kb = k + b * k_sb + kvh * k_sh;
-  const float* vb = v + b * k_sb + kvh * k_sh;
+  const float* kb = k + kv_b * k_sb + kvh * k_sh;
+  const float* vb = v + kv_b * k_sb + kvh * k_sh;
 
   for (int k0 = 0; k0 < k_end; k0 += kKeys) {
     __syncthreads();    // the previous tile's P and V are spent
@@ -448,7 +455,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int seq, int n_heads, int n_kv, int kv_len, int q_offset,
            int causal, float scale, long long q_sb, long long q_ss,
            long long q_sh, long long k_sb, long long k_st, long long k_sh,
-           cudaStream_t stream) {
+           const int* at, cudaStream_t stream) {
   if (kRows % (n_heads / n_kv))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_attention_kernel<D>;
@@ -462,7 +469,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), seq, n_heads,
       n_kv, kv_len, q_offset, causal, scale, q_sb, q_ss, q_sh, k_sb, k_st,
-      k_sh);
+      k_sh, at);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -472,20 +479,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 
 // bf16 inputs take the tensor-core body (G must divide 128; k/v rows and
 // the k/v/q pointers 16-byte aligned), f32 inputs the FMA body (G must
-// divide 64).
+// divide 64).  ``at`` is null, or two ints on the card, (k/v batch row,
+// q_offset), that every block reads at its start in place of its own
+// batch index and ``q_offset``: a launch captured in a CUDA graph then
+// serves any cache row and offset (q and out keep batch 1).  The grid
+// depends only on seq, n_heads and n_kv either way.
 extern "C" int aiko_flash_attention(
     const void* q, const void* k, const void* v, void* out, int is_bf16,
     int head_dim, int batch, int seq, int n_heads, int n_kv, int kv_len,
     int q_offset, int causal, float scale, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
-    void* stream) {
+    const void* at, void* stream) {
+  auto row_offset = static_cast<const int*>(at);
   auto s = static_cast<cudaStream_t>(stream);
   if (n_kv <= 0 || n_heads % n_kv)
     return static_cast<int>(cudaErrorInvalidValue);
 #define AIKO_LAUNCH(NS, D)                                                   \
   return NS::launch<D>(q, k, v, out, batch, seq, n_heads, n_kv, kv_len,      \
                        q_offset, causal, scale, q_sb, q_ss, q_sh, k_sb, k_st, \
-                       k_sh, s)
+                       k_sh, row_offset, s)
   if (head_dim == 128) {
     if (is_bf16) AIKO_LAUNCH(tc, 128);
     AIKO_LAUNCH(fp32, 128);

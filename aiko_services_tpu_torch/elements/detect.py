@@ -28,10 +28,12 @@ as the same overlay dict the reference's elements feed ImageOverlay
   CPU;
 - the micro-batch worker runs its uploads, detect and host copies on a
   CUDA stream of its own on each card, so detect overlaps the work the
-  other threads enqueue (the ``LLM`` element's blocks); a host burst is
-  stacked once in pinned memory and each position's rows uploaded from
-  it once, and each card's result comes back by asynchronous copies
-  into pinned memory, waited for once a card;
+  other threads enqueue (the ``LLM`` element's blocks); it waits for the
+  card's default stream once when it is made (the weights are written
+  there) and then only for a group of card frames, made there; a host
+  burst is stacked once in pinned memory and each position's rows
+  uploaded from it once, and each card's result comes back by
+  asynchronous copies into pinned memory, waited for once a card;
 - the transfer guard is process-wide (``device.sync_guard``): the one
   wait for a batch's result (after its event) and the synchronous
   path's fetch run with it lifted (``device.sync_allowed``), so a
@@ -210,17 +212,23 @@ class Detector(MicroBatchElement, TPUElement):
         self._ensure_model()
         self.submit_microbatch(complete, image, diagnostic="bad image")
 
-    def _worker_stream(self, device):
+    def _worker_stream(self, device, resident: bool):
         """The worker's own CUDA stream on ``device`` (None on the CPU),
-        made on first use and told to wait for the work already enqueued
-        on the card's default stream (device-resident frames come from
-        there)."""
+        made on first use (after a model load or a replacement, whose
+        weights are written on the card's default stream) and then told
+        to wait for that stream.  For a group that holds ``resident``
+        (card) frames it waits there again, where those frames were
+        made; a group of host frames depends on nothing else there, and
+        does not queue behind other stages' work (the LLM's decode
+        blocks and admission)."""
         if device.type != "cuda":
             return None
         stream = self._streams.get(device)
-        if stream is None:
+        made = stream is None
+        if made:
             stream = self._streams[device] = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.default_stream(device))
+        if made or resident:
+            stream.wait_stream(torch.cuda.default_stream(device))
         return stream
 
     def batch_run(self, context, key, images):
@@ -237,7 +245,8 @@ class Detector(MicroBatchElement, TPUElement):
         devices = [_placed(device) for device in placed.mesh.devices.flat]
         images = pad_to_bucket(images, multiple=len(devices))
         rows = len(images) // len(devices)
-        if all(isinstance(image, np.ndarray) for image in images):
+        host = all(isinstance(image, np.ndarray) for image in images)
+        if host:
             batch = torch.from_numpy(np.stack(
                 [image[0] if image.ndim == 4 else image
                  for image in images]))
@@ -248,7 +257,7 @@ class Detector(MicroBatchElement, TPUElement):
                                  for image in images])
         results = []
         for position, device in enumerate(devices):
-            side = self._worker_stream(device)
+            side = self._worker_stream(device, resident=not host)
             with torch.cuda.stream(side) if side is not None \
                     else contextlib.nullcontext():
                 part = batch[position * rows:(position + 1) * rows].to(

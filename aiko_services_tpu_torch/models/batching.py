@@ -11,7 +11,11 @@ same code:
   ``decode_block == 1`` each ``step()`` prefills at most one chunk;
   with ``decode_block > 1`` every admitting slot advances one chunk per
   step (dense attention batches the burst through
-  ``llama.prefill_into_slots``);
+  ``llama.prefill_into_slots``).  On a card, for an unplaced tree over
+  a dense cache of raw k/v, a single-slot chunk replays one captured
+  CUDA graph (``loop_graph.AdmissionRunner``) that reads the slot and
+  the start on the card, so the stepping thread enqueues one launch a
+  chunk instead of about a thousand;
 - finished sequences (EOS, token budget or cache boundary) free their
   slot immediately;
 - with ``decode_block > 1`` decode is pipelined: ``inflight`` fused
@@ -71,7 +75,8 @@ written), ``request.first`` (to its first token) and
 ``request.decode`` (to its finish), with the same stamps in
 :meth:`ContinuousBatcher.take_request_stats`; and the step's leaves:
 ``batcher.prefill`` (one admission pass, info ``rows``: slot, start and
-real length a row), ``batcher.dispatch`` (one block launched, info
+real length a row, and ``graph``: whether a captured chunk was replayed,
+:func:`captures_admission`), ``batcher.dispatch`` (one block launched, info
 ``slots``), ``batcher.fetch`` (a retire's wait for the block's host
 copy) and ``batcher.emit`` (its de-multiplexing).
 
@@ -96,7 +101,7 @@ import numpy as np
 import torch
 
 from . import llama
-from .loop_graph import LoopRunner
+from .loop_graph import AdmissionRunner, LoopRunner
 from .paged import PageAllocator, init_paged_cache, pages_per_slot
 from .quant import draft_params
 from ..device import resolve_device, upload
@@ -106,7 +111,7 @@ from ..tpu.profiling import record_span, span
 from ..utils.misc import next_power_of_two
 
 __all__ = ["Request", "ContinuousBatcher", "MicroBatcher",
-           "MicroBatchElement", "pad_to_bucket"]
+           "MicroBatchElement", "captures_admission", "pad_to_bucket"]
 
 # Batched admission advances at most this many slots per tick (buckets
 # stay {1, 2, 4, 8} whatever max_slots is).
@@ -128,6 +133,17 @@ def _knob_on(value, default: bool) -> bool:
     if not text:
         return default
     return text in ("on", "true", "1", "yes")
+
+
+def captures_admission(device: torch.device, params, config,
+                       kv_page_tokens: int) -> bool:
+    """Whether a batcher replays one captured graph for its single-slot
+    admission chunks (``loop_graph.AdmissionRunner``): on a card, for an
+    unplaced tree over a dense cache of raw k/v.  Placed trees, paged or
+    int8 caches and the batched dense-attention burst enqueue their
+    chunks eagerly."""
+    return (device.type == "cuda" and not isinstance(params, Placed)
+            and not kv_page_tokens and config.kv_dtype != "int8")
 
 
 def pad_to_bucket(rows: list, multiple: int = 1) -> list:
@@ -359,6 +375,12 @@ class ContinuousBatcher:
         else:
             self.cache = self._place(llama.init_cache(
                 config, max_slots, self.max_seq, device=self.device))
+        # Single-slot admission chunks replay one captured graph where
+        # the path applies (:func:`captures_admission`).
+        self._admission = AdmissionRunner(
+            params, config, chunk=self.prefill_chunk, device=self.device) \
+            if captures_admission(self.device, params, config,
+                                  self.kv_page_tokens) else None
         # One fetch per retired device-loop block: ``fetch(tree)`` gets
         # the block's _HostTree and returns name -> numpy array.
         self._fetch = fetch if fetch is not None else _HostTree.numpy
@@ -410,6 +432,8 @@ class ContinuousBatcher:
         self.draft_tokens = 0
         self.evictions = 0
         self.recoveries = 0
+        # admission chunks written eagerly (the replays: a property)
+        self.admission_eager = 0
         # Prompt tokens admission skipped because their pages were
         # adopted from the prefix index.
         self.prefix_shared_tokens = 0
@@ -550,13 +574,18 @@ class ContinuousBatcher:
                 self._prefilling.append(slot)   # pool pressure: wait
                 continue
             rows = ((slot, start, len(chunk_tokens)),)
-            with span("batcher.prefill", info={"rows": rows}):
+            graph = self._admission is not None
+            with span("batcher.prefill", info={"rows": rows,
+                                               "graph": graph}):
                 self._sync_page_table()
                 padded = np.zeros((1, self.prefill_chunk), dtype=np.int64)
                 padded[0, :len(chunk_tokens)] = chunk_tokens
                 logits, self.cache = llama.prefill_into_slot(
-                    self.params, self.config, self._upload(padded),
-                    self.cache, slot, start)
+                    self.params, self.config,
+                    padded if graph else self._upload(padded), self.cache,
+                    slot, start, runner=self._admission)
+                if not graph:
+                    self.admission_eager += 1
                 self._admission_advance(slot, request, start,
                                         len(chunk_tokens), logits)
 
@@ -599,10 +628,11 @@ class ContinuousBatcher:
                 metas.append((slot, request, start, len(chunk_tokens)))
             prefill.info = {"rows": tuple(
                 (slot, start, chunk_len)
-                for slot, _, start, chunk_len in metas[:n])}
+                for slot, _, start, chunk_len in metas[:n]), "graph": False}
             logits, self.cache = llama.prefill_into_slots(
                 self.params, self.config, self._upload(tokens), self.cache,
                 rows, starts)
+            self.admission_eager += n
             for i, (slot, request, start, chunk_len) in enumerate(
                     metas[:n]):
                 self._admission_advance(slot, request, start, chunk_len,
@@ -1183,6 +1213,8 @@ class ContinuousBatcher:
         self.decoding[:] = False
         if self._loop is not None:
             self._loop.reset()
+        if self._admission is not None:
+            self._admission.reset()
         self.cache = None               # free the old cache first
         if self._pages is not None:
             self._pages.reset()
@@ -1345,6 +1377,12 @@ class ContinuousBatcher:
         """Dispatched-but-unretired fused or loop blocks; drive step()
         until this reaches 0 to drain them."""
         return len(self._inflight) + len(self._loop_inflight)
+
+    @property
+    def admission_replays(self) -> int:
+        """Admission chunks written by a replay of the captured chunk."""
+        return self._admission.replays if self._admission is not None \
+            else 0
 
     @property
     def prefix_hits(self) -> int:

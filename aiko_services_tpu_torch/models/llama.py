@@ -103,7 +103,8 @@ __all__ = ["LlamaConfig", "init_params", "abstract_params", "param_shapes",
            "partition_specs", "cache_specs", "paged_cache_specs",
            "TensorShard", "init_cache",
            "cache_array", "cache_extent", "prefill",
-           "prefill_with_aux", "prefill_into_slot", "prefill_into_slots",
+           "prefill_with_aux", "prefill_into_slot", "prefill_into_slot_at",
+           "prefill_into_slots",
            "decode_step", "decode_block",
            "decode_loop", "greedy_sample", "temperature_sample",
            "select_tokens"]
@@ -952,7 +953,8 @@ def prefill(params: dict, config: LlamaConfig, tokens: torch.Tensor,
 
 def prefill_into_slot(params: dict, config: LlamaConfig,
                       tokens: torch.Tensor, cache: dict, slot: int,
-                      start: int) -> tuple[torch.Tensor, dict]:
+                      start: int, *, runner=None) \
+        -> tuple[torch.Tensor, dict]:
     """Process one prompt chunk for ONE sequence, writing its k/v into
     batch row ``slot`` of the batched cache at ``start`` (the continuous
     batcher's admission path).  tokens: [1, S] (right padding allowed).
@@ -969,7 +971,17 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
     :func:`paged_cache_specs`), and the slot's row is written where it
     lives (:func:`_admit_on_mesh`): with the batch split over dp, only
     the positions of the slot's dp group run the chunk, each writing its
-    kv heads of its local row; the logits come back whole."""
+    kv heads of its local row; the logits come back whole.
+
+    ``runner`` (a ``loop_graph.AdmissionRunner`` over ``params`` and
+    ``cache``) replays its captured chunk instead, the chunk's tokens
+    (host) and ``(slot, start)`` uploaded into its inputs: the same
+    computation as :func:`prefill_into_slot_at`, enqueued by one graph
+    launch.  The logits are then the runner's buffer, valid until its
+    next replay."""
+    if runner is not None:
+        _check_chunk(cache, int(start), tokens.shape[1])
+        return runner.run(cache, tokens, int(slot), int(start)), cache
     if isinstance(params, Placed):
         return _admit_on_mesh(params, config, tokens, cache, [int(slot)],
                               [int(start)], batched=False)
@@ -977,25 +989,65 @@ def prefill_into_slot(params: dict, config: LlamaConfig,
                                    start)
 
 
-def _prefill_into_slot_impl(params: dict, config: LlamaConfig,
-                            tokens: torch.Tensor, cache: dict, slot: int,
-                            start: int, shard: TensorShard | None = None):
-    c = config
-    slot, start = int(slot), int(start)
-    s = tokens.shape[1]
+def prefill_into_slot_at(params: dict, config: LlamaConfig,
+                         tokens: torch.Tensor, cache: dict,
+                         at: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """:func:`prefill_into_slot` with the slot and the chunk's start read
+    on the device: ``at`` is an int32 [2] tensor ``(slot, start)`` on the
+    tokens' device.  Nothing is read back to the host, so one captured
+    CUDA graph of this call serves every slot and offset
+    (``loop_graph.AdmissionRunner``): RoPE positions are ``start +
+    arange(S)`` on the device, each layer's k/v land by an indexed copy
+    at rows ``slot * T + positions`` of the layer's ``[slots * T, ...]``
+    view, and flash attention reads the whole layer with ``at`` (the
+    kernel picks the row and the offset).  It computes what the host-int
+    form computes.  An unplaced tree over a dense cache of raw k/v only;
+    the caller keeps the chunk inside the cache (nothing here can check
+    a device value)."""
+    if isinstance(params, Placed) or is_paged(cache) \
+            or is_quantized(cache["k"]):
+        raise ValueError("prefill_into_slot_at takes an unplaced tree and "
+                         "a dense cache of raw (not int8) k/v")
+    return _prefill_into_slot_impl(params, config, tokens, cache, None,
+                                   None, at=at)
+
+
+def _check_chunk(cache: dict, start: int, s: int) -> None:
     extent = cache_extent(cache)
     if start < 0 or start + s > extent:
         raise ValueError(f"prefill_into_slot: chunk [{start}, {start + s})"
                          f" does not fit the cache extent {extent}")
+
+
+def _prefill_into_slot_impl(params: dict, config: LlamaConfig,
+                            tokens: torch.Tensor, cache: dict, slot, start,
+                            shard: TensorShard | None = None,
+                            at: torch.Tensor | None = None):
+    """The chunk at host ints ``(slot, start)``, or at the device's
+    ``at`` (:func:`prefill_into_slot_at`; ``slot`` and ``start`` None)."""
+    c = config
+    s = tokens.shape[1]
+    if at is None:
+        slot, start = int(slot), int(start)
+        _check_chunk(cache, start, s)
     paged = is_paged(cache)
     if paged:
         _require_whole_pages(cache, [start], s)
     rope = _rope(c, tokens.device)
-    positions = (start + torch.arange(s, device=tokens.device))[None, :]
+    first = start if at is None else at[1].long()
+    positions = (first + torch.arange(s, device=tokens.device))[None, :]
+    if at is not None:
+        # Rows of a layer's [slots * T, ...] view.
+        rows = at[0].long() * cache_extent(cache) + positions[0]
 
     def factory(index):
         def write(arr, value):
-            arr[index, slot:slot + 1, start:start + s] = value
+            if at is None:
+                arr[index, slot:slot + 1, start:start + s] = value
+                return
+            layer = arr[index]
+            layer.view(-1, *layer.shape[2:]).index_copy_(
+                0, rows, value.reshape(s, *value.shape[2:]))
 
         def attend(q, k, v):
             q = apply_rope(q, rope, positions)
@@ -1014,9 +1066,15 @@ def _prefill_into_slot_impl(params: dict, config: LlamaConfig,
                 for side, new in (("k", k), ("v", v)):
                     _kv_write(cache[side], _kv_stored(cache[side], new),
                               write)
-                k_row, v_row = (map_leaf(cache[side],
-                                        lambda arr: arr[index, slot:slot + 1])
-                                for side in ("k", "v"))
+                if at is None:
+                    k_row, v_row = (map_leaf(
+                        cache[side], lambda arr: arr[index, slot:slot + 1])
+                        for side in ("k", "v"))
+                elif c.attention == "flash":
+                    k_row, v_row = cache["k"][index], cache["v"][index]
+                else:
+                    k_row, v_row = (cache[side][index].index_select(
+                        0, at[:1].long()) for side in ("k", "v"))
             k_row = _grouped(k_row, c.head_dim)
             v_row = _grouped(v_row, c.head_dim)
             if c.attention == "flash":
@@ -1026,7 +1084,8 @@ def _prefill_into_slot_impl(params: dict, config: LlamaConfig,
                 if is_quantized(k_row):
                     k_row = dequantize_kv(k_row, q.dtype)
                     v_row = dequantize_kv(v_row, q.dtype)
-                return flash_attention(q, k_row, v_row, q_offset=start)
+                return flash_attention(q, k_row, v_row, q_offset=start or 0,
+                                       at=at)
             return attention_prefill(q, k_row, v_row, positions)
         return attend
 

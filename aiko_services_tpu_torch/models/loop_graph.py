@@ -29,6 +29,18 @@ launch sequence once as a ``torch.cuda.CUDAGraph`` and replays it:
 - the batcher's generator is registered with the graph, so every replay
   draws fresh numbers (a captured generator state replayed as it is
   would repeat the same draws every block);
+- after the first replay, which is torch's, each replay launches the
+  graph's exec through the CUDA runtime's ``cudaGraphLaunch`` with the
+  GIL held (:func:`runtime_launch`; torch's ``replay`` releases it).  A
+  profiler's stop (``torch.profiler``, which holds the GIL while it
+  disables its CUDA tracing) then never meets a launch in progress on
+  another thread: with the tracing on, a block's launch takes ~0.1 s,
+  and a stop that began inside one deadlocked both threads.  A graph
+  that draws from the batcher's generator first replays a one-draw
+  ``prologue`` graph on the same generator, which writes the
+  generator's seed and offset where the captured kernels read them (as
+  torch's replay does), and the offset then advances by what the first
+  replay took;
 - the kernel wrappers count launches as Python runs them, which during
   a capture reaches no card: the runner takes the capture's counts back
   and adds them again at every replay, so the counters count launches
@@ -88,11 +100,26 @@ card tensors, and the capture raises.
 
 On the CPU the same ``decode_loop`` runs eagerly on the same buffers.
 On the card a capture that fails raises: there is no eager fallback.
+
+:class:`AdmissionRunner` does the same for one admission chunk
+(``llama.prefill_into_slot_at``) of an unplaced tree over a dense
+cache: about a thousand launches a 512-token chunk at 7-8 B widths,
+which the stepping thread would otherwise enqueue one by one for every
+chunk.  Its static inputs are the chunk's tokens and ``(slot, start)``,
+which the captured kernels read on the card (kernel #4 takes both from
+device memory), so one graph a batcher serves every slot and every
+offset.  It captures on the stepping thread as the loop does (a
+``compile:admission`` span), checks the cache's addresses at each
+replay, gives back the capture's launch counts and adds them at every
+replay; ``reset`` drops it with the cache.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
+import os
 import time
 
 import numpy as np
@@ -105,7 +132,7 @@ from ..parallel import distributed
 from ..parallel.mesh import Placed
 from ..tpu.profiling import span
 
-__all__ = ["GraphCards", "LoopRunner"]
+__all__ = ["GraphCards", "LoopRunner", "AdmissionRunner", "runtime_launch"]
 
 #: decode_loop's return tuple, by name (None: the generator).
 OUTPUTS = ("emitted", "counts", "tokens", "lengths", "active", "budget",
@@ -125,6 +152,35 @@ def _tensors(tree):
             yield from _tensors(value)
         else:
             yield value
+
+
+@functools.cache
+def runtime_launch():
+    """``launch(exec, stream)``: ``cudaGraphLaunch`` of the CUDA runtime
+    that torch loaded, called with the GIL held (``ctypes.PyDLL``), that
+    raises on an error; None where that runtime is no loaded shared
+    library (a CPU build), and the runners replay through torch."""
+    major = (torch.version.cuda or "").split(".")[0]
+    if not major:
+        return None
+    try:
+        runtime = ctypes.PyDLL(f"libcudart.so.{major}",
+                               mode=os.RTLD_NOLOAD | os.RTLD_LAZY)
+    except OSError:
+        return None
+    launch = runtime.cudaGraphLaunch
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    describe = runtime.cudaGetErrorString
+    describe.argtypes = [ctypes.c_int]
+    describe.restype = ctypes.c_char_p
+
+    def checked(graph_exec: int, stream: int) -> None:
+        code = launch(graph_exec, stream)
+        if code:
+            raise RuntimeError(f"cudaGraphLaunch: "
+                               f"{describe(code).decode()} ({code})")
+    return checked
 
 
 def _card(device: torch.device) -> torch.device:
@@ -226,44 +282,30 @@ class GraphCards:
             torch.cuda.current_stream(card).wait_stream(launch)
 
 
-class LoopRunner:
-    """``decode_loop`` blocks for one batch of ``batch`` rows: see the
-    module docstring.  ``history_width`` is the ngram window (1 for the
-    other modes); ``generator`` draws every sample."""
+class _GraphRunner:
+    """What both runners share: static ``inputs`` the caller fills in
+    place, one graph over a cache whose addresses it records, and the
+    launch counters' take-back."""
 
-    def __init__(self, params: dict, config: llama.LlamaConfig, *,
-                 batch: int, ring: int, speculative: str, spec_tokens: int,
-                 spec_window: int, draft: dict | None, top_k: int,
-                 generator: torch.Generator, history_width: int,
-                 device: torch.device):
-        self.params, self.config, self.draft = params, config, draft
-        self.options = dict(ring=int(ring), speculative=speculative,
-                            spec_tokens=int(spec_tokens),
-                            spec_window=int(spec_window), top_k=int(top_k))
-        self.generator = generator
+    def __init__(self, device: torch.device, positions=()):
         self.device = device
-        placed = isinstance(params, Placed)
-        self.cards = GraphCards(device, [
-            d for d in params.mesh.devices.flat if is_local(d)]
-            if placed else ())
-        # A mesh over processes: its exchanges in the graph, their count.
-        self.spans = placed and distributed.spans_processes(params.mesh)
-        self._exchanges: distributed.Captured | None = None
-
-        def zeros(dtype, *shape):
-            return torch.zeros((batch, *shape), dtype=dtype, device=device)
-        self.inputs = {
-            "tokens": zeros(torch.int32), "lengths": zeros(torch.int32),
-            "active": zeros(torch.bool), "budget": zeros(torch.int32),
-            "temperatures": zeros(torch.float32),
-            "eos": zeros(torch.int32, 1) - 1,
-            "history": zeros(torch.int32, history_width) - 1}
+        self.cards = GraphCards(device, positions)
+        self.inputs: dict = {}
         self._graph = None
-        self._outputs: dict | None = None
+        self._outputs = None
         self._bound: tuple = ()
         self._launch_delta: dict = {}
-        # what the serving run reports: captures, replays, capture time
-        # (each capture is also a ``compile:loop`` span)
+        # the generator the graph draws from (a loop's), and how a
+        # replay launches: None until the first replay, then the exec
+        # and, for a graph that draws, the prologue and the offset a
+        # replay takes (see _first_replay)
+        self.generator: torch.Generator | None = None
+        self._direct: bool | None = None
+        self._exec = 0
+        self._prologue = None
+        self._increment = 0
+        # what a serving run reports: captures, replays, capture time
+        # (each capture is also a ``compile`` span)
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -290,8 +332,125 @@ class LoopRunner:
         self._outputs = None
         self._bound = ()
         self._launch_delta = {}
-        self._exchanges = None
+        self._direct, self._exec = None, 0
+        self._prologue, self._increment = None, 0
         self.cards.release_pools()
+
+    @staticmethod
+    def _pointers(cache: dict) -> tuple:
+        return tuple(tensor.data_ptr() for tensor in _tensors(cache))
+
+    @contextlib.contextmanager
+    def _launches_taken_back(self):
+        """The kernel wrappers' counts made inside (a capture, which
+        launches nothing) taken back, to be added at every replay."""
+        counters = list(launch_counters().values())
+        before = [getattr(wrapper, attr) for wrapper, attr in counters]
+        yield
+        self._launch_delta = {}
+        for (wrapper, attr), start in zip(counters, before):
+            captured = getattr(wrapper, attr) - start
+            setattr(wrapper, attr, start)
+            if captured:
+                self._launch_delta[wrapper, attr] = captured
+
+    def _replay(self, cache: dict) -> None:
+        """One replay, ordered with every card's work, its launches
+        counted; a cache that moved since the capture raises."""
+        if self._pointers(cache) != self._bound:
+            raise RuntimeError(
+                f"{type(self).__name__}: the cache or page table moved "
+                f"since the graph was captured; reset() the runner after "
+                f"rebuilding the cache")
+        with self.cards.ordered():
+            if self._direct is None:
+                with sync_allowed():        # the prologue's capture
+                    self._direct = self._first_replay()
+            elif self._direct:
+                self._launch()
+            else:
+                self._graph.replay()
+        for (wrapper, attr), count in self._launch_delta.items():
+            setattr(wrapper, attr, getattr(wrapper, attr) + count)
+        self.replays += 1
+
+    def _first_replay(self) -> bool:
+        """Torch's replay, and whether the later ones launch the exec
+        themselves: yes where the runtime is a loaded library and the
+        only offset this replay took from a generator is the runner's
+        own generator's (none from the card's default generator), which
+        the prologue graph and an advance re-create."""
+        generators = [torch.cuda.default_generators[self.cards.capture.index]]
+        if self.generator is not None:
+            generators.append(self.generator)
+        before = [generator.get_offset() for generator in generators]
+        self._graph.replay()
+        taken = [generator.get_offset() - offset
+                 for generator, offset in zip(generators, before)]
+        exec_of = getattr(self._graph, "raw_cuda_graph_exec", None)
+        if runtime_launch() is None or exec_of is None or taken[0]:
+            return False
+        self._exec = exec_of()
+        self._increment = sum(taken[1:])
+        if self._increment:
+            self._prologue = torch.cuda.CUDAGraph()
+            self._prologue.register_generator_state(self.generator)
+            with self.cards.current() as stream, torch.cuda.graph(
+                    self._prologue, stream=stream,
+                    capture_error_mode="thread_local"):
+                torch.rand(1, generator=self.generator,
+                           device=self.cards.capture)
+        return True
+
+    def _launch(self) -> None:
+        """The exec onto the capture card's current stream, with the GIL
+        held; a graph that draws gets the generator's seed and offset
+        written first (the prologue's replay), then the offset advanced
+        by a replay's draws."""
+        stream = torch.cuda.current_stream(self.cards.capture).cuda_stream
+        if self._prologue is not None:
+            offset = self.generator.get_offset()
+            self._prologue.replay()
+        runtime_launch()(self._exec, stream)
+        if self._prologue is not None:
+            self.generator.set_offset(offset + self._increment)
+
+
+class LoopRunner(_GraphRunner):
+    """``decode_loop`` blocks for one batch of ``batch`` rows: see the
+    module docstring.  ``history_width`` is the ngram window (1 for the
+    other modes); ``generator`` draws every sample."""
+
+    def __init__(self, params: dict, config: llama.LlamaConfig, *,
+                 batch: int, ring: int, speculative: str, spec_tokens: int,
+                 spec_window: int, draft: dict | None, top_k: int,
+                 generator: torch.Generator, history_width: int,
+                 device: torch.device):
+        placed = isinstance(params, Placed)
+        super().__init__(device, [
+            d for d in params.mesh.devices.flat if is_local(d)]
+            if placed else ())
+        self.params, self.config, self.draft = params, config, draft
+        self.options = dict(ring=int(ring), speculative=speculative,
+                            spec_tokens=int(spec_tokens),
+                            spec_window=int(spec_window), top_k=int(top_k))
+        self.generator = generator
+        # A mesh over processes: its exchanges in the graph, their count.
+        self.spans = placed and distributed.spans_processes(params.mesh)
+        self._exchanges: distributed.Captured | None = None
+
+        def zeros(dtype, *shape):
+            return torch.zeros((batch, *shape), dtype=dtype, device=device)
+        self.inputs = {
+            "tokens": zeros(torch.int32), "lengths": zeros(torch.int32),
+            "active": zeros(torch.bool), "budget": zeros(torch.int32),
+            "temperatures": zeros(torch.float32),
+            "eos": zeros(torch.int32, 1) - 1,
+            "history": zeros(torch.int32, history_width) - 1}
+
+    def reset(self) -> None:
+        super().reset()
+        self._exchanges = None
 
     def _loop(self, cache: dict, inputs: dict, **overrides) -> dict:
         out = llama.decode_loop(
@@ -314,27 +473,14 @@ class LoopRunner:
             if self._graph is None:
                 with sync_allowed(), span("compile", name="loop"):
                     self._capture(cache)    # its waits are planned
-            if self._pointers(cache) != self._bound:
-                raise RuntimeError(
-                    "LoopRunner: the cache or page table moved since the "
-                    "graph was captured; reset() the runner after "
-                    "rebuilding the cache")
-            with self.cards.ordered():
-                self._graph.replay()
+            self._replay(cache)
             if self._exchanges is not None:
                 distributed.replayed(self._exchanges)
-            for (wrapper, attr), count in self._launch_delta.items():
-                setattr(wrapper, attr, getattr(wrapper, attr) + count)
-            self.replays += 1
             outputs = self._outputs
         for name in CARRIES:
             if outputs[name] is not self.inputs[name]:
                 self.inputs[name].copy_(outputs[name])
         return outputs
-
-    @staticmethod
-    def _pointers(cache: dict) -> tuple:
-        return tuple(tensor.data_ptr() for tensor in _tensors(cache))
 
     def _capture(self, cache: dict) -> None:
         """Warm up, then capture one block on the current inputs, every
@@ -362,33 +508,84 @@ class LoopRunner:
                        ring=self.options["spec_tokens"] + 1 if spec else 1)
             cards.join()
         cards.synchronize()
-        counters = list(launch_counters().values())
-        before = [getattr(wrapper, attr) for wrapper, attr in counters]
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        cards.begin_pools()
         exchanges = distributed.capturing() if self.spans \
             else contextlib.nullcontext()
-        try:
-            with cards.current() as stream, torch.cuda.graph(
-                    graph, stream=stream, capture_error_mode="thread_local"), \
-                    exchanges as record:
-                cards.fork()
-                outputs = self._loop(cache, self.inputs)
-                cards.join()
-        except BaseException:
+        with self._launches_taken_back():
+            cards.begin_pools()
+            try:
+                with cards.current() as stream, torch.cuda.graph(
+                        graph, stream=stream,
+                        capture_error_mode="thread_local"), \
+                        exchanges as record:
+                    cards.fork()
+                    outputs = self._loop(cache, self.inputs)
+                    cards.join()
+            except BaseException:
+                cards.end_pools()
+                cards.release_pools()
+                raise
             cards.end_pools()
-            cards.release_pools()
-            raise
-        cards.end_pools()
-        self._launch_delta = {}
-        for (wrapper, attr), start in zip(counters, before):
-            captured = getattr(wrapper, attr) - start
-            setattr(wrapper, attr, start)
-            if captured:
-                self._launch_delta[wrapper, attr] = captured
         self._graph, self._outputs = graph, outputs
         self._exchanges = record
+        self._bound = self._pointers(cache)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - begin
+
+
+class AdmissionRunner(_GraphRunner):
+    """One admission chunk of ``chunk`` tokens
+    (``llama.prefill_into_slot_at``) for an unplaced tree over a dense
+    cache, captured once and replayed for any slot and start: see the
+    module docstring.  Its inputs are ``tokens`` [1, chunk] int64 and
+    ``at`` [2] int32 (slot, start); its output the logits buffer."""
+
+    def __init__(self, params: dict, config: llama.LlamaConfig, *,
+                 chunk: int, device: torch.device):
+        super().__init__(device)
+        self.params, self.config = params, config
+        self.inputs = {
+            "tokens": torch.zeros((1, chunk), dtype=torch.int64,
+                                  device=device),
+            "at": torch.zeros(2, dtype=torch.int32, device=device)}
+
+    def _chunk(self, cache: dict) -> torch.Tensor:
+        return llama.prefill_into_slot_at(
+            self.params, self.config, self.inputs["tokens"], cache,
+            self.inputs["at"])[0]
+
+    def run(self, cache: dict, tokens, slot: int, start: int) \
+            -> torch.Tensor:
+        """The chunk ``tokens`` ([1, chunk] on the host) at ``(slot,
+        start)`` -> its logits [1, chunk, vocab] (the graph's buffer,
+        valid until the next run), the cache written.  A card only: off
+        one, call ``llama.prefill_into_slot_at`` itself."""
+        if self.device.type != "cuda":
+            raise RuntimeError(f"AdmissionRunner captures on a CUDA card, "
+                               f"not on {self.device}")
+        self.upload("tokens", np.asarray(tokens, dtype=np.int64))
+        self.upload("at", np.array([slot, start], dtype=np.int32))
+        if self._graph is None:
+            with sync_allowed(), span("compile", name="admission"):
+                self._capture(cache)        # its waits are planned
+        self._replay(cache)
+        return self._outputs
+
+    def _capture(self, cache: dict) -> None:
+        """Warm up on the capture stream (the chunk in the inputs, whose
+        cache writes the replay repeats bit for bit), then capture it."""
+        begin = time.perf_counter()
+        cards = self.cards
+        with cards.current():
+            self._chunk(cache)
+        cards.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with self._launches_taken_back(), cards.current() as stream, \
+                torch.cuda.graph(graph, stream=stream,
+                                 capture_error_mode="thread_local"):
+            outputs = self._chunk(cache)
+        self._graph, self._outputs = graph, outputs
         self._bound = self._pointers(cache)
         self.captures += 1
         self.capture_s += time.perf_counter() - begin

@@ -42,9 +42,14 @@ def _fold_scale(q: torch.Tensor, d: int):
 
 
 def flash_attention_reference(q, k, v, q_offset: int = 0, *,
-                              causal: bool = True):
+                              causal: bool = True, at=None):
     """Plain PyTorch version of the kernel (one softmax pass): f32
-    scores, weights exponentiated in the value dtype, f32 sums."""
+    scores, weights exponentiated in the value dtype, f32 sums.
+    ``q_offset`` may be a 0-d tensor; ``at`` as :func:`flash_attention`
+    takes it."""
+    if at is not None:
+        k, v = (side.index_select(0, at[:1].long()) for side in (k, v))
+        q_offset = at[1]
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     q, scale = _fold_scale(q, d)
@@ -68,18 +73,25 @@ def flash_attention_reference(q, k, v, q_offset: int = 0, *,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
-    + [ctypes.c_float] + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    + [ctypes.c_float] + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 2
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_offset: int = 0, *, causal: bool = True) \
-        -> torch.Tensor:
+                    q_offset: int = 0, *, causal: bool = True,
+                    at: torch.Tensor | None = None) -> torch.Tensor:
     """Causal flash attention.  q: [B, S, H, d]; k/v: [B, T, K, d] with
     K dividing H (bf16 or f32, all one dtype; k/v may be strided views
     of the cache with a unit-stride last dim).  ``q_offset`` is the
-    absolute position of q row 0.  Returns [B, S, H, d] in q's dtype."""
+    absolute position of q row 0.  Returns [B, S, H, d] in q's dtype.
+
+    ``at``: an int32 [2] tensor on q's device, (k/v batch row, offset of
+    q row 0), read by the kernel on the card in place of ``q_offset``:
+    q is then one row and k/v may hold any number (a whole cache
+    layer), so one captured launch serves every slot and offset.  The
+    caller keeps the offset within [0, T]."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, q_offset, causal=causal)
+        return flash_attention_reference(q, k, v, q_offset, causal=causal,
+                                         at=at)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, s, h, d = q.shape
@@ -89,7 +101,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"flash_attention: head_dim {d} (one of {_HEAD_DIMS}) or "
             f"query groups {h}/{kv} (must divide {rows}) not supported")
-    if k.shape != (b, t, kv, d) or v.shape != k.shape \
+    kv_rows = b if at is None else k.shape[0]
+    if at is not None and (b != 1 or at.dtype != torch.int32
+                           or at.shape != (2,) or at.device != q.device):
+        raise ValueError(
+            f"flash_attention: at must be an int32 [2] tensor on "
+            f"{q.device} for a one-row q; got {at.dtype} "
+            f"{tuple(at.shape)} on {at.device}, q batch {b}")
+    if k.shape != (kv_rows, t, kv, d) or v.shape != k.shape \
             or v.stride() != k.stride():
         raise ValueError(
             f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} "
@@ -106,7 +125,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: bf16 k/v rows are copied in "
                          "16-byte pieces; they need 16-byte aligned "
                          "pointers and strides")
-    if not 0 <= int(q_offset) <= t:
+    if at is None and not 0 <= int(q_offset) <= t:
         raise ValueError(f"flash_attention: q_offset {q_offset} outside "
                          f"[0, {t}]")
     q, scale = _fold_scale(q, d)
@@ -119,7 +138,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), d, b, s, h, kv, t, int(q_offset),
         int(causal), scale, q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2), stream)
+        k.stride(0), k.stride(1), k.stride(2),
+        None if at is None else at.data_ptr(), stream)
     _build.check(status, "flash_attention")
     _build.count_launch(flash_attention)
     return out

@@ -569,7 +569,11 @@ def check_attention(device) -> dict:
     """flash_attention at the first and the last admission chunk of a
     2048-token prompt: q [1, 512, 32, 128] against k/v [1, 2048, 8, 128]
     bf16 at q_offset 0 and 1536, each within ATTENTION_TOL of the plain
-    version and timed beside SDPA; the line's numbers are offset 1536's."""
+    version and timed beside SDPA; the line's numbers are offset 1536's.
+    Then the form the captured admission chunk launches: k/v a whole
+    cache layer of 16 and of 32 slots, ``at`` (a middle slot, 1536) on
+    the card, within ATTENTION_TOL of the plain version, bit for bit the
+    host-int launch on that slot's row, and timed beside it."""
     import torch
     from aiko_services_tpu_torch.kernel_times import graph_ms
     from aiko_services_tpu_torch.ops import flash_attention as fa
@@ -614,6 +618,34 @@ def check_attention(device) -> dict:
         print(f"attention q_offset={offset}: {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.4f}, SDPA "
               f"{library:.4f}, bound {bound:.4f} by {by})", flush=True)
+    offset = 1536
+    for slots in (16, 32):
+        layer_k, layer_v = (torch.randn((slots, t, kv, d), generator=gen,
+                                        device=device).to(torch.bfloat16)
+                            for _ in range(2))
+        slot = slots // 2
+        at = torch.tensor([slot, offset], dtype=torch.int32, device=device)
+        row_k, row_v = layer_k[slot:slot + 1], layer_v[slot:slot + 1]
+        out = fa.flash_attention(q, layer_k, layer_v, at=at)
+        ref = fa.flash_attention_reference(q, layer_k, layer_v, at=at)
+        host = fa.flash_attention(q, row_k, row_v, q_offset=offset)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        same = torch.equal(out, host)
+        print(f"attention at=({slot} of {slots}, {offset}): max_abs_err "
+              f"{err:.3e} (tol {ATTENTION_TOL}); bit for bit the host-int "
+              f"launch: {same}")
+        if not err <= ATTENTION_TOL or not same:
+            raise AssertionError(f"attention kernel with at disagrees: "
+                                 f"{err}, host-int equal {same}")
+        ms = graph_ms(lambda: fa.flash_attention(q, layer_k, layer_v, at=at))
+        host_ms = graph_ms(lambda: fa.flash_attention(q, row_k, row_v,
+                                                      q_offset=offset))
+        shapes[f"at=({slot} of {slots}, {offset})"] = {
+            "ms": ms, "host_int_ms": host_ms, "max_abs_err": err}
+        print(f"attention at=({slot} of {slots}, {offset}): {ms:.4f} ms "
+              f"(host-int launch on the row {host_ms:.4f})", flush=True)
+        del layer_k, layer_v
     return {"name": "flash_attention", "route": "cuda",
             "source": "aiko_services_tpu_torch/csrc/flash_attention.cu",
             "replaces": "aiko_services_tpu/ops/pallas_attention.py:138",

@@ -220,6 +220,133 @@ def test_flash_attention_f32_keeps_fma_body(cuda_device, groups):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_offset", [0, 1536])
+def test_flash_attention_device_row_and_offset_equal_host_launch(
+        cuda_device, q_offset, dtype):
+    """#4 given ``at`` (k/v row, offset) on the card over a whole cache
+    layer equals the host-int launch on that row's slice, bit for bit,
+    in both bodies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(q_offset + 3)
+    rows, t, s, kv, groups, d = 3, 2048, 512, 2, 4, 128
+    k = (torch.randn((rows, t, kv, d), generator=gen, device=cuda_device)
+         * 0.5).to(dtype)
+    v = torch.randn((rows, t, kv, d), generator=gen,
+                    device=cuda_device).to(dtype)
+    q = torch.randn((1, s, kv * groups, d), generator=gen,
+                    device=cuda_device).to(dtype)
+    want = tatt.flash_attention(q, k[2:3], v[2:3], q_offset=q_offset)
+    at = torch.tensor([2, q_offset], dtype=torch.int32, device=cuda_device)
+    got = tatt.flash_attention(q, k, v, at=at)
+    assert torch.equal(got, want)
+
+
+def _admission_config(dtype="bfloat16"):
+    import dataclasses
+
+    from aiko_services_tpu_torch.models import llama
+    return dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab_size=512, max_seq=256), dim=256,
+        hidden_dim=512, attention="flash", decode_attention="flash",
+        dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_captured_admission_equals_eager_for_any_slot_and_offset(
+        cuda_device):
+    """One captured admission chunk replayed at several slots and starts
+    equals the eager chunk at the same host ints: its logits and the
+    cache, bit for bit; it captures once, each replay adds #4's captured
+    launches to its counter, a moved cache raises and ``reset``
+    recaptures."""
+    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models.loop_graph import AdmissionRunner
+    config = _admission_config()
+    params = llama.init_params(0, config, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    eager_cache = llama.init_cache(config, 4, device=cuda_device)
+    for side in ("k", "v"):
+        eager_cache[side].copy_(torch.randn(
+            eager_cache[side].shape, generator=gen, device=cuda_device))
+    graph_cache = {side: eager_cache[side].clone() for side in ("k", "v")}
+    runner = AdmissionRunner(params, config, chunk=64, device=cuda_device)
+    tokens = torch.randint(1, 512, (4, 1, 64),
+                           generator=torch.Generator().manual_seed(5))
+    for index, (slot, start) in enumerate(((1, 0), (3, 64), (1, 64),
+                                           (0, 192))):
+        want, _ = llama.prefill_into_slot(
+            params, config, tokens[index].to(cuda_device), eager_cache,
+            slot, start)
+        before = tatt.flash_attention.launches
+        got, _ = llama.prefill_into_slot(params, config, tokens[index],
+                                         graph_cache, slot, start,
+                                         runner=runner)
+        torch.cuda.synchronize()
+        grown = tatt.flash_attention.launches - before
+        # the first call's warm-up runs eagerly before its replay
+        assert grown == config.n_layers * (2 if index == 0 else 1)
+        assert torch.equal(got, want), (slot, start)
+        for side in ("k", "v"):
+            assert torch.equal(graph_cache[side], eager_cache[side])
+    assert runner.captures == 1 and runner.replays == 4
+    moved = {side: graph_cache[side].clone() for side in ("k", "v")}
+    with pytest.raises(RuntimeError, match="AdmissionRunner: the cache"):
+        runner.run(moved, tokens[0], 0, 0)
+    runner.reset()
+    runner.run(moved, tokens[0], 2, 128)
+    assert runner.captures == 2 and runner.replays == 5
+
+
+@pytest.mark.cuda
+def test_batcher_admits_through_one_capture_and_recover_recaptures(
+        cuda_device, monkeypatch):
+    """A batcher on the card writes every flash admission chunk by a
+    replay of one captured graph, over several slots and offsets, and
+    emits the streams an eager batcher emits; ``recover()`` drops the
+    graph and the next admission captures anew."""
+    from aiko_services_tpu_torch.models import batching, llama
+    config = _admission_config()
+    params = llama.init_params(0, config, device=cuda_device)
+    rng = torch.Generator().manual_seed(7)
+    lengths = (150, 70, 30, 200, 90)
+    prompts = [torch.randint(1, 512, (n,), generator=rng).tolist()
+               for n in lengths]
+
+    def serve(batcher):
+        streams = {}
+        for index, prompt in enumerate(prompts):
+            streams[index] = []
+            batcher.submit(batching.Request(
+                str(index), list(prompt), max_new_tokens=12,
+                emit=lambda rid, token, done, i=index:
+                    streams[i].append(int(token))))
+        batcher.run_until_drained(max_steps=2000)
+        return streams
+
+    def build():
+        return batching.ContinuousBatcher(
+            params, config, max_slots=3, max_seq=256, prefill_chunk=64,
+            decode_block_tokens=16, device=cuda_device)
+    captured = build()
+    got = serve(captured)
+    chunks = sum(-(-n // 64) for n in lengths)
+    runner = captured._admission
+    assert runner.captures == 1 and runner.replays == chunks
+    assert captured.admission_replays == chunks
+    assert captured.admission_eager == 0
+    monkeypatch.setattr(batching, "captures_admission",
+                        lambda *args: False)
+    eager = build()
+    assert eager._admission is None
+    assert serve(eager) == got
+    assert eager.admission_eager == chunks
+    captured.recover()
+    assert runner._graph is None
+    serve(captured)
+    assert runner.captures == 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("page_tokens", [64, 16])
 @pytest.mark.parametrize("int8", [False, True])
 def test_verify_kernels_match_plain_and_each_other(cuda_device, page_tokens,
@@ -364,6 +491,67 @@ def test_graph_replayed_loop_block_equals_eager(cuda_device, mode,
             got = got[:, rows].reshape(config.n_layers, b, 128, -1)
             ref = ref[:, rows].reshape(config.n_layers, b, 128, -1)
         assert torch.equal(got[:, :, :127], ref[:, :, :127])
+
+
+@pytest.mark.cuda
+def test_direct_launch_draws_as_torch_replay(cuda_device, monkeypatch):
+    """Blocks that sample (temperature 1) launched as the runner does
+    after its first replay -- the exec through the runtime with the GIL
+    held, after the prologue graph -- equal the same blocks replayed by
+    torch each time: the emitted tokens, every carry, the cache and the
+    generator's offset, over four chained blocks."""
+    import dataclasses
+
+    from aiko_services_tpu_torch.models import llama, loop_graph
+    from aiko_services_tpu_torch.models.loop_graph import LoopRunner
+    assert loop_graph.runtime_launch() is not None
+    config = dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab_size=512, max_seq=128), dim=256,
+        hidden_dim=512, decode_attention="flash")
+    params = llama.init_params(0, config, device=cuda_device)
+    b, ring = 4, 8
+    inputs = {
+        "tokens": torch.tensor([5, 9, 2, 7], dtype=torch.int32),
+        "lengths": torch.tensor([10, 30, 60, 0], dtype=torch.int32),
+        "active": torch.tensor([True, True, True, False]),
+        "budget": torch.tensor([40, 40, 40, 0], dtype=torch.int32),
+        "temperatures": torch.tensor([1.0, 1.0, 0.7, 1.0]),
+        "eos": torch.full((b, 1), -1, dtype=torch.int32),
+        "history": torch.full((b, 1), -1, dtype=torch.int32)}
+
+    def serve(direct: bool):
+        if not direct:
+            monkeypatch.setattr(loop_graph, "runtime_launch", lambda: None)
+        cache = llama.init_cache(config, b, device=cuda_device)
+        generator = torch.Generator(device=cuda_device).manual_seed(3)
+        runner = LoopRunner(params, config, batch=b, ring=ring,
+                            speculative="off", spec_tokens=3,
+                            spec_window=8, draft=None, top_k=0,
+                            generator=generator, history_width=1,
+                            device=cuda_device)
+        for name, value in inputs.items():
+            runner.upload(name, value.numpy())
+        blocks = []
+        for _ in range(4):
+            out = runner.run(cache)
+            blocks.append({name: value.clone() for name, value in
+                           out.items()})
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert runner._direct is direct and runner.replays == 4
+        assert (runner._prologue is not None) is direct
+        return blocks, cache, generator.get_offset()
+    torch_blocks, torch_cache, torch_offset = serve(direct=False)
+    blocks, cache, offset = serve(direct=True)
+    assert offset == torch_offset > 0
+    emitted = 0
+    for got, want in zip(blocks, torch_blocks):
+        for name, value in want.items():
+            assert torch.equal(got[name], value), name
+        emitted += int(want["counts"].sum())
+    assert emitted > 3 * ring
+    for side in ("k", "v"):
+        assert torch.equal(cache[side], torch_cache[side])
 
 
 def _normalised_error(got, want) -> float:

@@ -144,6 +144,56 @@ def test_prefill_into_slot_matches(attention):
     _close(cache_t["k"], cache_j["k"])
 
 
+@pytest.mark.parametrize("dtype,attention", [
+    ("float32", "flash"), ("float32", "dense"), ("bfloat16", "flash")])
+def test_prefill_into_slot_at_matches(dtype, attention):
+    """The device form (slot and start in an int32 tensor: what the
+    card's captured admission chunk runs) against the JAX package's
+    ``prefill_into_slot``: 512-token chunks into slot 1 of a 3-slot
+    cache at starts 0, 512 and the clamped ``max_seq - 512`` (each
+    attends the earlier ones through the row), the logits each time and
+    the slot's row at the end; the host-int form equals it exactly.
+    bfloat16 (the flash path the card captures) is held relative to the
+    largest value, as the other bf16 parity tests are."""
+    max_seq, chunk = 1280, 512
+    jc, tc = (dataclasses.replace(kind.tiny(max_seq=max_seq), dtype=dtype,
+                                  attention=attention)
+              for kind in (jl.LlamaConfig, tl.LlamaConfig))
+    jp = jl.init_params(jax.random.PRNGKey(0), jc)
+    tp = bridge.params_from_numpy(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, dtype=np.float32), jp), tc, device="cpu")
+
+    def close(actual, expected):
+        actual = np.asarray(actual.float(), dtype=np.float64)
+        expected = np.asarray(expected, dtype=np.float64)
+        if dtype == "float32":
+            _close(actual, expected)
+        else:
+            scale = np.abs(expected).max()
+            np.testing.assert_allclose(actual, expected, rtol=0,
+                                       atol=2e-2 * scale)
+    cache_j = jl.init_cache(jc, 3)
+    cache_t = tl.init_cache(tc, 3, device="cpu")
+    cache_h = tl.init_cache(tc, 3, device="cpu")
+    for index, start in enumerate((0, 512, max_seq - chunk)):
+        tokens = _tokens((1, chunk), seed=index)
+        lj, cache_j = jl.prefill_into_slot(jp, jc, jnp.asarray(tokens),
+                                           cache_j, jnp.int32(1),
+                                           jnp.int32(start))
+        chunk_t = torch.from_numpy(tokens).long()
+        lt, cache_t = tl.prefill_into_slot_at(
+            tp, tc, chunk_t, cache_t,
+            torch.tensor([1, start], dtype=torch.int32))
+        lh, cache_h = tl.prefill_into_slot(tp, tc, chunk_t, cache_h, 1,
+                                           start)
+        close(lt, np.asarray(lj, dtype=np.float32))
+        assert torch.equal(lt, lh)
+    for side in ("k", "v"):
+        close(cache_t[side][:, 1],
+              np.asarray(cache_j[side][:, 1], dtype=np.float32))
+        assert torch.equal(cache_t[side], cache_h[side])
+
+
 def test_prefill_into_slots_matches():
     jc, tc, jp, tp = _twins()
     tokens = _tokens((4, 8), seed=4)

@@ -2,7 +2,9 @@
 (``models/loop_graph.py`` ``GraphCards`` and ``LoopRunner._capture``,
 ``parallel/mesh.py`` ``_streams``): which card captures, which cards
 fork from it, which stream each mesh position launches on, and the
-order of the warm-up, the pools, the fork, the capture and the join.
+order of the warm-up, the pools, the fork, the capture and the join;
+and how a replay launches (torch's first, then the exec with the GIL
+held, after the prologue of a graph that draws).
 
 No card is touched: the plans take ``torch.device("cuda", i)``
 descriptors, and the capture's order is read from a recording stand-in
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from aiko_services_tpu_torch.models import llama
+from aiko_services_tpu_torch.models import llama, loop_graph
 from aiko_services_tpu_torch.models.loop_graph import (GraphCards,
                                                        LoopRunner, _tensors)
 from aiko_services_tpu_torch.models.paged import init_paged_cache
@@ -283,3 +285,96 @@ def test_pointer_check_covers_every_page_table():
     assert tables <= {id(tensor) for tensor in _tensors(cache)}
     assert len(LoopRunner._pointers(cache)) == len(list(_tensors(cache)))
     assert np.all(np.array(LoopRunner._pointers(cache)) > 0)
+
+
+class FakeGenerator:
+    def __init__(self, offset: int):
+        self.offset = offset
+
+    def get_offset(self) -> int:
+        return self.offset
+
+    def set_offset(self, offset: int) -> None:
+        self.offset = offset
+
+
+class FakeGraph:
+    """A captured graph whose replay draws ``draws`` offsets from each
+    generator it names."""
+
+    def __init__(self, log, name, draws=()):
+        self.log, self.name, self.draws = log, name, list(draws)
+
+    def register_generator_state(self, generator):
+        self.draws.append((generator, 4))       # the prologue's one draw
+
+    def replay(self):
+        self.log.append(("replay", self.name))
+        for generator, count in self.draws:
+            generator.offset += count
+
+    def raw_cuda_graph_exec(self) -> int:
+        return 0x5e
+
+
+@pytest.mark.parametrize("case", ["direct", "default generator drawn",
+                                  "no runtime", "draws nothing"])
+def test_replay_launches_the_exec_holding_the_gil(monkeypatch, case):
+    """The first replay after a capture is torch's, and tells how the
+    later ones launch: the exec through the runtime's launch (which holds
+    the GIL) on the capture card's current stream, after the prologue's
+    replay where the graph draws from the runner's generator, whose
+    offset then advances by what the first replay took; torch's replay
+    each time where the runtime is no loaded library or the graph drew
+    from the card's default generator.  ``reset`` decides anew."""
+    fake = FakeCuda([cuda(0)])
+    fake.install(monkeypatch)
+    fake.current[cuda(0)].cuda_stream = 0x57
+    default = FakeGenerator(0)
+    monkeypatch.setattr(torch.cuda, "default_generators", (default,))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph",
+                        lambda: FakeGraph(fake.log, "prologue"))
+    monkeypatch.setattr(torch, "rand", lambda *shape, **_: None)
+    launches = []
+    monkeypatch.setattr(loop_graph, "runtime_launch", lambda: None
+                        if case == "no runtime" else
+                        lambda graph_exec, stream: launches.append(
+                            (graph_exec, stream)))
+    made = runner([cuda(0)])
+    made.generator = FakeGenerator(8)
+    draws = {"direct": [(made.generator, 12)],
+             "default generator drawn": [(made.generator, 12), (default, 4)],
+             "no runtime": [(made.generator, 12)],
+             "draws nothing": []}[case]
+    cache = {"k": torch.zeros(1)}
+    for capture in range(2):
+        made._graph = FakeGraph(fake.log, "loop", draws)
+        made._bound = made._pointers(cache)
+        fake.log.clear()
+        launches.clear()
+        start = made.generator.offset
+        for _ in range(3):
+            made._replay(cache)
+        replays = [entry[1] for entry in fake.log if entry[0] == "replay"]
+        if case in ("direct", "draws nothing"):
+            assert made._direct is True and launches == [(0x5e, 0x57)] * 2
+            if case == "direct":
+                assert replays == ["loop", "prologue", "prologue"]
+                assert made.generator.offset == start + 3 * 12
+            else:
+                assert replays == ["loop"] and made._prologue is None
+                assert made.generator.offset == start
+        else:
+            assert made._direct is False and launches == []
+            assert replays == ["loop"] * 3
+        made.reset()
+        assert made._direct is None and made._prologue is None
+    assert made.replays == 6
+
+
+def test_no_runtime_launch_without_a_cuda_runtime():
+    """A build without CUDA has no runtime to launch through: the
+    runners replay through torch."""
+    if torch.version.cuda is not None:
+        pytest.skip("this build has a CUDA runtime")
+    assert loop_graph.runtime_launch() is None
